@@ -1,0 +1,106 @@
+"""The port stands alone: no JAX, no ray_tpu, no silent CPU fallback."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import ray_tpu_torch
+from ray_tpu_torch import resolve_device
+from ray_tpu_torch.ops import _build
+from ray_tpu_torch.ops.flash_attention import (flash_attention,
+                                               flash_attention_fwd)
+from ray_tpu_torch.ops.fused import fused_rmsnorm
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ray_tpu")
+
+
+def _port_files():
+    files = sorted((ROOT / "ray_tpu_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            if node.level == 0:
+                yield node.module
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_or_ray_tpu(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [m for m in _imported(tree) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_import_leaves_jax_unloaded():
+    code = ("import sys, ray_tpu_torch.models.llama, "
+            "ray_tpu_torch.models.convert; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_resolve_device():
+    assert resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            resolve_device()
+        with pytest.raises(RuntimeError):
+            resolve_device("cuda")
+    assert ray_tpu_torch.__version__
+
+
+def test_cpu_tensors_never_touch_the_library(monkeypatch):
+    def refuse():
+        raise AssertionError("kernel library loaded for a CPU tensor")
+
+    monkeypatch.setattr(_build, "load_library", refuse)
+    monkeypatch.setattr(flash_attention_fwd, "launches", 0)
+    monkeypatch.setattr(fused_rmsnorm, "launches", 0)
+    q = torch.randn(1, 16, 2, 64)
+    flash_attention(q, q, q)
+    fused_rmsnorm(torch.randn(3, 64), torch.ones(64))
+    assert flash_attention_fwd.launches == 0
+    assert fused_rmsnorm.launches == 0
+
+
+def test_library_name_hashes_sources():
+    path = _build.library_path()
+    assert path.parent == ROOT / "build" / "ray_tpu_torch"
+    assert path.name.startswith("libray_tpu_torch_") and path.suffix == ".so"
+    assert {p.name for p in _build.CSRC.glob("*.cu")} == {
+        "flash_fwd.cu", "rmsnorm.cu"}
+    for flag in ("arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"):
+        assert flag in _build.NVCC_FLAGS
+
+
+def test_missing_nvcc_raises(monkeypatch):
+    monkeypatch.setattr(_build.shutil, "which", lambda _: None)
+    monkeypatch.setenv("CUDA_HOME", str(ROOT / "no-such-cuda"))
+    monkeypatch.setattr(_build, "library_path",
+                        lambda: ROOT / "build" / "ray_tpu_torch" / "absent.so")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+
+
+def test_model_defaults_to_cuda():
+    from ray_tpu_torch.models.llama import Llama, LlamaConfig
+    if torch.cuda.is_available():
+        assert Llama(LlamaConfig.tiny()).embedding.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Llama(LlamaConfig.tiny())
