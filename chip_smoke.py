@@ -18,6 +18,21 @@ no network.  Phases, one JSON line each:
 4. ``serve``: the full 32-layer Llama-2-7B, bf16, random weights from a
    seed: score 4 x 1024-token requests (flash + RMSNorm kernels), then
    generate through the KV cache (prefill + 64 greedy decode steps).
+5. ``train_parity``: GPT-2 at full width (768, 12 heads, vocab 50257),
+   2 layers, f32: one training step of the same weights on the card
+   (flash forward and backward kernels) and on the CPU (plain versions):
+   loss, every gradient, the parameters after one AdamW step.
+6. ``train``: GPT-2 124M at bench.py's size and settings (32 x 1024
+   tokens, 12 layers, bf16 compute, f32 masters, AdamW 3e-4 with decay
+   0.01, bf16 head logits), random weights and one random batch from a
+   seed: 1 warm-up and 10 timed steps, then one profiled step (device
+   time by kind, idle share) and the LM head's cost by logits dtype.
+
+The ``kernels`` phase also holds the backward kernels (dK/dV and dQ)
+against their plain version, and times them at the training shapes
+beside SDPA's backward.  Each main path (``serve``, ``train``) is driven
+with the kernels' launch counts set to 0 just before it and read just
+after.
 
 Then the kernels' summary line, the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``.  Any failure raises: no result
@@ -26,7 +41,9 @@ line, nonzero exit.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -36,9 +53,32 @@ import time
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+GPT2_SHAPE = (32, 1024, 12, 64)  # q/k/v of GPT-2 124M at bench.py's batch
 PEAK_FLOPS = {torch.bfloat16: 989e12,  # dense tensor-core bf16
               torch.float32: 67e12}    # f32 outside the tensor cores
 SEED = 0
+# flash kernels (O, dQ, dK, dV) against their plain version, row by row:
+# the worst, over rows (one D-vector per batch, position and head), of
+# max |diff| over the row's RMS in the reference (row_scaled_err).  A
+# tensor's max is set by its first positions, where causal rows are
+# largest; scaling each row by its own size holds the late rows, whose
+# values are ~30x smaller, as tightly as the first ones.  f32: FMA
+# kernels against f32 einsums, summation order only.  bf16: P and dS are
+# rounded to bf16 on both sides; a score summed in another order rounds
+# them the other way, and the output is rounded to bf16 (2**-9 of a value
+# up to ~4 row RMS); the forward also rounds P to bf16 where its plain
+# version does not.  Measured worst on an H100: f32 1.0e-5 (O), bf16
+# 0.037 (O), 0.028 (dQ, dK, dV).  Limits: about twice those; kernels
+# that lose one tile of the last 64 positions read 2-5 and fail them
+# (scripts/check_flash_tolerance_torch.py).
+ROW_TOL = {torch.float32: 2e-5, torch.bfloat16: 8e-2}
+# train_parity: card against CPU, both f32 with TF32 off, so summation
+# order only; gradients as max |diff| over their tensor's max |value|
+TRAIN_PARITY_CHUNK = 512  # 2 x 255 loss positions: one padded chunk
+TRAIN_GRAD_TOL = 1e-4
+# train: the loss after 10 AdamW steps on one batch, below the first by
+# at least this much (measured on an H100: 10.98 -> 9.15)
+TRAIN_LOSS_DROP = 0.5
 # serve phase: cache path against flash path (see the comment there)
 SERVE_MAX_ABS = 1.0
 SERVE_MEAN_ABS = 0.12
@@ -93,6 +133,19 @@ def max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
+def row_scaled_err(got, ref) -> float:
+    """Worst over the rows of the last dimension of max |got - ref| over
+    the row's RMS in ``ref``, floored at a hundredth of the tensor's
+    RMS.  The floor is for rows whose exact value is 0, where both sides
+    hold rounding noise: causal dQ at position 0, whose one dS is
+    P (dP - delta) = 0.  It also touches causal dK and dV of the last
+    few keys, which see only the last few queries."""
+    g, r = got.float(), ref.float()
+    rms = r.square().mean(-1).sqrt()
+    floor = max(0.01 * r.square().mean().sqrt().item(), 1e-30)
+    return ((g - r).abs().amax(-1) / rms.clamp_min(floor)).max().item()
+
+
 def phase_build():
     from ray_tpu_torch.ops import _build
     t0 = time.perf_counter()
@@ -127,10 +180,13 @@ def flash_case(timer, gen, shape, dtype, causal, timed):
     tol = 2e-5 if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
+    row_err = row_scaled_err(out, ref)
+    assert row_err <= ROW_TOL[dtype], ("O", row_err, ROW_TOL[dtype])
     res = {"kernel": "flash_fwd", "shape": list(shape),
            "dtype": str(dtype).replace("torch.", ""), "causal": causal,
            "max_abs_err": max_err(out, ref), "lse_max_abs_err":
-           max_err(lse, ref_lse), "atol": tol, "launches": 1}
+           max_err(lse, ref_lse), "atol": tol, "row_scaled_err": row_err,
+           "row_tol": ROW_TOL[dtype], "launches": 1}
     if timed:
         pairs = t * (t + 1) // 2 if causal else t * t
         flops = 4 * d * b * h * pairs
@@ -178,6 +234,79 @@ def rmsnorm_case(timer, gen, shape, dtype):
     return res
 
 
+def _gradient_err(got, ref):
+    """(max |diff|, max |diff| / max |ref|)."""
+    err = max_err(got, ref)
+    return err, err / max(ref.float().abs().max().item(), 1e-30)
+
+
+def bwd_case(timer, gen, shape, dtype, causal, timed):
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from ray_tpu_torch.ops.flash_attention import (
+        _launch_dkdv, _launch_dq, attention_backward_reference,
+        attention_delta, flash_attention_bwd, flash_attention_fwd)
+    b, t, h, d = shape
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                   for _ in range(4))
+    scale = d ** -0.5
+    out, lse = flash_attention_fwd(q, k, v, causal=causal)
+    bwd = flash_attention_bwd
+    before = (bwd.launches_dkdv, bwd.launches_dq)
+    grads = bwd(q, k, v, out, lse, do, causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    assert (bwd.launches_dkdv, bwd.launches_dq) == (before[0] + 1,
+                                                    before[1] + 1)
+    ref = attention_backward_reference(q, k, v, out, lse, do, causal, scale)
+    tol = ROW_TOL[dtype]
+    res = {"kernel": "flash_bwd", "shape": list(shape),
+           "dtype": str(dtype).replace("torch.", ""), "causal": causal,
+           "row_tol": tol, "launches": 1}
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
+        assert g.dtype == dtype and torch.isfinite(g).all(), name
+        err, rel = _gradient_err(g, r)
+        res[f"{name}_max_abs_err"], res[f"{name}_err_over_max"] = err, rel
+        res[f"{name}_row_scaled_err"] = row_err = row_scaled_err(g, r)
+        assert row_err <= tol, (name, row_err, tol)
+    # each kernel's own outputs: dQ from one, dK and dV from the other
+    res["max_abs_err_dq"] = res["dq_max_abs_err"]
+    res["max_abs_err_dkdv"] = max(res["dk_max_abs_err"],
+                                  res["dv_max_abs_err"])
+    if timed:
+        pairs = t * (t + 1) // 2 if causal else t * t
+        one = q.numel() * q.element_size()  # one [B, T, H, D] tensor
+        rows = 2 * b * h * t * 4            # lse and delta, f32
+        delta = attention_delta(out, do)
+        args = (q, k, v, do, lse, delta, causal, scale)
+        res["kernel_ms_dkdv"] = timer(lambda: _launch_dkdv(*args))
+        res["kernel_ms_dq"] = timer(lambda: _launch_dq(*args))
+        res["kernel_ms"] = res["kernel_ms_dkdv"] + res["kernel_ms_dq"]
+        res["plain_ms"] = timer(lambda: attention_backward_reference(
+            q, k, v, out, lse, do, causal, scale))
+        # SDPA's backward alone: forward + backward less the forward
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal)
+
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            fwd_ms = timer(sdpa)
+            both_ms = timer(lambda: torch.autograd.grad(sdpa(),
+                                                        (qt, kt, vt), dot))
+        res["library_ms"] = both_ms - fwd_ms
+        res["library_fwd_bwd_ms"] = both_ms
+        res["bound_ms_dkdv"], res["bound_by_dkdv"] = bound(
+            8 * d * b * h * pairs, 6 * one + rows, dtype)
+        res["bound_ms_dq"], res["bound_by_dq"] = bound(
+            6 * d * b * h * pairs, 5 * one + rows, dtype)
+        res["bound_ms"], res["bound_by"] = bound(
+            14 * d * b * h * pairs, 7 * one + rows, dtype)
+    return res
+
+
 def phase_kernels():
     timer = Timer()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -193,6 +322,18 @@ def phase_kernels():
                                 True, timed=True))
         for shape in ((4096, 4096), (4, 4096)):
             cases.append(rmsnorm_case(timer, gen, shape, dtype))
+        for causal in (False, True):
+            cases.append(bwd_case(timer, gen, (1, 512, 4, 64), dtype,
+                                  causal, timed=False))
+        for shape in ((1, 100, 2, 64), (1, 256, 3, 128)):
+            cases.append(bwd_case(timer, gen, shape, dtype, True,
+                                  timed=False))
+    # the training path's shapes: GPT-2 124M, and a 128-wide head
+    cases.append(flash_case(timer, gen, GPT2_SHAPE, torch.bfloat16, True,
+                            timed=True))
+    for shape in (GPT2_SHAPE, (4, 1024, 32, 128)):
+        cases.append(bwd_case(timer, gen, shape, torch.bfloat16, True,
+                              timed=True))
     for c in cases:
         emit({"phase": "kernels", **c})
     emit({"phase": "kernels", "ok": True, "cases": len(cases)})
@@ -250,8 +391,7 @@ def phase_serve(batch=4, prompt=1024, new_tokens=64):
     tokens = torch.randint(0, cfg.vocab_size, (batch, prompt),
                            generator=gen, device="cuda")
     torch.cuda.reset_peak_memory_stats()
-    flash_attention_fwd.launches = 0
-    fused_rmsnorm.launches = 0
+    _zero_counts()
     per_call = (cfg.num_layers, 2 * cfg.num_layers + 1)
 
     # (a) score: the full-sequence path, twice (the first call warms up)
@@ -326,23 +466,267 @@ def phase_serve(batch=4, prompt=1024, new_tokens=64):
 
 
 
-def kernel_summary(cases, launches):
+def _flash_counts():
+    from ray_tpu_torch.ops.flash_attention import (flash_attention_bwd,
+                                                   flash_attention_fwd)
+    return {"flash_fwd": flash_attention_fwd.launches,
+            "flash_bwd_dkdv": flash_attention_bwd.launches_dkdv,
+            "flash_bwd_dq": flash_attention_bwd.launches_dq}
+
+
+def _zero_counts():
+    from ray_tpu_torch.ops.flash_attention import (flash_attention_bwd,
+                                                   flash_attention_fwd)
+    from ray_tpu_torch.ops.fused import fused_rmsnorm
+    flash_attention_fwd.launches = 0
+    flash_attention_bwd.launches_dkdv = 0
+    flash_attention_bwd.launches_dq = 0
+    fused_rmsnorm.launches = 0
+
+
+def _delta(before, after):
+    return {k: after[k] - before[k] for k in after}
+
+
+def phase_train_parity():
+    import copy
+    from ray_tpu_torch.models.gpt2 import GPT2, GPT2Config, adamw, train_step
+    cfg = dataclasses.replace(GPT2Config.gpt2_small(dtype=torch.float32),
+                              num_layers=2)
+    lr = 3e-4
+    t0 = time.perf_counter()
+    cpu = GPT2(cfg, device="cpu",
+               generator=torch.Generator().manual_seed(SEED))
+    gpu = copy.deepcopy(cpu).to("cuda")
+    before = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256),
+                           generator=torch.Generator().manual_seed(SEED + 1))
+    kw = dict(head_chunk=TRAIN_PARITY_CHUNK)
+    c0 = _flash_counts()
+    cpu_loss = train_step(cpu, adamw(cpu.parameters(), lr=lr), tokens,
+                          **kw).item()
+    c1 = _flash_counts()
+    assert c1 == c0, ("CPU step launched kernels", c0, c1)
+    gpu_loss = train_step(gpu, adamw(gpu.parameters(), lr=lr),
+                          tokens.cuda(), **kw).item()
+    torch.cuda.synchronize()
+    launched = _delta(c1, _flash_counts())
+    assert launched == {"flash_fwd": 2, "flash_bwd_dkdv": 2,
+                        "flash_bwd_dq": 2}, launched
+    assert abs(gpu_loss - cpu_loss) <= 1e-5 * abs(cpu_loss), (gpu_loss,
+                                                             cpu_loss)
+    gpu_params = dict(gpu.named_parameters())
+    worst_grad, worst_cos = (0.0, ""), (1.0, "")
+    e = cfg.embed_dim
+    for name, p in cpu.named_parameters():
+        q = gpu_params[name]
+        assert torch.isfinite(q.grad).all(), name
+        _, rel = _gradient_err(q.grad.cpu(), p.grad)
+        worst_grad = max(worst_grad, (rel, name))
+        # One AdamW step moves each element by about lr * sign(g) plus
+        # the decay, so the updates are compared by direction: a wrong
+        # sign on a share s of a tensor's elements costs about 2s of
+        # cosine.  An element whose gradient is below eps (1e-8) is
+        # noise-driven: the key third of attn_qkv.bias, whose exact
+        # gradient is 0 (a key bias shifts every score of a query
+        # alike), is left out.
+        dc = (p.detach() - before[name]).flatten()
+        dg = (q.detach().cpu() - before[name]).flatten()
+        if name.endswith("attn_qkv.bias"):
+            dc, dg = torch.cat([dc[:e], dc[2 * e:]]), torch.cat(
+                [dg[:e], dg[2 * e:]])
+        cos = (torch.dot(dc, dg) / (dc.norm() * dg.norm())).item()
+        worst_cos = min(worst_cos, (cos, name))
+    assert worst_grad[0] <= TRAIN_GRAD_TOL, worst_grad
+    assert worst_cos[0] >= 0.999, worst_cos
+    emit({"phase": "train_parity", "ok": True, "config":
+          "gpt2_small(num_layers=2, dtype=float32)", "tokens": [2, 256],
+          "head_chunk": TRAIN_PARITY_CHUNK, "loss_cpu": cpu_loss,
+          "loss_gpu": gpu_loss, "worst_grad_err_over_max": worst_grad[0],
+          "worst_grad_param": worst_grad[1],
+          "grad_tol_err_over_max": TRAIN_GRAD_TOL,
+          "worst_update_cosine": worst_cos[0],
+          "worst_update_param": worst_cos[1], "launches": launched,
+          "seconds": round(time.perf_counter() - t0, 3)})
+    del cpu, gpu
+
+
+MM_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+STEP_RANGE = "chip_smoke_train_step"
+
+
+def _union_ms(intervals) -> float:
+    """Total length of the union of (start, end) intervals in us, in ms."""
+    total, end = 0.0, -math.inf
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total / 1e3
+
+
+def profile_step(model, opt, tokens, kw, vocab):
+    """One training step under torch.profiler: device ms by kind, and the
+    step's own span.  The span is a host range opened before the step
+    and closed after a final synchronize, so it holds all of the step's
+    device work; busy is the union of its kernels' intervals, on the
+    profiler's one clock.  Dense and LM-head products are told apart by
+    the shapes of the matmul op that launched them (the head's carry the
+    vocabulary size)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from ray_tpu_torch.models.gpt2 import loss_fn
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        with record_function(STEP_RANGE):
+            opt.zero_grad(set_to_none=True)
+            loss_fn(model, tokens, **kw).backward()
+            opt.step()
+            torch.cuda.synchronize()
+    kinds = dict.fromkeys(("dense", "lm_head", "flash_fwd", "flash_bwd",
+                           "optimizer", "elementwise_other"), 0.0)
+    kernel_sum, spans, step = 0.0, [], None
+    for ev in prof.events():
+        if ev.name == STEP_RANGE:  # the host range, and its device copy
+            if ev.device_type == torch.autograd.DeviceType.CPU:
+                step = ev
+        elif ev.device_type == torch.autograd.DeviceType.CUDA:
+            ms = ev.time_range.elapsed_us() / 1e3
+            kernel_sum += ms
+            spans.append((ev.time_range.start, ev.time_range.end))
+            if "flash_fwd" in ev.name:
+                kinds["flash_fwd"] += ms
+            elif "bwd_dkdv" in ev.name or "bwd_dq" in ev.name:
+                kinds["flash_bwd"] += ms
+        elif ev.kernels:
+            ms = sum(k.duration for k in ev.kernels) / 1e3
+            if ev.name in MM_OPS:
+                head = any(vocab in shape for shape in ev.input_shapes)
+                kinds["lm_head" if head else "dense"] += ms
+            elif ev.name.startswith(("aten::_foreach", "aten::_fused_adam")):
+                kinds["optimizer"] += ms
+    kinds["elementwise_other"] = kernel_sum - sum(kinds.values())
+    t0, t1 = step.time_range.start, step.time_range.end
+    assert all(t0 <= s and e <= t1 for s, e in spans), \
+        "kernels outside the profiled step's span"
+    wall = (t1 - t0) / 1e3
+    busy = _union_ms(spans)
+    return {"device_ms_by_kind": kinds, "kernels": len(spans),
+            "kernel_ms_sum": kernel_sum, "busy_ms": busy, "wall_ms": wall,
+            "idle_share": 1 - busy / wall}
+
+
+def head_cost(model, tokens, timer):
+    """The chunked LM head's forward + backward at the training shape,
+    by logits dtype: bf16 logits (the bench's setting) against f32
+    logits from bf16 operands, which the port takes by upcasting the
+    operands to f32."""
+    from ray_tpu_torch.ops.fused import chunked_lm_loss
+    with torch.no_grad():
+        x, _ = model.hidden(tokens)
+    x = x[:, :-1].detach().requires_grad_()
+    out = {}
+    for name, dt in (("bf16_logits", torch.bfloat16),
+                     ("f32_logits_upcast", None)):
+        def run():
+            loss = chunked_lm_loss(x, model.wte, tokens[:, 1:],
+                                   compute_dtype=torch.bfloat16,
+                                   logits_dtype=dt)
+            torch.autograd.grad(loss, (x, model.wte))
+        out[name] = timer(run)
+    return out
+
+
+def phase_train(batch=32, seq=1024, steps=10):
+    from ray_tpu_torch.models.gpt2 import GPT2, GPT2Config, adamw, train_step
+    from ray_tpu_torch.ops.fused import fused_rmsnorm
+    cfg = GPT2Config.gpt2_small(max_seq_len=seq)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    model, init_s = _sync_time(lambda: GPT2(cfg, device="cuda",
+                                            generator=gen))
+    opt = adamw(model.parameters(), lr=3e-4, weight_decay=0.01)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                           device="cuda")
+    kw = dict(head_logits_dtype=torch.bfloat16)
+    per_step = dict.fromkeys(("flash_fwd", "flash_bwd_dkdv",
+                              "flash_bwd_dq"), cfg.num_layers)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    losses = []
+
+    def step():
+        c0 = _flash_counts()
+        losses.append(train_step(model, opt, tokens, **kw))
+        assert _delta(c0, _flash_counts()) == per_step
+
+    _, warm_s = _sync_time(step)
+    _, elapsed = _sync_time(lambda: [step() for _ in range(steps)])
+    launches = {**_flash_counts(), "rmsnorm": fused_rmsnorm.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [x.item() for x in losses]
+    assert all(map(math.isfinite, losses)), losses
+    assert losses[-1] < losses[0] - TRAIN_LOSS_DROP, losses
+    step_ms = elapsed / steps * 1e3
+    tokens_per_s = batch * seq / (elapsed / steps)
+    profiled = profile_step(model, opt, tokens, kw, cfg.vocab_size)
+    head_ms = head_cost(model, tokens, Timer(iters=5, warmup=1))
+    emit({"phase": "train", "config": "gpt2_small (12 layers, bf16 compute,"
+          " f32 masters)", "batch": batch, "seq": seq, "steps": steps,
+          "warmup_steps": 1, "init_s": init_s, "warmup_s": warm_s,
+          "step_ms": step_ms, "tokens_per_s": tokens_per_s,
+          "flops_per_token": cfg.flops_per_token(),
+          "mfu": tokens_per_s * cfg.flops_per_token()
+          / PEAK_FLOPS[torch.bfloat16],
+          "peak_memory_gb": peak_gb, "losses": losses,
+          "loss_drop_min": TRAIN_LOSS_DROP,
+          "launches_per_step": per_step, "launches": launches,
+          "profiled_step": profiled, "lm_head_fwd_bwd_ms": head_ms,
+          "card": card_line()})
+    emit({"phase": "train", "ok": True})
+    del model, opt
+    return launches
+
+
+SUMMARY = {  # name: (source, TPU kernel it replaces, shape in the table)
+    "flash_fwd": ("ray_tpu_torch/ops/csrc/flash_fwd.cu",
+                  "ray_tpu/ops/flash_attention.py:447", [4, 1024, 32, 128]),
+    "flash_bwd_dkdv": ("ray_tpu_torch/ops/csrc/flash_bwd.cu",
+                       "ray_tpu/ops/flash_attention.py:606",
+                       list(GPT2_SHAPE)),
+    "flash_bwd_dq": ("ray_tpu_torch/ops/csrc/flash_bwd.cu",
+                     "ray_tpu/ops/flash_attention.py:680", list(GPT2_SHAPE)),
+    "rmsnorm": ("ray_tpu_torch/ops/csrc/rmsnorm.cu",
+                "ray_tpu/ops/fused.py:23", [4096, 4096]),
+}
+
+
+def kernel_summary(cases, by_path):
+    """One row per kernel.  ``launches`` sums the main paths (each read
+    between a reset and its end); for the backward kernels ``plain_ms``
+    and ``library_ms`` are the whole backward (dq, dk and dv: the plain
+    version and SDPA's backward), as neither splits it."""
     rows = []
-    meta = {"flash_fwd": ("ray_tpu_torch/ops/csrc/flash_fwd.cu",
-                          "ray_tpu/ops/flash_attention.py:447",
-                          [4, 1024, 32, 128]),
-            "rmsnorm": ("ray_tpu_torch/ops/csrc/rmsnorm.cu",
-                        "ray_tpu/ops/fused.py:23", [4096, 4096])}
-    for name, (src, replaces, shape) in meta.items():
-        c = next(c for c in cases if c["kernel"] == name
-                 and c["shape"] == shape and c["dtype"] == "bfloat16")
-        rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": c["max_abs_err"], "ms": c["kernel_ms"],
-                     "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-                     "bound_by": c["bound_by"],
-                     "library_ms": c["library_ms"], "shape": shape,
-                     "dtype": "bfloat16"})
+    for name, (src, replaces, shape) in SUMMARY.items():
+        kind = "flash_bwd" if name.startswith("flash_bwd") else name
+        part = name.rsplit("_", 1)[1] if kind == "flash_bwd" else None
+        c = next(c for c in cases if c["kernel"] == kind
+                 and c["shape"] == shape and c["dtype"] == "bfloat16"
+                 and "plain_ms" in c)
+        launches = {path: n[name] for path, n in by_path.items()
+                    if n.get(name)}
+        assert launches, f"{name} was not launched on any main path"
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": replaces, "launches": sum(launches.values()),
+               "launches_by_path": launches,
+               "max_abs_err": c[f"max_abs_err_{part}"] if part
+               else c["max_abs_err"],
+               "ms": c[f"kernel_ms_{part}"] if part else c["kernel_ms"],
+               "plain_ms": c["plain_ms"],
+               "bound_ms": c[f"bound_ms_{part}"] if part else c["bound_ms"],
+               "bound_by": c[f"bound_by_{part}"] if part else c["bound_by"],
+               "library_ms": c["library_ms"], "shape": shape,
+               "dtype": "bfloat16"}
+        rows.append(row)
     return {"kernels": rows}
 
 
@@ -359,8 +743,10 @@ def main() -> int:
     phase_build()
     cases = phase_kernels()
     phase_model_parity()
-    launches = phase_serve()
-    emit(kernel_summary(cases, launches))
+    serve = phase_serve()
+    phase_train_parity()
+    train = phase_train()
+    emit(kernel_summary(cases, {"serve": serve, "train": train}))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

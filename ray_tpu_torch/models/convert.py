@@ -1,4 +1,4 @@
-"""Weights from the JAX package's Llama into the port's ``state_dict``."""
+"""Weights from the JAX package's models into the port's ``state_dict``."""
 
 from __future__ import annotations
 
@@ -36,5 +36,33 @@ def llama_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         for name in _DENSE:
             sd[f"layers.{i}.{name}.weight"] = \
                 _tensor(layer[name]["kernel"]).T.contiguous()
+        i += 1
+    return sd
+
+
+_GPT2_DENSE = ("attn_qkv", "attn_proj", "mlp_up", "mlp_down")
+_GPT2_NORMS = ("ln_1", "ln_2")
+
+
+def gpt2_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Map a flax ``GPT2`` parameter tree (after ``unbox()``) onto
+    :class:`ray_tpu_torch.models.gpt2.GPT2`'s names: ``h{i}`` becomes
+    ``h.{i}``, a Dense ``kernel [in, out]`` becomes ``weight [out, in]``,
+    a LayerNorm ``scale`` becomes ``weight``; ``wte``, ``wpe`` and biases
+    copy as-is, in f32.  A gradient tree has the same structure, so the
+    same map puts JAX gradients beside the port's ``param.grad``."""
+    sd = {"wte": _tensor(params["wte"]), "wpe": _tensor(params["wpe"]),
+          "ln_f.weight": _tensor(params["ln_f"]["scale"]),
+          "ln_f.bias": _tensor(params["ln_f"]["bias"])}
+    i = 0
+    while f"h{i}" in params:
+        block = params[f"h{i}"]
+        for name in _GPT2_NORMS:
+            sd[f"h.{i}.{name}.weight"] = _tensor(block[name]["scale"])
+            sd[f"h.{i}.{name}.bias"] = _tensor(block[name]["bias"])
+        for name in _GPT2_DENSE:
+            sd[f"h.{i}.{name}.weight"] = \
+                _tensor(block[name]["kernel"]).T.contiguous()
+            sd[f"h.{i}.{name}.bias"] = _tensor(block[name]["bias"])
         i += 1
     return sd

@@ -21,8 +21,8 @@ f32, and the logits are f32 against the f32 embedding.  f32 products
 rely on ``torch.backends.cuda.matmul.allow_tf32`` being False (PyTorch's
 default), which this module leaves as it is.
 
-Inference only: the module's parameters do not require grad, and the
-kernels raise on inputs that do (their backward is the training slice).
+Inference only: the module's parameters do not require grad (the
+training flagship is ``models/gpt2.py``).
 """
 
 from __future__ import annotations

@@ -41,6 +41,14 @@ SIGNATURES = {
     # causal, dtype, stream
     "rtt_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
                       _P],
+    # q, k, v, dout, lse, delta, dk, dv, batch, seq_q, seq_k, heads,
+    # head_dim, scale, causal, dtype, stream
+    "rtt_flash_bwd_dkdv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _F, _I, _I, _P],
+    # q, k, v, dout, lse, delta, dq, batch, seq_q, seq_k, heads, head_dim,
+    # scale, causal, dtype, stream
+    "rtt_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                         _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,16 +1,17 @@
-"""Flash attention forward: the CUDA kernel ``csrc/flash_fwd.cu`` and its
-plain version.
+"""Flash attention: the CUDA kernels ``csrc/flash_fwd.cu`` (forward) and
+``csrc/flash_bwd.cu`` (dK/dV and dQ), each beside its plain version.
 
-Counterpart of ``ray_tpu/ops/flash_attention.py`` (the native-layout
-forward ``_fa_nl_kernel`` and ``_attention_reference``).  Shapes are
-``[batch, seq, heads, head_dim]`` in and out, as in the JAX package.
+Counterpart of ``ray_tpu/ops/flash_attention.py``: the native-layout
+forward ``_fa_nl_kernel``, the backward ``_flash_nl_backward`` with its
+kernels ``_fa_nl_bwd_dkdv_kernel`` and ``_fa_nl_bwd_dq_kernel``, the
+``custom_vjp`` ``_flash_nl`` (here a ``torch.autograd.Function``) and
+``_attention_reference``.  Shapes are ``[batch, seq, heads, head_dim]``
+in and out, as in the JAX package.
 
 The causal mask is aligned top-left (key ``k`` visible to query ``q`` iff
 ``k <= q``), as every TPU kernel aligns it.  ``_attention_reference``
 aligns it bottom-right; the two agree only when ``Tq == Tk``, so causal
 calls with other lengths raise here instead of picking one.
-
-Forward only: the backward kernels come with the training slice.
 """
 
 from __future__ import annotations
@@ -59,11 +60,41 @@ def kernel_block_for(seq: int, block: int = 1024):
     return fit if fit >= 128 and fit % 8 == 0 else None
 
 
+def attention_backward_reference(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, out: torch.Tensor,
+                                 lse: torch.Tensor, do: torch.Tensor,
+                                 causal: bool, scale: float
+                                 ) -> Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
+    """Plain PyTorch backward, step by step as the kernels compute it:
+    ``(dq, dk, dv)`` in the input dtype from the forward's ``out`` and
+    ``lse [B,H,Tq]`` and the cotangent ``do``.  P is recomputed from the
+    LSE (clamped to 0 where a row saw no key), rounded to ``do``'s dtype
+    for dV; dS is rounded to the input dtype for dK and dQ; every product
+    takes f32 operands."""
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    if causal:
+        tq, tk = q.shape[1], k.shape[1]
+        keep = torch.ones(tq, tk, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~keep, NEG_INF)
+    lse = torch.where(lse <= NEG_INF / 2, torch.zeros_like(lse), lse)
+    p = torch.exp(s - lse[..., None])
+    delta = attention_delta(out, do)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = (p * (dp - delta[..., None]) * scale).to(q.dtype).float()
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """``delta = rowsum(dO * O)`` in f32, ``[B, H, T]`` like the LSE."""
+    return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
 def _validate(q, k, v, causal):
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise NotImplementedError(
-            "flash_attention is forward-only in this port; the backward "
-            "kernels come with the training slice")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes [batch, seq, heads, "
                          "head_dim] tensors")
@@ -95,22 +126,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return attention_reference(q, k, v, causal, scale)
-    if q.device.type != "cuda" or k.device != q.device \
-            or v.device != q.device:
-        raise ValueError(f"flash_attention: q, k, v on {q.device}, "
-                         f"{k.device}, {v.device}; need one CUDA device")
+    _check_kernel_inputs(q, k, v)
     batch, seq_q, heads, dim = q.shape
     seq_k = k.shape[1]
-    if dim not in HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head_dim in {HEAD_DIMS}, "
-                         f"got {dim}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention: q, k, v must be contiguous")
-    if batch * heads > 65535:
-        raise ValueError(f"flash kernel grid: batch*heads={batch * heads} "
-                         "exceeds 65535")
-    if q.numel() == 0 or seq_k == 0:
-        raise ValueError("flash_attention: empty input")
     code = _build.dtype_code(q.dtype)
     out = torch.empty_like(q)
     lse = torch.empty(batch, heads, seq_q, dtype=torch.float32,
@@ -129,10 +147,129 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_fwd.launches = 0
 
 
+def _check_kernel_inputs(*tensors):
+    """What the CUDA kernels take: one CUDA device, contiguous 16-byte
+    aligned tensors, head_dim 64 or 128, a grid that fits."""
+    q, k = tensors[0], tensors[1]
+    if q.device.type != "cuda" or any(x.device != q.device
+                                      for x in tensors):
+        raise ValueError("flash_attention: inputs on "
+                         f"{[str(x.device) for x in tensors]}; need one "
+                         "CUDA device")
+    batch, _, heads, dim = q.shape
+    if dim not in HEAD_DIMS:
+        raise ValueError(f"flash kernel takes head_dim in {HEAD_DIMS}, "
+                         f"got {dim}")
+    if not all(x.is_contiguous() and x.data_ptr() % 16 == 0
+               for x in tensors):
+        raise ValueError("flash_attention: inputs must be contiguous and "
+                         "16-byte aligned")
+    if batch * heads > 65535:
+        raise ValueError(f"flash kernel grid: batch*heads={batch * heads} "
+                         "exceeds 65535")
+    if q.numel() == 0 or k.shape[1] == 0:
+        raise ValueError("flash_attention: empty input")
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, *, causal: bool, scale: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` in the input dtype, from the forward's ``out`` and
+    ``lse [B,H,Tq]`` and the cotangent ``do`` (like ``out``).
+
+    CPU tensors take :func:`attention_backward_reference`; CUDA tensors
+    compute ``delta`` with plain torch (as the JAX package computes it
+    outside its kernels), then launch the dK/dV and the dQ kernel, or
+    raise.
+    """
+    _validate(q, k, v, causal)
+    if out.shape != q.shape or do.shape != q.shape \
+            or lse.shape != (q.shape[0], q.shape[2], q.shape[1]):
+        raise ValueError(
+            f"flash_attention_bwd: out {tuple(out.shape)}, do "
+            f"{tuple(do.shape)}, lse {tuple(lse.shape)} do not fit q "
+            f"{tuple(q.shape)}")
+    if out.dtype != q.dtype or do.dtype != q.dtype \
+            or lse.dtype != torch.float32:
+        raise TypeError(f"flash_attention_bwd: out {out.dtype}, do "
+                        f"{do.dtype}, lse {lse.dtype} (need q's dtype "
+                        f"{q.dtype} and f32)")
+    if q.device.type == "cpu":
+        return attention_backward_reference(q, k, v, out, lse, do, causal,
+                                            scale)
+    _check_kernel_inputs(q, k, v, out, lse, do)
+    delta = attention_delta(out, do)
+    dk, dv = _launch_dkdv(q, k, v, do, lse, delta, causal, scale)
+    return _launch_dq(q, k, v, do, lse, delta, causal, scale), dk, dv
+
+
+def _bwd_args(q, k, v, do, lse, delta, causal, scale):
+    batch, seq_q, heads, dim = q.shape
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr()), (
+        batch, seq_q, k.shape[1], heads, dim, float(scale), int(causal),
+        _build.dtype_code(q.dtype))
+
+
+def _launch_dkdv(q, k, v, do, lse, delta, causal, scale):
+    """Kernel #3 on checked CUDA inputs: ``(dk, dv)``."""
+    ins, dims = _bwd_args(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib = _build.load_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.check(lib.rtt_flash_bwd_dkdv(
+            *ins, dk.data_ptr(), dv.data_ptr(), *dims, stream),
+            "flash_bwd_dkdv kernel")
+    flash_attention_bwd.launches_dkdv += 1
+    return dk, dv
+
+
+def _launch_dq(q, k, v, do, lse, delta, causal, scale):
+    """Kernel #4 on checked CUDA inputs: ``dq``."""
+    ins, dims = _bwd_args(q, k, v, do, lse, delta, causal, scale)
+    dq = torch.empty_like(q)
+    lib = _build.load_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.check(lib.rtt_flash_bwd_dq(*ins, dq.data_ptr(), *dims,
+                                          stream), "flash_bwd_dq kernel")
+    flash_attention_bwd.launches_dq += 1
+    return dq
+
+
+flash_attention_bwd.launches_dkdv = 0
+flash_attention_bwd.launches_dq = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The ``custom_vjp`` of ``_flash_nl``: the forward kernel saves
+    q, k, v, out and the LSE; the backward runs the two backward
+    kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
+                                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Fused attention over ``[batch, seq, heads, head_dim]``; returns the
-    output in the input dtype (see :func:`flash_attention_fwd`)."""
-    return flash_attention_fwd(q, k, v, causal=causal, scale=scale)[0]
+    output in the input dtype (see :func:`flash_attention_fwd`) and
+    carries gradients through :func:`flash_attention_bwd`."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return _FlashAttention.apply(q, k, v, causal, scale)
 

@@ -1,0 +1,149 @@
+#!/usr/bin/env python3
+"""Do chip_smoke.py's limits on the flash kernels catch a kernel that
+loses part of a late row?
+
+    python3 scripts/check_flash_tolerance_torch.py     # one CUDA GPU, nvcc
+
+Builds the kernel library from the repository's sources as they are
+(``sound``) and from copies with one planted fault each, written under
+build/ray_tpu_torch/planted/ (the sources themselves are never touched):
+
+* ``fwd_drop_diag``: the bf16 forward skips the diagonal key tile of
+  the last query tile (its queries lose their last 64 keys);
+* ``dq_drop_diag``: the bf16 dQ kernel does the same;
+* ``dkdv_drop_last``: the bf16 dK/dV kernel skips the last query tile
+  (32 queries) of the last key tile.
+
+Each fault touches the last 64 positions only, where causal rows are
+smallest: the kind of fault a limit scaled to the tensor's max misses.
+
+Each build runs in a process of its own (the library loads once per
+process).  For each case, one JSON line: the error of O (and LSE), dQ,
+dK and dV against the plain version by two measures, max |diff| over
+the tensor's max |reference| (``over_max``) and ``row_scaled_err``, the
+one chip_smoke.py holds the kernels to (``row``).  The sound build runs
+every shape and dtype of chip_smoke.py's kernels phase; the faulty ones
+run the two bf16 causal training shapes.  Exits nonzero unless the sound
+build meets chip_smoke.ROW_TOL everywhere and every planted fault
+exceeds it in the tensor its kernel writes.  Then the card's name and
+power limit.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke  # noqa: E402
+
+LOOP_KT = "for (int kt = 0; kt < n_tiles; ++kt) {"
+LOOP_MT = "for (int mt = causal ? n0 / BM : 0; mt < m_tiles; ++mt) {"
+# name: (source, first occurrence (the bf16 kernel's loop), replacement,
+# the tensors the faulty kernel writes)
+PLANTED = {
+    "fwd_drop_diag": ("flash_fwd.cu", LOOP_KT, LOOP_KT.replace(
+        "kt < n_tiles", "kt < n_tiles - (m0 >= tq - 64)"), ("O",)),
+    "dq_drop_diag": ("flash_bwd.cu", LOOP_KT, LOOP_KT.replace(
+        "kt < n_tiles", "kt < n_tiles - (m0 >= tq - 64)"), ("dq",)),
+    "dkdv_drop_last": ("flash_bwd.cu", LOOP_MT, LOOP_MT.replace(
+        "mt < m_tiles", "mt < m_tiles - (n0 >= tk - 64)"), ("dk", "dv")),
+}
+TRAIN_SHAPES = (chip_smoke.GPT2_SHAPE, (4, 1024, 32, 128))
+
+
+def use_planted(name: str) -> None:
+    from ray_tpu_torch.ops import _build
+    src_name, old, new, _ = PLANTED[name]
+    out = _build.BUILD_DIR / "planted" / name
+    out.mkdir(parents=True, exist_ok=True)
+    for src in sorted(_build.CSRC.iterdir()):
+        if src.suffix not in (".cu", ".cuh"):
+            continue
+        text = src.read_text()
+        if src.name == src_name:
+            assert old in text, (src_name, old)
+            text = text.replace(old, new, 1)
+        (out / src.name).write_text(text)
+    _build.CSRC = out
+
+
+def measure(gen, shape, dtype, causal) -> dict:
+    from ray_tpu_torch.ops.flash_attention import (
+        attention_backward_reference, attention_reference,
+        flash_attention_bwd, flash_attention_fwd)
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                   for _ in range(4))
+    scale = shape[-1] ** -0.5
+    out, lse = flash_attention_fwd(q, k, v, causal=causal)
+    ref, ref_lse = attention_reference(q, k, v, causal, scale)
+    res = {"shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
+           "causal": causal,
+           "lse_max_abs_err": chip_smoke.max_err(lse, ref_lse)}
+    grads = flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                scale=scale)
+    refs = attention_backward_reference(q, k, v, out, lse, do, causal, scale)
+    for name, g, r in zip(("O", "dq", "dk", "dv"), (out, *grads),
+                          (ref, *refs)):
+        res[name] = {"over_max": chip_smoke._gradient_err(g, r)[1],
+                     "row": chip_smoke.row_scaled_err(g, r)}
+    return res
+
+
+def run_build(name: str) -> None:
+    if name != "sound":
+        use_planted(name)
+    gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
+    cases = [(s, torch.bfloat16, True) for s in TRAIN_SHAPES]
+    if name == "sound":
+        for dtype in (torch.float32, torch.bfloat16):
+            cases += [((1, 512, 4, 64), dtype, c) for c in (False, True)]
+            cases += [(s, dtype, True) for s in ((1, 100, 2, 64),
+                                                  (1, 256, 3, 128))]
+    for case in cases:
+        print(json.dumps({"build": name, **measure(gen, *case)}), flush=True)
+
+
+def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--build":
+        run_build(sys.argv[2])
+        return 0
+    if not torch.cuda.is_available():
+        print("check_flash_tolerance_torch: needs a CUDA device",
+              file=sys.stderr)
+        return 2
+    rows, ok = [], True
+    for name in ("sound", *PLANTED):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--build", name], capture_output=True,
+                              text=True, cwd=ROOT)
+        if proc.returncode != 0:
+            print(proc.stderr, file=sys.stderr)
+            raise RuntimeError(f"build {name}: exit {proc.returncode}")
+        for line in proc.stdout.splitlines():
+            print(line, flush=True)
+            rows.append(json.loads(line))
+    for r in rows:
+        tol = chip_smoke.ROW_TOL[getattr(torch, r["dtype"])]
+        held = (("O", "dq", "dk", "dv") if r["build"] == "sound"
+                else PLANTED[r["build"]][3])
+        worst = max(r[t]["row"] for t in held)
+        passed = worst <= tol if r["build"] == "sound" else worst > tol
+        ok &= passed
+        print(json.dumps({"verdict": r["build"], "shape": r["shape"],
+                          "dtype": r["dtype"], "causal": r["causal"],
+                          "tensors": held, "row": worst, "row_tol": tol,
+                          "over_max": max(r[t]["over_max"] for t in held),
+                          "as_expected": passed}), flush=True)
+    print(chip_smoke.card_line(), flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -12,6 +12,7 @@ import ray_tpu_torch
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops.flash_attention import (flash_attention,
+                                               flash_attention_bwd,
                                                flash_attention_fwd)
 from ray_tpu_torch.ops.fused import fused_rmsnorm
 
@@ -21,7 +22,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ray_tpu")
 
 def _port_files():
     files = sorted((ROOT / "ray_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py",
+                    *sorted((ROOT / "scripts").glob("*_torch.py"))]
 
 
 def _imported(tree):
@@ -44,7 +46,7 @@ def test_port_imports_no_jax_or_ray_tpu(path):
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, ray_tpu_torch.models.llama, "
-            "ray_tpu_torch.models.convert; "
+            "ray_tpu_torch.models.gpt2, ray_tpu_torch.models.convert; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -71,10 +73,16 @@ def test_cpu_tensors_never_touch_the_library(monkeypatch):
     monkeypatch.setattr(_build, "load_library", refuse)
     monkeypatch.setattr(flash_attention_fwd, "launches", 0)
     monkeypatch.setattr(fused_rmsnorm, "launches", 0)
-    q = torch.randn(1, 16, 2, 64)
-    flash_attention(q, q, q)
-    fused_rmsnorm(torch.randn(3, 64), torch.ones(64))
+    monkeypatch.setattr(flash_attention_bwd, "launches_dkdv", 0)
+    monkeypatch.setattr(flash_attention_bwd, "launches_dq", 0)
+    q = torch.randn(1, 16, 2, 64, requires_grad=True)
+    flash_attention(q, q, q).sum().backward()
+    x = torch.randn(3, 64, requires_grad=True)
+    fused_rmsnorm(x, torch.ones(64, requires_grad=True)).sum().backward()
+    assert q.grad is not None and x.grad is not None
     assert flash_attention_fwd.launches == 0
+    assert flash_attention_bwd.launches_dkdv == 0
+    assert flash_attention_bwd.launches_dq == 0
     assert fused_rmsnorm.launches == 0
 
 
@@ -83,7 +91,8 @@ def test_library_name_hashes_sources():
     assert path.parent == ROOT / "build" / "ray_tpu_torch"
     assert path.name.startswith("libray_tpu_torch_") and path.suffix == ".so"
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
-        "flash_fwd.cu", "rmsnorm.cu"}
+        "flash_bwd.cu", "flash_fwd.cu", "rmsnorm.cu"}
+    assert {"rtt_flash_bwd_dkdv", "rtt_flash_bwd_dq"} <= set(_build.SIGNATURES)
     for flag in ("arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"):
         assert flag in _build.NVCC_FLAGS
 
@@ -104,3 +113,13 @@ def test_model_defaults_to_cuda():
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Llama(LlamaConfig.tiny())
+
+
+def test_gpt2_defaults_to_cuda():
+    from ray_tpu_torch.models.gpt2 import GPT2, GPT2Config
+    cfg = GPT2Config.tiny(embed_dim=128, num_heads=2)
+    if torch.cuda.is_available():
+        assert GPT2(cfg).wte.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            GPT2(cfg)

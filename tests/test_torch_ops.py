@@ -6,17 +6,21 @@ does.  The CUDA kernels themselves are held against the same plain
 versions on the card by chip_smoke.py.
 """
 
+import jax
 import numpy as np
 import pytest
 import jax.numpy as jnp
 import torch
 
 from ray_tpu.ops import fused_rmsnorm as jax_rmsnorm
+from ray_tpu.ops import fused as jax_fused
 from ray_tpu.ops.flash_attention import _flash_nl_forward
 from ray_tpu.ops.flash_attention import fit_block as jax_fit_block
+from ray_tpu.ops.flash_attention import flash_attention as jax_flash
 from ray_tpu.ops.flash_attention import kernel_block_for as jax_kbf
-from ray_tpu_torch.ops import (fit_block, flash_attention,
+from ray_tpu_torch.ops import (chunked_lm_loss, fit_block, flash_attention,
                                flash_attention_fwd, fused_rmsnorm,
+                               fused_softmax_cross_entropy,
                                kernel_block_for)
 
 
@@ -108,10 +112,140 @@ def test_causal_unequal_lengths_raise():
     assert out.shape == q.shape
 
 
-def test_inputs_requiring_grad_raise():
-    q = torch.zeros(1, 8, 2, 64, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        flash_attention(q, q.detach(), q.detach())
-    x = torch.zeros(2, 64, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fused_rmsnorm(x, torch.ones(64))
+def _jax_flash_grads(q, k, v, do, causal, jdtype):
+    """``jax.vjp`` of the native-layout Pallas kernels (interpret mode):
+    the backward runs _fa_nl_bwd_dkdv_kernel and _fa_nl_bwd_dq_kernel."""
+    def f(q_, k_, v_):
+        return jax_flash(q_, k_, v_, causal=causal, interpret=True,
+                         native=True, block_q=128, block_k=128)
+    out, vjp = jax.vjp(f, *(jnp.asarray(x, jdtype) for x in (q, k, v)))
+    grads = vjp(jnp.asarray(do, jdtype))
+    return [np.asarray(x.astype(jnp.float32)) for x in (out, *grads)]
+
+
+def _torch_flash_grads(q, k, v, do, causal, tdtype):
+    q, k, v = (torch.from_numpy(x).to(tdtype).requires_grad_()
+               for x in (q, k, v))
+    out = flash_attention(q, k, v, causal=causal)
+    out.backward(torch.from_numpy(do).to(tdtype))
+    assert all(x.grad.dtype == tdtype for x in (q, k, v))
+    return [x.detach().float().numpy() for x in (out, q.grad, k.grad, v.grad)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(2, 256, 4, 64), (1, 256, 3, 128)])
+def test_flash_bwd_matches_pallas_f32(shape, causal):
+    q, k, v, do = _qkv(shape, seed=shape[2]) + _qkv(shape, seed=9)[:1]
+    ref = _jax_flash_grads(q, k, v, do, causal, jnp.float32)
+    got = _torch_flash_grads(q, k, v, do, causal, torch.float32)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, ref):
+        np.testing.assert_allclose(a, b, atol=2e-5, rtol=2e-5,
+                                   err_msg=name)
+
+
+def test_flash_bwd_bf16_keeps_dtype():
+    q, k, v, do = _qkv((1, 256, 2, 64), seed=5) + _qkv((1, 256, 2, 64),
+                                                       seed=6)[:1]
+    ref = _jax_flash_grads(q, k, v, do, True, jnp.bfloat16)
+    got = _torch_flash_grads(q, k, v, do, True, torch.bfloat16)
+    # Both round P and dS to bf16 before their products and store bf16
+    # gradients; scores summed in another order can round a P or dS the
+    # other way.  Measured on this case (CPU, jax 0.9, torch 2.13): max
+    # |diff| 0.0078 against gradients up to 3.3 (0.33% of the largest,
+    # one bf16 ulp for values in [1, 2)); 1% of the largest gradient
+    # leaves room for another platform's summation order.  Causal rows
+    # shrink with position, so each row is also held to its own size:
+    # max |diff| over the row's RMS (floored at 1% of the tensor's RMS
+    # for dQ's row 0, exactly 0) measured at most 0.046 (dq), limit 0.1.
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, ref):
+        np.testing.assert_allclose(a, b, atol=1e-2 * np.abs(b).max(),
+                                   rtol=0, err_msg=name)
+        rms = np.sqrt(np.square(b).mean(-1))
+        rms = np.maximum(rms, 1e-2 * np.sqrt(np.square(b).mean()))
+        assert (np.abs(a - b).max(-1) / rms).max() <= 0.1, name
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_rmsnorm_grad_matches_pallas(dtype):
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((4, 8, 256)).astype(np.float32)
+    w = (1 + 0.1 * rng.standard_normal(256)).astype(np.float32)
+    g = rng.standard_normal((4, 8, 256)).astype(np.float32)
+    jdt, tdt = {"f32": (jnp.float32, torch.float32),
+                "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    _, vjp = jax.vjp(lambda x_, w_: jax_rmsnorm(x_, w_, eps=1e-5,
+                                                interpret=True),
+                     jnp.asarray(x, jdt), jnp.asarray(w))
+    ref_dx, ref_dw = vjp(jnp.asarray(g, jdt))
+    xt = torch.from_numpy(x).to(tdt).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    fused_rmsnorm(xt, wt, eps=1e-5).backward(torch.from_numpy(g).to(tdt))
+    assert xt.grad.dtype == tdt and wt.grad.dtype == torch.float32
+    # f32: summation order only.  bf16: dx is rounded to bf16 on both
+    # sides (one ulp, 2**-8 relative); dw sums 32 rows of bf16-rounded
+    # products in f32.
+    tol = 1e-5 if dtype == "f32" else 1e-2
+    np.testing.assert_allclose(xt.grad.float().numpy(),
+                               np.asarray(ref_dx.astype(jnp.float32)),
+                               atol=tol, rtol=tol)
+    np.testing.assert_allclose(wt.grad.numpy(), np.asarray(ref_dw),
+                               atol=tol * 10, rtol=tol)
+
+
+def test_softmax_cross_entropy_matches_jax():
+    rng = np.random.default_rng(11)
+    logits = (3 * rng.standard_normal((5, 7, 33))).astype(np.float32)
+    labels = rng.integers(0, 33, (5, 7)).astype(np.int32)
+    ref, vjp = jax.vjp(
+        lambda l_: jax_fused.fused_softmax_cross_entropy(
+            l_, jnp.asarray(labels)), jnp.asarray(logits))
+    g = rng.standard_normal((5, 7)).astype(np.float32)
+    (ref_grad,) = vjp(jnp.asarray(g))
+    lt = torch.from_numpy(logits).requires_grad_()
+    out = fused_softmax_cross_entropy(lt, torch.from_numpy(labels))
+    out.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
+                               atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(lt.grad.numpy(), np.asarray(ref_grad),
+                               atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("compute", ["f32", "bf16", "bf16_logits"])
+def test_chunked_lm_loss_matches_jax(compute):
+    """3 x 29 = 87 tokens in chunks of 32: the last chunk is padded."""
+    rng = np.random.default_rng(12)
+    hidden = rng.standard_normal((3, 29, 48)).astype(np.float32)
+    emb = (0.3 * rng.standard_normal((97, 48))).astype(np.float32)
+    labels = rng.integers(0, 97, (3, 29)).astype(np.int32)
+    jkw, tkw = {
+        "f32": ({}, {}),
+        "bf16": ({"compute_dtype": jnp.bfloat16},
+                 {"compute_dtype": torch.bfloat16}),
+        "bf16_logits": ({"compute_dtype": jnp.bfloat16,
+                         "logits_dtype": jnp.bfloat16},
+                        {"compute_dtype": torch.bfloat16,
+                         "logits_dtype": torch.bfloat16}),
+    }[compute]
+    ref, (ref_dh, ref_de) = jax.value_and_grad(
+        lambda h_, e_: jax_fused.chunked_lm_loss(
+            h_, e_, jnp.asarray(labels), chunk=32, **jkw),
+        argnums=(0, 1))(jnp.asarray(hidden), jnp.asarray(emb))
+    ht = torch.from_numpy(hidden).requires_grad_()
+    et = torch.from_numpy(emb).requires_grad_()
+    loss = chunked_lm_loss(ht, et, torch.from_numpy(labels), chunk=32,
+                           **tkw)
+    loss.backward()
+    assert loss.dtype == torch.float32 and et.grad.dtype == torch.float32
+    # f32 and bf16 operands with f32 logits: the products are exact on
+    # both sides and only the summation order differs.  bf16 logits:
+    # each logit (|x| up to 8.3) is rounded to bf16 on both sides after
+    # sums taken in another order, so a logit can land one ulp (0.03 in
+    # [4, 8)) apart.  Measured (CPU): loss 9.2e-4 apart at 6.44, hidden
+    # gradients 5.2e-5 and embedding gradients 2.0e-4 apart.
+    tol = {"f32": 1e-5, "bf16": 1e-5, "bf16_logits": 2e-3}[compute]
+    np.testing.assert_allclose(loss.item(), float(ref), rtol=tol, atol=tol)
+    gtol = {"f32": 1e-6, "bf16": 1e-5, "bf16_logits": 2e-3}[compute]
+    np.testing.assert_allclose(ht.grad.numpy(), np.asarray(ref_dh),
+                               atol=gtol, rtol=1e-3)
+    np.testing.assert_allclose(et.grad.numpy(), np.asarray(ref_de),
+                               atol=gtol, rtol=1e-3)
