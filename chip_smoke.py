@@ -26,13 +26,23 @@ no network.  Phases, one JSON line each:
    tokens, 12 layers, bf16 compute, f32 masters, AdamW 3e-4 with decay
    0.01, bf16 head logits), random weights and one random batch from a
    seed: 1 warm-up and 10 timed steps, then one profiled step (device
-   time by kind, idle share) and the LM head's cost by logits dtype.
+   time by kind), one step traced for device activity only (idle share)
+   and the LM head's cost by logits dtype.
+7. ``train_parity_xl``: as ``train_parity``, for GPT-2 XL (1600 wide,
+   25 heads of 64): its odd head count routes attention to the
+   head-major kernels, as in the JAX package.
+8. ``train_xl``: GPT-2 1.5B at full width and depth (48 layers) on 8 x
+   1024 tokens, otherwise as ``train``: 1 warm-up and 5 timed steps on
+   the head-major kernels, then the profiled and the traced step.
 
-The ``kernels`` phase also holds the backward kernels (dK/dV and dQ)
-against their plain version, and times them at the training shapes
-beside SDPA's backward.  Each main path (``serve``, ``train``) is driven
+The ``kernels`` phase also holds the backward kernels (dK/dV and dQ) and
+both kernel families (native layout and head-major, head_dim 32 to 128,
+odd head counts, ragged lengths, more than 65535 heads in all) against
+their plain versions, and times them at the training shapes beside
+SDPA.  Each main path (``serve``, ``train``, ``train_xl``) is driven
 with the kernels' launch counts set to 0 just before it and read just
-after.
+after; the native-layout paths launch no head-major kernel and GPT-2 XL
+no native-layout one.
 
 Then the kernels' summary line, the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``.  Any failure raises: no result
@@ -54,6 +64,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 GPT2_SHAPE = (32, 1024, 12, 64)  # q/k/v of GPT-2 124M at bench.py's batch
+XL_SHAPE = (8, 1024, 25, 64)  # q/k/v of GPT-2 1.5B at 8 x 1024 tokens
 PEAK_FLOPS = {torch.bfloat16: 989e12,  # dense tensor-core bf16
               torch.float32: 67e12}    # f32 outside the tensor cores
 SEED = 0
@@ -79,6 +90,11 @@ TRAIN_GRAD_TOL = 1e-4
 # train: the loss after 10 AdamW steps on one batch, below the first by
 # at least this much (measured on an H100: 10.98 -> 9.15)
 TRAIN_LOSS_DROP = 0.5
+# train_xl: GPT-2 1.5B, 1 warm-up and XL_STEPS steps on one batch; the
+# last loss below the first by at least XL_LOSS_DROP (measured on an
+# H100: 11.14 -> 9.15)
+XL_STEPS = 5
+XL_LOSS_DROP = 1.0
 # serve phase: cache path against flash path (see the comment there)
 SERVE_MAX_ABS = 1.0
 SERVE_MEAN_ABS = 0.12
@@ -152,6 +168,16 @@ def phase_build():
     _build.load_library()
     lines = [ln.strip() for ln in _build.build_log().splitlines()
              if "registers" in ln or "spill" in ln or "Compiling" in ln]
+    # a kernel that spills is out of registers; ptxas names the kernel on
+    # the "Compiling entry function" line before its counts
+    spills, kernel = [], None
+    for ln in lines:
+        if "Compiling" in ln:
+            kernel = ln.split("'")[1]
+        elif "spill" in ln and "0 bytes spill stores, 0 bytes spill " \
+                "loads" not in ln:
+            spills.append((kernel, ln))
+    assert not spills, spills
     emit({"phase": "build", "ok": True,
           "seconds": round(time.perf_counter() - t0, 3),
           "nvcc_seconds": _build.build_seconds,
@@ -160,18 +186,35 @@ def phase_build():
           "ptxas": lines})
 
 
-def flash_case(timer, gen, shape, dtype, causal, timed):
+def _family(hm):
+    """The native-layout or head-major wrappers: (forward, backward)."""
+    from ray_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_fwd, flash_attention_hm_bwd,
+        flash_attention_hm_fwd)
+    return ((flash_attention_hm_fwd, flash_attention_hm_bwd) if hm
+            else (flash_attention_fwd, flash_attention_bwd))
+
+
+def _heads_first(*xs):
+    """Contiguous ``[B, H, T, D]`` copies, the layout SDPA takes."""
+    return tuple(x.transpose(1, 2).contiguous() for x in xs)
+
+
+def flash_case(timer, gen, shape, dtype, causal, timed, hm=False):
+    """The forward of one family (kernel #1, or #5 with ``hm``) against
+    attention_reference.  Timed: the kernel alone."""
     import torch.nn.functional as F
-    from ray_tpu_torch.ops.flash_attention import (attention_reference,
-                                                   flash_attention_fwd)
+    from ray_tpu_torch.ops.flash_attention import (_launch_fwd,
+                                                   attention_reference)
+    fwd = _family(hm)[0]
     b, t, h, d = shape
     q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
                for _ in range(3))
     scale = d ** -0.5
-    before = flash_attention_fwd.launches
-    out, lse = flash_attention_fwd(q, k, v, causal=causal)
+    before = fwd.launches
+    out, lse = fwd(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert flash_attention_fwd.launches == before + 1
+    assert fwd.launches == before + 1
     ref, ref_lse = attention_reference(q, k, v, causal, scale)
     # f32: the FMA kernel and the reference differ in summation order
     # only (tests/test_ops.py's 2e-5).  bf16: P is rounded to bf16 before
@@ -182,7 +225,8 @@ def flash_case(timer, gen, shape, dtype, causal, timed):
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
     row_err = row_scaled_err(out, ref)
     assert row_err <= ROW_TOL[dtype], ("O", row_err, ROW_TOL[dtype])
-    res = {"kernel": "flash_fwd", "shape": list(shape),
+    res = {"kernel": "flash_hm_fwd" if hm else "flash_fwd",
+           "shape": list(shape),
            "dtype": str(dtype).replace("torch.", ""), "causal": causal,
            "max_abs_err": max_err(out, ref), "lse_max_abs_err":
            max_err(lse, ref_lse), "atol": tol, "row_scaled_err": row_err,
@@ -191,11 +235,11 @@ def flash_case(timer, gen, shape, dtype, causal, timed):
         pairs = t * (t + 1) // 2 if causal else t * t
         flops = 4 * d * b * h * pairs
         nbytes = 4 * q.numel() * q.element_size() + lse.numel() * 4
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         res["kernel_ms"] = timer(
-            lambda: flash_attention_fwd(q, k, v, causal=causal))
+            lambda: _launch_fwd(q, k, v, causal, scale, hm=hm))
         res["plain_ms"] = timer(
             lambda: attention_reference(q, k, v, causal, scale))
+        qt, kt, vt = _heads_first(q, k, v)
         res["library_ms"] = timer(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal))
         res["bound_ms"], res["bound_by"] = bound(flops, nbytes, dtype)
@@ -240,18 +284,21 @@ def _gradient_err(got, ref):
     return err, err / max(ref.float().abs().max().item(), 1e-30)
 
 
-def bwd_case(timer, gen, shape, dtype, causal, timed):
+def bwd_case(timer, gen, shape, dtype, causal, timed, hm=False):
+    """The backward of one family (kernels #3 and #4, or #6 and #7 with
+    ``hm``) against attention_backward_reference.  Timed: each kernel
+    alone."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from ray_tpu_torch.ops.flash_attention import (
         _launch_dkdv, _launch_dq, attention_backward_reference,
-        attention_delta, flash_attention_bwd, flash_attention_fwd)
+        attention_delta)
+    fwd, bwd = _family(hm)
     b, t, h, d = shape
     q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
                    for _ in range(4))
     scale = d ** -0.5
-    out, lse = flash_attention_fwd(q, k, v, causal=causal)
-    bwd = flash_attention_bwd
+    out, lse = fwd(q, k, v, causal=causal)
     before = (bwd.launches_dkdv, bwd.launches_dq)
     grads = bwd(q, k, v, out, lse, do, causal=causal, scale=scale)
     torch.cuda.synchronize()
@@ -259,7 +306,8 @@ def bwd_case(timer, gen, shape, dtype, causal, timed):
                                                     before[1] + 1)
     ref = attention_backward_reference(q, k, v, out, lse, do, causal, scale)
     tol = ROW_TOL[dtype]
-    res = {"kernel": "flash_bwd", "shape": list(shape),
+    res = {"kernel": "flash_hm_bwd" if hm else "flash_bwd",
+           "shape": list(shape),
            "dtype": str(dtype).replace("torch.", ""), "causal": causal,
            "row_tol": tol, "launches": 1}
     for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
@@ -278,15 +326,14 @@ def bwd_case(timer, gen, shape, dtype, causal, timed):
         rows = 2 * b * h * t * 4            # lse and delta, f32
         delta = attention_delta(out, do)
         args = (q, k, v, do, lse, delta, causal, scale)
-        res["kernel_ms_dkdv"] = timer(lambda: _launch_dkdv(*args))
-        res["kernel_ms_dq"] = timer(lambda: _launch_dq(*args))
+        res["kernel_ms_dkdv"] = timer(lambda: _launch_dkdv(*args, hm=hm))
+        res["kernel_ms_dq"] = timer(lambda: _launch_dq(*args, hm=hm))
         res["kernel_ms"] = res["kernel_ms_dkdv"] + res["kernel_ms_dq"]
         res["plain_ms"] = timer(lambda: attention_backward_reference(
             q, k, v, out, lse, do, causal, scale))
         # SDPA's backward alone: forward + backward less the forward
-        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
-                      for x in (q, k, v))
-        dot = do.transpose(1, 2).contiguous()
+        qt, kt, vt, dot = _heads_first(q, k, v, do)
+        qt, kt, vt = (x.requires_grad_() for x in (qt, kt, vt))
 
         def sdpa():
             return F.scaled_dot_product_attention(qt, kt, vt,
@@ -334,6 +381,30 @@ def phase_kernels():
     for shape in (GPT2_SHAPE, (4, 1024, 32, 128)):
         cases.append(bwd_case(timer, gen, shape, torch.bfloat16, True,
                               timed=True))
+    # head-major: head_dim 32, 64 and 128, odd head counts, ragged ends
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ((2, 256, 4, 32), (1, 256, 3, 64), (1, 256, 3, 128)):
+            for causal in (False, True):
+                cases.append(flash_case(timer, gen, shape, dtype, causal,
+                                        timed=False, hm=True))
+                cases.append(bwd_case(timer, gen, shape, dtype, causal,
+                                      timed=False, hm=True))
+        for shape in ((1, 100, 3, 64), (1, 100, 5, 32)):
+            cases.append(flash_case(timer, gen, shape, dtype, True,
+                                    timed=False, hm=True))
+            cases.append(bwd_case(timer, gen, shape, dtype, True,
+                                  timed=False, hm=True))
+    # batch * heads above 65535, the old grid's limit, in both families
+    for shape, hm in (((1100, 64, 64, 32), True), ((1100, 64, 64, 64), False)):
+        cases.append(flash_case(timer, gen, shape, torch.bfloat16, True,
+                                timed=False, hm=hm))
+        cases.append(bwd_case(timer, gen, shape, torch.bfloat16, True,
+                              timed=False, hm=hm))
+    # GPT-2 XL's training shape
+    cases.append(flash_case(timer, gen, XL_SHAPE, torch.bfloat16, True,
+                            timed=True, hm=True))
+    cases.append(bwd_case(timer, gen, XL_SHAPE, torch.bfloat16, True,
+                          timed=True, hm=True))
     for c in cases:
         emit({"phase": "kernels", **c})
     emit({"phase": "kernels", "ok": True, "cases": len(cases)})
@@ -362,8 +433,14 @@ def phase_model_parity():
     # f32 on both sides, TF32 off: the two differ in summation order
     # only, through two layers and a 4096-wide logits product
     err = max_err(gpu_logits.cpu(), cpu_logits)
-    torch.testing.assert_close(gpu_logits.cpu(), cpu_logits, atol=1e-3,
-                               rtol=1e-3)
+    # which positions are off, if any: a fault in one attention row moves
+    # all of its position's logits, one in the logits product a few
+    per_pos = (gpu_logits.cpu() - cpu_logits).abs().amax(-1).flatten()
+    off = {i: per_pos[i].item() for i in
+           (per_pos > 1e-4).nonzero().flatten().tolist()[:16]}
+    torch.testing.assert_close(
+        gpu_logits.cpu(), cpu_logits, atol=1e-3, rtol=1e-3,
+        msg=lambda m: f"{m}\npositions off by more than 1e-4: {off}")
     emit({"phase": "model_parity", "ok": True, "config":
           "llama2_7b(num_layers=2, dtype=float32)", "tokens": [1, 256],
           "max_abs_err": err, "max_abs_logit": cpu_logits.abs().max().item(),
@@ -465,34 +542,51 @@ def phase_serve(batch=4, prompt=1024, new_tokens=64):
     return launches
 
 
+FLASH_NL =("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
+FLASH_HM = ("flash_hm_fwd", "flash_hm_bwd_dkdv", "flash_hm_bwd_dq")
+
 
 def _flash_counts():
-    from ray_tpu_torch.ops.flash_attention import (flash_attention_bwd,
-                                                   flash_attention_fwd)
-    return {"flash_fwd": flash_attention_fwd.launches,
-            "flash_bwd_dkdv": flash_attention_bwd.launches_dkdv,
-            "flash_bwd_dq": flash_attention_bwd.launches_dq}
+    nl_fwd, nl_bwd = _family(False)
+    hm_fwd, hm_bwd = _family(True)
+    return dict(zip(FLASH_NL + FLASH_HM, (
+        nl_fwd.launches, nl_bwd.launches_dkdv, nl_bwd.launches_dq,
+        hm_fwd.launches, hm_bwd.launches_dkdv, hm_bwd.launches_dq)))
+
+
+def _flash_per(n, hm):
+    """``n`` launches of each kernel of one family, none of the other."""
+    return {**dict.fromkeys(FLASH_NL, 0 if hm else n),
+            **dict.fromkeys(FLASH_HM, n if hm else 0)}
 
 
 def _zero_counts():
-    from ray_tpu_torch.ops.flash_attention import (flash_attention_bwd,
-                                                   flash_attention_fwd)
     from ray_tpu_torch.ops.fused import fused_rmsnorm
-    flash_attention_fwd.launches = 0
-    flash_attention_bwd.launches_dkdv = 0
-    flash_attention_bwd.launches_dq = 0
+    for fwd, bwd in (_family(False), _family(True)):
+        fwd.launches = bwd.launches_dkdv = bwd.launches_dq = 0
     fused_rmsnorm.launches = 0
+
+
+def _free():
+    """Return the finished phase's memory before the next model."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _delta(before, after):
     return {k: after[k] - before[k] for k in after}
 
 
-def phase_train_parity():
+def phase_train_parity(preset="gpt2_small", hm=False,
+                       phase="train_parity"):
+    """One training step of a 2-layer, full-width GPT-2 ``preset`` in f32
+    on the card (kernels of the family its shape routes to: native
+    layout, or head-major with ``hm``) and on the CPU (plain versions)."""
     import copy
     from ray_tpu_torch.models.gpt2 import GPT2, GPT2Config, adamw, train_step
-    cfg = dataclasses.replace(GPT2Config.gpt2_small(dtype=torch.float32),
-                              num_layers=2)
+    cfg = dataclasses.replace(
+        getattr(GPT2Config, preset)(dtype=torch.float32), num_layers=2)
     lr = 3e-4
     t0 = time.perf_counter()
     cpu = GPT2(cfg, device="cpu",
@@ -511,8 +605,7 @@ def phase_train_parity():
                           tokens.cuda(), **kw).item()
     torch.cuda.synchronize()
     launched = _delta(c1, _flash_counts())
-    assert launched == {"flash_fwd": 2, "flash_bwd_dkdv": 2,
-                        "flash_bwd_dq": 2}, launched
+    assert launched == _flash_per(2, hm), launched
     assert abs(gpu_loss - cpu_loss) <= 1e-5 * abs(cpu_loss), (gpu_loss,
                                                              cpu_loss)
     gpu_params = dict(gpu.named_parameters())
@@ -529,9 +622,12 @@ def phase_train_parity():
         # cosine.  An element whose gradient is below eps (1e-8) is
         # noise-driven: the key third of attn_qkv.bias, whose exact
         # gradient is 0 (a key bias shifts every score of a query
-        # alike), is left out.
-        dc = (p.detach() - before[name]).flatten()
-        dg = (q.detach().cpu() - before[name]).flatten()
+        # alike), is left out.  The sums are f64: a CPU f32 dot product
+        # over GPT-2 XL's 80 M wte elements of ~lr^2 each loses most of
+        # its terms and reads a cosine of 0.93 between two identical
+        # updates.
+        dc = (p.detach() - before[name]).flatten().double()
+        dg = (q.detach().cpu() - before[name]).flatten().double()
         if name.endswith("attn_qkv.bias"):
             dc, dg = torch.cat([dc[:e], dc[2 * e:]]), torch.cat(
                 [dg[:e], dg[2 * e:]])
@@ -539,8 +635,8 @@ def phase_train_parity():
         worst_cos = min(worst_cos, (cos, name))
     assert worst_grad[0] <= TRAIN_GRAD_TOL, worst_grad
     assert worst_cos[0] >= 0.999, worst_cos
-    emit({"phase": "train_parity", "ok": True, "config":
-          "gpt2_small(num_layers=2, dtype=float32)", "tokens": [2, 256],
+    emit({"phase": phase, "ok": True, "config":
+          f"{preset}(num_layers=2, dtype=float32)", "tokens": [2, 256],
           "head_chunk": TRAIN_PARITY_CHUNK, "loss_cpu": cpu_loss,
           "loss_gpu": gpu_loss, "worst_grad_err_over_max": worst_grad[0],
           "worst_grad_param": worst_grad[1],
@@ -570,9 +666,12 @@ def profile_step(model, opt, tokens, kw, vocab):
     step's own span.  The span is a host range opened before the step
     and closed after a final synchronize, so it holds all of the step's
     device work; busy is the union of its kernels' intervals, on the
-    profiler's one clock.  Dense and LM-head products are told apart by
-    the shapes of the matmul op that launched them (the head's carry the
-    vocabulary size)."""
+    profiler's one clock.  The device's timestamps are mapped onto that
+    clock, and once (GPT-2 XL on an H100) a kernel landed outside the
+    range: the span is widened to cover every kernel, and how many fell
+    outside, and by how many us, is reported.  Dense and LM-head products
+    are told apart by the shapes of the matmul op that launched them (the
+    head's carry the vocabulary size); the flash kernels by name."""
     from torch.profiler import ProfilerActivity, profile, record_function
     from ray_tpu_torch.models.gpt2 import loss_fn
     torch.cuda.synchronize()
@@ -591,9 +690,13 @@ def profile_step(model, opt, tokens, kw, vocab):
             if ev.device_type == torch.autograd.DeviceType.CPU:
                 step = ev
         elif ev.device_type == torch.autograd.DeviceType.CUDA:
+            if getattr(ev, "is_user_annotation", False):
+                # a host range's copy on the device timeline (that of
+                # Optimizer.step) spans kernels counted on their own
+                continue
             ms = ev.time_range.elapsed_us() / 1e3
             kernel_sum += ms
-            spans.append((ev.time_range.start, ev.time_range.end))
+            spans.append((ev.time_range.start, ev.time_range.end, ev.name))
             if "flash_fwd" in ev.name:
                 kinds["flash_fwd"] += ms
             elif "bwd_dkdv" in ev.name or "bwd_dq" in ev.name:
@@ -607,12 +710,42 @@ def profile_step(model, opt, tokens, kw, vocab):
                 kinds["optimizer"] += ms
     kinds["elementwise_other"] = kernel_sum - sum(kinds.values())
     t0, t1 = step.time_range.start, step.time_range.end
-    assert all(t0 <= s and e <= t1 for s, e in spans), \
-        "kernels outside the profiled step's span"
+    outside = [(name, s - t0, e - t1) for s, e, name in spans
+               if s < t0 or e > t1]
+    t0 = min([t0] + [s for s, _, _ in spans])
+    t1 = max([t1] + [e for _, e, _ in spans])
     wall = (t1 - t0) / 1e3
-    busy = _union_ms(spans)
+    busy = _union_ms([(s, e) for s, e, _ in spans])
     return {"device_ms_by_kind": kinds, "kernels": len(spans),
             "kernel_ms_sum": kernel_sum, "busy_ms": busy, "wall_ms": wall,
+            "idle_share": 1 - busy / wall, "outside_host_range":
+            {"count": len(outside), "first": outside[:3]}}
+
+
+def device_traced_step(model, opt, tokens, kw):
+    """One training step traced for device activity only: the host does
+    little more work than in an untraced step, which a step of many
+    launches needs (with host ops and shapes traced, GPT-2 XL's profiled
+    step stretches past its kernels).  Its wall time on the host clock,
+    between two synchronizes, against the union of its kernels'
+    intervals."""
+    from torch.profiler import ProfilerActivity, profile
+    from ray_tpu_torch.models.gpt2 import loss_fn
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss_fn(model, tokens, **kw).backward()
+        opt.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = [(ev.time_range.start, ev.time_range.end)
+             for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA
+             and not getattr(ev, "is_user_annotation", False)]
+    assert spans, "no kernel in the device-only trace"
+    busy = _union_ms(spans)
+    return {"kernels": len(spans), "busy_ms": busy, "wall_ms": wall,
             "idle_share": 1 - busy / wall}
 
 
@@ -637,10 +770,18 @@ def head_cost(model, tokens, timer):
     return out
 
 
-def phase_train(batch=32, seq=1024, steps=10):
+def phase_train(preset="gpt2_small", batch=32, seq=1024, steps=10,
+                hm=False, loss_drop=TRAIN_LOSS_DROP, phase="train",
+                with_head_cost=True):
+    """Train GPT-2 ``preset`` at full width and depth from random weights
+    on one random batch: 1 warm-up and ``steps`` timed steps, each
+    launching every flash kernel of its family (head-major with ``hm``)
+    once per layer and none of the other family; then one profiled step,
+    one step traced for device activity only and, ``with_head_cost``, the
+    LM head's cost by logits dtype."""
     from ray_tpu_torch.models.gpt2 import GPT2, GPT2Config, adamw, train_step
     from ray_tpu_torch.ops.fused import fused_rmsnorm
-    cfg = GPT2Config.gpt2_small(max_seq_len=seq)
+    cfg = getattr(GPT2Config, preset)(max_seq_len=seq)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     model, init_s = _sync_time(lambda: GPT2(cfg, device="cuda",
                                             generator=gen))
@@ -648,8 +789,7 @@ def phase_train(batch=32, seq=1024, steps=10):
     tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
                            device="cuda")
     kw = dict(head_logits_dtype=torch.bfloat16)
-    per_step = dict.fromkeys(("flash_fwd", "flash_bwd_dkdv",
-                              "flash_bwd_dq"), cfg.num_layers)
+    per_step = _flash_per(cfg.num_layers, hm)
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
     losses = []
@@ -665,24 +805,29 @@ def phase_train(batch=32, seq=1024, steps=10):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [x.item() for x in losses]
     assert all(map(math.isfinite, losses)), losses
-    assert losses[-1] < losses[0] - TRAIN_LOSS_DROP, losses
+    assert losses[-1] < losses[0] - loss_drop, losses
     step_ms = elapsed / steps * 1e3
     tokens_per_s = batch * seq / (elapsed / steps)
     profiled = profile_step(model, opt, tokens, kw, cfg.vocab_size)
-    head_ms = head_cost(model, tokens, Timer(iters=5, warmup=1))
-    emit({"phase": "train", "config": "gpt2_small (12 layers, bf16 compute,"
-          " f32 masters)", "batch": batch, "seq": seq, "steps": steps,
+    traced = device_traced_step(model, opt, tokens, kw)
+    head_ms = (head_cost(model, tokens, Timer(iters=5, warmup=1))
+               if with_head_cost else None)
+    emit({"phase": phase, "config": f"{preset} ({cfg.num_layers} layers, "
+          f"{cfg.embed_dim} wide, {cfg.num_heads} heads, bf16 compute, f32 "
+          f"masters, remat={cfg.remat!r})", "num_params": cfg.num_params(),
+          "batch": batch, "seq": seq, "steps": steps,
           "warmup_steps": 1, "init_s": init_s, "warmup_s": warm_s,
           "step_ms": step_ms, "tokens_per_s": tokens_per_s,
           "flops_per_token": cfg.flops_per_token(),
           "mfu": tokens_per_s * cfg.flops_per_token()
           / PEAK_FLOPS[torch.bfloat16],
           "peak_memory_gb": peak_gb, "losses": losses,
-          "loss_drop_min": TRAIN_LOSS_DROP,
+          "loss_drop_min": loss_drop,
           "launches_per_step": per_step, "launches": launches,
-          "profiled_step": profiled, "lm_head_fwd_bwd_ms": head_ms,
+          "profiled_step": profiled, "device_traced_step": traced,
+          "lm_head_fwd_bwd_ms": head_ms,
           "card": card_line()})
-    emit({"phase": "train", "ok": True})
+    emit({"phase": phase, "ok": True})
     del model, opt
     return launches
 
@@ -697,6 +842,13 @@ SUMMARY = {  # name: (source, TPU kernel it replaces, shape in the table)
                      "ray_tpu/ops/flash_attention.py:680", list(GPT2_SHAPE)),
     "rmsnorm": ("ray_tpu_torch/ops/csrc/rmsnorm.cu",
                 "ray_tpu/ops/fused.py:23", [4096, 4096]),
+    "flash_hm_fwd": ("ray_tpu_torch/ops/csrc/flash_fwd.cu",
+                     "ray_tpu/ops/flash_attention.py:82", list(XL_SHAPE)),
+    "flash_hm_bwd_dkdv": ("ray_tpu_torch/ops/csrc/flash_bwd.cu",
+                          "ray_tpu/ops/flash_attention.py:212",
+                          list(XL_SHAPE)),
+    "flash_hm_bwd_dq": ("ray_tpu_torch/ops/csrc/flash_bwd.cu",
+                        "ray_tpu/ops/flash_attention.py:268", list(XL_SHAPE)),
 }
 
 
@@ -707,8 +859,7 @@ def kernel_summary(cases, by_path):
     version and SDPA's backward), as neither splits it."""
     rows = []
     for name, (src, replaces, shape) in SUMMARY.items():
-        kind = "flash_bwd" if name.startswith("flash_bwd") else name
-        part = name.rsplit("_", 1)[1] if kind == "flash_bwd" else None
+        kind, part = name.rsplit("_", 1) if "_bwd_" in name else (name, None)
         c = next(c for c in cases if c["kernel"] == kind
                  and c["shape"] == shape and c["dtype"] == "bfloat16"
                  and "plain_ms" in c)
@@ -743,10 +894,19 @@ def main() -> int:
     phase_build()
     cases = phase_kernels()
     phase_model_parity()
+    _free()
     serve = phase_serve()
+    _free()
     phase_train_parity()
     train = phase_train()
-    emit(kernel_summary(cases, {"serve": serve, "train": train}))
+    _free()
+    phase_train_parity("gpt2_xl", hm=True, phase="train_parity_xl")
+    _free()
+    train_xl = phase_train("gpt2_xl", batch=8, steps=XL_STEPS, hm=True,
+                           loss_drop=XL_LOSS_DROP, phase="train_xl",
+                           with_head_cost=False)
+    emit(kernel_summary(cases, {"serve": serve, "train": train,
+                                "train_xl": train_xl}))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -8,9 +8,12 @@ Dense ``kernel [in, out]`` becomes ``weight [out, in]``; see
 head, and ``optax.adamw`` as ``torch.optim.AdamW``.
 
 Attention is the flash kernels (``ops.flash_attention``: forward, and the
-dK/dV and dQ kernels in the backward).  LayerNorm, GELU, the dense
-products and the LM head are plain torch, as the JAX package left them
-to XLA.
+dK/dV and dQ kernels in the backward), of the family the JAX package
+picks for the shape: the native-layout kernels where the head count
+allows them (GPT-2 small, medium, large: 12, 16, 20 heads of 64), the
+head-major ones otherwise (GPT-2 XL: 25 heads of 64; ``tiny``: head_dim
+32).  LayerNorm, GELU, the dense products and the LM head are plain
+torch, as the JAX package left them to XLA.
 
 Numerics follow the flax model:
 

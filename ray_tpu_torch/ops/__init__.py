@@ -7,6 +7,8 @@ from ray_tpu_torch.ops.flash_attention import (  # noqa: F401
     flash_attention,
     flash_attention_bwd,
     flash_attention_fwd,
+    flash_attention_hm_bwd,
+    flash_attention_hm_fwd,
     kernel_block_for,
 )
 from ray_tpu_torch.ops.fused import (  # noqa: F401

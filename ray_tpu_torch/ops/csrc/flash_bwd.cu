@@ -1,7 +1,13 @@
-// Flash-attention backward for Hopper (sm_90a), native [B, T, H, D] layout.
+// Flash-attention backward for Hopper (sm_90a) over [B, T, H, D].
 //
 // Replaces: ray_tpu/ops/flash_attention.py::_fa_nl_bwd_dkdv_kernel (dK, dV)
-// and ::_fa_nl_bwd_dq_kernel (dQ), both launched by _flash_nl_backward.
+// and ::_fa_nl_bwd_dq_kernel (dQ), launched by _flash_nl_backward (the
+// native-layout family; entry points rtt_flash_bwd_dkdv, rtt_flash_bwd_dq),
+// and ::_fa_bwd_dkdv_kernel and ::_fa_bwd_dq_kernel, launched by
+// _flash_backward (the head-major family; the same entry points).  The two
+// families compute the same function and differ only in the layout the TPU
+// tiles need (flash_common.cuh); these kernels read [B, T, H, D] by
+// strides for both.
 // Given the forward's row log-sum-exp LSE, the output's cotangent dO and
 // delta = rowsum(dO * O) (computed outside, as the JAX package computes it
 // outside its Pallas kernels):
@@ -19,13 +25,14 @@
 // are 201 M visible (query, key) pairs.  dK/dV does 8 * D flops per pair
 // (103 GFLOP, 104 us at 989 TFLOP/s) against q, k, v, dO read and dK, dV
 // written once (302 MB, 90 us at 3.35 TB/s); dQ does 6 * D flops per pair
-// (77 GFLOP, 78 us) against five tensors (252 MB, 75 us).  Both sit where
-// the two bounds meet, so the design keeps every [T, T] intermediate
+// (77 GFLOP, 78 us) against five tensors (252 MB, 75 us).  At GPT-2 XL's
+// [8, 1024, 25, 64] operations bound both (dK/dV 54 us, dQ 41 us).  Both sit
+// near where the two bounds meet, so the design keeps every [T, T] intermediate
 // (S, P, dP, dS) in registers and reads each tensor tile once per block.
 //
 // Design.  Two kernels, no atomics, deterministic.
 //
-// dK/dV: one block per (64-key tile, batch * head); the Q tiles are walked
+// dK/dV: one block per (batch * head, 64-key tile); the Q tiles are walked
 // by a loop inside the block (the TPU's sequential grid axis).  With causal
 // the loop starts at the Q tile holding the block's first key, so tiles
 // entirely above the diagonal are never loaded; only the straddling tile
@@ -40,7 +47,7 @@
 // queries for the same reason.  dK and dV are written once, in the input
 // dtype.
 //
-// dQ: one block per (64-query tile, batch * head), looping over K tiles up
+// dQ: one block per (batch * head, 64-query tile), looping over K tiles up
 // to the diagonal.  Each warp owns 16 queries: S = Q K^T, P, dP = dO V^T
 // and dS in registers, then dQ += dS~ K with K read column-wise from shared
 // memory the way flash_fwd.cu reads V.  dQ is accumulated in registers
@@ -52,48 +59,22 @@
 // of a warp scores query (dK/dV) or key (dQ) j of a 32-wide tile, and
 // owns gradient columns j, j + 32, ...
 //
+// Head sizes: 32, 64 and 128.
+//
 // Simple first: no cp.async/TMA pipelining, no wgmma, no warp
 // specialisation.  Launches on the caller's stream; allocates nothing.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 128;
+using namespace flash;
 
 __device__ __forceinline__ float clamp_lse(float x) {
   return x <= kNegInf / 2 ? 0.f : x;
 }
 
 // ---------------------------------------------------------------- bf16 --
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo (low half)
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D (16x8, f32) += A (16x16, bf16, row-major) * B (16x8, bf16, col-major)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // A fragment of the 16x16 slice at (r0, c0) of a row-major shared tile
 // with row stride LD: (row g, k 0-7), (row g+8, k 0-7), (row g, k 8-15),
@@ -131,7 +112,7 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
   a[3] = pack_f32(hi[2], hi[3]);
 }
 
-// Copy rows [r0, r0 + ROWS) of one head of a [B, T, H, D] tensor into a
+// Copy rows [r0, r0 + ROWS) of one head (positions `rs` apart) into a
 // shared tile with row stride D + 8, zero past row `limit`.
 template <int D, int ROWS>
 __device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst,
@@ -175,11 +156,12 @@ bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t = lane & 3;  // mma fragment row / column pair
-  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
-  const int n0 = blockIdx.x * BN;
-  const size_t rs = (size_t)heads * D;  // stride between sequence positions
-  const size_t qoff = ((size_t)b * tq * heads + h) * D;
-  const size_t koff = ((size_t)b * tk * heads + h) * D;
+  const Work w = work_head_tiles_adjacent();
+  const int b = w.bh / heads, h = w.bh % heads;
+  const int n0 = w.tile * BN;
+  const size_t rs = (size_t)heads * D;  // between positions
+  const size_t qoff = slice_base<D>(b, h, heads, tq);
+  const size_t koff = slice_base<D>(b, h, heads, tk);
   const float* lse_b = lse + ((size_t)b * heads + h) * tq;
   const float* delta_b = delta + ((size_t)b * heads + h) * tq;
   const int key[2] = {n0 + warp * 16 + g, n0 + warp * 16 + g + 8};
@@ -284,17 +266,6 @@ constexpr size_t dq_bf16_smem() {
   return 4 * 64 * (D + 8) * sizeof(__nv_bfloat16);
 }
 
-// Index of the first key tile that need not be visited.
-__device__ __forceinline__ int key_tiles(int m0, int bm, int bn, int tq,
-                                         int tk, int causal) {
-  int n = (tk + bn - 1) / bn;
-  if (causal) {
-    const int last_q = min(m0 + bm, tq) - 1;
-    n = min(n, last_q / bn + 1);
-  }
-  return n;
-}
-
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
@@ -314,11 +285,12 @@ bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
-  const int m0 = blockIdx.x * BM;
+  const Work w = work_longest_first();
+  const int b = w.bh / heads, h = w.bh % heads;
+  const int m0 = w.tile * BM;
   const size_t rs = (size_t)heads * D;
-  const size_t qoff = ((size_t)b * tq * heads + h) * D;
-  const size_t koff = ((size_t)b * tk * heads + h) * D;
+  const size_t qoff = slice_base<D>(b, h, heads, tq);
+  const size_t koff = slice_base<D>(b, h, heads, tk);
   const int row[2] = {m0 + warp * 16 + g, m0 + warp * 16 + g + 8};
   float lse_r[2], delta_r[2];
 #pragma unroll
@@ -446,11 +418,12 @@ bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* delta_s = lse_s + BM;                 // [BM]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
-  const int n0 = blockIdx.x * BN;
+  const Work w = work_head_tiles_adjacent();
+  const int b = w.bh / heads, h = w.bh % heads;
+  const int n0 = w.tile * BN;
   const size_t rs = (size_t)heads * D;
-  const size_t qoff = ((size_t)b * tq * heads + h) * D;
-  const size_t koff = ((size_t)b * tk * heads + h) * D;
+  const size_t qoff = slice_base<D>(b, h, heads, tq);
+  const size_t koff = slice_base<D>(b, h, heads, tk);
   const float* lse_b = lse + ((size_t)b * heads + h) * tq;
   const float* delta_b = delta + ((size_t)b * heads + h) * tq;
 
@@ -480,6 +453,8 @@ bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float s[KPW], dpt[KPW];
 #pragma unroll
     for (int r = 0; r < KPW; ++r) s[r] = dpt[r] = 0.f;
+    // unrolled by 4: a full unroll spilled registers at D = 64
+#pragma unroll 4
     for (int d = 0; d < D; ++d) {
       const float qd = qs[lane * (D + 1) + d];
       const float dd = dos[lane * (D + 1) + d];
@@ -552,11 +527,12 @@ bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* vs = ks + BN * (D + 1);               // [BN][D + 1]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
-  const int m0 = blockIdx.x * BM;
+  const Work w = work_longest_first();
+  const int b = w.bh / heads, h = w.bh % heads;
+  const int m0 = w.tile * BM;
   const size_t rs = (size_t)heads * D;
-  const size_t qoff = ((size_t)b * tq * heads + h) * D;
-  const size_t koff = ((size_t)b * tk * heads + h) * D;
+  const size_t qoff = slice_base<D>(b, h, heads, tq);
+  const size_t koff = slice_base<D>(b, h, heads, tk);
 
   stage_f32<D, BM, D>(qs, q + qoff, m0, tq, rs, tid);
   stage_f32<D, BM, D>(dos, dout + qoff, m0, tq, rs, tid);
@@ -625,72 +601,66 @@ bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// Launch with `smem` bytes of dynamic shared memory (above 48 KB only
-// after opting in) and return the launch's error.
-template <typename... KArgs, typename... Args>
-cudaError_t launch(void (*kernel)(KArgs...), dim3 grid, size_t smem,
-                   cudaStream_t s, Args... args) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  kernel<<<grid, kThreads, smem, s>>>(args...);
-  return cudaGetLastError();
-}
-
 using bf16 = __nv_bfloat16;
 
-template <int D>
-cudaError_t launch_dkdv(const void* q, const void* k, const void* v,
-                        const void* dout, const float* lse,
-                        const float* delta, void* dk, void* dv, int batch,
-                        int tq, int tk, int heads, float scale, int causal,
-                        int dtype, cudaStream_t s) {
-  if (dtype == 0)
-    return launch(bwd_dkdv_f32_kernel<D>,
-                  dim3((tk + 15) / 16, batch * heads), dkdv_f32_smem<D>(), s,
-                  static_cast<const float*>(q), static_cast<const float*>(k),
-                  static_cast<const float*>(v),
-                  static_cast<const float*>(dout), lse, delta,
-                  static_cast<float*>(dk), static_cast<float*>(dv), heads, tq,
-                  tk, scale, causal);
-  return launch(bwd_dkdv_bf16_kernel<D>, dim3((tk + 63) / 64, batch * heads),
-                dkdv_bf16_smem<D>(), s, static_cast<const bf16*>(q),
-                static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-                static_cast<const bf16*>(dout), lse, delta,
-                static_cast<bf16*>(dk), static_cast<bf16*>(dv), heads, tq, tk,
-                scale, causal);
+int dkdv(const void* q, const void* k, const void* v, const void* dout,
+         const void* lse, const void* delta, void* dk, void* dv, int batch,
+         int tq, int tk, int heads, int head_dim, float scale, int causal,
+         int dtype, void* stream) {
+  if (bad_args(batch, tq, tk, heads, dtype)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  return (int)by_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    if (dtype == 0)
+      return launch(bwd_dkdv_f32_kernel<D>,
+                    dim3(batch * heads, (tk + 15) / 16), dkdv_f32_smem<D>(), s,
+                    static_cast<const float*>(q), static_cast<const float*>(k),
+                    static_cast<const float*>(v),
+                    static_cast<const float*>(dout), l, dl,
+                    static_cast<float*>(dk), static_cast<float*>(dv), heads,
+                    tq, tk, scale, causal);
+    return launch(bwd_dkdv_bf16_kernel<D>,
+                  dim3(batch * heads, (tk + 63) / 64), dkdv_bf16_smem<D>(), s,
+                  static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+                  l, dl, static_cast<bf16*>(dk), static_cast<bf16*>(dv), heads,
+                  tq, tk, scale, causal);
+  });
 }
 
-template <int D>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* dout, const float* lse, const float* delta,
-                      void* dq_out, int batch, int tq, int tk, int heads,
-                      float scale, int causal, int dtype, cudaStream_t s) {
-  if (dtype == 0)
-    return launch(bwd_dq_f32_kernel<D>, dim3((tq + 15) / 16, batch * heads),
-                  dq_f32_smem<D>(), s, static_cast<const float*>(q),
-                  static_cast<const float*>(k), static_cast<const float*>(v),
-                  static_cast<const float*>(dout), lse, delta,
-                  static_cast<float*>(dq_out), heads, tq, tk, scale, causal);
-  return launch(bwd_dq_bf16_kernel<D>, dim3((tq + 63) / 64, batch * heads),
-                dq_bf16_smem<D>(), s, static_cast<const bf16*>(q),
-                static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-                static_cast<const bf16*>(dout), lse, delta,
-                static_cast<bf16*>(dq_out), heads, tq, tk, scale, causal);
-}
-
-bool bad_args(int batch, int tq, int tk, int heads, int dtype) {
-  return batch <= 0 || tq <= 0 || tk <= 0 || heads <= 0 ||
-         batch * heads > 65535 || (dtype != 0 && dtype != 1);
+int dq(const void* q, const void* k, const void* v, const void* dout,
+       const void* lse, const void* delta, void* dq_out, int batch, int tq,
+       int tk, int heads, int head_dim, float scale, int causal, int dtype,
+       void* stream) {
+  if (bad_args(batch, tq, tk, heads, dtype)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  return (int)by_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    if (dtype == 0)
+      return launch(bwd_dq_f32_kernel<D>,
+                    dim3(batch * heads, (tq + 15) / 16), dq_f32_smem<D>(), s,
+                    static_cast<const float*>(q), static_cast<const float*>(k),
+                    static_cast<const float*>(v),
+                    static_cast<const float*>(dout), l, dl,
+                    static_cast<float*>(dq_out), heads, tq, tk, scale, causal);
+    return launch(bwd_dq_bf16_kernel<D>,
+                  dim3(batch * heads, (tq + 63) / 64), dq_bf16_smem<D>(), s,
+                  static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+                  l, dl, static_cast<bf16*>(dq_out), heads, tq, tk, scale,
+                  causal);
+  });
 }
 
 }  // namespace
 
 // q, dout [B, Tq, H, D], k, v [B, Tk, H, D] contiguous; lse, delta
-// [B, H, Tq] f32; dk, dv like k.  dtype: 0 = float32, 1 = bfloat16.
-// Returns the launch's cudaError_t.
+// [B, H, Tq] f32; dk, dv like k; head_dim 32, 64 or 128.  dtype:
+// 0 = float32, 1 = bfloat16.  Returns the launch's cudaError_t.
 extern "C" int rtt_flash_bwd_dkdv(const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const void* lse, const void* delta,
@@ -698,17 +668,8 @@ extern "C" int rtt_flash_bwd_dkdv(const void* q, const void* k,
                                   int tk, int heads, int head_dim,
                                   float scale, int causal, int dtype,
                                   void* stream) {
-  if (bad_args(batch, tq, tk, heads, dtype)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  if (head_dim == 64)
-    return (int)launch_dkdv<64>(q, k, v, dout, l, dl, dk, dv, batch, tq, tk,
-                                heads, scale, causal, dtype, s);
-  if (head_dim == 128)
-    return (int)launch_dkdv<128>(q, k, v, dout, l, dl, dk, dv, batch, tq, tk,
-                                 heads, scale, causal, dtype, s);
-  return (int)cudaErrorInvalidValue;
+  return dkdv(q, k, v, dout, lse, delta, dk, dv, batch, tq, tk, heads,
+              head_dim, scale, causal, dtype, stream);
 }
 
 // As rtt_flash_bwd_dkdv; dq like q.
@@ -718,15 +679,6 @@ extern "C" int rtt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 int tq, int tk, int heads, int head_dim,
                                 float scale, int causal, int dtype,
                                 void* stream) {
-  if (bad_args(batch, tq, tk, heads, dtype)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  if (head_dim == 64)
-    return (int)launch_dq<64>(q, k, v, dout, l, dl, dq_out, batch, tq, tk,
-                              heads, scale, causal, dtype, s);
-  if (head_dim == 128)
-    return (int)launch_dq<128>(q, k, v, dout, l, dl, dq_out, batch, tq, tk,
-                               heads, scale, causal, dtype, s);
-  return (int)cudaErrorInvalidValue;
+  return dq(q, k, v, dout, lse, delta, dq_out, batch, tq, tk, heads,
+            head_dim, scale, causal, dtype, stream);
 }

@@ -1,0 +1,129 @@
+// Shared by flash_fwd.cu and flash_bwd.cu: the layout the flash kernels
+// read, the block's place in the grid, and the mma.sync helpers.
+//
+// Layout.  Every kernel reads [B, T, H, D] by strides: one head's
+// positions lie H * D elements apart.  The JAX package has two kernel
+// families: its _fa_nl_* kernels read [B, T, H, D] in 128-lane slabs of
+// packed heads, and its _fa_* kernels read head-major [B, H, T, D], which
+// their wrappers make by transposing q, k, v and dO and undo on O, dQ, dK
+// and dV.  Both layouts exist to fit the TPU's tiles; here a stride does
+// that, so both families' wrappers launch these kernels on the caller's
+// tensors and no transpose is made.
+//
+// Grid.  (batch * heads, sequence tiles): gridDim.x takes up to 2^31 - 1
+// blocks, so no head count meets gridDim.y's limit of 65535.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace flash {
+
+constexpr float kNegInf = -1e30f;
+constexpr int kThreads = 128;
+
+// Offset of position 0 of head h of batch b in a [B, seq, H, D] tensor.
+template <int D>
+__device__ __forceinline__ size_t slice_base(int b, int h, int heads,
+                                             int seq) {
+  return ((size_t)b * seq * heads + h) * D;
+}
+
+// This block's (batch * head, sequence tile).  Blocks start in linear
+// order, blockIdx.x fastest.  Two orders, each the faster for its kernels
+// on an H100 (against each other and against the plain grid, which starts
+// every head's first tile, then every head's second one):
+struct Work {
+  int bh, tile;
+};
+
+// dQ: all heads' last query tiles first, then the
+// tiles before them.  A causal block's work grows with its tile, so the
+// longest blocks start first and the short ones fill the tail.
+__device__ __forceinline__ Work work_longest_first() {
+  return {(int)blockIdx.x, (int)(gridDim.y - 1 - blockIdx.y)};
+}
+
+// The forward and dK/dV: one head's tiles adjacent, so a head's blocks
+// run together and share in L2 the tiles they all walk (K and V in the
+// forward, Q and dO in dK/dV).  32-bit: a block covers at least 16
+// positions of one head, so 2^32 blocks would need inputs far beyond the
+// card's memory.
+__device__ __forceinline__ Work work_head_tiles_adjacent() {
+  const unsigned lin = blockIdx.y * gridDim.x + blockIdx.x;
+  return {(int)(lin / gridDim.y), (int)(lin % gridDim.y)};
+}
+
+// Index of the first key tile that need not be visited.
+__device__ __forceinline__ int key_tiles(int m0, int bm, int bn, int tq,
+                                         int tk, int causal) {
+  int n = (tk + bn - 1) / bn;
+  if (causal) {
+    const int last_q = min(m0 + bm, tq) - 1;
+    n = min(n, last_q / bn + 1);
+  }
+  return n;
+}
+
+__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo (low half)
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
+                                              __nv_bfloat16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) |
+         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// D (16x8, f32) += A (16x16, bf16, row-major) * B (16x8, bf16, col-major)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Launch with `smem` bytes of dynamic shared memory (above 48 KB only
+// after opting in) and return the launch's error.
+template <typename... KArgs, typename... Args>
+cudaError_t launch(void (*kernel)(KArgs...), dim3 grid, size_t smem,
+                   cudaStream_t s, Args... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<grid, kThreads, smem, s>>>(args...);
+  return cudaGetLastError();
+}
+
+inline bool bad_args(int batch, int tq, int tk, int heads, int dtype) {
+  return batch <= 0 || tq <= 0 || tk <= 0 || heads <= 0 ||
+         (dtype != 0 && dtype != 1);
+}
+
+template <int D>
+using HeadDim = std::integral_constant<int, D>;
+
+// fn(HeadDim<D>{}) for the head sizes the kernels take: 32, 64 and 128.
+// Any other size is cudaErrorInvalidValue.
+template <typename Fn>
+cudaError_t by_head_dim(int head_dim, Fn&& fn) {
+  if (head_dim == 32) return fn(HeadDim<32>{});
+  if (head_dim == 64) return fn(HeadDim<64>{});
+  if (head_dim == 128) return fn(HeadDim<128>{});
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace flash

@@ -1,26 +1,30 @@
-// Flash-attention forward for Hopper (sm_90a), native [B, T, H, D] layout.
+// Flash-attention forward for Hopper (sm_90a) over [B, T, H, D].
 //
-// Replaces: ray_tpu/ops/flash_attention.py::_fa_nl_kernel (Pallas,
-// launched by _flash_nl_forward).  Computes O = softmax(scale * Q K^T) V
-// with the causal mask aligned top-left (key k visible to query q iff
-// k <= q), online softmax in f32, and the row log-sum-exp
-// LSE = m + log(l).  A row with no visible key gives O = 0 and
-// LSE = -1e30, as the TPU kernel's epilogue does.
+// Replaces: ray_tpu/ops/flash_attention.py::_fa_nl_kernel (the native-layout
+// family, launched by _flash_nl_forward) and ::_fa_kernel (the head-major
+// family, launched by _flash_forward).  Both compute O = softmax(scale *
+// Q K^T) V with the causal mask aligned top-left (key k visible to query q
+// iff k <= q), online softmax in f32, and the row log-sum-exp
+// LSE = m + log(l).  A row with no visible key gives O = 0 and LSE = -1e30,
+// as the TPU kernels' epilogues do.  They differ only in the layout the TPU
+// tiles need (flash_common.cuh); this kernel reads [B, T, H, D] by strides
+// for both, and the port's wrappers count their launches apart.
 //
 // Bound: at the Llama-2-7B prefill shape [4, 1024, 32, 128] bf16 causal
 // the two bounds nearly meet: 134 MB of q/k/v/o (each read or written
 // once), ~40 us at 3.35 TB/s, and 4 * D flops per visible (query, key)
-// pair, ~34 GFLOP, ~35 us at 989 TFLOP/s.  Longer sequences are
+// pair, ~34 GFLOP, ~35 us at 989 TFLOP/s.  At GPT-2 XL's [8, 1024, 25, 64]
+// the bytes bound it (106 MB, ~32 us).  Longer sequences are
 // operation-bound (flops grow as T^2, bytes as T), so the design keeps
 // the tensor cores fed and every intermediate out of device memory.
 //
-// Design.  One block per (64-query tile, batch * head); the K/V tiles are
+// Design.  One block per (batch * head, 64-query tile); the K/V tiles are
 // walked by a loop inside the block (the TPU's sequential grid axis), and
 // with causal the loop stops at the diagonal, so tiles above it are never
 // loaded.  Only the tile straddling the diagonal (or the ragged end of the
-// sequence) is masked.  The TPU kernel's 128-lane head packing and its DMA
-// index clamps are TPU workarounds and have no counterpart here: the
-// kernel reads [B, T, H, D] by strides.
+// sequence) is masked.  The TPU kernels' 128-lane head packing, their DMA
+// index clamps and the head-major wrapper's transposes are TPU matters:
+// the kernel reads [B, T, H, D] by strides.
 //
 // bf16: four warps, each owning 16 query rows.  Q lives in registers as
 // mma.sync A fragments for the whole loop; each 64-key K/V tile is staged
@@ -28,7 +32,7 @@
 // reads).  S = Q K^T and O += P V are mma.sync.m16n8k16 with bf16 inputs
 // and f32 accumulation; the S accumulator is already in the A-fragment
 // layout of the P V product, so P never leaves registers.  P is rounded to
-// V's dtype before P V, as the TPU kernel does (p.astype(v.dtype)); the
+// V's dtype before P V, as the TPU kernels do (p.astype(v.dtype)); the
 // running max, running sum and O accumulator stay f32.
 //
 // f32: a plain FMA kernel (no tensor cores, so no TF32 rounding): four
@@ -37,55 +41,18 @@
 // columns j, j + 32, ...  It exists for the tight comparison with the
 // plain version and for f32 models; bf16 is the serving path.
 //
+// Head sizes: 32, 64 and 128.
+//
 // Simple first: no cp.async/TMA pipelining, no wgmma, no warp
 // specialisation.  Launches on the caller's stream; allocates nothing.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 128;
-
-// Index of the first key tile that need not be visited.
-__device__ __forceinline__ int key_tiles(int m0, int bm, int bn, int tq,
-                                         int tk, int causal) {
-  int n = (tk + bn - 1) / bn;
-  if (causal) {
-    const int last_q = min(m0 + bm, tq) - 1;
-    n = min(n, last_q / bn + 1);
-  }
-  return n;
-}
+using namespace flash;
 
 // ---------------------------------------------------------------- bf16 --
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo (low half)
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D (16x8, f32) += A (16x16, bf16, row-major) * B (16x8, bf16, col-major)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -100,12 +67,14 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t = lane & 3;  // mma fragment row / column pair
-  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
-  const int m0 = blockIdx.x * BM;
-  const size_t rs = (size_t)heads * D;  // stride between sequence positions
-  const __nv_bfloat16* qb = q + ((size_t)b * tq * heads + h) * D;
-  const __nv_bfloat16* kb = k + ((size_t)b * tk * heads + h) * D;
-  const __nv_bfloat16* vb = v + ((size_t)b * tk * heads + h) * D;
+  const Work w = work_head_tiles_adjacent();
+  const int b = w.bh / heads, h = w.bh % heads;
+  const int m0 = w.tile * BM;
+  const size_t rs = (size_t)heads * D;  // between positions
+  const size_t qoff = slice_base<D>(b, h, heads, tq);
+  const __nv_bfloat16* qb = q + qoff;
+  const __nv_bfloat16* kb = k + slice_base<D>(b, h, heads, tk);
+  const __nv_bfloat16* vb = v + slice_base<D>(b, h, heads, tk);
   const int row[2] = {m0 + warp * 16 + g, m0 + warp * 16 + g + 8};
 
   // Q as A fragments: [kk][0..3] = (row g, k 0-7), (row g+8, k 0-7),
@@ -228,7 +197,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     if (row[i] >= tq) continue;
     const float l_safe = l == 0.f ? 1.f : l;
-    __nv_bfloat16* orow = o + ((size_t)b * tq * heads + h) * D + row[i] * rs;
+    __nv_bfloat16* orow = o + qoff + row[i] * rs;
 #pragma unroll
     for (int nd = 0; nd < D / 8; ++nd)
       *reinterpret_cast<uint32_t*>(orow + nd * 8 + t * 2) =
@@ -253,12 +222,14 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   __shared__ float vs[BN][D];
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
-  const int m0 = blockIdx.x * BM;
+  const Work w = work_head_tiles_adjacent();
+  const int b = w.bh / heads, h = w.bh % heads;
+  const int m0 = w.tile * BM;
   const size_t rs = (size_t)heads * D;
-  const float* qb = q + ((size_t)b * tq * heads + h) * D;
-  const float* kb = k + ((size_t)b * tk * heads + h) * D;
-  const float* vb = v + ((size_t)b * tk * heads + h) * D;
+  const size_t qoff = slice_base<D>(b, h, heads, tq);
+  const float* qb = q + qoff;
+  const float* kb = k + slice_base<D>(b, h, heads, tk);
+  const float* vb = v + slice_base<D>(b, h, heads, tk);
 
   for (int c = tid; c < BM * D; c += kThreads) {
     const int r = c / D, d = c % D;
@@ -339,7 +310,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int qpos = m0 + warp * RPW + r;
     if (qpos >= tq) continue;
     const float l_safe = l_run[r] == 0.f ? 1.f : l_run[r];
-    float* orow = o + ((size_t)b * tq * heads + h) * D + qpos * rs;
+    float* orow = o + qoff + qpos * rs;
 #pragma unroll
     for (int i = 0; i < DPL; ++i) orow[lane + 32 * i] = acc[r][i] / l_safe;
     if (lane == 0)
@@ -348,45 +319,38 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D>
-void launch(const void* q, const void* k, const void* v, void* o, void* lse,
-            int batch, int tq, int tk, int heads, float scale, int causal,
-            int dtype, cudaStream_t s) {
-  if (dtype == 0) {
-    dim3 grid((tq + 15) / 16, batch * heads);
-    flash_fwd_f32_kernel<D><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o),
-        static_cast<float*>(lse), heads, tq, tk, scale, causal);
-  } else {
-    dim3 grid((tq + 63) / 64, batch * heads);
-    flash_fwd_bf16_kernel<D><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), heads, tq,
-        tk, scale, causal);
-  }
+int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+        int batch, int tq, int tk, int heads, int head_dim, float scale,
+        int causal, int dtype, void* stream) {
+  if (bad_args(batch, tq, tk, heads, dtype)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  using bf16 = __nv_bfloat16;
+  return (int)by_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    if (dtype == 0)
+      return launch(flash_fwd_f32_kernel<D>,
+                    dim3(batch * heads, (tq + 15) / 16), 0, s,
+                    static_cast<const float*>(q), static_cast<const float*>(k),
+                    static_cast<const float*>(v), static_cast<float*>(o), l,
+                    heads, tq, tk, scale, causal);
+    return launch(flash_fwd_bf16_kernel<D>,
+                  dim3(batch * heads, (tq + 63) / 64), 0, s,
+                  static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v), static_cast<bf16*>(o), l, heads,
+                  tq, tk, scale, causal);
+  });
 }
 
 }  // namespace
 
 // q [B, Tq, H, D], k/v [B, Tk, H, D] contiguous, o like q, lse [B, H, Tq]
-// f32.  dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError().
+// f32; head_dim 32, 64 or 128.  dtype: 0 = float32, 1 = bfloat16.
+// Returns the launch's cudaError_t.
 extern "C" int rtt_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int batch, int tq, int tk,
                              int heads, int head_dim, float scale, int causal,
                              int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (batch <= 0 || tq <= 0 || tk <= 0 || heads <= 0 ||
-      batch * heads > 65535 || (dtype != 0 && dtype != 1))
-    return (int)cudaErrorInvalidValue;
-  if (head_dim == 64)
-    launch<64>(q, k, v, o, lse, batch, tq, tk, heads, scale, causal, dtype, s);
-  else if (head_dim == 128)
-    launch<128>(q, k, v, o, lse, batch, tq, tk, heads, scale, causal, dtype,
-                s);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return fwd(q, k, v, o, lse, batch, tq, tk, heads, head_dim, scale, causal,
+             dtype, stream);
 }

@@ -1,12 +1,27 @@
 """Flash attention: the CUDA kernels ``csrc/flash_fwd.cu`` (forward) and
-``csrc/flash_bwd.cu`` (dK/dV and dQ), each beside its plain version.
+``csrc/flash_bwd.cu`` (dK/dV and dQ), behind the JAX package's two kernel
+families, each beside its plain version.
 
-Counterpart of ``ray_tpu/ops/flash_attention.py``: the native-layout
-forward ``_fa_nl_kernel``, the backward ``_flash_nl_backward`` with its
-kernels ``_fa_nl_bwd_dkdv_kernel`` and ``_fa_nl_bwd_dq_kernel``, the
-``custom_vjp`` ``_flash_nl`` (here a ``torch.autograd.Function``) and
-``_attention_reference``.  Shapes are ``[batch, seq, heads, head_dim]``
-in and out, as in the JAX package.
+Counterpart of ``ray_tpu/ops/flash_attention.py``:
+
+* the native-layout ("NL") family: the forward ``_fa_nl_kernel``, the
+  backward ``_flash_nl_backward`` with ``_fa_nl_bwd_dkdv_kernel`` and
+  ``_fa_nl_bwd_dq_kernel``, and their ``custom_vjp`` ``_flash_nl`` (here
+  :func:`flash_attention_fwd`, :func:`flash_attention_bwd` and a
+  ``torch.autograd.Function``); head_dim 64 or 128.
+* the head-major ("HM") family: ``_flash_forward`` with ``_fa_kernel``,
+  ``_flash_backward`` with ``_fa_bwd_dkdv_kernel`` and
+  ``_fa_bwd_dq_kernel``, and ``_flash`` (here
+  :func:`flash_attention_hm_fwd`, :func:`flash_attention_hm_bwd` and the
+  same Function); head_dim 32, 64 or 128.  The JAX wrappers transpose
+  to ``[B, H, T, D]`` for the TPU's tiles; the CUDA kernels read
+  ``[B, T, H, D]`` by strides, so both families launch them on the
+  caller's tensors and count their launches apart.
+* the dispatch between the two, ``_nl_eligible``, and
+  ``_attention_reference``.
+
+Every public function takes and returns ``[batch, seq, heads,
+head_dim]``, as in the JAX package.
 
 The causal mask is aligned top-left (key ``k`` visible to query ``q`` iff
 ``k <= q``), as every TPU kernel aligns it.  ``_attention_reference``
@@ -23,7 +38,8 @@ import torch
 from ray_tpu_torch.ops import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
+NL_HEAD_DIMS = (64, 128)  # the JAX package's _nl_eligible
+HM_HEAD_DIMS = (32, 64, 128)
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -94,6 +110,17 @@ def attention_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
 
 
+def _nl_eligible(q, k, v) -> bool:
+    """The native-layout kernels take head_dim 64 or 128 with the head
+    count a multiple of the TPU's per-slab packing factor (the JAX
+    package's rule, kept so that both packages pick the same family)."""
+    dim = q.shape[-1]
+    if dim not in NL_HEAD_DIMS:
+        return False
+    pack = 128 // dim
+    return q.shape[2] % pack == 0 and k.shape[2] % pack == 0
+
+
 def _validate(q, k, v, causal):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes [batch, seq, heads, "
@@ -112,24 +139,47 @@ def _validate(q, k, v, causal):
                         f"{k.dtype}, {v.dtype}")
 
 
-def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True,
-                        scale: Optional[float] = None
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(out [B,Tq,H,D] in the input dtype, lse [B,H,Tq] f32)``.
-
-    CPU tensors take :func:`attention_reference`; CUDA tensors launch the
-    kernel (head_dim 64 or 128, f32 or bf16, contiguous) or raise.
-    """
+def _validate_bwd(q, k, v, out, lse, do, causal):
     _validate(q, k, v, causal)
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v, causal, scale)
-    _check_kernel_inputs(q, k, v)
+    if out.shape != q.shape or do.shape != q.shape \
+            or lse.shape != (q.shape[0], q.shape[2], q.shape[1]):
+        raise ValueError(
+            f"flash attention backward: out {tuple(out.shape)}, do "
+            f"{tuple(do.shape)}, lse {tuple(lse.shape)} do not fit q "
+            f"{tuple(q.shape)}")
+    if out.dtype != q.dtype or do.dtype != q.dtype \
+            or lse.dtype != torch.float32:
+        raise TypeError(f"flash attention backward: out {out.dtype}, do "
+                        f"{do.dtype}, lse {lse.dtype} (need q's dtype "
+                        f"{q.dtype} and f32)")
+
+
+def _check_kernel_inputs(head_dims, *tensors):
+    """What the CUDA kernels take: one CUDA device, contiguous 16-byte
+    aligned tensors, a head_dim in ``head_dims``, no empty input."""
+    q, k = tensors[0], tensors[1]
+    if q.device.type != "cuda" or any(x.device != q.device
+                                      for x in tensors):
+        raise ValueError("flash_attention: inputs on "
+                         f"{[str(x.device) for x in tensors]}; need one "
+                         "CUDA device")
+    dim = q.shape[-1]
+    if dim not in head_dims:
+        raise ValueError(f"flash kernel takes head_dim in {head_dims}, "
+                         f"got {dim}")
+    if not all(x.is_contiguous() and x.data_ptr() % 16 == 0
+               for x in tensors):
+        raise ValueError("flash_attention: inputs must be contiguous and "
+                         "16-byte aligned")
+    if q.numel() == 0 or k.numel() == 0:
+        raise ValueError("flash_attention: empty input")
+
+
+def _launch_fwd(q, k, v, causal, scale, hm=False):
+    """The forward kernel on checked CUDA inputs, counted as #1 (native
+    layout) or, with ``hm``, #5 (head-major): ``(out like q, lse
+    [B,H,Tq] f32)``."""
     batch, seq_q, heads, dim = q.shape
-    seq_k = k.shape[1]
-    code = _build.dtype_code(q.dtype)
     out = torch.empty_like(q)
     lse = torch.empty(batch, heads, seq_q, dtype=torch.float32,
                       device=q.device)
@@ -138,70 +188,50 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         _build.check(lib.rtt_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), batch, seq_q, seq_k, heads, dim, float(scale),
-            int(causal), code, stream), "flash_fwd kernel")
-    flash_attention_fwd.launches += 1
+            lse.data_ptr(), batch, seq_q, k.shape[1], heads, dim,
+            float(scale), int(causal), _build.dtype_code(q.dtype), stream),
+            "flash_fwd kernel")
+    (flash_attention_hm_fwd if hm else flash_attention_fwd).launches += 1
     return out, lse
+
+
+def _forward(q, k, v, causal, scale, hm):
+    _validate(q, k, v, causal)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v, causal, scale)
+    _check_kernel_inputs(HM_HEAD_DIMS if hm else NL_HEAD_DIMS, q, k, v)
+    return _launch_fwd(q, k, v, causal, scale, hm)
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Native-layout family (``_flash_nl_forward``): ``(out [B,Tq,H,D] in
+    the input dtype, lse [B,H,Tq] f32)``.
+
+    CPU tensors take :func:`attention_reference`; CUDA tensors launch
+    kernel #1 (head_dim 64 or 128, f32 or bf16, contiguous) or raise.
+    """
+    return _forward(q, k, v, causal, scale, hm=False)
 
 
 flash_attention_fwd.launches = 0
 
 
-def _check_kernel_inputs(*tensors):
-    """What the CUDA kernels take: one CUDA device, contiguous 16-byte
-    aligned tensors, head_dim 64 or 128, a grid that fits."""
-    q, k = tensors[0], tensors[1]
-    if q.device.type != "cuda" or any(x.device != q.device
-                                      for x in tensors):
-        raise ValueError("flash_attention: inputs on "
-                         f"{[str(x.device) for x in tensors]}; need one "
-                         "CUDA device")
-    batch, _, heads, dim = q.shape
-    if dim not in HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head_dim in {HEAD_DIMS}, "
-                         f"got {dim}")
-    if not all(x.is_contiguous() and x.data_ptr() % 16 == 0
-               for x in tensors):
-        raise ValueError("flash_attention: inputs must be contiguous and "
-                         "16-byte aligned")
-    if batch * heads > 65535:
-        raise ValueError(f"flash kernel grid: batch*heads={batch * heads} "
-                         "exceeds 65535")
-    if q.numel() == 0 or k.shape[1] == 0:
-        raise ValueError("flash_attention: empty input")
+def flash_attention_hm_fwd(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, *, causal: bool = True,
+                           scale: Optional[float] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Head-major family (``_flash_forward``): as
+    :func:`flash_attention_fwd`, launching kernel #5 (head_dim 32, 64 or
+    128) on the caller's ``[B,T,H,D]`` tensors, or raising."""
+    return _forward(q, k, v, causal, scale, hm=True)
 
 
-def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        out: torch.Tensor, lse: torch.Tensor,
-                        do: torch.Tensor, *, causal: bool, scale: float
-                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(dq, dk, dv)`` in the input dtype, from the forward's ``out`` and
-    ``lse [B,H,Tq]`` and the cotangent ``do`` (like ``out``).
-
-    CPU tensors take :func:`attention_backward_reference`; CUDA tensors
-    compute ``delta`` with plain torch (as the JAX package computes it
-    outside its kernels), then launch the dK/dV and the dQ kernel, or
-    raise.
-    """
-    _validate(q, k, v, causal)
-    if out.shape != q.shape or do.shape != q.shape \
-            or lse.shape != (q.shape[0], q.shape[2], q.shape[1]):
-        raise ValueError(
-            f"flash_attention_bwd: out {tuple(out.shape)}, do "
-            f"{tuple(do.shape)}, lse {tuple(lse.shape)} do not fit q "
-            f"{tuple(q.shape)}")
-    if out.dtype != q.dtype or do.dtype != q.dtype \
-            or lse.dtype != torch.float32:
-        raise TypeError(f"flash_attention_bwd: out {out.dtype}, do "
-                        f"{do.dtype}, lse {lse.dtype} (need q's dtype "
-                        f"{q.dtype} and f32)")
-    if q.device.type == "cpu":
-        return attention_backward_reference(q, k, v, out, lse, do, causal,
-                                            scale)
-    _check_kernel_inputs(q, k, v, out, lse, do)
-    delta = attention_delta(out, do)
-    dk, dv = _launch_dkdv(q, k, v, do, lse, delta, causal, scale)
-    return _launch_dq(q, k, v, do, lse, delta, causal, scale), dk, dv
+flash_attention_hm_fwd.launches = 0
 
 
 def _bwd_args(q, k, v, do, lse, delta, causal, scale):
@@ -212,64 +242,117 @@ def _bwd_args(q, k, v, do, lse, delta, causal, scale):
         _build.dtype_code(q.dtype))
 
 
-def _launch_dkdv(q, k, v, do, lse, delta, causal, scale):
-    """Kernel #3 on checked CUDA inputs: ``(dk, dv)``."""
+def _launch_dkdv(q, k, v, do, lse, delta, causal, scale, hm=False):
+    """The dK/dV kernel on checked CUDA inputs, counted as #3 (native
+    layout) or, with ``hm``, #6 (head-major): ``(dk, dv)``."""
     ins, dims = _bwd_args(q, k, v, do, lse, delta, causal, scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = _build.load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _build.check(lib.rtt_flash_bwd_dkdv(
-            *ins, dk.data_ptr(), dv.data_ptr(), *dims, stream),
-            "flash_bwd_dkdv kernel")
-    flash_attention_bwd.launches_dkdv += 1
+        _build.check(lib.rtt_flash_bwd_dkdv(*ins, dk.data_ptr(),
+                                            dv.data_ptr(), *dims, stream),
+                     "flash_bwd_dkdv kernel")
+    (flash_attention_hm_bwd if hm else flash_attention_bwd).launches_dkdv += 1
     return dk, dv
 
 
-def _launch_dq(q, k, v, do, lse, delta, causal, scale):
-    """Kernel #4 on checked CUDA inputs: ``dq``."""
+def _launch_dq(q, k, v, do, lse, delta, causal, scale, hm=False):
+    """The dQ kernel on checked CUDA inputs, counted as #4 (native layout)
+    or, with ``hm``, #7 (head-major): ``dq``."""
     ins, dims = _bwd_args(q, k, v, do, lse, delta, causal, scale)
     dq = torch.empty_like(q)
     lib = _build.load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _build.check(lib.rtt_flash_bwd_dq(*ins, dq.data_ptr(), *dims,
-                                          stream), "flash_bwd_dq kernel")
-    flash_attention_bwd.launches_dq += 1
+        _build.check(lib.rtt_flash_bwd_dq(*ins, dq.data_ptr(), *dims, stream),
+                     "flash_bwd_dq kernel")
+    (flash_attention_hm_bwd if hm else flash_attention_bwd).launches_dq += 1
     return dq
+
+
+def _backward(q, k, v, out, lse, do, causal, scale, hm):
+    _validate_bwd(q, k, v, out, lse, do, causal)
+    if q.device.type == "cpu":
+        return attention_backward_reference(q, k, v, out, lse, do, causal,
+                                            scale)
+    _check_kernel_inputs(HM_HEAD_DIMS if hm else NL_HEAD_DIMS,
+                         q, k, v, out, lse, do)
+    delta = attention_delta(out, do)
+    dk, dv = _launch_dkdv(q, k, v, do, lse, delta, causal, scale, hm)
+    return _launch_dq(q, k, v, do, lse, delta, causal, scale, hm), dk, dv
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, *, causal: bool, scale: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Native-layout family (``_flash_nl_backward``): ``(dq, dk, dv)`` in
+    the input dtype, from the forward's ``out`` and ``lse [B,H,Tq]`` and
+    the cotangent ``do`` (like ``out``).
+
+    CPU tensors take :func:`attention_backward_reference`; CUDA tensors
+    compute ``delta`` with plain torch (as the JAX package computes it
+    outside its kernels), then launch kernels #3 (dK/dV) and #4 (dQ), or
+    raise.
+    """
+    return _backward(q, k, v, out, lse, do, causal, scale, hm=False)
 
 
 flash_attention_bwd.launches_dkdv = 0
 flash_attention_bwd.launches_dq = 0
 
 
+def flash_attention_hm_bwd(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, out: torch.Tensor,
+                           lse: torch.Tensor, do: torch.Tensor, *,
+                           causal: bool, scale: float
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """Head-major family (``_flash_backward``): as
+    :func:`flash_attention_bwd`, launching kernels #6 (dK/dV) and #7
+    (dQ) (head_dim 32, 64 or 128), or raising."""
+    return _backward(q, k, v, out, lse, do, causal, scale, hm=True)
+
+
+flash_attention_hm_bwd.launches_dkdv = 0
+flash_attention_hm_bwd.launches_dq = 0
+
+
 class _FlashAttention(torch.autograd.Function):
-    """The ``custom_vjp`` of ``_flash_nl``: the forward kernel saves
-    q, k, v, out and the LSE; the backward runs the two backward
-    kernels."""
+    """The ``custom_vjp`` of ``_flash_nl`` or, with ``hm``, of ``_flash``:
+    the forward kernel saves q, k, v, out and the LSE; the backward runs
+    the two backward kernels."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        out, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+    def forward(ctx, q, k, v, causal, scale, hm):
+        fwd = flash_attention_hm_fwd if hm else flash_attention_fwd
+        out, lse = fwd(q, k, v, causal=causal, scale=scale)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.hm = causal, scale, hm
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
-                                         causal=ctx.causal, scale=ctx.scale)
-        return dq, dk, dv, None, None
+        bwd = flash_attention_hm_bwd if ctx.hm else flash_attention_bwd
+        dq, dk, dv = bwd(*ctx.saved_tensors, do.contiguous(),
+                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Fused attention over ``[batch, seq, heads, head_dim]``; returns the
-    output in the input dtype (see :func:`flash_attention_fwd`) and
-    carries gradients through :func:`flash_attention_bwd`."""
+    output in the input dtype and carries gradients through the backward
+    kernels.
+
+    The kernel family is the JAX package's pick (``_nl_eligible``): the
+    native-layout kernels when head_dim is 64 or 128 and the head count
+    divides by ``128 // head_dim``, the head-major ones otherwise (head_dim
+    32, 64 or 128 on the card).
+    """
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    return _FlashAttention.apply(q, k, v, causal, scale)
-
+    return _FlashAttention.apply(q, k, v, causal, scale,
+                                 not _nl_eligible(q, k, v))

@@ -16,14 +16,18 @@ build/ray_tpu_torch/planted/ (the sources themselves are never touched):
 
 Each fault touches the last 64 positions only, where causal rows are
 smallest: the kind of fault a limit scaled to the tensor's max misses.
+Both kernel families (native layout and head-major) launch the same
+kernels, so each fault is shown through both: the native family at the
+GPT-2 124M and Llama shapes, the head-major one at GPT-2 XL's.
 
 Each build runs in a process of its own (the library loads once per
 process).  For each case, one JSON line: the error of O (and LSE), dQ,
 dK and dV against the plain version by two measures, max |diff| over
 the tensor's max |reference| (``over_max``) and ``row_scaled_err``, the
 one chip_smoke.py holds the kernels to (``row``).  The sound build runs
-every shape and dtype of chip_smoke.py's kernels phase; the faulty ones
-run the two bf16 causal training shapes.  Exits nonzero unless the sound
+the shapes and dtypes of chip_smoke.py's kernels phase (its grid-limit
+cases aside); the faulty ones run the three bf16 causal training shapes.
+Exits nonzero unless the sound
 build meets chip_smoke.ROW_TOL everywhere and every planted fault
 exceeds it in the tensor its kernel writes.  Then the card's name and
 power limit.
@@ -55,7 +59,9 @@ PLANTED = {
     "dkdv_drop_last": ("flash_bwd.cu", LOOP_MT, LOOP_MT.replace(
         "mt < m_tiles", "mt < m_tiles - (n0 >= tk - 64)"), ("dk", "dv")),
 }
-TRAIN_SHAPES = (chip_smoke.GPT2_SHAPE, (4, 1024, 32, 128))
+# (shape, head-major): the bf16 causal training shapes of each family
+TRAIN_SHAPES = ((chip_smoke.GPT2_SHAPE, False), ((4, 1024, 32, 128), False),
+                (chip_smoke.XL_SHAPE, True))
 
 
 def use_planted(name: str) -> None:
@@ -74,20 +80,19 @@ def use_planted(name: str) -> None:
     _build.CSRC = out
 
 
-def measure(gen, shape, dtype, causal) -> dict:
+def measure(gen, shape, hm, dtype, causal) -> dict:
     from ray_tpu_torch.ops.flash_attention import (
-        attention_backward_reference, attention_reference,
-        flash_attention_bwd, flash_attention_fwd)
+        attention_backward_reference, attention_reference)
+    fwd, bwd = chip_smoke._family(hm)
     q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
                    for _ in range(4))
     scale = shape[-1] ** -0.5
-    out, lse = flash_attention_fwd(q, k, v, causal=causal)
+    out, lse = fwd(q, k, v, causal=causal)
     ref, ref_lse = attention_reference(q, k, v, causal, scale)
-    res = {"shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
-           "causal": causal,
+    res = {"shape": list(shape), "head_major": hm,
+           "dtype": str(dtype).replace("torch.", ""), "causal": causal,
            "lse_max_abs_err": chip_smoke.max_err(lse, ref_lse)}
-    grads = flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
-                                scale=scale)
+    grads = bwd(q, k, v, out, lse, do, causal=causal, scale=scale)
     refs = attention_backward_reference(q, k, v, out, lse, do, causal, scale)
     for name, g, r in zip(("O", "dq", "dk", "dv"), (out, *grads),
                           (ref, *refs)):
@@ -100,12 +105,18 @@ def run_build(name: str) -> None:
     if name != "sound":
         use_planted(name)
     gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
-    cases = [(s, torch.bfloat16, True) for s in TRAIN_SHAPES]
+    cases = [(s, hm, torch.bfloat16, True) for s, hm in TRAIN_SHAPES]
     if name == "sound":
         for dtype in (torch.float32, torch.bfloat16):
-            cases += [((1, 512, 4, 64), dtype, c) for c in (False, True)]
-            cases += [(s, dtype, True) for s in ((1, 100, 2, 64),
-                                                  (1, 256, 3, 128))]
+            cases += [((1, 512, 4, 64), False, dtype, c)
+                      for c in (False, True)]
+            cases += [(s, False, dtype, True) for s in ((1, 100, 2, 64),
+                                                         (1, 256, 3, 128))]
+            cases += [(s, True, dtype, c) for s in (
+                (2, 256, 4, 32), (1, 256, 3, 64), (1, 256, 3, 128))
+                for c in (False, True)]
+            cases += [(s, True, dtype, True) for s in ((1, 100, 3, 64),
+                                                        (1, 100, 5, 32))]
     for case in cases:
         print(json.dumps({"build": name, **measure(gen, *case)}), flush=True)
 
@@ -137,6 +148,7 @@ def main() -> int:
         passed = worst <= tol if r["build"] == "sound" else worst > tol
         ok &= passed
         print(json.dumps({"verdict": r["build"], "shape": r["shape"],
+                          "head_major": r["head_major"],
                           "dtype": r["dtype"], "causal": r["causal"],
                           "tensors": held, "row": worst, "row_tol": tol,
                           "over_max": max(r[t]["over_max"] for t in held),

@@ -13,7 +13,9 @@ from ray_tpu_torch import resolve_device
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops.flash_attention import (flash_attention,
                                                flash_attention_bwd,
-                                               flash_attention_fwd)
+                                               flash_attention_fwd,
+                                               flash_attention_hm_bwd,
+                                               flash_attention_hm_fwd)
 from ray_tpu_torch.ops.fused import fused_rmsnorm
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -75,14 +77,26 @@ def test_cpu_tensors_never_touch_the_library(monkeypatch):
     monkeypatch.setattr(fused_rmsnorm, "launches", 0)
     monkeypatch.setattr(flash_attention_bwd, "launches_dkdv", 0)
     monkeypatch.setattr(flash_attention_bwd, "launches_dq", 0)
+    monkeypatch.setattr(flash_attention_hm_fwd, "launches", 0)
+    monkeypatch.setattr(flash_attention_hm_bwd, "launches_dkdv", 0)
+    monkeypatch.setattr(flash_attention_hm_bwd, "launches_dq", 0)
     q = torch.randn(1, 16, 2, 64, requires_grad=True)
     flash_attention(q, q, q).sum().backward()
+    q_hm = torch.randn(1, 16, 3, 32, requires_grad=True)  # head-major
+    flash_attention(q_hm, q_hm, q_hm).sum().backward()
+    out, lse = flash_attention_hm_fwd(q_hm, q_hm, q_hm)
+    flash_attention_hm_bwd(q_hm, q_hm, q_hm, out, lse, out, causal=True,
+                           scale=1.0)
     x = torch.randn(3, 64, requires_grad=True)
     fused_rmsnorm(x, torch.ones(64, requires_grad=True)).sum().backward()
     assert q.grad is not None and x.grad is not None
+    assert q_hm.grad is not None
     assert flash_attention_fwd.launches == 0
     assert flash_attention_bwd.launches_dkdv == 0
     assert flash_attention_bwd.launches_dq == 0
+    assert flash_attention_hm_fwd.launches == 0
+    assert flash_attention_hm_bwd.launches_dkdv == 0
+    assert flash_attention_hm_bwd.launches_dq == 0
     assert fused_rmsnorm.launches == 0
 
 
@@ -92,7 +106,11 @@ def test_library_name_hashes_sources():
     assert path.name.startswith("libray_tpu_torch_") and path.suffix == ".so"
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
         "flash_bwd.cu", "flash_fwd.cu", "rmsnorm.cu"}
-    assert {"rtt_flash_bwd_dkdv", "rtt_flash_bwd_dq"} <= set(_build.SIGNATURES)
+    assert {p.name for p in _build.CSRC.glob("*.cuh")} == {"flash_common.cuh"}
+    # both kernel families launch the same three flash entry points
+    assert set(_build.SIGNATURES) == {"rtt_rmsnorm_fwd", "rtt_flash_fwd",
+                                      "rtt_flash_bwd_dkdv",
+                                      "rtt_flash_bwd_dq"}
     for flag in ("arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"):
         assert flag in _build.NVCC_FLAGS
 

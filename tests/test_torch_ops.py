@@ -2,9 +2,12 @@
 
 On the CPU the wrappers compute their plain PyTorch versions; the JAX
 side runs the Pallas kernels in interpret mode, as tests/test_ops.py
-does.  The CUDA kernels themselves are held against the same plain
-versions on the card by chip_smoke.py.
+does: its native-layout family (``native=True``) and its head-major one
+(``native=False``).  The CUDA kernels themselves are held against the
+same plain versions on the card by chip_smoke.py.
 """
+
+import importlib
 
 import jax
 import numpy as np
@@ -14,14 +17,18 @@ import torch
 
 from ray_tpu.ops import fused_rmsnorm as jax_rmsnorm
 from ray_tpu.ops import fused as jax_fused
-from ray_tpu.ops.flash_attention import _flash_nl_forward
+from ray_tpu.ops.flash_attention import _flash_forward, _flash_nl_forward
 from ray_tpu.ops.flash_attention import fit_block as jax_fit_block
 from ray_tpu.ops.flash_attention import flash_attention as jax_flash
 from ray_tpu.ops.flash_attention import kernel_block_for as jax_kbf
 from ray_tpu_torch.ops import (chunked_lm_loss, fit_block, flash_attention,
-                               flash_attention_fwd, fused_rmsnorm,
-                               fused_softmax_cross_entropy,
+                               flash_attention_fwd, flash_attention_hm_fwd,
+                               fused_rmsnorm, fused_softmax_cross_entropy,
                                kernel_block_for)
+
+# the modules (both packages re-export the function under the same name)
+jax_fa = importlib.import_module("ray_tpu.ops.flash_attention")
+torch_fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
 
 
 def _qkv(shape, seed, dtype=np.float32):
@@ -112,21 +119,28 @@ def test_causal_unequal_lengths_raise():
     assert out.shape == q.shape
 
 
-def _jax_flash_grads(q, k, v, do, causal, jdtype):
-    """``jax.vjp`` of the native-layout Pallas kernels (interpret mode):
-    the backward runs _fa_nl_bwd_dkdv_kernel and _fa_nl_bwd_dq_kernel."""
+def _jax_flash_grads(q, k, v, do, causal, jdtype, native=True):
+    """``jax.vjp`` of the Pallas kernels (interpret mode): the backward
+    runs _fa_nl_bwd_dkdv_kernel and _fa_nl_bwd_dq_kernel (``native``) or
+    _fa_bwd_dkdv_kernel and _fa_bwd_dq_kernel (head-major)."""
     def f(q_, k_, v_):
         return jax_flash(q_, k_, v_, causal=causal, interpret=True,
-                         native=True, block_q=128, block_k=128)
+                         native=native, block_q=128, block_k=128)
     out, vjp = jax.vjp(f, *(jnp.asarray(x, jdtype) for x in (q, k, v)))
     grads = vjp(jnp.asarray(do, jdtype))
     return [np.asarray(x.astype(jnp.float32)) for x in (out, *grads)]
 
 
-def _torch_flash_grads(q, k, v, do, causal, tdtype):
+def _torch_flash_grads(q, k, v, do, causal, tdtype, hm=None):
+    """The vjp of flash_attention or, with ``hm`` set, of the Function of
+    that kernel family (head-major if true) whatever the shape."""
     q, k, v = (torch.from_numpy(x).to(tdtype).requires_grad_()
                for x in (q, k, v))
-    out = flash_attention(q, k, v, causal=causal)
+    if hm is None:
+        out = flash_attention(q, k, v, causal=causal)
+    else:
+        out = torch_fa._FlashAttention.apply(q, k, v, causal,
+                                             q.shape[-1] ** -0.5, hm)
     out.backward(torch.from_numpy(do).to(tdtype))
     assert all(x.grad.dtype == tdtype for x in (q, k, v))
     return [x.detach().float().numpy() for x in (out, q.grad, k.grad, v.grad)]
@@ -163,6 +177,107 @@ def test_flash_bwd_bf16_keeps_dtype():
         rms = np.sqrt(np.square(b).mean(-1))
         rms = np.maximum(rms, 1e-2 * np.sqrt(np.square(b).mean()))
         assert (np.abs(a - b).max(-1) / rms).max() <= 0.1, name
+
+
+# the head-major family: head_dim 32 (the tiny presets), odd heads at 64
+# (GPT-2 XL's routing), and 128
+_HM_SHAPES = [(2, 128, 4, 32), (1, 128, 3, 64), (1, 128, 2, 128)]
+
+
+def _jax_flash_hm(q, k, v, causal, jdtype):
+    """Head-major Pallas forward (_fa_kernel, interpret mode): out
+    [B,T,H,D] and lse [B,H,T,1] reshaped to [B,H,T]."""
+    out, lse = _flash_forward(*(jnp.asarray(x, jdtype) for x in (q, k, v)),
+                              causal, q.shape[-1] ** -0.5, 128, 128, True)
+    return np.asarray(out.astype(jnp.float32)), np.asarray(lse)[..., 0]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", _HM_SHAPES)
+def test_flash_hm_fwd_matches_pallas_f32(shape, causal):
+    q, k, v = _qkv(shape, seed=shape[2] + 20)
+    ref_out, ref_lse = _jax_flash_hm(q, k, v, causal, jnp.float32)
+    out, lse = flash_attention_hm_fwd(*map(torch.from_numpy, (q, k, v)),
+                                      causal=causal)
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    assert lse.shape == (shape[0], shape[2], shape[1])
+    np.testing.assert_allclose(out.numpy(), ref_out, atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), ref_lse, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", _HM_SHAPES)
+def test_flash_hm_bwd_matches_pallas_f32(shape, causal):
+    """The vjp of the head-major family against the head-major Pallas
+    kernels; gradients at tests/test_ops.py's 2e-4."""
+    q, k, v, do = _qkv(shape, seed=shape[2] + 30) + _qkv(shape, seed=8)[:1]
+    ref = _jax_flash_grads(q, k, v, do, causal, jnp.float32, native=False)
+    got = _torch_flash_grads(q, k, v, do, causal, torch.float32, hm=True)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, ref):
+        tol = 2e-5 if name == "out" else 2e-4
+        np.testing.assert_allclose(a, b, atol=tol, rtol=tol, err_msg=name)
+
+
+def test_flash_hm_bf16_keeps_dtype():
+    """bf16 through the head-major family at odd heads, held as
+    test_flash_bwd_bf16_keeps_dtype holds the native family, at its
+    length.  Measured (CPU): max |diff| at most 0.42% of the largest
+    value, row-scaled at most 0.028 (dq).  The plain forward keeps P in
+    f32 where the Pallas kernel rounds it to bf16, so the two O, and the
+    delta = rowsum(dO * O) taken from them, differ by bf16 rounding; dQ's
+    first rows, P (dP - delta) over two or three keys, cancel and magnify
+    it: at 128 positions they read up to 0.26 row-scaled in either
+    family."""
+    shape = (1, 256, 3, 64)
+    q, k, v, do = _qkv(shape, seed=15) + _qkv(shape, seed=16)[:1]
+    ref = _jax_flash_grads(q, k, v, do, True, jnp.bfloat16, native=False)
+    got = _torch_flash_grads(q, k, v, do, True, torch.bfloat16)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, ref):
+        np.testing.assert_allclose(a, b, atol=1e-2 * np.abs(b).max(),
+                                   rtol=0, err_msg=name)
+        rms = np.sqrt(np.square(b).mean(-1))
+        rms = np.maximum(rms, 1e-2 * np.sqrt(np.square(b).mean()))
+        assert (np.abs(a - b).max(-1) / rms).max() <= 0.1, name
+
+
+@pytest.mark.parametrize("dim", [32, 48, 64, 80, 128, 256])
+def test_dispatch_matches_jax(dim, monkeypatch):
+    """_nl_eligible picks the family the JAX package picks with
+    native=None (its environment switch unset: the port has none), over
+    head counts."""
+    monkeypatch.delenv("RAY_TPU_FLASH_NATIVE", raising=False)
+    for heads in (1, 2, 3, 4, 5, 8, 12, 20, 25, 32):
+        shape = (1, 8, heads, dim)
+        x = np.zeros(shape, np.float32)
+        t = torch.zeros(shape)
+        assert torch_fa._nl_eligible(t, t, t) == \
+            jax_fa._nl_eligible(x, x, x) == \
+            jax_fa._resolve_native(x, x, x, None), shape
+
+
+@pytest.mark.parametrize("shape,family", [((1, 16, 4, 64), "nl"),
+                                          ((1, 16, 25, 64), "hm"),
+                                          ((1, 16, 2, 32), "hm"),
+                                          ((1, 16, 3, 128), "nl")])
+def test_flash_attention_routes_by_shape(shape, family, monkeypatch):
+    """flash_attention sends each shape to the family _nl_eligible names,
+    forward and backward."""
+    calls = []
+    for name in ("attention_reference", "flash_attention_fwd",
+                 "flash_attention_bwd", "flash_attention_hm_fwd",
+                 "flash_attention_hm_bwd", "attention_backward_reference"):
+        real = getattr(torch_fa, name)
+
+        def spy(*a, _real=real, _name=name, **kw):
+            calls.append(_name)
+            return _real(*a, **kw)
+        monkeypatch.setattr(torch_fa, name, spy)
+    q = torch.randn(shape, requires_grad=True)
+    flash_attention(q, q, q).sum().backward()
+    hm = "_hm" if family == "hm" else ""
+    assert calls == [f"flash_attention{hm}_fwd", "attention_reference",
+                     f"flash_attention{hm}_bwd",
+                     "attention_backward_reference"]
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
