@@ -55,6 +55,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -68,6 +69,10 @@ XL_SHAPE = (8, 1024, 25, 64)  # q/k/v of GPT-2 1.5B at 8 x 1024 tokens
 PEAK_FLOPS = {torch.bfloat16: 989e12,  # dense tensor-core bf16
               torch.float32: 67e12}    # f32 outside the tensor cores
 SEED = 0
+# bf16 kernel cases at the tiles' edges: causal lengths, and (Tq, Tk) not
+# causal
+EDGE_LENGTHS = (1, 127, 129, 200, 1000)
+CROSS_LENGTHS = (130, 257)
 # flash kernels (O, dQ, dK, dV) against their plain version, row by row:
 # the worst, over rows (one D-vector per batch, position and head), of
 # max |diff| over the row's RMS in the reference (row_scaled_err).  A
@@ -162,6 +167,21 @@ def row_scaled_err(got, ref) -> float:
     return ((g - r).abs().amax(-1) / rms.clamp_min(floor)).max().item()
 
 
+def held_err(name, got, ref, causal) -> float:
+    """What a flash kernel's output ``name`` (O, dq, dk, dv) is held to:
+    row_scaled_err, except where the exact value is 0 everywhere.  With
+    causal and one position, each query sees one key: P = 1 and O = V, so
+    dS = P (dP - delta) = 0 and dQ = dK = 0 exactly; both sides hold
+    rounding noise, which has no row scale, and the kernel's max |value|
+    is held to the same limit instead.  That check only catches garbage:
+    dS is about 0 whatever the LSE, scale or mask, so it cannot tell a
+    wrong one.  dV (= dO there, nonzero) is held row by row as
+    everywhere, and the longer cases hold dQ and dK row by row."""
+    if causal and ref.shape[1] == 1 and name in ("dq", "dk"):
+        return got.float().abs().max().item()
+    return row_scaled_err(got, ref)
+
+
 def phase_build():
     from ray_tpu_torch.ops import _build
     t0 = time.perf_counter()
@@ -178,12 +198,46 @@ def phase_build():
                 "loads" not in ln:
             spills.append((kernel, ln))
     assert not spills, spills
+    usage = ptxas_usage(lines)
     emit({"phase": "build", "ok": True,
           "seconds": round(time.perf_counter() - t0, 3),
           "nvcc_seconds": _build.build_seconds,
           "library": str(_build.library_path().relative_to(
               os.path.dirname(os.path.abspath(__file__)))),
           "ptxas": lines})
+    return usage
+
+
+def ptxas_usage(lines):
+    """{mangled kernel name: (registers, static shared bytes)} from the
+    ptxas lines of the build log."""
+    usage, kernel = {}, None
+    for ln in lines:
+        if "Compiling" in ln:
+            kernel = ln.split("'")[1]
+        elif kernel and (regs := re.search(r"Used (\d+) registers", ln)):
+            smem = re.search(r"(\d+) bytes smem", ln)
+            usage[kernel] = (int(regs.group(1)),
+                             int(smem.group(1)) if smem else 0)
+    return usage
+
+
+def runtime_attrs(symbol, d):
+    """(registers, static shared bytes, dynamic shared bytes) of a bf16
+    flash kernel at head_dim ``d`` as the CUDA runtime holds them; the
+    dynamic bytes are those its last launch set."""
+    import ctypes
+    from ray_tpu_torch.ops import _build
+    lib = _build.load_library()
+    out = (ctypes.c_int * 3)()
+    if symbol == "flash_fwd_bf16_kernel":
+        rc = lib.rtt_flash_fwd_attrs(d, out)
+    else:
+        rc = lib.rtt_flash_bwd_attrs(
+            {"bwd_dkdv_bf16_kernel": 0, "bwd_dq_bf16_kernel": 1}[symbol], d,
+            out)
+    _build.check(rc, f"attributes of {symbol}")
+    return tuple(out)
 
 
 def _family(hm):
@@ -200,16 +254,19 @@ def _heads_first(*xs):
     return tuple(x.transpose(1, 2).contiguous() for x in xs)
 
 
-def flash_case(timer, gen, shape, dtype, causal, timed, hm=False):
+def flash_case(timer, gen, shape, dtype, causal, timed, hm=False, tk=None):
     """The forward of one family (kernel #1, or #5 with ``hm``) against
-    attention_reference.  Timed: the kernel alone."""
+    attention_reference; keys ``tk`` long if given (not causal).  Timed:
+    the kernel alone."""
     import torch.nn.functional as F
     from ray_tpu_torch.ops.flash_attention import (_launch_fwd,
                                                    attention_reference)
     fwd = _family(hm)[0]
     b, t, h, d = shape
-    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
-               for _ in range(3))
+    kv_shape = shape if tk is None else (b, tk, h, d)
+    q = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn(kv_shape, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
     scale = d ** -0.5
     before = fwd.launches
     out, lse = fwd(q, k, v, causal=causal)
@@ -226,7 +283,7 @@ def flash_case(timer, gen, shape, dtype, causal, timed, hm=False):
     row_err = row_scaled_err(out, ref)
     assert row_err <= ROW_TOL[dtype], ("O", row_err, ROW_TOL[dtype])
     res = {"kernel": "flash_hm_fwd" if hm else "flash_fwd",
-           "shape": list(shape),
+           "shape": list(shape), **({} if tk is None else {"tk": tk}),
            "dtype": str(dtype).replace("torch.", ""), "causal": causal,
            "max_abs_err": max_err(out, ref), "lse_max_abs_err":
            max_err(lse, ref_lse), "atol": tol, "row_scaled_err": row_err,
@@ -284,10 +341,10 @@ def _gradient_err(got, ref):
     return err, err / max(ref.float().abs().max().item(), 1e-30)
 
 
-def bwd_case(timer, gen, shape, dtype, causal, timed, hm=False):
+def bwd_case(timer, gen, shape, dtype, causal, timed, hm=False, tk=None):
     """The backward of one family (kernels #3 and #4, or #6 and #7 with
-    ``hm``) against attention_backward_reference.  Timed: each kernel
-    alone."""
+    ``hm``) against attention_backward_reference; keys ``tk`` long if
+    given (not causal).  Timed: each kernel alone."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from ray_tpu_torch.ops.flash_attention import (
@@ -295,8 +352,11 @@ def bwd_case(timer, gen, shape, dtype, causal, timed, hm=False):
         attention_delta)
     fwd, bwd = _family(hm)
     b, t, h, d = shape
-    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
-                   for _ in range(4))
+    kv_shape = shape if tk is None else (b, tk, h, d)
+    q, do = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(kv_shape, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
     scale = d ** -0.5
     out, lse = fwd(q, k, v, causal=causal)
     before = (bwd.launches_dkdv, bwd.launches_dq)
@@ -307,14 +367,15 @@ def bwd_case(timer, gen, shape, dtype, causal, timed, hm=False):
     ref = attention_backward_reference(q, k, v, out, lse, do, causal, scale)
     tol = ROW_TOL[dtype]
     res = {"kernel": "flash_hm_bwd" if hm else "flash_bwd",
-           "shape": list(shape),
+           "shape": list(shape), **({} if tk is None else {"tk": tk}),
            "dtype": str(dtype).replace("torch.", ""), "causal": causal,
            "row_tol": tol, "launches": 1}
     for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
         assert g.dtype == dtype and torch.isfinite(g).all(), name
         err, rel = _gradient_err(g, r)
         res[f"{name}_max_abs_err"], res[f"{name}_err_over_max"] = err, rel
-        res[f"{name}_row_scaled_err"] = row_err = row_scaled_err(g, r)
+        res[f"{name}_row_scaled_err"] = row_err = held_err(name, g, r,
+                                                           causal)
         assert row_err <= tol, (name, row_err, tol)
     # each kernel's own outputs: dQ from one, dK and dV from the other
     res["max_abs_err_dq"] = res["dq_max_abs_err"]
@@ -358,55 +419,77 @@ def phase_kernels():
     timer = Timer()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cases = []
+
+    def add(case):  # printed as it completes
+        emit({"phase": "kernels", **case})
+        cases.append(case)
+
     for dtype in (torch.float32, torch.bfloat16):
         for causal in (False, True):
-            cases.append(flash_case(timer, gen, (1, 512, 4, 64), dtype,
-                                    causal, timed=True))
+            add(flash_case(timer, gen, (1, 512, 4, 64), dtype,
+                           causal, timed=True))
         # ragged: 100 is no multiple of any tile
-        cases.append(flash_case(timer, gen, (1, 100, 2, 64), dtype, True,
-                                timed=False))
-        cases.append(flash_case(timer, gen, (4, 1024, 32, 128), dtype,
-                                True, timed=True))
+        add(flash_case(timer, gen, (1, 100, 2, 64), dtype, True,
+                       timed=False))
+        add(flash_case(timer, gen, (4, 1024, 32, 128), dtype,
+                       True, timed=True))
         for shape in ((4096, 4096), (4, 4096)):
-            cases.append(rmsnorm_case(timer, gen, shape, dtype))
+            add(rmsnorm_case(timer, gen, shape, dtype))
         for causal in (False, True):
-            cases.append(bwd_case(timer, gen, (1, 512, 4, 64), dtype,
-                                  causal, timed=False))
+            add(bwd_case(timer, gen, (1, 512, 4, 64), dtype,
+                         causal, timed=False))
         for shape in ((1, 100, 2, 64), (1, 256, 3, 128)):
-            cases.append(bwd_case(timer, gen, shape, dtype, True,
-                                  timed=False))
+            add(bwd_case(timer, gen, shape, dtype, True,
+                         timed=False))
     # the training path's shapes: GPT-2 124M, and a 128-wide head
-    cases.append(flash_case(timer, gen, GPT2_SHAPE, torch.bfloat16, True,
-                            timed=True))
+    add(flash_case(timer, gen, GPT2_SHAPE, torch.bfloat16, True,
+                   timed=True))
     for shape in (GPT2_SHAPE, (4, 1024, 32, 128)):
-        cases.append(bwd_case(timer, gen, shape, torch.bfloat16, True,
-                              timed=True))
+        add(bwd_case(timer, gen, shape, torch.bfloat16, True,
+                     timed=True))
     # head-major: head_dim 32, 64 and 128, odd head counts, ragged ends
     for dtype in (torch.float32, torch.bfloat16):
         for shape in ((2, 256, 4, 32), (1, 256, 3, 64), (1, 256, 3, 128)):
             for causal in (False, True):
-                cases.append(flash_case(timer, gen, shape, dtype, causal,
-                                        timed=False, hm=True))
-                cases.append(bwd_case(timer, gen, shape, dtype, causal,
-                                      timed=False, hm=True))
+                add(flash_case(timer, gen, shape, dtype, causal,
+                               timed=False, hm=True))
+                add(bwd_case(timer, gen, shape, dtype, causal,
+                             timed=False, hm=True))
         for shape in ((1, 100, 3, 64), (1, 100, 5, 32)):
-            cases.append(flash_case(timer, gen, shape, dtype, True,
-                                    timed=False, hm=True))
-            cases.append(bwd_case(timer, gen, shape, dtype, True,
-                                  timed=False, hm=True))
+            add(flash_case(timer, gen, shape, dtype, True,
+                           timed=False, hm=True))
+            add(bwd_case(timer, gen, shape, dtype, True,
+                         timed=False, hm=True))
     # batch * heads above 65535, the old grid's limit, in both families
     for shape, hm in (((1100, 64, 64, 32), True), ((1100, 64, 64, 64), False)):
-        cases.append(flash_case(timer, gen, shape, torch.bfloat16, True,
-                                timed=False, hm=hm))
-        cases.append(bwd_case(timer, gen, shape, torch.bfloat16, True,
-                              timed=False, hm=hm))
+        add(flash_case(timer, gen, shape, torch.bfloat16, True,
+                       timed=False, hm=hm))
+        add(bwd_case(timer, gen, shape, torch.bfloat16, True,
+                     timed=False, hm=hm))
+    # the edges of the bf16 kernels' tiles (128 queries and 128 keys in
+    # the forward, 128 keys and 64 queries in dK/dV), two batches so a
+    # ragged end borders the next batch's rows, in both families
+    for hm, dims, heads in ((False, (64, 128), 2), (True, (32, 64, 128), 3)):
+        for d in dims:
+            for t in EDGE_LENGTHS:
+                add(flash_case(timer, gen, (2, t, heads, d),
+                               torch.bfloat16, True, timed=False,
+                               hm=hm))
+                add(bwd_case(timer, gen, (2, t, heads, d),
+                             torch.bfloat16, True, timed=False,
+                             hm=hm))
+            tq, tk = CROSS_LENGTHS
+            add(flash_case(timer, gen, (2, tq, heads, d),
+                           torch.bfloat16, False, timed=False,
+                           hm=hm, tk=tk))
+            add(bwd_case(timer, gen, (2, tq, heads, d),
+                         torch.bfloat16, False, timed=False, hm=hm,
+                         tk=tk))
     # GPT-2 XL's training shape
-    cases.append(flash_case(timer, gen, XL_SHAPE, torch.bfloat16, True,
-                            timed=True, hm=True))
-    cases.append(bwd_case(timer, gen, XL_SHAPE, torch.bfloat16, True,
-                          timed=True, hm=True))
-    for c in cases:
-        emit({"phase": "kernels", **c})
+    add(flash_case(timer, gen, XL_SHAPE, torch.bfloat16, True,
+                   timed=True, hm=True))
+    add(bwd_case(timer, gen, XL_SHAPE, torch.bfloat16, True,
+                 timed=True, hm=True))
     emit({"phase": "kernels", "ok": True, "cases": len(cases)})
     return cases
 
@@ -832,6 +915,12 @@ def phase_train(preset="gpt2_small", batch=32, seq=1024, steps=10,
     return launches
 
 
+SYMBOLS = {"flash_fwd": "flash_fwd_bf16_kernel",  # the bf16 kernel's name
+           "flash_hm_fwd": "flash_fwd_bf16_kernel",
+           "flash_bwd_dkdv": "bwd_dkdv_bf16_kernel",
+           "flash_hm_bwd_dkdv": "bwd_dkdv_bf16_kernel",
+           "flash_bwd_dq": "bwd_dq_bf16_kernel",
+           "flash_hm_bwd_dq": "bwd_dq_bf16_kernel"}
 SUMMARY = {  # name: (source, TPU kernel it replaces, shape in the table)
     "flash_fwd": ("ray_tpu_torch/ops/csrc/flash_fwd.cu",
                   "ray_tpu/ops/flash_attention.py:447", [4, 1024, 32, 128]),
@@ -852,11 +941,16 @@ SUMMARY = {  # name: (source, TPU kernel it replaces, shape in the table)
 }
 
 
-def kernel_summary(cases, by_path):
+def kernel_summary(cases, by_path, usage):
     """One row per kernel.  ``launches`` sums the main paths (each read
     between a reset and its end); for the backward kernels ``plain_ms``
     and ``library_ms`` are the whole backward (dq, dk and dv: the plain
-    version and SDPA's backward), as neither splits it."""
+    version and SDPA's backward), as neither splits it.  The flash rows
+    add, for the bf16 kernel at the row's head_dim, ptxas's registers
+    (the launch bound's share; the warp-specialised kernels' consumers
+    raise theirs to 240 with setmaxnreg) and the shared memory a block
+    takes: ptxas's static bytes and the dynamic bytes the runtime holds
+    for the kernel's last launch."""
     rows = []
     for name, (src, replaces, shape) in SUMMARY.items():
         kind, part = name.rsplit("_", 1) if "_bwd_" in name else (name, None)
@@ -877,6 +971,12 @@ def kernel_summary(cases, by_path):
                "bound_by": c[f"bound_by_{part}"] if part else c["bound_by"],
                "library_ms": c["library_ms"], "shape": shape,
                "dtype": "bfloat16"}
+        if name in SYMBOLS:
+            sym, d = SYMBOLS[name], shape[-1]
+            regs, static = next(v for k, v in usage.items()
+                                if f"{sym}ILi{d}E" in k)
+            row["registers"] = regs
+            row["smem_bytes"] = static + runtime_attrs(sym, d)[2]
         rows.append(row)
     return {"kernels": rows}
 
@@ -891,7 +991,7 @@ def main() -> int:
     emit({"phase": "start", "torch": torch.__version__,
           "cuda": torch.version.cuda, "ray_tpu_torch": __version__,
           "device": torch.cuda.get_device_name(0)})
-    phase_build()
+    usage = phase_build()
     cases = phase_kernels()
     phase_model_parity()
     _free()
@@ -906,7 +1006,7 @@ def main() -> int:
                            loss_drop=XL_LOSS_DROP, phase="train_xl",
                            with_head_cost=False)
     emit(kernel_summary(cases, {"serve": serve, "train": train,
-                                "train_xl": train_xl}))
+                                "train_xl": train_xl}, usage))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -49,6 +49,11 @@ SIGNATURES = {
     # scale, causal, dtype, stream
     "rtt_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                          _I, _I, _P],
+    # the bf16 kernels' registers and shared bytes as the runtime holds
+    # them: head_dim, out (int[3]); kernel (0 = dK/dV, 1 = dQ), head_dim,
+    # out
+    "rtt_flash_fwd_attrs": [_I, _P],
+    "rtt_flash_bwd_attrs": [_I, _I, _P],
 }
 
 _lock = threading.Lock()

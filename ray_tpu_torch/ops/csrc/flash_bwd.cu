@@ -32,20 +32,31 @@
 //
 // Design.  Two kernels, no atomics, deterministic.
 //
-// dK/dV: one block per (batch * head, 64-key tile); the Q tiles are walked
-// by a loop inside the block (the TPU's sequential grid axis).  With causal
-// the loop starts at the Q tile holding the block's first key, so tiles
-// entirely above the diagonal are never loaded; only the straddling tile
-// and the ragged end are masked.  Each of four warps owns 16 keys and
-// computes the transposed scores S^T = K Q^T and dP^T = V dO^T: their
-// mma.sync accumulators are already the A-fragment layout of
-// dV += P~^T dO and dK += dS~^T Q (the trick flash_fwd.cu uses for P V), so
-// P and dS never leave registers.  LSE and delta are per query, a column
-// here: they are staged in shared memory per Q tile.  K and V stay in
-// shared memory and their fragments are read per use, because at D = 128
-// the registers go to the two 16 x 128 f32 accumulators; the Q tile is 32
-// queries for the same reason.  dK and dV are written once, in the input
-// dtype.
+// dK/dV (bf16; Hopper: TMA, mbarriers, wgmma, helpers in hopper.cuh): one
+// block per (batch * head, 128-key tile), three warpgroups.  A producer
+// warpgroup (setmaxnreg 24) loads the block's K and V once by TMA and
+// streams 64-query tiles of Q and dO through a ring of shared-memory
+// stages, with the tile's LSE (in log2 units) and delta written beside
+// them by the producer's warp (a 1-D bulk copy would need 16-byte aligned
+// rows, which T = 101 breaks).  Each stage has a "full" and an "empty"
+// mbarrier.  Two consumer warpgroups (setmaxnreg 240) own 64 keys each
+// and loop over the query tiles; with causal the loop starts at the tile
+// holding the block's first key, so tiles wholly above the diagonal are
+// never loaded.  Per tile, four wgmma products:
+//   S^T = K Q^T and dP^T = V dO^T  (m64n64k16, both operands K-major in
+//                                   shared memory)
+//   dV += P~^T dO and dK += dS~^T Q (A from registers: the S^T and dP^T
+//                                   accumulators, rounded to bf16, are
+//                                   already A fragments; dO and Q read
+//                                   MN-major from the same stage)
+// so one swizzled Q tile and one dO tile serve as both K-major and
+// MN-major operands, through two descriptors.  LSE and delta are per
+// query, a column of S^T: each thread reads its columns' values from the
+// stage.  A stage is released after the wait for the products that read
+// it.  dK and dV (64 x D f32 each per warpgroup, 128 registers a thread at
+// D = 128) stay in registers for the whole loop and are written once, in
+// bf16, over the consumer's own K and V rows and out by TMA.  TMA zero-fills
+// positions past T; rows past tq are masked, keys past tk are not written.
 //
 // dQ: one block per (batch * head, 64-query tile), looping over K tiles up
 // to the diagonal.  Each warp owns 16 queries: S = Q K^T, P, dP = dO V^T
@@ -53,18 +64,19 @@
 // memory the way flash_fwd.cu reads V.  dQ is accumulated in registers
 // across the loop and written once.
 //
-// bf16 runs on mma.sync.m16n8k16 (bf16 inputs, f32 accumulation).  f32
-// inputs take plain FMA kernels (no tensor cores, so no TF32 rounding) for
+// dQ in bf16 runs on mma.sync.m16n8k16 (bf16 inputs, f32 accumulation).
+// f32 inputs take plain FMA kernels (no tensor cores, so no TF32 rounding) for
 // the tight comparison with the plain version and for f32 models: lane j
 // of a warp scores query (dK/dV) or key (dQ) j of a 32-wide tile, and
 // owns gradient columns j, j + 32, ...
 //
 // Head sizes: 32, 64 and 128.
 //
-// Simple first: no cp.async/TMA pipelining, no wgmma, no warp
-// specialisation.  Launches on the caller's stream; allocates nothing.
+// The dQ kernel is still a simple first version: no pipelining, no wgmma.
+// Launches on the caller's stream; allocates nothing.
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -128,136 +140,245 @@ __device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst,
   }
 }
 
+namespace hp = hopper;
+
+constexpr int kBwdBN = 128, kBwdBM = 64;  // keys per block, queries per tile
+constexpr int kWg = 128;                  // threads of a warpgroup
+constexpr int kBwdThreads = 3 * kWg;      // consumers 0, 1; producer 2
+
+// Shared memory: K, V, the Q/dO stages, the stages' LSE/delta, mbarriers.
 template <int D>
-constexpr size_t dkdv_bf16_smem() {
-  return (2 * 64 + 2 * 32) * (D + 8) * sizeof(__nv_bfloat16) +
-         2 * 32 * sizeof(float);
-}
+struct DkdvSmem {
+  using L = hp::Swz<D>;
+  static constexpr int kStages = D == 128 ? 2 : 3;
+  static constexpr uint32_t kKBox = kBwdBN * L::kRowBytes;
+  static constexpr uint32_t kK = L::kBoxes * kKBox;  // K or V
+  static constexpr uint32_t kQBox = kBwdBM * L::kRowBytes;
+  static constexpr uint32_t kQ = L::kBoxes * kQBox;  // one Q or dO tile
+  static constexpr uint32_t kStage = 2 * kQ;
+  static constexpr uint32_t kStats = 2 * kK + kStages * kStage;
+  static constexpr uint32_t kStatBytes = 2 * kBwdBM * 4;  // LSE, delta
+  static constexpr uint32_t kBars = kStats + kStages * kStatBytes;
+  static constexpr size_t kBytes = 1024 + kBars + 8 * (1 + 2 * kStages);
+};
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     const __nv_bfloat16* __restrict__ dout,
+__global__ void __launch_bounds__(kBwdThreads, 1)
+bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const __grid_constant__ CUtensorMap domap,
+                     const __grid_constant__ CUtensorMap dkmap,
+                     const __grid_constant__ CUtensorMap dvmap,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     __nv_bfloat16* __restrict__ dk,
-                     __nv_bfloat16* __restrict__ dv, int heads, int tq,
+                     const float* __restrict__ delta, int heads, int tq,
                      int tk, float scale, int causal) {
-  constexpr int BN = 64, BM = 32, LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [BN][LD]
-  __nv_bfloat16* vs = ks + BN * LD;                            // [BN][LD]
-  __nv_bfloat16* qs = vs + BN * LD;                            // [BM][LD]
-  __nv_bfloat16* dos = qs + BM * LD;                           // [BM][LD]
-  float* lse_s = reinterpret_cast<float*>(dos + BM * LD);      // [BM]
-  float* delta_s = lse_s + BM;                                 // [BM]
+  using L = hp::Swz<D>;
+  using SM = DkdvSmem<D>;
+  constexpr int BN = kBwdBN, BM = kBwdBM, NS = SM::kStages;
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t k_s = (hp::smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t v_s = k_s + SM::kK;
+  const uint32_t stage_s = v_s + SM::kK;  // stage i: Q, then dO
+  const uint32_t stats_s = k_s + SM::kStats;
+  const uint32_t kv_full = k_s + SM::kBars;
+  auto full = [&](int i) { return kv_full + 8 * (1 + i); };
+  auto empty = [&](int i) { return kv_full + 8 * (1 + NS + i); };
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment row / column pair
+  const int tid = threadIdx.x, wg = tid / kWg, lane = tid % 32;
   const Work w = work_head_tiles_adjacent();
   const int b = w.bh / heads, h = w.bh % heads;
   const int n0 = w.tile * BN;
-  const size_t rs = (size_t)heads * D;  // between positions
-  const size_t qoff = slice_base<D>(b, h, heads, tq);
-  const size_t koff = slice_base<D>(b, h, heads, tk);
-  const float* lse_b = lse + ((size_t)b * heads + h) * tq;
-  const float* delta_b = delta + ((size_t)b * heads + h) * tq;
-  const int key[2] = {n0 + warp * 16 + g, n0 + warp * 16 + g + 8};
+  const int m_begin = causal ? n0 / BM : 0;
+  const int m_end = (tq + BM - 1) / BM;
 
-  stage_bf16<D, BN>(ks, k + koff, n0, tk, rs, tid);
-  stage_bf16<D, BN>(vs, v + koff, n0, tk, rs, tid);
-
-  float dka[D / 8][4], dva[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[nd][e] = dva[nd][e] = 0.f;
-
-  const int m_tiles = (tq + BM - 1) / BM;
-  for (int mt = causal ? n0 / BM : 0; mt < m_tiles; ++mt) {
-    const int m0 = mt * BM;
-    __syncthreads();  // the previous tile's readers are done
-    stage_bf16<D, BM>(qs, q + qoff, m0, tq, rs, tid);
-    stage_bf16<D, BM>(dos, dout + qoff, m0, tq, rs, tid);
-    if (tid < BM) {
-      const bool ok = m0 + tid < tq;
-      lse_s[tid] = ok ? clamp_lse(lse_b[m0 + tid]) : 0.f;
-      delta_s[tid] = ok ? delta_b[m0 + tid] : 0.f;
+  if (tid == 0) {
+    hp::mbar_init(kv_full, 1);
+    for (int i = 0; i < NS; ++i) {
+      hp::mbar_init(full(i), 32);  // the producer's warp
+      hp::mbar_init(empty(i), 2 * kWg);
     }
-    __syncthreads();
+    hp::fence_barrier_init();
+  }
+  __syncthreads();
 
-    // S^T = K Q^T and dP^T = V dO^T over this warp's 16 keys and the BM
-    // queries: B[k][n] = Q[n][k], two adjacent elements of one Q row.
-    float st[BM / 8][4], dpt[BM / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BM / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ka[4], va[4];
-      load_a<LD>(ka, ks, warp * 16, kk * 16, g, t);
-      load_a<LD>(va, vs, warp * 16, kk * 16, g, t);
-#pragma unroll
-      for (int nt = 0; nt < BM / 8; ++nt) {
-        const __nv_bfloat16* qr = qs + (nt * 8 + g) * LD + kk * 16 + t * 2;
-        const __nv_bfloat16* dr = dos + (nt * 8 + g) * LD + kk * 16 + t * 2;
-        mma_bf16(st[nt], ka, ld32(qr), ld32(qr + 8));
-        mma_bf16(dpt[nt], va, ld32(dr), ld32(dr + 8));
-      }
-    }
-
-    // P^T and dS^T in place; element e of n-tile nt is (key[e >> 1],
-    // query m0 + nt * 8 + t * 2 + (e & 1)).
-    const bool masked = m0 + BM > tq || (causal && n0 + BN - 1 > m0);
-#pragma unroll
-    for (int nt = 0; nt < BM / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ql = nt * 8 + t * 2 + (e & 1);
-        float p = expf(st[nt][e] * scale - lse_s[ql]);
-        if (masked) {
-          const int qpos = m0 + ql;
-          if (qpos >= tq || (causal && key[e >> 1] > qpos)) p = 0.f;
+  if (wg == 2) {  // producer: its first warp
+    hp::regs_dec<24>();
+    if (tid >= 2 * kWg + 32) return;
+    if (lane == 0) {
+      hp::mbar_arrive_tx(kv_full, 2 * SM::kK);
+      for (int half = 0; half < 2; ++half)
+        for (int bx = 0; bx < L::kBoxes; ++bx) {
+          const uint32_t off = bx * SM::kKBox + half * 64 * L::kRowBytes;
+          hp::tma_load(k_s + off, &kmap, kv_full, bx * L::kCols, h,
+                       n0 + half * 64, b);
+          hp::tma_load(v_s + off, &vmap, kv_full, bx * L::kCols, h,
+                       n0 + half * 64, b);
         }
-        st[nt][e] = p;
-        dpt[nt][e] = p * (dpt[nt][e] - delta_s[ql]) * scale;
+    }
+    const float* lse_b = lse + ((size_t)b * heads + h) * tq;
+    const float* delta_b = delta + ((size_t)b * heads + h) * tq;
+    for (int mt = m_begin; mt < m_end; ++mt) {
+      const int it = mt - m_begin, st = it % NS, m0 = mt * BM;
+      hp::mbar_wait(empty(st), ((it / NS) & 1) ^ 1);
+      const uint32_t stats = stats_s + st * SM::kStatBytes;
+      for (int r = lane; r < BM; r += 32) {
+        const bool ok = m0 + r < tq;
+        hp::st_shared(stats + 4 * r, __float_as_uint(
+            ok ? clamp_lse(lse_b[m0 + r]) * kLog2e : 0.f));
+        hp::st_shared(stats + 4 * (BM + r),
+                      __float_as_uint(ok ? delta_b[m0 + r] : 0.f));
       }
-
-    // dV += P~^T dO and dK += dS~^T Q: the accumulators of n-tiles 2kk and
-    // 2kk+1 are the A fragment of query slice kk; dO and Q are read
-    // column-wise.
-#pragma unroll
-    for (int kk = 0; kk < BM / 16; ++kk) {
-      uint32_t pa[4], dsa[4];
-      acc_to_a(pa, st[2 * kk], st[2 * kk + 1]);
-      acc_to_a(dsa, dpt[2 * kk], dpt[2 * kk + 1]);
-      const int qr = kk * 16 + t * 2;
-#pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) {
-        uint32_t b0, b1;
-        load_b_cols<LD>(b0, b1, dos, qr, nd * 8 + g);
-        mma_bf16(dva[nd], pa, b0, b1);
-        load_b_cols<LD>(b0, b1, qs, qr, nd * 8 + g);
-        mma_bf16(dka[nd], dsa, b0, b1);
+      if (lane == 0) {
+        const uint32_t qs = stage_s + st * SM::kStage;
+        hp::mbar_arrive_tx(full(st), SM::kStage);
+        for (int bx = 0; bx < L::kBoxes; ++bx) {
+          hp::tma_load(qs + bx * SM::kQBox, &qmap, full(st), bx * L::kCols,
+                       h, m0, b);
+          hp::tma_load(qs + SM::kQ + bx * SM::kQBox, &domap, full(st),
+                       bx * L::kCols, h, m0, b);
+        }
+      } else {
+        hp::mbar_arrive(full(st));
       }
     }
+    return;
   }
 
+  // consumer warpgroup wg: keys n0 + wg * 64 ...
+  hp::regs_inc<240>();
+  const int warp = (tid % kWg) / 32;
+  const int g = lane >> 2, t = lane & 3;  // accumulator row / column pair
+  const int first_key = n0 + wg * 64;
+  const int key[2] = {first_key + warp * 16 + g, first_key + warp * 16 + g + 8};
+  const float sl2 = scale * kLog2e;  // scores in log2 units
+  const uint32_t ka = k_s + wg * 64 * L::kRowBytes;
+  const uint32_t va = v_s + wg * 64 * L::kRowBytes;
+
+  float dka[L::kBoxes][L::kCols / 2], dva[L::kBoxes][L::kCols / 2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (key[i] >= tk) continue;
-    __nv_bfloat16* dkr = dk + koff + key[i] * rs;
-    __nv_bfloat16* dvr = dv + koff + key[i] * rs;
+  for (int bx = 0; bx < L::kBoxes; ++bx)
 #pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      *reinterpret_cast<uint32_t*>(dkr + nd * 8 + t * 2) =
-          pack_f32(dka[nd][2 * i], dka[nd][2 * i + 1]);
-      *reinterpret_cast<uint32_t*>(dvr + nd * 8 + t * 2) =
-          pack_f32(dva[nd][2 * i], dva[nd][2 * i + 1]);
+    for (int e = 0; e < L::kCols / 2; ++e) dka[bx][e] = dva[bx][e] = 0.f;
+
+  hp::mbar_wait(kv_full, 0);
+  for (int mt = m_begin; mt < m_end; ++mt) {
+    const int it = mt - m_begin, st = it % NS, m0 = mt * BM;
+    const uint32_t qs = stage_s + st * SM::kStage, dos = qs + SM::kQ;
+    const uint32_t stats = stats_s + st * SM::kStatBytes;
+    hp::mbar_wait(full(st), (it / NS) & 1);
+
+    // S^T = K Q^T, then dP^T = V dO^T, two groups; element 4j + e of each
+    // is (key[e >> 1], query m0 + 8j + 2t + (e & 1)).
+    float sT[32], dpt[32];
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int bx = kk / L::kKSteps, kb = (kk % L::kKSteps) * 32;
+      hp::mma_ss_n64(sT, hp::desc_k<D>(ka + bx * SM::kKBox + kb),
+                     hp::desc_k<D>(qs + bx * SM::kQBox + kb), kk > 0);
     }
+    hp::wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int bx = kk / L::kKSteps, kb = (kk % L::kKSteps) * 32;
+      hp::mma_ss_n64(dpt, hp::desc_k<D>(va + bx * SM::kKBox + kb),
+                     hp::desc_k<D>(dos + bx * SM::kQBox + kb), kk > 0);
+    }
+    hp::wgmma_commit();
+    hp::wgmma_wait<1>();
+    hp::fence_regs(sT);
+
+    // P^T in place of S^T while dP^T runs
+    const bool masked = m0 + BM > tq || (causal && first_key + 63 > m0);
+#pragma unroll
+    for (int j = 0; j < BM / 8; ++j) {
+      const float2 l2 = hp::ld_shared_f2(stats + 4 * (8 * j + 2 * t));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(sT[4 * j + e] * sl2 - ((e & 1) ? l2.y : l2.x));
+        if (masked) {
+          const int qpos = m0 + 8 * j + 2 * t + (e & 1);
+          if (qpos >= tq || (causal && key[e >> 1] > qpos)) p = 0.f;
+        }
+        sT[4 * j + e] = p;
+      }
+    }
+    hp::wgmma_wait<0>();
+    hp::fence_regs(dpt);
+#pragma unroll
+    for (int j = 0; j < BM / 8; ++j) {
+      const float2 d2 = hp::ld_shared_f2(stats + 4 * (BM + 8 * j + 2 * t));
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dpt[4 * j + e] = sT[4 * j + e] *
+                         (dpt[4 * j + e] - ((e & 1) ? d2.y : d2.x)) * scale;
+    }
+
+    // dV += P~^T dO and dK += dS~^T Q: the accumulators of 8-query groups
+    // 2kk and 2kk+1 are the A fragment of query slice kk; dO and Q are the
+    // MN-major B operands.
+    uint32_t pa[BM / 16][4], dsa[BM / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BM / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        pa[kk][r] = pack_f32(sT[8 * kk + 2 * r], sT[8 * kk + 2 * r + 1]);
+        dsa[kk][r] = pack_f32(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1]);
+      }
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BM / 16; ++kk)
+#pragma unroll
+      for (int bx = 0; bx < L::kBoxes; ++bx) {
+        const uint32_t off = bx * SM::kQBox + kk * 16 * L::kRowBytes;
+        hp::mma_rs_box<D>(dva[bx], pa[kk],
+                          hp::desc_mn<D>(dos + off, SM::kQBox));
+        hp::mma_rs_box<D>(dka[bx], dsa[kk],
+                          hp::desc_mn<D>(qs + off, SM::kQBox));
+      }
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+#pragma unroll
+    for (int kk = 0; kk < BM / 16; ++kk) {
+      hp::fence_regs(pa[kk]);
+      hp::fence_regs(dsa[kk]);
+    }
+#pragma unroll
+    for (int bx = 0; bx < L::kBoxes; ++bx) {
+      hp::fence_regs(dka[bx]);
+      hp::fence_regs(dva[bx]);
+    }
+    hp::mbar_arrive(empty(st));
+  }
+
+  // dK and dV in bf16 over this warpgroup's own K and V rows, then by TMA
+#pragma unroll
+  for (int bx = 0; bx < L::kBoxes; ++bx)
+#pragma unroll
+    for (int c = 0; c < L::kCols / 8; ++c)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const uint32_t off =
+            bx * SM::kKBox + hp::swizzled<D>(warp * 16 + g + 8 * i,
+                                             8 * c + 2 * t);
+        hp::st_shared(ka + off, pack_f32(dka[bx][4 * c + 2 * i],
+                                         dka[bx][4 * c + 2 * i + 1]));
+        hp::st_shared(va + off, pack_f32(dva[bx][4 * c + 2 * i],
+                                         dva[bx][4 * c + 2 * i + 1]));
+      }
+  hp::fence_proxy_async();
+  hp::named_sync(1 + wg, kWg);
+  if (tid % kWg == 0) {
+    for (int bx = 0; bx < L::kBoxes; ++bx) {
+      hp::tma_store(&dkmap, ka + bx * SM::kKBox, bx * L::kCols, h, first_key,
+                    b);
+      hp::tma_store(&dvmap, va + bx * SM::kKBox, bx * L::kCols, h, first_key,
+                    b);
+    }
+    hp::tma_commit();
+    hp::tma_wait_read();
   }
 }
 
@@ -621,12 +742,18 @@ int dkdv(const void* q, const void* k, const void* v, const void* dout,
                     static_cast<const float*>(dout), l, dl,
                     static_cast<float*>(dk), static_cast<float*>(dv), heads,
                     tq, tk, scale, causal);
-    return launch(bwd_dkdv_bf16_kernel<D>,
-                  dim3(batch * heads, (tk + 63) / 64), dkdv_bf16_smem<D>(), s,
-                  static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                  static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-                  l, dl, static_cast<bf16*>(dk), static_cast<bf16*>(dv), heads,
-                  tq, tk, scale, causal);
+    CUtensorMap qm, km, vm, dom, dkm, dvm;
+    if (!hp::encode_map<D>(&qm, q, batch, tq, heads, kBwdBM) ||
+        !hp::encode_map<D>(&km, k, batch, tk, heads, 64) ||
+        !hp::encode_map<D>(&vm, v, batch, tk, heads, 64) ||
+        !hp::encode_map<D>(&dom, dout, batch, tq, heads, kBwdBM) ||
+        !hp::encode_map<D>(&dkm, dk, batch, tk, heads, 64) ||
+        !hp::encode_map<D>(&dvm, dv, batch, tk, heads, 64))
+      return cudaErrorInvalidValue;
+    return launch_block(bwd_dkdv_bf16_kernel<D>,
+                        dim3(batch * heads, (tk + kBwdBN - 1) / kBwdBN),
+                        kBwdThreads, DkdvSmem<D>::kBytes, s, qm, km, vm, dom,
+                        dkm, dvm, l, dl, heads, tq, tk, scale, causal);
   });
 }
 
@@ -681,4 +808,15 @@ extern "C" int rtt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 void* stream) {
   return dq(q, k, v, dout, lse, delta, dq_out, batch, tq, tk, heads,
             head_dim, scale, causal, dtype, stream);
+}
+
+// As rtt_flash_fwd_attrs, for the bf16 dK/dV kernel (kernel 0) or the
+// bf16 dQ kernel (kernel 1).
+extern "C" int rtt_flash_bwd_attrs(int kernel, int head_dim, int* out) {
+  if (kernel != 0 && kernel != 1) return (int)cudaErrorInvalidValue;
+  return (int)by_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    return kernel == 0 ? func_attrs(bwd_dkdv_bf16_kernel<D>, out)
+                       : func_attrs(bwd_dq_bf16_kernel<D>, out);
+  });
 }

@@ -1,5 +1,7 @@
 // Shared by flash_fwd.cu and flash_bwd.cu: the layout the flash kernels
-// read, the block's place in the grid, and the mma.sync helpers.
+// read, the block's place in the grid, the launcher, and the mma.sync
+// helpers of the dQ kernel (the bf16 forward and dK/dV run on wgmma,
+// hopper.cuh).
 //
 // Layout.  Every kernel reads [B, T, H, D] by strides: one head's
 // positions lie H * D elements apart.  The JAX package has two kernel
@@ -33,29 +35,42 @@ __device__ __forceinline__ size_t slice_base(int b, int h, int heads,
   return ((size_t)b * seq * heads + h) * D;
 }
 
-// This block's (batch * head, sequence tile).  Blocks start in linear
-// order, blockIdx.x fastest.  Two orders, each the faster for its kernels
-// on an H100 (against each other and against the plain grid, which starts
-// every head's first tile, then every head's second one):
+// A work item is a (batch * head, sequence tile) pair.  Three orders,
+// each the faster for its kernels on an H100 (against the others and
+// against the plain grid, which starts every head's first tile, then
+// every head's second one):
 struct Work {
   int bh, tile;
 };
 
-// dQ: all heads' last query tiles first, then the
-// tiles before them.  A causal block's work grows with its tile, so the
-// longest blocks start first and the short ones fill the tail.
+// dQ: all heads' last query tiles first, then the tiles before them.  A
+// causal block's work grows with its tile, so the longest blocks start
+// first and the short ones fill the tail.
 __device__ __forceinline__ Work work_longest_first() {
   return {(int)blockIdx.x, (int)(gridDim.y - 1 - blockIdx.y)};
 }
 
-// The forward and dK/dV: one head's tiles adjacent, so a head's blocks
-// run together and share in L2 the tiles they all walk (K and V in the
-// forward, Q and dO in dK/dV).  32-bit: a block covers at least 16
-// positions of one head, so 2^32 blocks would need inputs far beyond the
-// card's memory.
+// dK/dV and the f32 forward: one head's tiles adjacent, so a head's
+// blocks run together and share in L2 the tiles they all walk (Q and dO
+// in dK/dV).  32-bit: a block covers at least 16 positions of one head,
+// so 2^32 blocks would need inputs far beyond the card's memory.
 __device__ __forceinline__ Work work_head_tiles_adjacent() {
   const unsigned lin = blockIdx.y * gridDim.x + blockIdx.x;
   return {(int)(lin / gridDim.y), (int)(lin % gridDim.y)};
+}
+
+// The persistent bf16 forward walks items by a linear index `lin` over
+// `n_bh` heads x `n_t` tiles, two consecutive items per step of a block.
+// work_head_tile_pairs orders one head's tiles 0, n-1, 1, n-2, ...: a
+// block's step gets a causal head's tiles k and n-1-k, the same work for
+// every k, and a head's pairs sit on neighbouring blocks, which share its
+// K/V tiles in L2 (scripts/compare_flash_block_order_torch.py times it
+// against the other two orders).
+__device__ __forceinline__ Work work_head_tile_pairs(unsigned lin,
+                                                     unsigned n_bh,
+                                                     unsigned n_t) {
+  const unsigned k = lin % n_t;
+  return {(int)(lin / n_t), (int)((k & 1) ? n_t - 1 - k / 2 : k / 2)};
 }
 
 // Index of the first key tile that need not be visited.
@@ -94,18 +109,37 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Launch with `smem` bytes of dynamic shared memory (above 48 KB only
-// after opting in) and return the launch's error.
+// Launch `threads` a block with `smem` bytes of dynamic shared memory and
+// return the launch's error.  The kernel's dynamic limit is set to
+// `smem` first (above 48 KB it must be), so func_attrs reads it back.
+template <typename... KArgs, typename... Args>
+cudaError_t launch_block(void (*kernel)(KArgs...), dim3 grid, int threads,
+                         size_t smem, cudaStream_t s, Args... args) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, threads, smem, s>>>(args...);
+  return cudaGetLastError();
+}
+
+// What the runtime holds for a kernel: out[0] registers per thread,
+// out[1] static shared bytes, out[2] the dynamic shared bytes its last
+// launch set.
+template <typename... KArgs>
+cudaError_t func_attrs(void (*kernel)(KArgs...), int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = a.maxDynamicSharedSizeBytes;
+  return cudaSuccess;
+}
+
 template <typename... KArgs, typename... Args>
 cudaError_t launch(void (*kernel)(KArgs...), dim3 grid, size_t smem,
                    cudaStream_t s, Args... args) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  kernel<<<grid, kThreads, smem, s>>>(args...);
-  return cudaGetLastError();
+  return launch_block(kernel, grid, kThreads, smem, s, args...);
 }
 
 inline bool bad_args(int batch, int tq, int tk, int heads, int dtype) {

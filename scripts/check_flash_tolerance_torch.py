@@ -9,13 +9,17 @@ Builds the kernel library from the repository's sources as they are
 build/ray_tpu_torch/planted/ (the sources themselves are never touched):
 
 * ``fwd_drop_diag``: the bf16 forward skips the diagonal key tile of
-  the last query tile (its queries lose their last 64 keys);
-* ``dq_drop_diag``: the bf16 dQ kernel does the same;
+  its last query tile (those 128 queries lose their last 1-128 keys);
+* ``dq_drop_diag``: the bf16 dQ kernel does the same at its 64-query
+  tiles;
 * ``dkdv_drop_last``: the bf16 dK/dV kernel skips the last query tile
-  (32 queries) of the last key tile.
+  (64 queries) of the last key tile (128 keys).
 
-Each fault touches the last 64 positions only, where causal rows are
-smallest: the kind of fault a limit scaled to the tensor's max misses.
+Each fault touches the last 64 or 128 positions only, where causal rows
+are smallest: the kind of fault a limit scaled to the tensor's max
+misses.  The forward and dK/dV faults shorten the tile count that their
+kernel's producer and consumers share, so the faulty kernels still run
+to their end.
 Both kernel families (native layout and head-major) launch the same
 kernels, so each fault is shown through both: the native family at the
 GPT-2 124M and Llama shapes, the head-major one at GPT-2 XL's.
@@ -47,17 +51,18 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
 
+FWD_TILES = "return key_tiles(m0, BM, BN, tq, tk, causal);"
 LOOP_KT = "for (int kt = 0; kt < n_tiles; ++kt) {"
-LOOP_MT = "for (int mt = causal ? n0 / BM : 0; mt < m_tiles; ++mt) {"
-# name: (source, first occurrence (the bf16 kernel's loop), replacement,
-# the tensors the faulty kernel writes)
+DKDV_END = "const int m_end = (tq + BM - 1) / BM;"
+# name: (source, first occurrence (the bf16 kernel's), replacement, the
+# tensors the faulty kernel writes)
 PLANTED = {
-    "fwd_drop_diag": ("flash_fwd.cu", LOOP_KT, LOOP_KT.replace(
-        "kt < n_tiles", "kt < n_tiles - (m0 >= tq - 64)"), ("O",)),
+    "fwd_drop_diag": ("flash_fwd.cu", FWD_TILES, FWD_TILES.replace(
+        "causal);", "causal) - (m0 + BM >= tq);"), ("O",)),
     "dq_drop_diag": ("flash_bwd.cu", LOOP_KT, LOOP_KT.replace(
         "kt < n_tiles", "kt < n_tiles - (m0 >= tq - 64)"), ("dq",)),
-    "dkdv_drop_last": ("flash_bwd.cu", LOOP_MT, LOOP_MT.replace(
-        "mt < m_tiles", "mt < m_tiles - (n0 >= tk - 64)"), ("dk", "dv")),
+    "dkdv_drop_last": ("flash_bwd.cu", DKDV_END, DKDV_END.replace(
+        "/ BM;", "/ BM - (n0 + BN >= tk);"), ("dk", "dv")),
 }
 # (shape, head-major): the bf16 causal training shapes of each family
 TRAIN_SHAPES = ((chip_smoke.GPT2_SHAPE, False), ((4, 1024, 32, 128), False),
@@ -65,8 +70,14 @@ TRAIN_SHAPES = ((chip_smoke.GPT2_SHAPE, False), ((4, 1024, 32, 128), False),
 
 
 def use_planted(name: str) -> None:
+    use_patched(name, *PLANTED[name][:3])
+
+
+def use_patched(name: str, src_name: str, old: str, new: str) -> None:
+    """Build and load the kernels from a copy of the sources, written
+    under build/ray_tpu_torch/planted/``name``, in which the first ``old``
+    of ``src_name`` reads ``new``."""
     from ray_tpu_torch.ops import _build
-    src_name, old, new, _ = PLANTED[name]
     out = _build.BUILD_DIR / "planted" / name
     out.mkdir(parents=True, exist_ok=True)
     for src in sorted(_build.CSRC.iterdir()):
@@ -80,16 +91,20 @@ def use_planted(name: str) -> None:
     _build.CSRC = out
 
 
-def measure(gen, shape, hm, dtype, causal) -> dict:
+def measure(gen, shape, hm, dtype, causal, tk=None) -> dict:
     from ray_tpu_torch.ops.flash_attention import (
         attention_backward_reference, attention_reference)
     fwd, bwd = chip_smoke._family(hm)
-    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
-                   for _ in range(4))
-    scale = shape[-1] ** -0.5
+    b, t, h, d = shape
+    q, do = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((b, tk or t, h, d), generator=gen,
+                        device="cuda").to(dtype) for _ in range(2))
+    scale = d ** -0.5
     out, lse = fwd(q, k, v, causal=causal)
     ref, ref_lse = attention_reference(q, k, v, causal, scale)
-    res = {"shape": list(shape), "head_major": hm,
+    res = {"shape": list(shape), **({} if tk is None else {"tk": tk}),
+           "head_major": hm,
            "dtype": str(dtype).replace("torch.", ""), "causal": causal,
            "lse_max_abs_err": chip_smoke.max_err(lse, ref_lse)}
     grads = bwd(q, k, v, out, lse, do, causal=causal, scale=scale)
@@ -97,7 +112,7 @@ def measure(gen, shape, hm, dtype, causal) -> dict:
     for name, g, r in zip(("O", "dq", "dk", "dv"), (out, *grads),
                           (ref, *refs)):
         res[name] = {"over_max": chip_smoke._gradient_err(g, r)[1],
-                     "row": chip_smoke.row_scaled_err(g, r)}
+                     "row": chip_smoke.held_err(name, g, r, causal)}
     return res
 
 
@@ -117,6 +132,15 @@ def run_build(name: str) -> None:
                 for c in (False, True)]
             cases += [(s, True, dtype, True) for s in ((1, 100, 3, 64),
                                                         (1, 100, 5, 32))]
+        # the bf16 kernels' tile edges, as in chip_smoke.phase_kernels
+        for hm, dims, heads in ((False, (64, 128), 2),
+                                (True, (32, 64, 128), 3)):
+            for d in dims:
+                cases += [((2, t, heads, d), hm, torch.bfloat16, True)
+                          for t in chip_smoke.EDGE_LENGTHS]
+                tq, tk = chip_smoke.CROSS_LENGTHS
+                cases.append(((2, tq, heads, d), hm, torch.bfloat16, False,
+                              tk))
     for case in cases:
         print(json.dumps({"build": name, **measure(gen, *case)}), flush=True)
 
@@ -148,6 +172,7 @@ def main() -> int:
         passed = worst <= tol if r["build"] == "sound" else worst > tol
         ok &= passed
         print(json.dumps({"verdict": r["build"], "shape": r["shape"],
+                          **({"tk": r["tk"]} if "tk" in r else {}),
                           "head_major": r["head_major"],
                           "dtype": r["dtype"], "causal": r["causal"],
                           "tensors": held, "row": worst, "row_tol": tol,

@@ -1,7 +1,9 @@
 """The port stands alone: no JAX, no ray_tpu, no silent CPU fallback."""
 
 import ast
+import ctypes
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -106,13 +108,59 @@ def test_library_name_hashes_sources():
     assert path.name.startswith("libray_tpu_torch_") and path.suffix == ".so"
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
         "flash_bwd.cu", "flash_fwd.cu", "rmsnorm.cu"}
-    assert {p.name for p in _build.CSRC.glob("*.cuh")} == {"flash_common.cuh"}
-    # both kernel families launch the same three flash entry points
+    assert {p.name for p in _build.CSRC.glob("*.cuh")} == {
+        "flash_common.cuh", "hopper.cuh"}
+    # both kernel families launch the same three flash entry points; two
+    # more report the bf16 flash kernels' registers and shared bytes
     assert set(_build.SIGNATURES) == {"rtt_rmsnorm_fwd", "rtt_flash_fwd",
                                       "rtt_flash_bwd_dkdv",
-                                      "rtt_flash_bwd_dq"}
+                                      "rtt_flash_bwd_dq",
+                                      "rtt_flash_fwd_attrs",
+                                      "rtt_flash_bwd_attrs"}
     for flag in ("arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"):
         assert flag in _build.NVCC_FLAGS
+
+
+def test_library_hash_covers_every_header(tmp_path, monkeypatch):
+    """A change to any source, headers included, names a new library."""
+    for src in _build.CSRC.iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.library_path()
+    for name in ("hopper.cuh", "flash_common.cuh", "flash_fwd.cu"):
+        (tmp_path / name).write_text((tmp_path / name).read_text() + "\n")
+        after = _build.library_path()
+        assert after != before, name
+        before = after
+
+
+def _c_entry_points():
+    """{name: [parameter kind, ...]} of every ``extern "C" int rtt_*``
+    in csrc/*.cu, a kind being "pointer", "float" or "int"."""
+    found = {}
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        for name, params in re.findall(
+                r'extern "C" int (rtt_\w+)\((.*?)\)\s*\{',
+                src.read_text(), flags=re.S):
+            kinds = []
+            for param in params.split(","):
+                decl = " ".join(param.split())
+                kinds.append("pointer" if "*" in decl else
+                             "float" if decl.startswith("float ") else
+                             "int" if decl.startswith("int ") else decl)
+            found[name] = kinds
+    return found
+
+
+def test_c_signatures_match_argtypes():
+    """Each C entry point's parameters, in order, are what ctypes passes:
+    a pointer for c_void_p, an int for c_int, a float for c_float."""
+    kind = {ctypes.c_void_p: "pointer", ctypes.c_int: "int",
+            ctypes.c_float: "float"}
+    entry_points = _c_entry_points()
+    assert set(entry_points) == set(_build.SIGNATURES)
+    for name, argtypes in _build.SIGNATURES.items():
+        assert entry_points[name] == [kind[a] for a in argtypes], name
 
 
 def test_missing_nvcc_raises(monkeypatch):
