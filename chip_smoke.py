@@ -73,6 +73,17 @@ SEED = 0
 # causal
 EDGE_LENGTHS = (1, 127, 129, 200, 1000)
 CROSS_LENGTHS = (130, 257)
+# and at the dQ kernel's own: a consumer's 64-query half of a 128-query
+# item, and 64-key stages (at head_dim 128)
+DQ_EDGE_LENGTHS = (63, 64, 65, 128)
+DQ_CROSS_LENGTHS = (65, 191)
+# RMSNorm cases held but not timed: widths (1000 is no multiple of a
+# 16-byte vector of bf16, so it takes the one-element path; 1024 takes
+# few warps a row; 5120 and 8192 four or eight) at an odd row count, and
+# rows of 4096 at one row and at one past a multiple of every block's rows
+RMSNORM_WIDTHS = (1000, 1024, 5120, 8192)
+RMSNORM_DECODE = (4, 4096)  # a decode step's 4 streams, timed too
+RMSNORM_ROWS = (1, 4097)
 # flash kernels (O, dQ, dK, dV) against their plain version, row by row:
 # the worst, over rows (one D-vector per batch, position and head), of
 # max |diff| over the row's RMS in the reference (row_scaled_err).  A
@@ -304,12 +315,16 @@ def flash_case(timer, gen, shape, dtype, causal, timed, hm=False, tk=None):
     return res
 
 
-def rmsnorm_case(timer, gen, shape, dtype):
+def rmsnorm_case(timer, gen, shape, dtype, timed=True, misaligned=False):
+    """The kernel against rmsnorm_reference; ``misaligned``: ``x`` is a
+    contiguous view one element past a 16-byte boundary (the kernel's
+    one-element path)."""
     import torch.nn.functional as F
     from ray_tpu_torch.ops.fused import fused_rmsnorm, rmsnorm_reference
     rows, cols = shape
     eps = 1e-5
-    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    x = torch.randn(rows * cols + misaligned, generator=gen,
+                    device="cuda").to(dtype)[int(misaligned):].view(shape)
     w = 1 + 0.1 * torch.randn(cols, generator=gen, device="cuda")
     before = fused_rmsnorm.launches
     out = fused_rmsnorm(x, w, eps=eps)
@@ -320,18 +335,22 @@ def rmsnorm_case(timer, gen, shape, dtype):
     # relative) for a value rounded the other way
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
-    flops = 4 * rows * cols
-    nbytes = 2 * x.numel() * x.element_size() + cols * 4
-    w_lib = w.to(dtype)
     res = {"kernel": "rmsnorm", "shape": list(shape),
            "dtype": str(dtype).replace("torch.", ""),
-           "max_abs_err": max_err(out, ref), "atol": tol, "launches": 1,
-           "kernel_ms": timer(lambda: fused_rmsnorm(x, w, eps=eps)),
-           "plain_ms": timer(lambda: rmsnorm_reference(x, w, eps)),
-           "library_ms": (timer(lambda: F.rms_norm(x, (cols,), w_lib, eps))
-                          if hasattr(F, "rms_norm") else None)}
-    res["bound_ms"], res["bound_by"] = bound(flops, nbytes, torch.float32)
-    res["bound_us"] = res["bound_ms"] * 1e3
+           **({"misaligned": True} if misaligned else {}),
+           "max_abs_err": max_err(out, ref), "atol": tol, "launches": 1}
+    if timed:
+        flops = 4 * rows * cols
+        nbytes = 2 * x.numel() * x.element_size() + cols * 4
+        w_lib = w.to(dtype)
+        res["kernel_ms"] = timer(lambda: fused_rmsnorm(x, w, eps=eps))
+        res["plain_ms"] = timer(lambda: rmsnorm_reference(x, w, eps))
+        res["library_ms"] = (
+            timer(lambda: F.rms_norm(x, (cols,), w_lib, eps))
+            if hasattr(F, "rms_norm") else None)
+        res["bound_ms"], res["bound_by"] = bound(flops, nbytes,
+                                                 torch.float32)
+        res["bound_us"] = res["bound_ms"] * 1e3
     return res
 
 
@@ -433,8 +452,13 @@ def phase_kernels():
                        timed=False))
         add(flash_case(timer, gen, (4, 1024, 32, 128), dtype,
                        True, timed=True))
-        for shape in ((4096, 4096), (4, 4096)):
+        for shape in ((4096, 4096), RMSNORM_DECODE):
             add(rmsnorm_case(timer, gen, shape, dtype))
+        for shape in ([(37, c) for c in RMSNORM_WIDTHS]
+                      + [(r, 4096) for r in RMSNORM_ROWS]):
+            add(rmsnorm_case(timer, gen, shape, dtype, timed=False))
+        add(rmsnorm_case(timer, gen, (37, 4096), dtype, timed=False,
+                         misaligned=True))
         for causal in (False, True):
             add(bwd_case(timer, gen, (1, 512, 4, 64), dtype,
                          causal, timed=False))
@@ -467,8 +491,9 @@ def phase_kernels():
         add(bwd_case(timer, gen, shape, torch.bfloat16, True,
                      timed=False, hm=hm))
     # the edges of the bf16 kernels' tiles (128 queries and 128 keys in
-    # the forward, 128 keys and 64 queries in dK/dV), two batches so a
-    # ragged end borders the next batch's rows, in both families
+    # the forward, 128 keys and 64 queries in dK/dV, 128-query items of two
+    # 64-query halves and 128 or 64 keys in dQ), two batches so a ragged
+    # end borders the next batch's rows, in both families
     for hm, dims, heads in ((False, (64, 128), 2), (True, (32, 64, 128), 3)):
         for d in dims:
             for t in EDGE_LENGTHS:
@@ -478,13 +503,18 @@ def phase_kernels():
                 add(bwd_case(timer, gen, (2, t, heads, d),
                              torch.bfloat16, True, timed=False,
                              hm=hm))
+            for t in DQ_EDGE_LENGTHS:
+                add(bwd_case(timer, gen, (2, t, heads, d),
+                             torch.bfloat16, True, timed=False,
+                             hm=hm))
             tq, tk = CROSS_LENGTHS
             add(flash_case(timer, gen, (2, tq, heads, d),
                            torch.bfloat16, False, timed=False,
                            hm=hm, tk=tk))
-            add(bwd_case(timer, gen, (2, tq, heads, d),
-                         torch.bfloat16, False, timed=False, hm=hm,
-                         tk=tk))
+            for tq, tk in (CROSS_LENGTHS, DQ_CROSS_LENGTHS):
+                add(bwd_case(timer, gen, (2, tq, heads, d),
+                             torch.bfloat16, False, timed=False, hm=hm,
+                             tk=tk))
     # GPT-2 XL's training shape
     add(flash_case(timer, gen, XL_SHAPE, torch.bfloat16, True,
                    timed=True, hm=True))
@@ -950,7 +980,8 @@ def kernel_summary(cases, by_path, usage):
     (the launch bound's share; the warp-specialised kernels' consumers
     raise theirs to 240 with setmaxnreg) and the shared memory a block
     takes: ptxas's static bytes and the dynamic bytes the runtime holds
-    for the kernel's last launch."""
+    for the kernel's last launch.  The RMSNorm row adds its times at a
+    decode step's shape (``decode``)."""
     rows = []
     for name, (src, replaces, shape) in SUMMARY.items():
         kind, part = name.rsplit("_", 1) if "_bwd_" in name else (name, None)
@@ -971,6 +1002,12 @@ def kernel_summary(cases, by_path, usage):
                "bound_by": c[f"bound_by_{part}"] if part else c["bound_by"],
                "library_ms": c["library_ms"], "shape": shape,
                "dtype": "bfloat16"}
+        if name == "rmsnorm":  # and at the decode step's shape
+            c = next(c for c in cases if c["kernel"] == kind
+                     and c["shape"] == list(RMSNORM_DECODE)
+                     and c["dtype"] == "bfloat16" and "plain_ms" in c)
+            row["decode"] = {k: c[k] for k in (
+                "shape", "kernel_ms", "library_ms", "bound_ms", "bound_by")}
         if name in SYMBOLS:
             sym, d = SYMBOLS[name], shape[-1]
             regs, static = next(v for k, v in usage.items()

@@ -58,22 +58,35 @@
 // bf16, over the consumer's own K and V rows and out by TMA.  TMA zero-fills
 // positions past T; rows past tq are masked, keys past tk are not written.
 //
-// dQ: one block per (batch * head, 64-query tile), looping over K tiles up
-// to the diagonal.  Each warp owns 16 queries: S = Q K^T, P, dP = dO V^T
-// and dS in registers, then dQ += dS~ K with K read column-wise from shared
-// memory the way flash_fwd.cu reads V.  dQ is accumulated in registers
-// across the loop and written once.
+// dQ (bf16; the same tools): persistent, one block per SM walking work
+// items (batch * head, 128-query tile) two at a time in the forward's
+// order (work_head_tile_pairs: a causal head's tiles k and n-1-k
+// together; a dQ item has exactly the forward's work).  A producer
+// warpgroup (setmaxnreg 24): one thread loads each item's Q and dO by TMA
+// into one of two item buffers and streams K and V tiles (128 keys; 64 at
+// D = 128) through a ring of stages, K and V each with full/empty
+// mbarriers; a second thread stores each item's dQ.  Two consumer
+// warpgroups (setmaxnreg 240) own 64 queries each and take turns on two
+// named barriers, as the forward's do: in its turn a consumer issues the
+// previous tile's dQ += dS~ K (A from registers; K read MN-major from its
+// stage, one wgmma per 64-column box) and this tile's S = Q K^T and
+// dP = dO V^T (SS, K-major), waits, and releases V, and K a turn later.
+// Between its turns it forms P = 2^(S scale log2 e - LSE log2 e) and
+// dS = P (dP - delta) scale from the accumulators and rounds dS into the
+// next turn's A fragments, while the other consumer's products run.  LSE
+// and delta are per query, one accumulator row: each thread reads its two
+// rows' values once per item.  dQ stays in registers for the item and is
+// written once, in bf16, over the consumer's own Q rows, which the second
+// producer thread stores by TMA (positions past tq are not written); the
+// buffer then takes item k + 2's Q and dO.
 //
-// dQ in bf16 runs on mma.sync.m16n8k16 (bf16 inputs, f32 accumulation).
 // f32 inputs take plain FMA kernels (no tensor cores, so no TF32 rounding) for
 // the tight comparison with the plain version and for f32 models: lane j
 // of a warp scores query (dK/dV) or key (dQ) j of a 32-wide tile, and
 // owns gradient columns j, j + 32, ...
 //
-// Head sizes: 32, 64 and 128.
-//
-// The dQ kernel is still a simple first version: no pipelining, no wgmma.
-// Launches on the caller's stream; allocates nothing.
+// Head sizes: 32, 64 and 128.  Launches on the caller's stream; allocates
+// nothing.
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -87,58 +100,6 @@ __device__ __forceinline__ float clamp_lse(float x) {
 }
 
 // ---------------------------------------------------------------- bf16 --
-
-// A fragment of the 16x16 slice at (r0, c0) of a row-major shared tile
-// with row stride LD: (row g, k 0-7), (row g+8, k 0-7), (row g, k 8-15),
-// (row g+8, k 8-15).
-template <int LD>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4],
-                                       const __nv_bfloat16* tile, int r0,
-                                       int c0, int g, int t) {
-  const __nv_bfloat16* p = tile + (r0 + g) * LD + c0 + t * 2;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * LD);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * LD + 8);
-}
-
-// B fragment (k = rows kr..kr+1 and kr+8..kr+9, n = column dc) of a
-// row-major shared tile read column-wise: B[k][n] = tile[k][n].
-template <int LD>
-__device__ __forceinline__ void load_b_cols(uint32_t& b0, uint32_t& b1,
-                                            const __nv_bfloat16* tile,
-                                            int kr, int dc) {
-  const __nv_bfloat16* p = tile + kr * LD + dc;
-  b0 = pack_bf16(p[0], p[LD]);
-  b1 = pack_bf16(p[8 * LD], p[9 * LD]);
-}
-
-// The 16 x 16 A fragment of key/query slice kk, from the accumulators of
-// n-tiles 2kk and 2kk+1, rounded to bf16.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
-                                         const float (&lo)[4],
-                                         const float (&hi)[4]) {
-  a[0] = pack_f32(lo[0], lo[1]);
-  a[1] = pack_f32(lo[2], lo[3]);
-  a[2] = pack_f32(hi[0], hi[1]);
-  a[3] = pack_f32(hi[2], hi[3]);
-}
-
-// Copy rows [r0, r0 + ROWS) of one head (positions `rs` apart) into a
-// shared tile with row stride D + 8, zero past row `limit`.
-template <int D, int ROWS>
-__device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src, int r0,
-                                           int limit, size_t rs, int tid) {
-  constexpr int LD = D + 8, VEC = D / 8;
-  for (int c = tid; c < ROWS * VEC; c += kThreads) {
-    const int r = c / VEC, cc = (c % VEC) * 8;
-    uint4 x = make_uint4(0, 0, 0, 0);
-    if (r0 + r < limit)
-      x = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * rs + cc);
-    *reinterpret_cast<uint4*>(dst + r * LD + cc) = x;
-  }
-}
 
 namespace hp = hopper;
 
@@ -382,123 +343,301 @@ bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-template <int D>
-constexpr size_t dq_bf16_smem() {
-  return 4 * 64 * (D + 8) * sizeof(__nv_bfloat16);
-}
+constexpr int kDqBM = 128;  // queries per item, 64 per consumer
+constexpr int kTurnBar = 1;  // named barriers 1 + w: consumer w's turn
 
+// Shared memory: two item buffers (Q, then dO; the item's dQ is staged
+// over its Q), the K/V stages, the mbarriers.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v,
-                   const __nv_bfloat16* __restrict__ dout,
+struct DqSmem {
+  using L = hp::Swz<D>;
+  // keys per stage: at D = 128 a consumer thread holds S, dP (BN / 2 f32
+  // each) and dQ (D / 2), so 128 keys would not fit its 240 registers
+  static constexpr int kBN = D == 128 ? 64 : 128;
+  static constexpr int kStages = D == 128 ? 3 : 4;
+  static constexpr uint32_t kQBox = kDqBM * L::kRowBytes;
+  static constexpr uint32_t kQ = L::kBoxes * kQBox;  // Q, dO or dQ of an item
+  static constexpr uint32_t kItem = 2 * kQ;
+  static constexpr uint32_t kKVBox = kBN * L::kRowBytes;
+  static constexpr uint32_t kKV = L::kBoxes * kKVBox;  // one K or V tile
+  static constexpr uint32_t kStage = 2 * kKV;
+  static constexpr uint32_t kStages0 = 2 * kItem;
+  static constexpr uint32_t kBars = kStages0 + kStages * kStage;
+  // per item buffer: Q and dO landed, dQ staged, dQ stored (the buffer is
+  // free); per stage: K full, V full, K empty, V empty
+  static constexpr int kNumBars = 6 + 4 * kStages;
+  // + 1024: the base is aligned up to the swizzle's 1024 bytes
+  static constexpr size_t kBytes = 1024 + kBars + 8 * kNumBars;
+};
+
+// Persistent: block c takes the work items 2u and 2u + 1 (in the order of
+// work_head_tile_pairs, as the forward) for u = c, c + gridDim.x, ...
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   const __grid_constant__ CUtensorMap domap,
+                   const __grid_constant__ CUtensorMap dqmap,
                    const float* __restrict__ lse,
-                   const float* __restrict__ delta,
-                   __nv_bfloat16* __restrict__ dq, int heads, int tq, int tk,
-                   float scale, int causal) {
-  constexpr int BM = 64, BN = 64, LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);  // [BM][LD]
-  __nv_bfloat16* dos = qs + BM * LD;                           // [BM][LD]
-  __nv_bfloat16* ks = dos + BM * LD;                           // [BN][LD]
-  __nv_bfloat16* vs = ks + BN * LD;                            // [BN][LD]
+                   const float* __restrict__ delta, int batch, int heads,
+                   int tq, int tk, float scale, int causal) {
+  using L = hp::Swz<D>;
+  using SM = DqSmem<D>;
+  constexpr int BM = kDqBM, BN = SM::kBN, NS = SM::kStages;
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t item_s = (hp::smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t kv_s = item_s + SM::kStages0;  // stage i: K, then V
+  const uint32_t bars = item_s + SM::kBars;
+  auto q_full = [&](int i) { return bars + 8 * i; };
+  auto dq_full = [&](int i) { return bars + 8 * (2 + i); };
+  auto q_empty = [&](int i) { return bars + 8 * (4 + i); };
+  auto k_full = [&](int i) { return bars + 8 * (6 + i); };
+  auto v_full = [&](int i) { return bars + 8 * (6 + NS + i); };
+  auto k_empty = [&](int i) { return bars + 8 * (6 + 2 * NS + i); };
+  auto v_empty = [&](int i) { return bars + 8 * (6 + 3 * NS + i); };
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const Work w = work_longest_first();
-  const int b = w.bh / heads, h = w.bh % heads;
-  const int m0 = w.tile * BM;
-  const size_t rs = (size_t)heads * D;
-  const size_t qoff = slice_base<D>(b, h, heads, tq);
-  const size_t koff = slice_base<D>(b, h, heads, tk);
-  const int row[2] = {m0 + warp * 16 + g, m0 + warp * 16 + g + 8};
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const bool ok = row[i] < tq;
-    const size_t idx = ((size_t)b * heads + h) * tq + row[i];
-    lse_r[i] = ok ? clamp_lse(lse[idx]) : 0.f;
-    delta_r[i] = ok ? delta[idx] : 0.f;
-  }
+  const int tid = threadIdx.x, wg = tid / kWg;
+  const unsigned n_bh = (unsigned)batch * heads;
+  const unsigned n_qt = (tq + BM - 1) / BM;
+  const unsigned n_work = n_bh * n_qt;
+  // this block's items: lin = 2u, 2u + 1 for u = blockIdx.x + j gridDim.x
+  auto item = [&](unsigned k) {
+    return 2 * (blockIdx.x + (k / 2) * gridDim.x) + (k & 1);
+  };
+  auto work = [&](unsigned lin) {  // all three roles agree on both
+    return work_head_tile_pairs(lin, n_bh, n_qt);
+  };
+  auto key_tiles_of = [&](int m0) {  // the loop stops at the diagonal
+    return key_tiles(m0, BM, BN, tq, tk, causal);
+  };
 
-  stage_bf16<D, BM>(qs, q + qoff, m0, tq, rs, tid);
-  stage_bf16<D, BM>(dos, dout + qoff, m0, tq, rs, tid);
-
-  float dqa[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqa[nd][e] = 0.f;
-
-  const int n_tiles = key_tiles(m0, BM, BN, tq, tk, causal);
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int n0 = kt * BN;
-    __syncthreads();  // the previous tile's readers are done
-    stage_bf16<D, BN>(ks, k + koff, n0, tk, rs, tid);
-    stage_bf16<D, BN>(vs, v + koff, n0, tk, rs, tid);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T: B[k][n] = K[n][k] (or V), two adjacent
-    // elements of one row.
-    float s[BN / 8][4], dp[BN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qa[4], da[4];
-      load_a<LD>(qa, qs, warp * 16, kk * 16, g, t);
-      load_a<LD>(da, dos, warp * 16, kk * 16, g, t);
-#pragma unroll
-      for (int nt = 0; nt < BN / 8; ++nt) {
-        const __nv_bfloat16* kr = ks + (nt * 8 + g) * LD + kk * 16 + t * 2;
-        const __nv_bfloat16* vr = vs + (nt * 8 + g) * LD + kk * 16 + t * 2;
-        mma_bf16(s[nt], qa, ld32(kr), ld32(kr + 8));
-        mma_bf16(dp[nt], da, ld32(vr), ld32(vr + 8));
-      }
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      hp::mbar_init(q_full(i), 1);
+      hp::mbar_init(dq_full(i), 2 * kWg);
+      hp::mbar_init(q_empty(i), 1);
     }
+    for (int i = 0; i < NS; ++i) {
+      hp::mbar_init(k_full(i), 1);
+      hp::mbar_init(v_full(i), 1);
+      hp::mbar_init(k_empty(i), 2 * kWg);
+      hp::mbar_init(v_empty(i), 2 * kWg);
+    }
+    hp::fence_barrier_init();
+  }
+  __syncthreads();
 
-    // dS in place of S; element e of n-tile nt is (row[e >> 1], key
-    // n0 + nt * 8 + t * 2 + (e & 1)).
-    const bool masked = n0 + BN > tk || (causal && n0 + BN - 1 > m0);
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        float p = expf(s[nt][e] * scale - lse_r[i]);
-        if (masked) {
-          const int kpos = n0 + nt * 8 + t * 2 + (e & 1);
-          if (kpos >= tk || (causal && kpos > row[i])) p = 0.f;
+  if (wg == 2) {  // producer: one thread loads, one stores
+    hp::regs_dec<24>();
+    if (tid == 2 * kWg) {
+      unsigned kv_it = 0;  // K/V tiles streamed, over all items
+      for (unsigned k = 0, lin; (lin = item(k)) < n_work; ++k) {
+        const Work w = work(lin);
+        const int b = w.bh / heads, h = w.bh % heads, m0 = w.tile * BM;
+        // Q and dO into buffer k & 1 once item k - 2's dQ has left it
+        const int qb = k & 1;
+        const uint32_t qs = item_s + qb * SM::kItem;
+        hp::mbar_wait(q_empty(qb), ((k >> 1) & 1) ^ 1);
+        hp::mbar_arrive_tx(q_full(qb), SM::kItem);
+        for (int half = 0; half < 2; ++half)
+          for (int bx = 0; bx < L::kBoxes; ++bx) {
+            const uint32_t off = bx * SM::kQBox + half * 64 * L::kRowBytes;
+            hp::tma_load(qs + off, &qmap, q_full(qb), bx * L::kCols, h,
+                         m0 + half * 64, b);
+            hp::tma_load(qs + SM::kQ + off, &domap, q_full(qb),
+                         bx * L::kCols, h, m0 + half * 64, b);
+          }
+        const int n_tiles = key_tiles_of(m0);
+        for (int it = 0; it < n_tiles; ++it, ++kv_it) {
+          const int st = kv_it % NS;
+          const uint32_t free_parity = ((kv_it / NS) & 1) ^ 1;
+          const uint32_t ks = kv_s + st * SM::kStage;
+          hp::mbar_wait(k_empty(st), free_parity);
+          hp::mbar_arrive_tx(k_full(st), SM::kKV);
+          for (int bx = 0; bx < L::kBoxes; ++bx)
+            hp::tma_load(ks + bx * SM::kKVBox, &kmap, k_full(st),
+                         bx * L::kCols, h, it * BN, b);
+          hp::mbar_wait(v_empty(st), free_parity);
+          hp::mbar_arrive_tx(v_full(st), SM::kKV);
+          for (int bx = 0; bx < L::kBoxes; ++bx)
+            hp::tma_load(ks + SM::kKV + bx * SM::kKVBox, &vmap, v_full(st),
+                         bx * L::kCols, h, it * BN, b);
         }
-        s[nt][e] = p * (dp[nt][e] - delta_r[i]) * scale;
       }
-
-    // dQ += dS~ K: K read column-wise, B[k][n] = K[k][n].
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t dsa[4];
-      acc_to_a(dsa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) {
-        uint32_t b0, b1;
-        load_b_cols<LD>(b0, b1, ks, kk * 16 + t * 2, nd * 8 + g);
-        mma_bf16(dqa[nd], dsa, b0, b1);
+    } else if (tid == 2 * kWg + 32) {
+      // each item's dQ by TMA once both consumers staged it (positions
+      // past tq are not written), then its buffer is free
+      for (unsigned k = 0, lin; (lin = item(k)) < n_work; ++k) {
+        const Work w = work(lin);
+        const int b = w.bh / heads, h = w.bh % heads, m0 = w.tile * BM;
+        const int qb = k & 1;
+        const uint32_t qs = item_s + qb * SM::kItem;
+        hp::mbar_wait(dq_full(qb), (k >> 1) & 1);
+        for (int half = 0; half < 2; ++half)
+          for (int bx = 0; bx < L::kBoxes; ++bx)
+            hp::tma_store(&dqmap,
+                          qs + bx * SM::kQBox + half * 64 * L::kRowBytes,
+                          bx * L::kCols, h, m0 + half * 64, b);
+        hp::tma_commit();
+        hp::tma_wait_read();
+        hp::mbar_arrive(q_empty(qb));
       }
     }
+    return;
   }
 
+  // consumer warpgroup wg: queries m0 + wg * 64 ... of each item
+  hp::regs_inc<240>();
+  const int warp = (tid % kWg) / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;  // accumulator row / column pair
+  const float sl2 = scale * kLog2e;  // scores in log2 units
+  // Turns, as in the forward: a consumer issues all its products of a
+  // turn (the previous tile's dQ += dS~ K and this tile's S and dP)
+  // between a wait on its own named barrier and an arrival on the
+  // other's, so one's exp2 and dS run while the other's products do.
+  // Consumer 0 takes the first turn; both take one turn per key tile plus
+  // one per item.
+  if (wg == 1) hp::named_arrive(kTurnBar, 2 * kWg);
+  unsigned kv0 = 0;  // K/V tiles of the earlier items
+  for (unsigned k = 0, lin; (lin = item(k)) < n_work; ++k) {
+    const Work w = work(lin);
+    const int b = w.bh / heads, h = w.bh % heads, m0 = w.tile * BM;
+    const int n_tiles = key_tiles_of(m0);
+    const int first_row = m0 + wg * 64;
+    const int row[2] = {first_row + warp * 16 + g,
+                        first_row + warp * 16 + g + 8};
+    const uint32_t qa = item_s + (k & 1) * SM::kItem + wg * 64 * L::kRowBytes;
+    const uint32_t da = qa + SM::kQ;  // this warpgroup's dO rows
+
+    // LSE (log2 units, clamped) and delta of this thread's two rows
+    float lse2[2], dl[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (row[i] >= tq) continue;
-    __nv_bfloat16* dqr = dq + qoff + row[i] * rs;
+    for (int i = 0; i < 2; ++i) {
+      const bool ok = row[i] < tq;
+      const size_t idx = ((size_t)b * heads + h) * tq + row[i];
+      lse2[i] = ok ? clamp_lse(lse[idx]) * kLog2e : 0.f;
+      dl[i] = ok ? delta[idx] : 0.f;
+    }
+
+    float dq[L::kBoxes][L::kCols / 2];
 #pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd)
-      *reinterpret_cast<uint32_t*>(dqr + nd * 8 + t * 2) =
-          pack_f32(dqa[nd][2 * i], dqa[nd][2 * i + 1]);
+    for (int bx = 0; bx < L::kBoxes; ++bx)
+#pragma unroll
+      for (int e = 0; e < L::kCols / 2; ++e) dq[bx][e] = 0.f;
+    // S and dP: element 4j + e is (row[e >> 1], key n0 + 8j + 2t +
+    // (e & 1)).  dS~: the accumulators of 8-key groups 2kk and 2kk+1,
+    // rounded to bf16, are the wgmma A fragment of key slice kk.
+    float s[BN / 2], dp[BN / 2];
+    uint32_t dsa[BN / 16][4];
+
+    // One turn: dQ += dS~ K of tile it - 1 (K MN-major, from its stage)
+    // and S = Q K^T, dP = dO V^T of tile it (all K-major), as the flags
+    // say; then wait for all and release what they read.  K is released
+    // a turn after V.
+    auto turn = [&](int it, auto with_dq, auto with_s) {
+      constexpr bool kDQ = decltype(with_dq)::value;
+      constexpr bool kS = decltype(with_s)::value;
+      const unsigned cur = kv0 + it, prev = cur - 1;
+      const uint32_t ks = kv_s + (cur % NS) * SM::kStage, vs = ks + SM::kKV;
+      const uint32_t kp = kv_s + (prev % NS) * SM::kStage;
+      if constexpr (kS) {
+        hp::mbar_wait(k_full(cur % NS), (cur / NS) & 1);
+        hp::mbar_wait(v_full(cur % NS), (cur / NS) & 1);
+      }
+      hp::named_sync(kTurnBar + wg, 2 * kWg);
+      hp::wgmma_fence();
+      if constexpr (kDQ) {
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+          for (int bx = 0; bx < L::kBoxes; ++bx)
+            hp::mma_rs_box<D>(
+                dq[bx], dsa[kk],
+                hp::desc_mn<D>(kp + bx * SM::kKVBox + kk * 16 * L::kRowBytes,
+                               SM::kKVBox));
+      }
+      if constexpr (kS) {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int bx = kk / L::kKSteps, kb = (kk % L::kKSteps) * 32;
+          hp::mma_ss<BN>(s, hp::desc_k<D>(qa + bx * SM::kQBox + kb),
+                         hp::desc_k<D>(ks + bx * SM::kKVBox + kb), kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int bx = kk / L::kKSteps, kb = (kk % L::kKSteps) * 32;
+          hp::mma_ss<BN>(dp, hp::desc_k<D>(da + bx * SM::kQBox + kb),
+                         hp::desc_k<D>(vs + bx * SM::kKVBox + kb), kk > 0);
+        }
+      }
+      hp::wgmma_commit();
+      hp::named_arrive(kTurnBar + (wg ^ 1), 2 * kWg);
+      hp::wgmma_wait<0>();
+      hp::fence_regs(s);
+      hp::fence_regs(dp);
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) hp::fence_regs(dsa[kk]);
+#pragma unroll
+      for (int bx = 0; bx < L::kBoxes; ++bx) hp::fence_regs(dq[bx]);
+      if constexpr (kDQ) hp::mbar_arrive(k_empty(prev % NS));
+      if constexpr (kS) hp::mbar_arrive(v_empty(cur % NS));
+    };
+
+    // dS~ of tile it into dsa: P = 2^(S sl2 - LSE log2 e), 0 where
+    // masked; dS = P (dP - delta) scale.
+    auto grad = [&](int it) {
+      const int n0 = it * BN;
+      const bool masked =
+          n0 + BN > tk || (causal && n0 + BN - 1 > first_row);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          float p = hp::exp2(fmaf(s[4 * j + e], sl2, -lse2[i]));
+          if (masked) {
+            const int kpos = n0 + 8 * j + 2 * t + (e & 1);
+            if (kpos >= tk || (causal && kpos > row[i])) p = 0.f;
+          }
+          s[4 * j + e] = p * (dp[4 * j + e] - dl[i]) * scale;
+        }
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          dsa[kk][r] = pack_f32(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+    };
+
+    hp::mbar_wait(q_full(k & 1), (k >> 1) & 1);
+    turn(0, std::false_type{}, std::true_type{});
+    grad(0);
+    for (int it = 1; it < n_tiles; ++it) {
+      turn(it, std::true_type{}, std::true_type{});
+      grad(it);
+    }
+    turn(n_tiles, std::true_type{}, std::false_type{});
+    kv0 += n_tiles;
+
+    // dQ in bf16 over this warpgroup's Q rows (its last S is done), for
+    // the producer's store
+#pragma unroll
+    for (int bx = 0; bx < L::kBoxes; ++bx)
+#pragma unroll
+      for (int c = 0; c < L::kCols / 8; ++c)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          hp::st_shared(qa + bx * SM::kQBox +
+                            hp::swizzled<D>(warp * 16 + g + 8 * i,
+                                            8 * c + 2 * t),
+                        pack_f32(dq[bx][4 * c + 2 * i],
+                                 dq[bx][4 * c + 2 * i + 1]));
+    hp::fence_proxy_async();
+    hp::mbar_arrive(dq_full(k & 1));
   }
+  // consumer 1's arrival after its last turn
+  if (wg == 0) hp::named_sync(kTurnBar, 2 * kWg);
 }
 
 // ----------------------------------------------------------------- f32 --
@@ -774,12 +913,21 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
                     static_cast<const float*>(v),
                     static_cast<const float*>(dout), l, dl,
                     static_cast<float*>(dq_out), heads, tq, tk, scale, causal);
-    return launch(bwd_dq_bf16_kernel<D>,
-                  dim3(batch * heads, (tq + 63) / 64), dq_bf16_smem<D>(), s,
-                  static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                  static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-                  l, dl, static_cast<bf16*>(dq_out), heads, tq, tk, scale,
-                  causal);
+    CUtensorMap qm, km, vm, dom, dqm;
+    constexpr int BN = DqSmem<D>::kBN;
+    if (!hp::encode_map<D>(&qm, q, batch, tq, heads, 64) ||
+        !hp::encode_map<D>(&km, k, batch, tk, heads, BN) ||
+        !hp::encode_map<D>(&vm, v, batch, tk, heads, BN) ||
+        !hp::encode_map<D>(&dom, dout, batch, tq, heads, 64) ||
+        !hp::encode_map<D>(&dqm, dq_out, batch, tq, heads, 64))
+      return cudaErrorInvalidValue;
+    int blocks = 0;
+    const cudaError_t e = persistent_blocks(
+        (long)batch * heads * ((tq + kDqBM - 1) / kDqBM), &blocks);
+    if (e != cudaSuccess) return e;
+    return launch_block(bwd_dq_bf16_kernel<D>, dim3(blocks), kBwdThreads,
+                        DqSmem<D>::kBytes, s, qm, km, vm, dom, dqm, l, dl,
+                        batch, heads, tq, tk, scale, causal);
   });
 }
 

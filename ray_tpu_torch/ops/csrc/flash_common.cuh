@@ -1,7 +1,6 @@
 // Shared by flash_fwd.cu and flash_bwd.cu: the layout the flash kernels
-// read, the block's place in the grid, the launcher, and the mma.sync
-// helpers of the dQ kernel (the bf16 forward and dK/dV run on wgmma,
-// hopper.cuh).
+// read, the block's place in the grid and the launchers (the bf16
+// kernels' Hopper building blocks are in hopper.cuh).
 //
 // Layout.  Every kernel reads [B, T, H, D] by strides: one head's
 // positions lie H * D elements apart.  The JAX package has two kernel
@@ -43,9 +42,9 @@ struct Work {
   int bh, tile;
 };
 
-// dQ: all heads' last query tiles first, then the tiles before them.  A
-// causal block's work grows with its tile, so the longest blocks start
-// first and the short ones fill the tail.
+// The f32 dQ: all heads' last query tiles first, then the tiles before
+// them.  A causal block's work grows with its tile, so the longest blocks
+// start first and the short ones fill the tail.
 __device__ __forceinline__ Work work_longest_first() {
   return {(int)blockIdx.x, (int)(gridDim.y - 1 - blockIdx.y)};
 }
@@ -59,7 +58,7 @@ __device__ __forceinline__ Work work_head_tiles_adjacent() {
   return {(int)(lin / gridDim.y), (int)(lin % gridDim.y)};
 }
 
-// The persistent bf16 forward walks items by a linear index `lin` over
+// The persistent bf16 forward and dQ walk items by a linear index `lin` over
 // `n_bh` heads x `n_t` tiles, two consecutive items per step of a block.
 // work_head_tile_pairs orders one head's tiles 0, n-1, 1, n-2, ...: a
 // block's step gets a causal head's tiles k and n-1-k, the same work for
@@ -89,26 +88,6 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D (16x8, f32) += A (16x16, bf16, row-major) * B (16x8, bf16, col-major)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Launch `threads` a block with `smem` bytes of dynamic shared memory and
 // return the launch's error.  The kernel's dynamic limit is set to
 // `smem` first (above 48 KB it must be), so func_attrs reads it back.
@@ -134,6 +113,20 @@ cudaError_t func_attrs(void (*kernel)(KArgs...), int* out) {
   out[1] = (int)a.sharedSizeBytes;
   out[2] = a.maxDynamicSharedSizeBytes;
   return cudaSuccess;
+}
+
+// Blocks of a persistent kernel that takes its `items` two at a time: one
+// per SM, or one per pair of items if there are fewer.
+inline cudaError_t persistent_blocks(long items, int* blocks) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) {
+    const long pairs = (items + 1) / 2;
+    *blocks = (int)(pairs < sms ? pairs : sms);
+  }
+  return e;
 }
 
 template <typename... KArgs, typename... Args>

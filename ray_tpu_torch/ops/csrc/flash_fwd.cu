@@ -69,8 +69,6 @@
 // Head sizes: 32, 64 and 128.  Launches on the caller's stream; allocates
 // nothing.
 
-#include <algorithm>
-
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -520,16 +518,11 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
         !hp::encode_map<D>(&vm, v, batch, tk, heads, kFwdBN) ||
         !hp::encode_map<D>(&om, o, batch, tq, heads, 64))
       return cudaErrorInvalidValue;
-    // one block per SM, or one per pair of items if there are fewer
-    int dev = 0, sms = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    int blocks = 0;
+    const cudaError_t e = persistent_blocks(
+        (long)batch * heads * ((tq + kFwdBM - 1) / kFwdBM), &blocks);
     if (e != cudaSuccess) return e;
-    const long pairs =
-        ((long)batch * heads * ((tq + kFwdBM - 1) / kFwdBM) + 1) / 2;
-    return launch_block(flash_fwd_bf16_kernel<D>,
-                        dim3((unsigned)std::min<long>(pairs, sms)),
+    return launch_block(flash_fwd_bf16_kernel<D>, dim3(blocks),
                         kFwdThreads, FwdSmem<D>::kBytes, s, qm, km, vm, om, l,
                         batch, heads, tq, tk, scale, causal);
   });

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks in raw PTX, shared by the bf16 flash
-// forward (flash_fwd.cu) and dK/dV (flash_bwd.cu) kernels: mbarriers, TMA
+// forward (flash_fwd.cu), dK/dV and dQ (flash_bwd.cu) kernels: mbarriers, TMA
 // loads and stores of 4-D [B, T, H, D] tiles, wgmma shared-memory
 // descriptors and the few wgmma shapes the kernels issue, register
 // rebalancing between warpgroups, and the host-side tensor-map encoder.
@@ -258,6 +258,17 @@ __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t a,
       "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
       : RTT_F16(d, 0), RTT_F16(d, 16)
       : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// One SS product of width N = 64 or 128.
+template <int N>
+__device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t a,
+                                       uint64_t b, int scale_d) {
+  static_assert(N == 64 || N == 128, "N = 64 or 128");
+  if constexpr (N == 128)
+    mma_ss_n128(d, a, b, scale_d);
+  else
+    mma_ss_n64(d, a, b, scale_d);
 }
 
 // d (64 x 64, f32) += A (64 x 16 bf16, registers: the mma.sync A-fragment

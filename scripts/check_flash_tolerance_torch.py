@@ -10,16 +10,15 @@ build/ray_tpu_torch/planted/ (the sources themselves are never touched):
 
 * ``fwd_drop_diag``: the bf16 forward skips the diagonal key tile of
   its last query tile (those 128 queries lose their last 1-128 keys);
-* ``dq_drop_diag``: the bf16 dQ kernel does the same at its 64-query
-  tiles;
+* ``dq_drop_diag``: the bf16 dQ kernel does the same at its last
+  128-query item (its diagonal tile is 128 keys, 64 at head_dim 128);
 * ``dkdv_drop_last``: the bf16 dK/dV kernel skips the last query tile
   (64 queries) of the last key tile (128 keys).
 
 Each fault touches the last 64 or 128 positions only, where causal rows
 are smallest: the kind of fault a limit scaled to the tensor's max
-misses.  The forward and dK/dV faults shorten the tile count that their
-kernel's producer and consumers share, so the faulty kernels still run
-to their end.
+misses.  Each shortens the tile count that its kernel's producer and
+consumers share, so the faulty kernels still run to their end.
 Both kernel families (native layout and head-major) launch the same
 kernels, so each fault is shown through both: the native family at the
 GPT-2 124M and Llama shapes, the head-major one at GPT-2 XL's.
@@ -51,16 +50,16 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
 
-FWD_TILES = "return key_tiles(m0, BM, BN, tq, tk, causal);"
-LOOP_KT = "for (int kt = 0; kt < n_tiles; ++kt) {"
+# the persistent kernels' key-tile count (the forward's, and dQ's, the
+# first in flash_bwd.cu)
+KEY_TILES = "return key_tiles(m0, BM, BN, tq, tk, causal);"
+DROP_DIAG = KEY_TILES.replace("causal);", "causal) - (m0 + BM >= tq);")
 DKDV_END = "const int m_end = (tq + BM - 1) / BM;"
 # name: (source, first occurrence (the bf16 kernel's), replacement, the
 # tensors the faulty kernel writes)
 PLANTED = {
-    "fwd_drop_diag": ("flash_fwd.cu", FWD_TILES, FWD_TILES.replace(
-        "causal);", "causal) - (m0 + BM >= tq);"), ("O",)),
-    "dq_drop_diag": ("flash_bwd.cu", LOOP_KT, LOOP_KT.replace(
-        "kt < n_tiles", "kt < n_tiles - (m0 >= tq - 64)"), ("dq",)),
+    "fwd_drop_diag": ("flash_fwd.cu", KEY_TILES, DROP_DIAG, ("O",)),
+    "dq_drop_diag": ("flash_bwd.cu", KEY_TILES, DROP_DIAG, ("dq",)),
     "dkdv_drop_last": ("flash_bwd.cu", DKDV_END, DKDV_END.replace(
         "/ BM;", "/ BM - (n0 + BN >= tk);"), ("dk", "dv")),
 }
@@ -137,10 +136,11 @@ def run_build(name: str) -> None:
                                 (True, (32, 64, 128), 3)):
             for d in dims:
                 cases += [((2, t, heads, d), hm, torch.bfloat16, True)
-                          for t in chip_smoke.EDGE_LENGTHS]
-                tq, tk = chip_smoke.CROSS_LENGTHS
-                cases.append(((2, tq, heads, d), hm, torch.bfloat16, False,
-                              tk))
+                          for t in (chip_smoke.EDGE_LENGTHS
+                                    + chip_smoke.DQ_EDGE_LENGTHS)]
+                cases += [((2, tq, heads, d), hm, torch.bfloat16, False, tk)
+                          for tq, tk in (chip_smoke.CROSS_LENGTHS,
+                                         chip_smoke.DQ_CROSS_LENGTHS)]
     for case in cases:
         print(json.dumps({"build": name, **measure(gen, *case)}), flush=True)
 

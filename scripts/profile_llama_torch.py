@@ -37,7 +37,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from ray_tpu_torch.models.llama import Llama, LlamaConfig  # noqa: E402
 
 KINDS = (("flash_fwd", ("flash_fwd",)),
-         ("rmsnorm", ("rmsnorm_kernel",)),
+         ("rmsnorm", ("rmsnorm_",)),
          ("dense", ("gemm", "gemv", "nvjet", "xmma", "splitK", "cutlass")),
          ("softmax", ("softmax",)))
 

@@ -72,11 +72,17 @@ def test_flash_fwd_bf16_keeps_dtype():
                                rtol=3e-2)
 
 
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
-def test_rmsnorm_matches_pallas(dtype):
+# the CUDA kernel's edge widths (1000: no multiple of a 16-byte bf16
+# vector; 5120 and 8192: four or eight warps a row) at an odd row count
+@pytest.mark.parametrize("dtype,shape", [
+    pytest.param(dt, shape, id=dt if shape == (4, 8, 256)
+                 else f"{dt}-{'x'.join(map(str, shape))}")
+    for shape in ((4, 8, 256), (3, 5, 1000), (3, 5, 5120), (3, 5, 8192))
+    for dt in ("f32", "bf16")])
+def test_rmsnorm_matches_pallas(dtype, shape):
     rng = np.random.default_rng(3)
-    x = rng.standard_normal((4, 8, 256)).astype(np.float32)
-    w = (1 + 0.1 * rng.standard_normal(256)).astype(np.float32)
+    x = rng.standard_normal(shape).astype(np.float32)
+    w = (1 + 0.1 * rng.standard_normal(shape[-1])).astype(np.float32)
     jdt, tdt = {"f32": (jnp.float32, torch.float32),
                 "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
     ref = jax_rmsnorm(jnp.asarray(x, jdt), jnp.asarray(w), eps=1e-5,
