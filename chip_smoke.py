@@ -34,15 +34,35 @@ no network.  Phases, one JSON line each:
 8. ``train_xl``: GPT-2 1.5B at full width and depth (48 layers) on 8 x
    1024 tokens, otherwise as ``train``: 1 warm-up and 5 timed steps on
    the head-major kernels, then the profiled and the traced step.
+9. ``vit_parity``: ViT-B/16 at full width, 2 layers, f32, perturbed
+   weights, card (flash kernels at T = 197, not causal; cuDNN with TF32
+   off) against CPU: logits, loss, every gradient.
+10. ``vit``: ViT-B/16 at full depth, bf16 compute, f32 masters, AdamW:
+    classify 64 images, then 1 warm-up and 5 timed training steps on 128
+    images, a profiled and a device-traced step.
+11. ``moe_parity``: the default MoE at full width, 2 layers, f32,
+    perturbed weights: routing (exactly), aux loss, logits, loss, every
+    gradient.
+12. ``moe``: the default MoE (8 layers, 8 experts top-2) on 8 x 1024
+    tokens, bf16, AdamW: 1 warm-up and 5 timed steps, a profiled and a
+    device-traced step.
+13. ``resnet_parity``: ResNet-18 (CIFAR-10) on 8 images, f32, perturbed
+    weights and statistics: one training step's logits, loss, every
+    gradient and running statistic, then evaluation logits.
+14. ``resnet``: ResNet-18 at batch 256, bf16 convolutions: an evaluation
+    forward, 1 warm-up and 5 timed training steps (softmax cross entropy,
+    AdamW), a profiled and a device-traced step.
 
 The ``kernels`` phase also holds the backward kernels (dK/dV and dQ) and
 both kernel families (native layout and head-major, head_dim 32 to 128,
-odd head counts, ragged lengths, more than 65535 heads in all) against
-their plain versions, and times them at the training shapes beside
-SDPA.  Each main path (``serve``, ``train``, ``train_xl``) is driven
-with the kernels' launch counts set to 0 just before it and read just
-after; the native-layout paths launch no head-major kernel and GPT-2 XL
-no native-layout one.
+odd head counts, ragged lengths, ViT's non-causal 197, more than 65535
+heads in all) against their plain versions, RMSNorm with a bf16 weight
+too, and times them at the training shapes (GPT-2 124M and XL, ViT-B/16,
+the MoE) beside SDPA.  Each main path (``serve``, ``train``,
+``train_xl``, ``vit``, ``moe``, ``resnet``) is driven with the kernels'
+launch counts set to 0 just before it and read just after; the
+native-layout paths launch no head-major kernel, GPT-2 XL no
+native-layout one and ResNet none at all.
 
 Then the kernels' summary line, the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``.  Any failure raises: no result
@@ -51,6 +71,7 @@ line, nonzero exit.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -66,6 +87,8 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 GPT2_SHAPE = (32, 1024, 12, 64)  # q/k/v of GPT-2 124M at bench.py's batch
 XL_SHAPE = (8, 1024, 25, 64)  # q/k/v of GPT-2 1.5B at 8 x 1024 tokens
+VIT_SHAPE = (128, 197, 12, 64)  # ViT-B/16 at 128 images: 196 patches + CLS
+MOE_SHAPE = (8, 1024, 8, 64)  # the default MoE at 8 x 1024 tokens
 PEAK_FLOPS = {torch.bfloat16: 989e12,  # dense tensor-core bf16
               torch.float32: 67e12}    # f32 outside the tensor cores
 SEED = 0
@@ -111,6 +134,21 @@ TRAIN_LOSS_DROP = 0.5
 # H100: 11.14 -> 9.15)
 XL_STEPS = 5
 XL_LOSS_DROP = 1.0
+# vit, moe, resnet: training steps timed after one warm-up step
+MODEL_STEPS = 5
+# the parity phases of the new models (vit_parity, moe_parity,
+# resnet_parity): card against CPU, both f32 with TF32 off (cuDNN's flag
+# too), so summation order only.  Logits within PARITY_LOGIT_TOL (atol
+# and rtol), the loss within PARITY_LOSS_RTOL, each gradient within
+# TRAIN_GRAD_TOL of its tensor's largest element, ResNet's running
+# statistics within PARITY_STAT_TOL (atol and rtol).  A ReLU input within
+# RELU_TIE of 0 can take either side on the two devices; resnet_parity
+# runs the CPU with the card's ReLU decisions and holds every decision
+# that differs to that tie.
+PARITY_LOGIT_TOL = 1e-4
+PARITY_LOSS_RTOL = 1e-5
+PARITY_STAT_TOL = 1e-5
+RELU_TIE = 1e-5
 # serve phase: cache path against flash path (see the comment there)
 SERVE_MAX_ABS = 1.0
 SERVE_MEAN_ABS = 0.12
@@ -315,17 +353,20 @@ def flash_case(timer, gen, shape, dtype, causal, timed, hm=False, tk=None):
     return res
 
 
-def rmsnorm_case(timer, gen, shape, dtype, timed=True, misaligned=False):
+def rmsnorm_case(timer, gen, shape, dtype, timed=True, misaligned=False,
+                 weight_dtype=torch.float32):
     """The kernel against rmsnorm_reference; ``misaligned``: ``x`` is a
     contiguous view one element past a 16-byte boundary (the kernel's
-    one-element path)."""
+    one-element path); ``weight_dtype``: the weight's (the wrapper casts
+    one that is not f32 to f32 for the kernel)."""
     import torch.nn.functional as F
     from ray_tpu_torch.ops.fused import fused_rmsnorm, rmsnorm_reference
     rows, cols = shape
     eps = 1e-5
     x = torch.randn(rows * cols + misaligned, generator=gen,
                     device="cuda").to(dtype)[int(misaligned):].view(shape)
-    w = 1 + 0.1 * torch.randn(cols, generator=gen, device="cuda")
+    w = (1 + 0.1 * torch.randn(cols, generator=gen, device="cuda")).to(
+        weight_dtype)
     before = fused_rmsnorm.launches
     out = fused_rmsnorm(x, w, eps=eps)
     torch.cuda.synchronize()
@@ -338,6 +379,8 @@ def rmsnorm_case(timer, gen, shape, dtype, timed=True, misaligned=False):
     res = {"kernel": "rmsnorm", "shape": list(shape),
            "dtype": str(dtype).replace("torch.", ""),
            **({"misaligned": True} if misaligned else {}),
+           **({"weight_dtype": str(weight_dtype).replace("torch.", "")}
+              if weight_dtype != torch.float32 else {}),
            "max_abs_err": max_err(out, ref), "atol": tol, "launches": 1}
     if timed:
         flops = 4 * rows * cols
@@ -459,6 +502,12 @@ def phase_kernels():
             add(rmsnorm_case(timer, gen, shape, dtype, timed=False))
         add(rmsnorm_case(timer, gen, (37, 4096), dtype, timed=False,
                          misaligned=True))
+        add(rmsnorm_case(timer, gen, (37, 4096), dtype, timed=False,
+                         weight_dtype=torch.bfloat16))
+        # ViT-B/16's ragged self-attention, not causal: 196 patches + CLS
+        vit_small = (2,) + VIT_SHAPE[1:]
+        add(flash_case(timer, gen, vit_small, dtype, False, timed=False))
+        add(bwd_case(timer, gen, vit_small, dtype, False, timed=False))
         for causal in (False, True):
             add(bwd_case(timer, gen, (1, 512, 4, 64), dtype,
                          causal, timed=False))
@@ -471,6 +520,11 @@ def phase_kernels():
     for shape in (GPT2_SHAPE, (4, 1024, 32, 128)):
         add(bwd_case(timer, gen, shape, torch.bfloat16, True,
                      timed=True))
+    # ViT-B/16's training shape (not causal) and the MoE's (causal)
+    for shape, causal in ((VIT_SHAPE, False), (MOE_SHAPE, True)):
+        add(flash_case(timer, gen, shape, torch.bfloat16, causal,
+                       timed=True))
+        add(bwd_case(timer, gen, shape, torch.bfloat16, causal, timed=True))
     # head-major: head_dim 32, 64 and 128, odd head counts, ragged ends
     for dtype in (torch.float32, torch.bfloat16):
         for shape in ((2, 256, 4, 32), (1, 256, 3, 64), (1, 256, 3, 128)):
@@ -667,10 +721,14 @@ def _flash_counts():
         hm_fwd.launches, hm_bwd.launches_dkdv, hm_bwd.launches_dq)))
 
 
-def _flash_per(n, hm):
-    """``n`` launches of each kernel of one family, none of the other."""
-    return {**dict.fromkeys(FLASH_NL, 0 if hm else n),
-            **dict.fromkeys(FLASH_HM, n if hm else 0)}
+def _flash_per(fwd, hm=False, bwd=None):
+    """Launches of one family's kernels: ``fwd`` forwards and ``bwd`` of
+    each backward kernel (default ``fwd``); none of the other family."""
+    bwd = fwd if bwd is None else bwd
+    counts = dict.fromkeys(FLASH_NL + FLASH_HM, 0)
+    names = FLASH_HM if hm else FLASH_NL
+    counts.update(zip(names, (fwd, bwd, bwd)))
+    return counts
 
 
 def _zero_counts():
@@ -774,9 +832,9 @@ def _union_ms(intervals) -> float:
     return total / 1e3
 
 
-def profile_step(model, opt, tokens, kw, vocab):
-    """One training step under torch.profiler: device ms by kind, and the
-    step's own span.  The span is a host range opened before the step
+def profile_step(step, vocab=None):
+    """One training step (``step()``) under torch.profiler: device ms by
+    kind, and the step's own span.  The span is a host range opened before the step
     and closed after a final synchronize, so it holds all of the step's
     device work; busy is the union of its kernels' intervals, on the
     profiler's one clock.  The device's timestamps are mapped onto that
@@ -784,24 +842,23 @@ def profile_step(model, opt, tokens, kw, vocab):
     range: the span is widened to cover every kernel, and how many fell
     outside, and by how many us, is reported.  Dense and LM-head products
     are told apart by the shapes of the matmul op that launched them (the
-    head's carry the vocabulary size); the flash kernels by name."""
+    head's carry the vocabulary size ``vocab``); convolutions (forward and
+    backward) by their op; the flash kernels by name."""
     from torch.profiler import ProfilerActivity, profile, record_function
-    from ray_tpu_torch.models.gpt2 import loss_fn
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         with record_function(STEP_RANGE):
-            opt.zero_grad(set_to_none=True)
-            loss_fn(model, tokens, **kw).backward()
-            opt.step()
+            step()
             torch.cuda.synchronize()
-    kinds = dict.fromkeys(("dense", "lm_head", "flash_fwd", "flash_bwd",
-                           "optimizer", "elementwise_other"), 0.0)
-    kernel_sum, spans, step = 0.0, [], None
+    kinds = dict.fromkeys(("dense", "lm_head", "conv", "flash_fwd",
+                           "flash_bwd", "optimizer", "elementwise_other"),
+                          0.0)
+    kernel_sum, spans, host_range = 0.0, [], None
     for ev in prof.events():
         if ev.name == STEP_RANGE:  # the host range, and its device copy
             if ev.device_type == torch.autograd.DeviceType.CPU:
-                step = ev
+                host_range = ev
         elif ev.device_type == torch.autograd.DeviceType.CUDA:
             if getattr(ev, "is_user_annotation", False):
                 # a host range's copy on the device timeline (that of
@@ -819,10 +876,12 @@ def profile_step(model, opt, tokens, kw, vocab):
             if ev.name in MM_OPS:
                 head = any(vocab in shape for shape in ev.input_shapes)
                 kinds["lm_head" if head else "dense"] += ms
+            elif "convolution" in ev.name:  # cuDNN's, forward or backward
+                kinds["conv"] += ms
             elif ev.name.startswith(("aten::_foreach", "aten::_fused_adam")):
                 kinds["optimizer"] += ms
     kinds["elementwise_other"] = kernel_sum - sum(kinds.values())
-    t0, t1 = step.time_range.start, step.time_range.end
+    t0, t1 = host_range.time_range.start, host_range.time_range.end
     outside = [(name, s - t0, e - t1) for s, e, name in spans
                if s < t0 or e > t1]
     t0 = min([t0] + [s for s, _, _ in spans])
@@ -835,21 +894,18 @@ def profile_step(model, opt, tokens, kw, vocab):
             {"count": len(outside), "first": outside[:3]}}
 
 
-def device_traced_step(model, opt, tokens, kw):
-    """One training step traced for device activity only: the host does
-    little more work than in an untraced step, which a step of many
-    launches needs (with host ops and shapes traced, GPT-2 XL's profiled
-    step stretches past its kernels).  Its wall time on the host clock,
-    between two synchronizes, against the union of its kernels'
+def device_traced_step(step):
+    """One training step (``step()``) traced for device activity only:
+    the host does little more work than in an untraced step, which a step
+    of many launches needs (with host ops and shapes traced, GPT-2 XL's
+    profiled step stretches past its kernels).  Its wall time on the host
+    clock, between two synchronizes, against the union of its kernels'
     intervals."""
     from torch.profiler import ProfilerActivity, profile
-    from ray_tpu_torch.models.gpt2 import loss_fn
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        opt.zero_grad(set_to_none=True)
-        loss_fn(model, tokens, **kw).backward()
-        opt.step()
+        step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     spans = [(ev.time_range.start, ev.time_range.end)
@@ -883,66 +939,469 @@ def head_cost(model, tokens, timer):
     return out
 
 
+def train_loop(step, steps, per_step, loss_drop=0.0):
+    """One warm-up and ``steps`` timed calls of ``step()`` (which returns
+    the loss), each launching ``per_step`` flash kernels; the last loss
+    below the first by more than ``loss_drop``: (losses, warm-up s, timed
+    s)."""
+    losses = []
+
+    def one():
+        c0 = _flash_counts()
+        losses.append(step())
+        assert _delta(c0, _flash_counts()) == per_step
+
+    _, warm_s = _sync_time(one)
+    _, elapsed = _sync_time(lambda: [one() for _ in range(steps)])
+    losses = [x.item() for x in losses]
+    assert all(map(math.isfinite, losses)), losses
+    assert losses[-1] < losses[0] - loss_drop, ("the loss did not fall",
+                                                losses)
+    return losses, warm_s, elapsed
+
+
+def _rmsnorm_launches():
+    from ray_tpu_torch.ops.fused import fused_rmsnorm
+    return fused_rmsnorm.launches
+
+
+def optimizer_step(model, opt, loss_fn, *args):
+    """One training step: the loss, its gradient, one optimizer update."""
+    opt.zero_grad(set_to_none=True)
+    loss = loss_fn(model, *args)
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+def phase_model_train(phase, config, build, data, loss_fn, *, steps,
+                      per_step, units, vocab=None, loss_drop=0.0,
+                      infer=None, extra=None, **fields):
+    """What every training phase measures, from random weights and one
+    random batch.  ``build(gen)`` makes the model on the card (timed)
+    and ``data(gen)`` its batch, a tuple, from one generator seeded
+    ``SEED``; a step is :func:`optimizer_step` of ``loss_fn(model,
+    *batch)`` under AdamW(3e-4, weight decay 0.01).  The launch counts
+    are zeroed; ``infer(model, *batch)``, where given, runs without
+    gradients and returns fields of the phase's line; then 1 warm-up and
+    ``steps`` timed steps (:func:`train_loop`: ``per_step`` flash
+    launches each, the loss falling by more than ``loss_drop``), after
+    which no RMSNorm kernel may have run; the counts and the peak memory
+    are read; one profiled step (LM-head products told apart by
+    ``vocab``) and one device-traced step follow; last, ``extra(model,
+    line, *batch)`` returns the phase's own fields, given the line so
+    far.  ``units`` is (name, count per step), the rate ``{name}_per_s``;
+    ``fields`` join the line.  Returns the launch counts."""
+    from ray_tpu_torch.models.gpt2 import adamw
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    model, init_s = _sync_time(lambda: build(gen))
+    opt = adamw(model.parameters(), lr=3e-4, weight_decay=0.01)
+    inputs = data(gen)
+    line = {"phase": phase, "config": config,
+            "num_params": sum(p.numel() for p in model.parameters()),
+            **fields}
+    _zero_counts()
+    if infer is not None:
+        with torch.no_grad():
+            line.update(infer(model, *inputs))
+    torch.cuda.reset_peak_memory_stats()
+    step = lambda: optimizer_step(model, opt, loss_fn, *inputs)  # noqa: E731
+    losses, warm_s, elapsed = train_loop(step, steps, per_step, loss_drop)
+    launches = {**_flash_counts(), "rmsnorm": _rmsnorm_launches()}
+    assert launches["rmsnorm"] == 0, launches
+    name, count = units
+    line.update({
+        "steps": steps, "warmup_steps": 1, "init_s": init_s,
+        "warmup_s": warm_s, "step_ms": elapsed / steps * 1e3,
+        f"{name}_per_s": count * steps / elapsed,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "losses": losses, "loss_drop_min": loss_drop,
+        "launches_per_step": per_step, "launches": launches,
+        "profiled_step": profile_step(step, vocab),
+        "device_traced_step": device_traced_step(step)})
+    if extra is not None:
+        line.update(extra(model, line, *inputs))
+    line["card"] = card_line()
+    emit(line)
+    emit({"phase": phase, "ok": True})
+    return launches
+
+
 def phase_train(preset="gpt2_small", batch=32, seq=1024, steps=10,
                 hm=False, loss_drop=TRAIN_LOSS_DROP, phase="train",
                 with_head_cost=True):
-    """Train GPT-2 ``preset`` at full width and depth from random weights
-    on one random batch: 1 warm-up and ``steps`` timed steps, each
-    launching every flash kernel of its family (head-major with ``hm``)
-    once per layer and none of the other family; then one profiled step,
-    one step traced for device activity only and, ``with_head_cost``, the
-    LM head's cost by logits dtype."""
-    from ray_tpu_torch.models.gpt2 import GPT2, GPT2Config, adamw, train_step
-    from ray_tpu_torch.ops.fused import fused_rmsnorm
+    """Train GPT-2 ``preset`` at full width and depth
+    (:func:`phase_model_train`) on ``batch`` x ``seq`` tokens with bf16
+    LM-head logits, each step launching every flash kernel of its family
+    (head-major with ``hm``) once per layer and none of the other family;
+    then, ``with_head_cost``, the LM head's cost by logits dtype."""
+    from ray_tpu_torch.models.gpt2 import GPT2, GPT2Config, loss_fn
     cfg = getattr(GPT2Config, preset)(max_seq_len=seq)
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    model, init_s = _sync_time(lambda: GPT2(cfg, device="cuda",
-                                            generator=gen))
-    opt = adamw(model.parameters(), lr=3e-4, weight_decay=0.01)
-    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
-                           device="cuda")
-    kw = dict(head_logits_dtype=torch.bfloat16)
-    per_step = _flash_per(cfg.num_layers, hm)
-    torch.cuda.reset_peak_memory_stats()
-    _zero_counts()
-    losses = []
 
-    def step():
+    def extra(model, line, tokens):
+        return {"mfu": line["tokens_per_s"] * cfg.flops_per_token()
+                / PEAK_FLOPS[torch.bfloat16],
+                "lm_head_fwd_bwd_ms": head_cost(
+                    model, tokens, Timer(iters=5, warmup=1))
+                if with_head_cost else None}
+
+    return phase_model_train(
+        phase, f"{preset} ({cfg.num_layers} layers, {cfg.embed_dim} wide, "
+        f"{cfg.num_heads} heads, bf16 compute, f32 masters, "
+        f"remat={cfg.remat!r})",
+        lambda gen: GPT2(cfg, device="cuda", generator=gen),
+        lambda gen: (torch.randint(0, cfg.vocab_size, (batch, seq),
+                                   generator=gen, device="cuda"),),
+        lambda model, tokens: loss_fn(model, tokens,
+                                      head_logits_dtype=torch.bfloat16),
+        steps=steps, per_step=_flash_per(cfg.num_layers, hm),
+        units=("tokens", batch * seq), vocab=cfg.vocab_size,
+        loss_drop=loss_drop, extra=extra, batch=batch, seq=seq,
+        flops_per_token=cfg.flops_per_token())
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """f32 products and convolutions in full f32: cuDNN's TF32 flag is on
+    by default in PyTorch (the matmul flag is off and stays off)."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        assert not torch.backends.cuda.matmul.allow_tf32
+        assert not torch.backends.cudnn.allow_tf32
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+def perturb_(model, seed):
+    """Every parameter plus normal noise (std 0.05), so that no zero CLS
+    token, bias or last BatchNorm scale hides its part of the model;
+    BatchNorm running means plus noise (std 0.1) and running variances
+    scaled by a factor in [0.5, 1.5]."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+        for name, b in model.named_buffers():
+            if name.endswith("running_var"):
+                b.mul_(0.5 + torch.rand(b.shape, generator=gen))
+            else:
+                b.add_(0.1 * torch.randn(b.shape, generator=gen))
+
+
+def step_grads(model, loss_fn, *args):
+    """The loss of ``loss_fn(model, *args)`` and every gradient."""
+    model.zero_grad(set_to_none=True)
+    loss = loss_fn(model, *args)
+    loss.backward()
+    return loss.item(), {n: p.grad for n, p in model.named_parameters()}
+
+
+def hold_parity(phase, cpu_logits, gpu_logits, cpu_loss, gpu_loss,
+                cpu_grads, gpu_grads):
+    """Hold the card's logits, loss and every gradient to the CPU's at
+    the f32 parity limits; return the readings."""
+    err = max_err(gpu_logits.cpu(), cpu_logits)
+    scale = cpu_logits.abs().max().item()
+    torch.testing.assert_close(gpu_logits.cpu(), cpu_logits,
+                               atol=PARITY_LOGIT_TOL, rtol=PARITY_LOGIT_TOL)
+    assert abs(gpu_loss - cpu_loss) <= PARITY_LOSS_RTOL * abs(cpu_loss), \
+        (phase, gpu_loss, cpu_loss)
+    assert set(cpu_grads) == set(gpu_grads)
+    worst = (0.0, "")
+    for name, g in cpu_grads.items():
+        assert torch.isfinite(gpu_grads[name]).all(), name
+        worst = max(worst, (_gradient_err(gpu_grads[name].cpu(), g)[1],
+                            name))
+    assert worst[0] <= TRAIN_GRAD_TOL, (phase, worst)
+    return {"logits_max_abs_err": err, "max_abs_logit": scale,
+            "logits_tol": PARITY_LOGIT_TOL, "loss_cpu": cpu_loss,
+            "loss_gpu": gpu_loss, "loss_rtol": PARITY_LOSS_RTOL,
+            "worst_grad_err_over_max": worst[0],
+            "worst_grad_param": worst[1],
+            "grad_tol_err_over_max": TRAIN_GRAD_TOL,
+            "params": len(cpu_grads)}
+
+
+def phase_vit_parity(batch=4):
+    """ViT-B/16 at full width, 2 layers, f32, perturbed weights: logits,
+    the loss and every gradient on the card (flash kernels #1, #3, #4 at
+    T = 197, not causal; cuDNN's patch embedding) against the CPU (plain
+    versions)."""
+    import copy
+    from ray_tpu_torch.models.vit import ViT, ViTConfig, loss_fn
+    cfg = ViTConfig.base(num_layers=2, dtype=torch.float32)
+    t0 = time.perf_counter()
+    cpu = ViT(cfg, device="cpu", generator=torch.Generator().manual_seed(SEED))
+    perturb_(cpu, SEED + 2)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    gen = torch.Generator().manual_seed(SEED + 1)
+    images = torch.randn(batch, cfg.image_size, cfg.image_size, 3,
+                         generator=gen)
+    labels = torch.randint(0, cfg.num_classes, (batch,), generator=gen)
+    with torch.no_grad():
+        cpu_logits = cpu(images)
+    cpu_loss, cpu_grads = step_grads(cpu, loss_fn, images, labels)
+    c0 = _flash_counts()
+    with no_tf32():
+        with torch.no_grad():
+            gpu_logits = gpu(images.cuda())
+        gpu_loss, gpu_grads = step_grads(gpu, loss_fn, images.cuda(),
+                                         labels.cuda())
+    torch.cuda.synchronize()
+    launched = _delta(c0, _flash_counts())
+    assert launched == _flash_per(2 * cfg.num_layers,
+                                  bwd=cfg.num_layers), launched
+    readings = hold_parity("vit_parity", cpu_logits, gpu_logits, cpu_loss,
+                           gpu_loss, cpu_grads, gpu_grads)
+    emit({"phase": "vit_parity", "ok": True, "config":
+          "ViTConfig.base(num_layers=2, dtype=float32), perturbed",
+          "images": [batch, cfg.image_size, cfg.image_size, 3], **readings,
+          "launches": launched,
+          "seconds": round(time.perf_counter() - t0, 3)})
+
+
+def phase_moe_parity(batch=2, seq=256):
+    """The default MoE at full width (512, 8 heads of 64, 8 experts top-2,
+    vocab 32000), 2 layers, f32, perturbed weights: each layer's routing
+    (expert indices and buffer positions, exactly), its aux loss, the
+    logits, the loss and every gradient on the card against the CPU."""
+    import copy
+    from ray_tpu_torch.models.moe import MoEConfig, MoETransformer, loss_fn
+    cfg = MoEConfig(num_layers=2, dtype=torch.float32)
+    t0 = time.perf_counter()
+    cpu = MoETransformer(cfg, device="cpu",
+                         generator=torch.Generator().manual_seed(SEED))
+    perturb_(cpu, SEED + 2)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq),
+                           generator=torch.Generator().manual_seed(SEED + 1))
+    with torch.no_grad():
+        cpu_logits = cpu(tokens)
+        cpu_routing = cpu.hidden(tokens)[2]
+    cpu_loss, cpu_grads = step_grads(cpu, loss_fn, tokens)
+    c0 = _flash_counts()
+    with no_tf32():
+        with torch.no_grad():
+            gpu_logits = gpu(tokens.cuda())
+            gpu_routing = gpu.hidden(tokens.cuda())[2]
+        gpu_loss, gpu_grads = step_grads(gpu, loss_fn, tokens.cuda())
+    torch.cuda.synchronize()
+    launched = _delta(c0, _flash_counts())
+    assert launched == _flash_per(3 * cfg.num_layers,
+                                  bwd=cfg.num_layers), launched
+    # routing: the same experts and buffer positions for every token; the
+    # smallest gap between a token's k-th and (k+1)-th probability says
+    # how near a tie the data came
+    capacity, margin, dropped, aux_err = cfg.capacity(batch * seq), 1.0, 0, 0
+    for c, g in zip(cpu_routing, gpu_routing):
+        assert torch.equal(g.experts.cpu(), c.experts), "expert indices"
+        assert torch.equal(g.slots.cpu(), c.slots), "buffer positions"
+        top = c.probs.sort(-1, descending=True).values
+        margin = min(margin, (top[:, cfg.top_k - 1]
+                              - top[:, cfg.top_k]).min().item())
+        dropped += int((c.slots >= capacity).sum())
+        aux_err = max(aux_err, abs(g.aux.item() - c.aux.item())
+                      / c.aux.item())
+    assert aux_err <= PARITY_LOSS_RTOL, aux_err
+    readings = hold_parity("moe_parity", cpu_logits, gpu_logits, cpu_loss,
+                           gpu_loss, cpu_grads, gpu_grads)
+    emit({"phase": "moe_parity", "ok": True, "config":
+          "MoEConfig(num_layers=2, dtype=float32), perturbed",
+          "tokens": [batch, seq], "capacity": capacity,
+          "routing_equal": True, "choices_dropped": dropped,
+          "smallest_top_k_margin": margin, "aux_rel_err": aux_err,
+          **readings, "launches": launched,
+          "seconds": round(time.perf_counter() - t0, 3)})
+
+
+@contextlib.contextmanager
+def relu_inputs(record=None, replay=None):
+    """Within the block, ``torch.nn.functional.relu`` either appends each
+    input to ``record`` (CPU copies) or takes its decisions from the
+    inputs in ``replay``, in call order, and holds every decision it
+    changes to a tie (both inputs within RELU_TIE of 0).  Yields the list
+    of flips per call."""
+    import torch.nn.functional as F
+    real, flips = F.relu, []
+    recorded = iter(replay or ())
+
+    def relu(x):
+        if record is not None:
+            record.append(x.detach().cpu())
+            return real(x)
+        other = next(recorded).to(x.device)
+        keep = other > 0
+        flip = keep != (x > 0)
+        assert x.detach()[flip].abs().le(RELU_TIE).all() and \
+            other[flip].abs().le(RELU_TIE).all(), "a ReLU flip beyond a tie"
+        flips.append(int(flip.sum()))
+        return x * keep
+
+    F.relu = relu
+    try:
+        yield flips
+    finally:
+        F.relu = real
+
+
+def _resnet_loss(model, images, labels):
+    """Mean softmax cross entropy of a training-mode forward (the JAX
+    package has no ResNet loss)."""
+    import torch.nn.functional as F
+    return F.cross_entropy(model(images, train=True), labels)
+
+
+def phase_resnet_parity(batch=8):
+    """The whole ResNet-18 (CIFAR-10: 32 x 32 x 3, 10 classes), f32,
+    perturbed weights and BatchNorm statistics, one training-mode step on
+    the card (cuDNN) and on the CPU: logits, the loss, every gradient and
+    every running statistic after the update; then evaluation-mode
+    logits.  ReLU's gradient jumps at 0, so the CPU step takes the card's
+    ReLU decisions (relu_inputs), each one it changes held to a tie."""
+    import copy
+    from ray_tpu_torch.models.resnet import ResNet, ResNetConfig
+    cfg = ResNetConfig.resnet18(dtype=torch.float32)
+    t0 = time.perf_counter()
+    cpu = ResNet(cfg, device="cpu",
+                 generator=torch.Generator().manual_seed(SEED))
+    perturb_(cpu, SEED + 2)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    gen = torch.Generator().manual_seed(SEED + 1)
+    images = torch.randn(batch, 32, 32, 3, generator=gen)
+    labels = torch.randint(0, cfg.num_classes, (batch,), generator=gen)
+    c0 = {**_flash_counts(), "rmsnorm": _rmsnorm_launches()}
+    card = []
+    with no_tf32():
+        with relu_inputs(record=card):
+            gpu_logits = gpu(images.cuda(), train=True)
+            gpu_loss, gpu_grads = step_grads(gpu, _resnet_loss,
+                                             images.cuda(), labels.cuda())
+        with torch.no_grad():
+            gpu_eval = gpu(images.cuda(), train=False)
+    torch.cuda.synchronize()
+    assert {**_flash_counts(), "rmsnorm": _rmsnorm_launches()} == c0
+    # the card ran two training-mode passes (logits, then the step), so
+    # its running statistics moved twice: so do the CPU's
+    with relu_inputs(replay=card) as flips:
+        cpu_logits = cpu(images, train=True)
+        cpu_loss, cpu_grads = step_grads(cpu, _resnet_loss, images, labels)
+    readings = hold_parity("resnet_parity", cpu_logits.detach(),
+                           gpu_logits.detach(), cpu_loss, gpu_loss,
+                           cpu_grads, gpu_grads)
+    stat_err = 0.0
+    gpu_buffers = dict(gpu.named_buffers())
+    for name, b in cpu.named_buffers():
+        torch.testing.assert_close(gpu_buffers[name].cpu(), b,
+                                   atol=PARITY_STAT_TOL,
+                                   rtol=PARITY_STAT_TOL, msg=name)
+        stat_err = max(stat_err, max_err(gpu_buffers[name].cpu(), b))
+    with torch.no_grad():
+        cpu_eval = cpu(images, train=False)
+    torch.testing.assert_close(gpu_eval.cpu(), cpu_eval,
+                               atol=PARITY_LOGIT_TOL, rtol=PARITY_LOGIT_TOL)
+    emit({"phase": "resnet_parity", "ok": True, "config":
+          "ResNetConfig.resnet18(dtype=float32), perturbed",
+          "images": [batch, 32, 32, 3], **readings,
+          "running_stats_max_abs_err": stat_err,
+          "stat_tol": PARITY_STAT_TOL,
+          "eval_logits_max_abs_err": max_err(gpu_eval.cpu(), cpu_eval),
+          "relu_calls": len(flips), "relu_ties_flipped": sum(flips),
+          "relu_tie": RELU_TIE, "flash_and_rmsnorm_launches": 0,
+          "seconds": round(time.perf_counter() - t0, 3)})
+
+
+def phase_vit(infer_batch=64, batch=128, steps=MODEL_STEPS):
+    """ViT-B/16 at full width and depth (12 layers, 768 wide, 12 heads of
+    64, 224 x 224 images, 1000 classes), bf16 compute, f32 masters:
+    classify ``infer_batch`` images (a warm-up call, then a timed one,
+    which launches the forward kernel once per layer and nothing else),
+    then train on ``batch`` images (:func:`phase_model_train`)."""
+    from ray_tpu_torch.models.vit import ViT, ViTConfig, loss_fn
+    cfg = ViTConfig.base()
+    per_forward = _flash_per(cfg.num_layers, bwd=0)
+
+    def infer(model, images, labels):
+        model(images[:infer_batch])
         c0 = _flash_counts()
-        losses.append(train_step(model, opt, tokens, **kw))
-        assert _delta(c0, _flash_counts()) == per_step
+        logits, infer_s = _sync_time(lambda: model(images[:infer_batch]))
+        assert _delta(c0, _flash_counts()) == per_forward
+        assert logits.shape == (infer_batch, cfg.num_classes)
+        assert torch.isfinite(logits).all()
+        return {"infer_batch": infer_batch, "infer_s": infer_s,
+                "infer_images_per_s": infer_batch / infer_s,
+                "launches_per_forward": per_forward}
 
-    _, warm_s = _sync_time(step)
-    _, elapsed = _sync_time(lambda: [step() for _ in range(steps)])
-    launches = {**_flash_counts(), "rmsnorm": fused_rmsnorm.launches}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    losses = [x.item() for x in losses]
-    assert all(map(math.isfinite, losses)), losses
-    assert losses[-1] < losses[0] - loss_drop, losses
-    step_ms = elapsed / steps * 1e3
-    tokens_per_s = batch * seq / (elapsed / steps)
-    profiled = profile_step(model, opt, tokens, kw, cfg.vocab_size)
-    traced = device_traced_step(model, opt, tokens, kw)
-    head_ms = (head_cost(model, tokens, Timer(iters=5, warmup=1))
-               if with_head_cost else None)
-    emit({"phase": phase, "config": f"{preset} ({cfg.num_layers} layers, "
-          f"{cfg.embed_dim} wide, {cfg.num_heads} heads, bf16 compute, f32 "
-          f"masters, remat={cfg.remat!r})", "num_params": cfg.num_params(),
-          "batch": batch, "seq": seq, "steps": steps,
-          "warmup_steps": 1, "init_s": init_s, "warmup_s": warm_s,
-          "step_ms": step_ms, "tokens_per_s": tokens_per_s,
-          "flops_per_token": cfg.flops_per_token(),
-          "mfu": tokens_per_s * cfg.flops_per_token()
-          / PEAK_FLOPS[torch.bfloat16],
-          "peak_memory_gb": peak_gb, "losses": losses,
-          "loss_drop_min": loss_drop,
-          "launches_per_step": per_step, "launches": launches,
-          "profiled_step": profiled, "device_traced_step": traced,
-          "lm_head_fwd_bwd_ms": head_ms,
-          "card": card_line()})
-    emit({"phase": phase, "ok": True})
-    del model, opt
-    return launches
+    return phase_model_train(
+        "vit", "ViTConfig.base() (ViT-B/16: 12 layers, 768 wide, 12 heads "
+        "of 64, T = 197), bf16 compute, f32 masters",
+        lambda gen: ViT(cfg, device="cuda", generator=gen),
+        lambda gen: (torch.randn(batch, cfg.image_size, cfg.image_size, 3,
+                                 generator=gen, device="cuda"),
+                     torch.randint(0, cfg.num_classes, (batch,),
+                                   generator=gen, device="cuda")),
+        loss_fn, steps=steps, per_step=_flash_per(cfg.num_layers),
+        units=("images", batch), infer=infer, batch=batch)
+
+
+def phase_moe(batch=8, seq=1024, steps=MODEL_STEPS):
+    """The default MoE transformer (MoEConfig(): 8 layers, 512 wide, 8
+    heads of 64, 8 experts top-2, capacity factor 1.25, vocab 32000) on
+    ``batch`` x ``seq`` tokens, bf16 compute, f32 masters
+    (:func:`phase_model_train`); after it, each layer's aux loss (finite)
+    and the choices past their expert's capacity, from one forward."""
+    from ray_tpu_torch.models.moe import MoEConfig, MoETransformer, loss_fn
+    cfg = MoEConfig()
+    capacity = cfg.capacity(batch * seq)
+
+    def extra(model, line, tokens):
+        with torch.no_grad():
+            routings = model.hidden(tokens)[2]
+        aux = [r.aux.item() for r in routings]
+        assert all(map(math.isfinite, aux)), aux
+        return {"aux_losses": aux, "choices_dropped": sum(
+            int((r.slots >= capacity).sum()) for r in routings),
+            "choices": cfg.num_layers * batch * seq * cfg.top_k}
+
+    return phase_model_train(
+        "moe", "MoEConfig() (8 layers, 512 wide, 8 heads of 64, 8 experts "
+        "top-2, capacity factor 1.25, vocab 32000), bf16 compute, f32 "
+        "masters",
+        lambda gen: MoETransformer(cfg, device="cuda", generator=gen),
+        lambda gen: (torch.randint(0, cfg.vocab_size, (batch, seq),
+                                   generator=gen, device="cuda"),),
+        loss_fn, steps=steps, per_step=_flash_per(cfg.num_layers),
+        units=("tokens", batch * seq), vocab=cfg.vocab_size, extra=extra,
+        batch=batch, seq=seq, capacity=capacity)
+
+
+def phase_resnet(batch=256, steps=MODEL_STEPS):
+    """ResNet-18 for CIFAR-10 (32 x 32 x 3, 10 classes) at batch
+    ``batch``, bf16 convolutions (cuDNN, channels-last), f32 BatchNorm,
+    a mean softmax cross entropy: an evaluation-mode forward (a warm-up
+    call, then a timed one), then training (:func:`phase_model_train`);
+    no flash or RMSNorm kernel runs."""
+    from ray_tpu_torch.models.resnet import ResNet, ResNetConfig
+    cfg = ResNetConfig.resnet18()
+
+    def infer(model, images, labels):
+        model(images, train=False)
+        logits, infer_s = _sync_time(lambda: model(images, train=False))
+        assert torch.isfinite(logits).all()
+        assert not any(_flash_counts().values())
+        return {"infer_s": infer_s, "infer_images_per_s": batch / infer_s}
+
+    return phase_model_train(
+        "resnet", "ResNetConfig.resnet18() (CIFAR-10: 32 x 32 x 3, 10 "
+        "classes), bf16 convolutions, f32 BatchNorm",
+        lambda gen: ResNet(cfg, device="cuda", generator=gen),
+        lambda gen: (torch.randn(batch, 32, 32, 3, generator=gen,
+                                 device="cuda"),
+                     torch.randint(0, cfg.num_classes, (batch,),
+                                   generator=gen, device="cuda")),
+        _resnet_loss, steps=steps, per_step=_flash_per(0),
+        units=("images", batch), infer=infer, batch=batch)
 
 
 SYMBOLS = {"flash_fwd": "flash_fwd_bf16_kernel",  # the bf16 kernel's name
@@ -1002,6 +1461,15 @@ def kernel_summary(cases, by_path, usage):
                "bound_by": c[f"bound_by_{part}"] if part else c["bound_by"],
                "library_ms": c["library_ms"], "shape": shape,
                "dtype": "bfloat16"}
+        if part or name.endswith("fwd"):  # the other timed model shapes
+            row["other_shapes"] = [
+                {"shape": o["shape"], "causal": o["causal"],
+                 "ms": o[f"kernel_ms_{part}"] if part else o["kernel_ms"],
+                 "bound_ms": o[f"bound_ms_{part}"] if part
+                 else o["bound_ms"], "plain_ms": o["plain_ms"],
+                 "library_ms": o["library_ms"]}
+                for o in cases if o["kernel"] == kind and "plain_ms" in o
+                and o["dtype"] == "bfloat16" and o["shape"] != shape]
         if name == "rmsnorm":  # and at the decode step's shape
             c = next(c for c in cases if c["kernel"] == kind
                      and c["shape"] == list(RMSNORM_DECODE)
@@ -1042,8 +1510,21 @@ def main() -> int:
     train_xl = phase_train("gpt2_xl", batch=8, steps=XL_STEPS, hm=True,
                            loss_drop=XL_LOSS_DROP, phase="train_xl",
                            with_head_cost=False)
+    _free()
+    phase_vit_parity()
+    _free()
+    vit = phase_vit()
+    _free()
+    phase_moe_parity()
+    _free()
+    moe = phase_moe()
+    _free()
+    phase_resnet_parity()
+    _free()
+    resnet = phase_resnet()
     emit(kernel_summary(cases, {"serve": serve, "train": train,
-                                "train_xl": train_xl}, usage))
+                                "train_xl": train_xl, "vit": vit,
+                                "moe": moe, "resnet": resnet}, usage))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

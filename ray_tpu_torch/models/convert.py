@@ -40,6 +40,24 @@ def llama_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _dense(sd: Dict[str, torch.Tensor], name: str, tree: Mapping) -> None:
+    """A flax Dense (``kernel [in, out]``, ``bias``) as ``name.weight
+    [out, in]`` and ``name.bias``."""
+    sd[f"{name}.weight"] = _tensor(tree["kernel"]).T.contiguous()
+    sd[f"{name}.bias"] = _tensor(tree["bias"])
+
+
+def _norm(sd: Dict[str, torch.Tensor], name: str, tree: Mapping) -> None:
+    """A flax LayerNorm or BatchNorm (``scale``, ``bias``)."""
+    sd[f"{name}.weight"] = _tensor(tree["scale"])
+    sd[f"{name}.bias"] = _tensor(tree["bias"])
+
+
+def _conv(tree: Mapping) -> torch.Tensor:
+    """A flax Conv ``kernel [kh, kw, in, out]`` as ``[out, in, kh, kw]``."""
+    return _tensor(tree["kernel"]).permute(3, 2, 0, 1).contiguous()
+
+
 _GPT2_DENSE = ("attn_qkv", "attn_proj", "mlp_up", "mlp_down")
 _GPT2_NORMS = ("ln_1", "ln_2")
 
@@ -51,18 +69,96 @@ def gpt2_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     a LayerNorm ``scale`` becomes ``weight``; ``wte``, ``wpe`` and biases
     copy as-is, in f32.  A gradient tree has the same structure, so the
     same map puts JAX gradients beside the port's ``param.grad``."""
-    sd = {"wte": _tensor(params["wte"]), "wpe": _tensor(params["wpe"]),
-          "ln_f.weight": _tensor(params["ln_f"]["scale"]),
-          "ln_f.bias": _tensor(params["ln_f"]["bias"])}
+    sd = {"wte": _tensor(params["wte"]), "wpe": _tensor(params["wpe"])}
+    _norm(sd, "ln_f", params["ln_f"])
     i = 0
     while f"h{i}" in params:
         block = params[f"h{i}"]
         for name in _GPT2_NORMS:
-            sd[f"h.{i}.{name}.weight"] = _tensor(block[name]["scale"])
-            sd[f"h.{i}.{name}.bias"] = _tensor(block[name]["bias"])
+            _norm(sd, f"h.{i}.{name}", block[name])
         for name in _GPT2_DENSE:
-            sd[f"h.{i}.{name}.weight"] = \
-                _tensor(block[name]["kernel"]).T.contiguous()
-            sd[f"h.{i}.{name}.bias"] = _tensor(block[name]["bias"])
+            _dense(sd, f"h.{i}.{name}", block[name])
+        i += 1
+    return sd
+
+
+def vit_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Map a flax ``ViT`` parameter tree (after ``unbox()``) onto
+    :class:`ray_tpu_torch.models.vit.ViT`'s names: ``h{i}`` becomes
+    ``h.{i}``, Dense and LayerNorm as in :func:`gpt2_state_dict_from_jax`,
+    the patch embedding's conv kernel ``[kh, kw, in, out]`` becomes
+    ``[out, in, kh, kw]``; ``cls``, ``pos_embed`` and biases copy as-is.
+    A gradient tree maps the same way."""
+    sd = {"patch_embed.weight": _conv(params["patch_embed"]),
+          "patch_embed.bias": _tensor(params["patch_embed"]["bias"]),
+          "cls": _tensor(params["cls"]),
+          "pos_embed": _tensor(params["pos_embed"])}
+    _norm(sd, "ln_f", params["ln_f"])
+    _dense(sd, "head", params["head"])
+    i = 0
+    while f"h{i}" in params:
+        block = params[f"h{i}"]
+        for name in _GPT2_NORMS:
+            _norm(sd, f"h.{i}.{name}", block[name])
+        for name in _GPT2_DENSE:
+            _dense(sd, f"h.{i}.{name}", block[name])
+        i += 1
+    return sd
+
+
+def moe_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Map a flax ``MoETransformer`` parameter tree (after ``unbox()``)
+    onto :class:`ray_tpu_torch.models.moe.MoETransformer`'s names: as
+    GPT-2's for the embeddings, norms and attention; ``moe/router`` is a
+    Dense; the stacked experts ``moe/up [E, D, M]`` and ``moe/down [E, M,
+    D]`` copy as-is.  A gradient tree maps the same way."""
+    sd = {"wte": _tensor(params["wte"]), "wpe": _tensor(params["wpe"])}
+    _norm(sd, "ln_f", params["ln_f"])
+    i = 0
+    while f"h{i}" in params:
+        block = params[f"h{i}"]
+        for name in _GPT2_NORMS:
+            _norm(sd, f"h.{i}.{name}", block[name])
+        for name in ("attn_qkv", "attn_proj"):
+            _dense(sd, f"h.{i}.{name}", block[name])
+        moe = block["moe"]
+        _dense(sd, f"h.{i}.moe.router", moe["router"])
+        sd[f"h.{i}.moe.up"] = _tensor(moe["up"])
+        sd[f"h.{i}.moe.down"] = _tensor(moe["down"])
+        i += 1
+    return sd
+
+
+def resnet_state_dict_from_jax(params: Mapping, batch_stats: Mapping
+                               ) -> Dict[str, torch.Tensor]:
+    """Map a flax ``ResNet``'s ``params`` and ``batch_stats`` onto
+    :class:`ray_tpu_torch.models.resnet.ResNet`'s names.  flax names the
+    layers itself: ``stem`` and ``BatchNorm_0`` (the stem's norm),
+    ``BasicBlock_{i}`` with ``Conv_0``/``BatchNorm_0`` (first conv),
+    ``Conv_1``/``BatchNorm_1`` (second) and, where the block projects its
+    input, ``Conv_2``/``BatchNorm_2``; ``Dense_0`` is the head.  Kernels
+    become ``[out, in, kh, kw]``; BatchNorm ``scale``/``bias`` become
+    ``weight``/``bias`` and the running ``mean``/``var`` the
+    ``running_mean``/``running_var`` buffers.  A gradient tree maps the
+    same way (pass its ``params``-shaped tree and the same
+    ``batch_stats``)."""
+    sd = {"stem.weight": _conv(params["stem"])}
+
+    def bn(name, p, stats):
+        _norm(sd, name, p)
+        sd[f"{name}.running_mean"] = _tensor(stats["mean"])
+        sd[f"{name}.running_var"] = _tensor(stats["var"])
+
+    bn("stem_bn", params["BatchNorm_0"], batch_stats["BatchNorm_0"])
+    _dense(sd, "head", params["Dense_0"])
+    i = 0
+    while f"BasicBlock_{i}" in params:
+        p, s = params[f"BasicBlock_{i}"], batch_stats[f"BasicBlock_{i}"]
+        for j, (conv, norm) in enumerate((("conv1", "bn1"), ("conv2", "bn2"),
+                                          ("proj", "proj_bn"))):
+            if f"Conv_{j}" in p:
+                sd[f"blocks.{i}.{conv}.weight"] = _conv(p[f"Conv_{j}"])
+                bn(f"blocks.{i}.{norm}", p[f"BatchNorm_{j}"],
+                   s[f"BatchNorm_{j}"])
         i += 1
     return sd

@@ -7,7 +7,8 @@ same parameter names (``layer{i}`` becomes ``layers.{i}``; see
 
 * no cache: attention is the flash kernel (``ops.flash_attention``);
 * with ``kv_caches``: prefill and decode both go through
-  :func:`decode_attention`, plain tensor code over the whole padded cache.
+  :func:`decode_attention`, plain tensor code over the whole padded cache,
+  and return new cache tensors (see :class:`Llama`).
 
 RMSNorm is the ``ops.fused_rmsnorm`` kernel.  The dense products, the
 logits product and ``decode_attention``'s einsums are plain
@@ -154,17 +155,21 @@ class LlamaBlock(nn.Module):
 
         new_cache = None
         if kv_cache is not None:
-            # written in place at cache_len (the JAX version returns an
-            # updated copy); the returned tuple holds the same tensors
+            # new tensors with the step's keys and values at cache_len, as
+            # jax.lax.dynamic_update_slice returns them: the caller's
+            # cache is left as it was.  An overrun raises where JAX would
+            # clamp the start and overwrite earlier slots.
             k_cache, v_cache, cache_len = kv_cache
-            if cache_len + seq > k_cache.shape[1]:
+            end = cache_len + seq
+            if end > k_cache.shape[1]:
                 raise ValueError(
                     f"KV cache of {k_cache.shape[1]} slots cannot take "
                     f"{seq} tokens at position {cache_len}")
-            k_cache[:, cache_len:cache_len + seq] = k.to(k_cache.dtype)
-            v_cache[:, cache_len:cache_len + seq] = v.to(v_cache.dtype)
-            k, v = k_cache, v_cache
-            new_cache = (k_cache, v_cache, cache_len + seq)
+            k = torch.slice_scatter(k_cache, k.to(k_cache.dtype), dim=1,
+                                    start=cache_len, end=end)
+            v = torch.slice_scatter(v_cache, v.to(v_cache.dtype), dim=1,
+                                    start=cache_len, end=end)
+            new_cache = (k, v, end)
 
         repeat = cfg.num_heads // cfg.num_kv_heads
         if repeat > 1:
@@ -189,6 +194,13 @@ class Llama(nn.Module):
     """Llama decoder.  ``forward(tokens, positions=None, kv_caches=None)``
     returns f32 logits ``[B, T, vocab]``, and with ``kv_caches`` also the
     updated caches.
+
+    The updated caches are new tensors, as in the JAX model: the caller's
+    ``kv_caches`` are not written, so a kept cache (a retried prefill, a
+    shared prefix) stays valid; each call copies the whole cache once.
+    The one difference from the JAX model: tokens that would run past the
+    cache's last slot raise ``ValueError``, where ``dynamic_update_slice``
+    clamps the write position and silently overwrites earlier slots.
 
     Parameters are made on ``device`` (CUDA unless ``device="cpu"``) with
     the flax initializers — normal(0.02) for dense kernels and the

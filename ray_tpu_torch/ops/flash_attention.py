@@ -17,7 +17,8 @@ Counterpart of ``ray_tpu/ops/flash_attention.py``:
   to ``[B, H, T, D]`` for the TPU's tiles; the CUDA kernels read
   ``[B, T, H, D]`` by strides, so both families launch them on the
   caller's tensors and count their launches apart.
-* the dispatch between the two, ``_nl_eligible``, and
+* the dispatch between the two, ``_nl_eligible`` and ``_resolve_native``
+  (with its ``RAY_TPU_FLASH_NATIVE`` switch), and
   ``_attention_reference``.
 
 Every public function takes and returns ``[batch, seq, heads,
@@ -26,11 +27,13 @@ head_dim]``, as in the JAX package.
 The causal mask is aligned top-left (key ``k`` visible to query ``q`` iff
 ``k <= q``), as every TPU kernel aligns it.  ``_attention_reference``
 aligns it bottom-right; the two agree only when ``Tq == Tk``, so causal
-calls with other lengths raise here instead of picking one.
+calls with other lengths raise here, in the kernels' wrappers and in the
+plain versions alike, instead of picking one.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -42,18 +45,32 @@ NL_HEAD_DIMS = (64, 128)  # the JAX package's _nl_eligible
 HM_HEAD_DIMS = (32, 64, 128)
 
 
+def _check_causal(q, k, causal):
+    if causal and q.shape[1] != k.shape[1]:
+        raise ValueError(
+            f"causal flash_attention needs Tq == Tk (top-left alignment); "
+            f"got Tq={q.shape[1]}, Tk={k.shape[1]}")
+
+
+def _scores(q, k, causal, scale):
+    """f32 scores ``[B,H,Tq,Tk]``, masked top-left when causal."""
+    _check_causal(q, k, causal)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        tq, tk = q.shape[1], k.shape[1]
+        keep = torch.ones(tq, tk, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~keep, NEG_INF)
+    return s
+
+
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool, scale: float
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch attention: ``(out [B,Tq,H,D] in q's dtype,
     lse [B,H,Tq] f32)``.  Products take f32 operands, as the JAX
     reference's ``preferred_element_type=f32`` does (a bf16 x bf16
-    product is exact in f32)."""
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    if causal:
-        tq, tk = q.shape[1], k.shape[1]
-        keep = torch.ones(tq, tk, dtype=torch.bool, device=q.device).tril()
-        s = s.masked_fill(~keep, NEG_INF)
+    product is exact in f32).  Causal needs ``Tq == Tk``."""
+    s = _scores(q, k, causal, scale)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
@@ -89,11 +106,7 @@ def attention_backward_reference(q: torch.Tensor, k: torch.Tensor,
     for dV; dS is rounded to the input dtype for dK and dQ; every product
     takes f32 operands."""
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
-    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
-    if causal:
-        tq, tk = q.shape[1], k.shape[1]
-        keep = torch.ones(tq, tk, dtype=torch.bool, device=q.device).tril()
-        s = s.masked_fill(~keep, NEG_INF)
+    s = _scores(q, k, causal, scale)
     lse = torch.where(lse <= NEG_INF / 2, torch.zeros_like(lse), lse)
     p = torch.exp(s - lse[..., None])
     delta = attention_delta(out, do)
@@ -130,10 +143,7 @@ def _validate(q, k, v, causal):
         raise ValueError(
             f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)} must share batch, heads and head_dim")
-    if causal and q.shape[1] != k.shape[1]:
-        raise ValueError(
-            f"causal flash_attention needs Tq == Tk (top-left alignment); "
-            f"got Tq={q.shape[1]}, Tk={k.shape[1]}")
+    _check_causal(q, k, causal)
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"flash_attention: mixed dtypes {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
@@ -340,19 +350,37 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+def _resolve_native(q, k, v, native: Optional[bool]) -> bool:
+    """The JAX package's ``_resolve_native``: an explicit ``native`` wins;
+    otherwise the native-layout family where ``_nl_eligible`` allows it,
+    unless ``RAY_TPU_FLASH_NATIVE`` is ``0``, ``false`` or ``off``, which
+    forces the head-major family (its A/B switch).  The port has no XLA
+    backward, so ``bwd_impl`` does not enter."""
+    if native is not None:
+        return native
+    env = os.environ.get("RAY_TPU_FLASH_NATIVE", "").lower()
+    return env not in ("0", "false", "off") and _nl_eligible(q, k, v)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    causal: bool = True, scale: Optional[float] = None,
+                    native: Optional[bool] = None) -> torch.Tensor:
     """Fused attention over ``[batch, seq, heads, head_dim]``; returns the
     output in the input dtype and carries gradients through the backward
     kernels.
 
-    The kernel family is the JAX package's pick (``_nl_eligible``): the
-    native-layout kernels when head_dim is 64 or 128 and the head count
-    divides by ``128 // head_dim``, the head-major ones otherwise (head_dim
-    32, 64 or 128 on the card).
+    The kernel family is the JAX package's pick (``_resolve_native``):
+    ``native=True`` the native-layout kernels (head_dim 64 or 128, the
+    head count divisible by ``128 // head_dim``; any other shape raises,
+    on the CPU too), ``native=False`` the head-major ones (head_dim 32, 64
+    or 128 on the card); ``None`` the native-layout ones where eligible
+    unless ``RAY_TPU_FLASH_NATIVE=0``.
     """
+    if native and not _nl_eligible(q, k, v):
+        raise ValueError(
+            f"native-layout flash attention needs head_dim in (64, 128) "
+            f"and heads divisible by 128//head_dim; got {tuple(q.shape)}")
     if scale is None:
         scale = q.shape[-1] ** -0.5
     return _FlashAttention.apply(q, k, v, causal, scale,
-                                 not _nl_eligible(q, k, v))
+                                 not _resolve_native(q, k, v, native))

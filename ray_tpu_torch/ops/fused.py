@@ -28,11 +28,13 @@ def rmsnorm_reference(x: torch.Tensor, weight: torch.Tensor,
 
 def fused_rmsnorm(x: torch.Tensor, weight: torch.Tensor, *,
                   eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm over the last dim of ``x`` with an f32 ``weight``.
+    """RMSNorm over the last dim of ``x``.
 
     A CPU tensor takes :func:`rmsnorm_reference`; a CUDA tensor launches
-    the kernel or raises.  Gradients recompute through
-    :func:`rmsnorm_reference`, as the JAX package's ``_rmsnorm_bwd`` does.
+    the kernel or raises.  The kernel reads an f32 weight: one of another
+    dtype is cast to f32 first, as the JAX kernel casts it.  Gradients
+    recompute through :func:`rmsnorm_reference`, as the JAX package's
+    ``_rmsnorm_bwd`` does, so the weight's comes back in its own dtype.
     """
     return _RMSNorm.apply(x, weight, eps)
 
@@ -57,6 +59,15 @@ class _RMSNorm(torch.autograd.Function):
         return dx, dw, None
 
 
+def _kernel_weight(weight: torch.Tensor, cols: int) -> torch.Tensor:
+    """The weight as the kernel reads it: ``cols`` contiguous f32 values
+    (``_rmsnorm_kernel`` casts its weight to f32 the same way)."""
+    if weight.shape != (cols,):
+        raise ValueError(f"fused_rmsnorm: weight must have shape ({cols},), "
+                         f"got {tuple(weight.shape)}")
+    return weight.float().contiguous()
+
+
 def _rmsnorm_forward(x: torch.Tensor, weight: torch.Tensor,
                      eps: float) -> torch.Tensor:
     if x.device.type == "cpu":
@@ -65,12 +76,9 @@ def _rmsnorm_forward(x: torch.Tensor, weight: torch.Tensor,
         raise ValueError(
             f"fused_rmsnorm: x on {x.device} and weight on {weight.device}; "
             "both must be on the same CUDA device")
-    if weight.dtype != torch.float32 or weight.shape != (x.shape[-1],):
-        raise ValueError(
-            f"fused_rmsnorm: weight must be f32 of shape ({x.shape[-1]},), "
-            f"got {weight.dtype} {tuple(weight.shape)}")
-    if not (x.is_contiguous() and weight.is_contiguous()):
-        raise ValueError("fused_rmsnorm: x and weight must be contiguous")
+    weight = _kernel_weight(weight, x.shape[-1])
+    if not x.is_contiguous():
+        raise ValueError("fused_rmsnorm: x must be contiguous")
     code = _build.dtype_code(x.dtype)
     cols = x.shape[-1]
     rows = x.numel() // cols

@@ -100,7 +100,8 @@ def main() -> int:
     _, caches = model(tokens, positions, model.init_kv_caches(batch, slots))
     nxt = tokens[:, -1:]
     pos = torch.full((batch, 1), prompt, device="cuda")
-    # every call rewrites slot `prompt` of the cache: the same step each time
+    # every call writes slot `prompt` of a new copy of the same caches:
+    # the same step each time
     report("decode_step", lambda: model(nxt, pos, caches))
 
     layers = model.layers

@@ -49,8 +49,8 @@ def test_port_imports_no_jax_or_ray_tpu(path):
 
 
 def test_import_leaves_jax_unloaded():
-    code = ("import sys, ray_tpu_torch.models.llama, "
-            "ray_tpu_torch.models.gpt2, ray_tpu_torch.models.convert; "
+    code = ("import sys, ray_tpu_torch.models, "
+            "ray_tpu_torch.models.convert; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -189,3 +189,34 @@ def test_gpt2_defaults_to_cuda():
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             GPT2(cfg)
+
+
+def test_models_export_the_jax_model_zoo():
+    """ray_tpu_torch.models exports the classes of ray_tpu.models under
+    the same names: the five models, their configs and SparseMoEMLP."""
+    import inspect
+
+    import ray_tpu.models as jax_models
+    import ray_tpu_torch.models as port_models
+
+    def classes(mod):
+        return {n for n, o in vars(mod).items() if inspect.isclass(o)}
+
+    assert classes(port_models) == classes(jax_models)
+    for name in ("GPT2", "Llama", "MoETransformer", "ResNet", "ViT"):
+        assert issubclass(getattr(port_models, name), torch.nn.Module)
+
+
+@pytest.mark.parametrize("name", ["ViT", "MoETransformer", "SparseMoEMLP",
+                                  "ResNet"])
+def test_new_models_default_to_cuda(name):
+    import ray_tpu_torch.models as m
+    config = getattr(m, name.replace("Transformer", "")
+                     .replace("SparseMoEMLP", "MoE") + "Config")
+    cfg = config.tiny() if hasattr(config, "tiny") else config.resnet18()
+    if torch.cuda.is_available():
+        model = getattr(m, name)(cfg)
+        assert next(model.parameters()).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            getattr(m, name)(cfg)

@@ -85,6 +85,48 @@ def test_prefill_and_decode_match_jax(dtype_name):
                jcaches[0][0][:, :hi], dtype_name)
 
 
+def test_forward_leaves_the_callers_kv_cache_unchanged():
+    """A prefill and a decode step return new caches, as JAX's
+    dynamic_update_slice does; the tensors passed in stay bit-identical,
+    so a kept cache can be used again and gives the same logits."""
+    *_, tmodel, tokens = _models("f32", batch=1)
+    tt = torch.from_numpy(tokens).long()
+    caches = tmodel.init_kv_caches(batch=1, max_len=16)
+    kept = [(k.clone(), v.clone(), n) for k, v, n in caches]
+    logits, after = tmodel(tt[:, :4], torch.arange(4)[None], caches)
+    for (k, v, n), (k0, v0, n0) in zip(caches, kept):
+        assert n == n0 == 0
+        assert torch.equal(k, k0) and torch.equal(v, v0)
+    assert all(a[0] is not c[0] and a[2] == 4
+               for a, c in zip(after, caches))
+    assert after[0][0][:, :4].abs().sum() > 0
+    _, after2 = tmodel(tt[:, 4:5], torch.tensor([[4]]), after)
+    assert torch.equal(after[0][0][:, 4], torch.zeros_like(
+        after[0][0][:, 4]))  # the step wrote its own copy
+    again, _ = tmodel(tt[:, :4], torch.arange(4)[None], caches)
+    assert torch.equal(again, logits)
+
+
+def test_kv_cache_overrun_raises():
+    """The port's one deliberate difference from the JAX model: a write
+    past the cache's last slot raises, where dynamic_update_slice clamps
+    the start (slot 14 of 16 for 4 tokens at 15) and overwrites earlier
+    slots."""
+    jmodel, params, tmodel, tokens = _models("f32", batch=1)
+    pos = np.arange(15, 19)[None]
+    jcaches = jmodel.init_kv_caches(batch=1, max_len=16)
+    jcaches = [(k, v, 15) for k, v, _ in jcaches]
+    _, jout = jmodel.apply({"params": params}, jnp.asarray(tokens[:, :4]),
+                           jnp.asarray(pos), jcaches)
+    assert np.abs(np.asarray(jout[0][0])[:, 12]).sum() > 0  # clamped
+    tcaches = [(k, v, 15) for k, v, _ in
+               tmodel.init_kv_caches(batch=1, max_len=16)]
+    with pytest.raises(ValueError, match="cannot take 4 tokens at "
+                                         "position 15"):
+        tmodel(torch.from_numpy(tokens[:, :4]).long(),
+               torch.from_numpy(pos), tcaches)
+
+
 def test_rope_matches_jax():
     rng = np.random.default_rng(1)
     x = rng.standard_normal((2, 8, 3, 64)).astype(np.float32)

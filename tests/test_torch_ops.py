@@ -21,7 +21,9 @@ from ray_tpu.ops.flash_attention import _flash_forward, _flash_nl_forward
 from ray_tpu.ops.flash_attention import fit_block as jax_fit_block
 from ray_tpu.ops.flash_attention import flash_attention as jax_flash
 from ray_tpu.ops.flash_attention import kernel_block_for as jax_kbf
-from ray_tpu_torch.ops import (chunked_lm_loss, fit_block, flash_attention,
+from ray_tpu_torch.ops import (attention_backward_reference,
+                               attention_reference, chunked_lm_loss,
+                               fit_block, flash_attention,
                                flash_attention_fwd, flash_attention_hm_fwd,
                                fused_rmsnorm, fused_softmax_cross_entropy,
                                kernel_block_for)
@@ -125,13 +127,29 @@ def test_causal_unequal_lengths_raise():
     assert out.shape == q.shape
 
 
-def _jax_flash_grads(q, k, v, do, causal, jdtype, native=True):
+def test_plain_versions_refuse_causal_unequal_lengths():
+    """The plain versions raise as the wrappers do: the JAX reference
+    aligns a causal mask bottom-right when Tq != Tk, the kernels
+    top-left, so neither alignment is picked silently."""
+    q = torch.zeros(1, 8, 2, 64)
+    k = torch.zeros(1, 16, 2, 64)
+    lse = torch.zeros(1, 2, 8)
+    with pytest.raises(ValueError, match="Tq == Tk"):
+        attention_reference(q, k, k, True, 0.125)
+    with pytest.raises(ValueError, match="Tq == Tk"):
+        attention_backward_reference(q, k, k, q, lse, q, True, 0.125)
+    out, _ = attention_reference(q, k, k, False, 0.125)
+    assert out.shape == q.shape
+
+
+def _jax_flash_grads(q, k, v, do, causal, jdtype, native=True, block=128):
     """``jax.vjp`` of the Pallas kernels (interpret mode): the backward
     runs _fa_nl_bwd_dkdv_kernel and _fa_nl_bwd_dq_kernel (``native``) or
-    _fa_bwd_dkdv_kernel and _fa_bwd_dq_kernel (head-major)."""
+    _fa_bwd_dkdv_kernel and _fa_bwd_dq_kernel (head-major); ``block``
+    None takes the JAX package's default blocks."""
     def f(q_, k_, v_):
         return jax_flash(q_, k_, v_, causal=causal, interpret=True,
-                         native=native, block_q=128, block_k=128)
+                         native=native, block_q=block, block_k=block)
     out, vjp = jax.vjp(f, *(jnp.asarray(x, jdtype) for x in (q, k, v)))
     grads = vjp(jnp.asarray(do, jdtype))
     return [np.asarray(x.astype(jnp.float32)) for x in (out, *grads)]
@@ -161,6 +179,28 @@ def test_flash_bwd_matches_pallas_f32(shape, causal):
     for name, a, b in zip(("out", "dq", "dk", "dv"), got, ref):
         np.testing.assert_allclose(a, b, atol=2e-5, rtol=2e-5,
                                    err_msg=name)
+
+
+# the new models' attention shapes, through the family each routes to:
+# ViT-B/16's ragged non-causal length (196 patches + CLS) in the native
+# family (fit_block(197, 1024) = 197, one tile in the Pallas kernels),
+# ViT tiny's (16 patches + CLS, head_dim 32) and the tiny MoE's causal
+# one in the head-major family
+@pytest.mark.parametrize("shape,causal,native", [
+    pytest.param((1, 197, 2, 64), False, True, id="vit_b16-nl"),
+    pytest.param((1, 17, 2, 32), False, False, id="vit_tiny-hm"),
+    pytest.param((2, 16, 2, 32), True, False, id="moe_tiny-hm")])
+def test_flash_at_model_shapes_matches_pallas_f32(shape, causal, native):
+    q, k, v, do = _qkv(shape, seed=shape[1]) + _qkv(shape, seed=3)[:1]
+    ref = _jax_flash_grads(q, k, v, do, causal, jnp.float32,
+                           native=native, block=None)
+    got = _torch_flash_grads(q, k, v, do, causal, torch.float32,
+                             hm=not native)
+    # summation order only (tests/test_ops.py's 2e-5 for O, 2e-4 for the
+    # head-major gradients)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, ref):
+        tol = 2e-5 if name == "out" else 2e-4
+        np.testing.assert_allclose(a, b, atol=tol, rtol=tol, err_msg=name)
 
 
 def test_flash_bwd_bf16_keeps_dtype():
@@ -248,26 +288,30 @@ def test_flash_hm_bf16_keeps_dtype():
 
 @pytest.mark.parametrize("dim", [32, 48, 64, 80, 128, 256])
 def test_dispatch_matches_jax(dim, monkeypatch):
-    """_nl_eligible picks the family the JAX package picks with
-    native=None (its environment switch unset: the port has none), over
-    head counts."""
-    monkeypatch.delenv("RAY_TPU_FLASH_NATIVE", raising=False)
-    for heads in (1, 2, 3, 4, 5, 8, 12, 20, 25, 32):
-        shape = (1, 8, heads, dim)
-        x = np.zeros(shape, np.float32)
-        t = torch.zeros(shape)
-        assert torch_fa._nl_eligible(t, t, t) == \
-            jax_fa._nl_eligible(x, x, x) == \
-            jax_fa._resolve_native(x, x, x, None), shape
+    """_nl_eligible and _resolve_native pick the family the JAX package
+    picks, over head counts: with its environment switch unset, set to
+    force the head-major family, and set to a value that forces
+    nothing."""
+    for env in (None, "0", "off", "FALSE", "1"):
+        if env is None:
+            monkeypatch.delenv("RAY_TPU_FLASH_NATIVE", raising=False)
+        else:
+            monkeypatch.setenv("RAY_TPU_FLASH_NATIVE", env)
+        for heads in (1, 2, 3, 4, 5, 8, 12, 20, 25, 32):
+            shape = (1, 8, heads, dim)
+            x = np.zeros(shape, np.float32)
+            t = torch.zeros(shape)
+            assert torch_fa._nl_eligible(t, t, t) == \
+                jax_fa._nl_eligible(x, x, x), shape
+            for native in (None, True, False):
+                assert torch_fa._resolve_native(t, t, t, native) == \
+                    jax_fa._resolve_native(x, x, x, native), (shape, env,
+                                                              native)
 
 
-@pytest.mark.parametrize("shape,family", [((1, 16, 4, 64), "nl"),
-                                          ((1, 16, 25, 64), "hm"),
-                                          ((1, 16, 2, 32), "hm"),
-                                          ((1, 16, 3, 128), "nl")])
-def test_flash_attention_routes_by_shape(shape, family, monkeypatch):
-    """flash_attention sends each shape to the family _nl_eligible names,
-    forward and backward."""
+def _spy_families(monkeypatch):
+    """Record, in order, which family's wrappers and plain versions the
+    calls after this one go through."""
     calls = []
     for name in ("attention_reference", "flash_attention_fwd",
                  "flash_attention_bwd", "flash_attention_hm_fwd",
@@ -278,12 +322,87 @@ def test_flash_attention_routes_by_shape(shape, family, monkeypatch):
             calls.append(_name)
             return _real(*a, **kw)
         monkeypatch.setattr(torch_fa, name, spy)
+    return calls
+
+
+def _family_calls(family):
+    hm = "_hm" if family == "hm" else ""
+    return [f"flash_attention{hm}_fwd", "attention_reference",
+            f"flash_attention{hm}_bwd", "attention_backward_reference"]
+
+
+@pytest.mark.parametrize("shape,family", [((1, 16, 4, 64), "nl"),
+                                          ((1, 16, 25, 64), "hm"),
+                                          ((1, 16, 2, 32), "hm"),
+                                          ((1, 16, 3, 128), "nl")])
+def test_flash_attention_routes_by_shape(shape, family, monkeypatch):
+    """flash_attention sends each shape to the family _nl_eligible names,
+    forward and backward."""
+    monkeypatch.delenv("RAY_TPU_FLASH_NATIVE", raising=False)
+    calls = _spy_families(monkeypatch)
     q = torch.randn(shape, requires_grad=True)
     flash_attention(q, q, q).sum().backward()
-    hm = "_hm" if family == "hm" else ""
-    assert calls == [f"flash_attention{hm}_fwd", "attention_reference",
-                     f"flash_attention{hm}_bwd",
-                     "attention_backward_reference"]
+    assert calls == _family_calls(family)
+
+
+def test_flash_native_env_switch_moves_the_call(monkeypatch):
+    """RAY_TPU_FLASH_NATIVE=0 moves a native-eligible call to the
+    head-major family, forward and backward; unset, the call goes back;
+    native=False forces the head-major family and native=True the
+    native one, whatever the variable says."""
+    calls = _spy_families(monkeypatch)
+    q = torch.randn((1, 16, 4, 64), requires_grad=True)
+    for env, native, family in (("0", None, "hm"), (None, None, "nl"),
+                                ("off", True, "nl"), (None, False, "hm")):
+        if env is None:
+            monkeypatch.delenv("RAY_TPU_FLASH_NATIVE", raising=False)
+        else:
+            monkeypatch.setenv("RAY_TPU_FLASH_NATIVE", env)
+        calls.clear()
+        flash_attention(q, q, q, native=native).sum().backward()
+        assert calls == _family_calls(family), (env, native)
+
+
+@pytest.mark.parametrize("shape", [(1, 16, 2, 32), (1, 16, 3, 64),
+                                   (1, 16, 2, 48)])
+def test_native_true_on_an_ineligible_shape_raises(shape, monkeypatch):
+    """native=True on a shape the native-layout kernels do not take
+    raises before any kernel or plain version runs, as in the JAX
+    package (on the CPU too)."""
+    calls = _spy_families(monkeypatch)
+    q = torch.randn(shape)
+    x = np.zeros(shape, np.float32)
+    with pytest.raises(ValueError, match="native-layout"):
+        jax_flash(x, x, x, native=True)
+    with pytest.raises(ValueError, match="native-layout"):
+        flash_attention(q, q, q, native=True)
+    assert calls == []
+
+
+def test_rmsnorm_bf16_weight_matches_f32_weight():
+    """A bf16 weight gives the output of the same values in f32 (the
+    kernel reads it cast to f32, as the JAX kernel casts it), and its
+    gradient comes back in bf16."""
+    from ray_tpu_torch.ops.fused import _kernel_weight
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((3, 5, 256)).astype(
+        np.float32)).bfloat16()
+    w16 = torch.from_numpy((1 + 0.1 * rng.standard_normal(256)).astype(
+        np.float32)).bfloat16().requires_grad_()
+    w32 = w16.detach().float().requires_grad_()
+    out16, out32 = (fused_rmsnorm(x, w, eps=1e-5) for w in (w16, w32))
+    assert torch.equal(out16, out32)
+    out16.float().sum().backward()
+    out32.float().sum().backward()
+    assert w16.grad.dtype == torch.bfloat16
+    # one bf16 rounding of the same f32 gradient
+    torch.testing.assert_close(w16.grad.float(), w32.grad, atol=0,
+                               rtol=2 ** -8)
+    kw = _kernel_weight(w16.detach(), 256)
+    assert kw.dtype == torch.float32 and kw.is_contiguous()
+    assert torch.equal(kw, w32.detach())
+    with pytest.raises(ValueError, match=r"shape \(128,\)"):
+        _kernel_weight(w16.detach(), 128)
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
