@@ -52,17 +52,36 @@ no network.  Phases, one JSON line each:
 14. ``resnet``: ResNet-18 at batch 256, bf16 convolutions: an evaluation
     forward, 1 warm-up and 5 timed training steps (softmax cross entropy,
     AdamW), a profiled and a device-traced step.
+15. ``tiny_parity``: the JAX package's ``LlamaConfig.tiny()`` (4 heads
+    of 16, 2 KV heads), f32: logits and every gradient on the card (the
+    head-major kernels at head_dim 16) against the CPU; then bf16,
+    finite.
+16. ``runtime``: the port's own cluster, ``init(num_cpus=4,
+    num_gpus=1)`` with the object store in /dev/shm: a GPU task returns
+    a seeded bf16 [8192, 8192] CUDA tensor (128 MiB) equal to the
+    driver's; a CUDA tensor put by the driver is read by a GPU actor
+    (round trip timed); the workers' GPU ids, device and modules (no
+    JAX); ``shutdown``.
+17. ``serve_batching``: a ContinuousBatcher deployment of the torch
+    ToyDecoder on the card (a quarter of it), 64 concurrent requests of
+    16 new tokens by handle, one over HTTP through ``start_proxy``, a
+    two-shard gang and a deployment multiplexing two seeds, every
+    answer equal to request-at-a-time decode on the card and on the
+    CPU; requests/s, tokens/s, latency percentiles, batch steps,
+    occupancy and the decode device share.
 
 The ``kernels`` phase also holds the backward kernels (dK/dV and dQ) and
-both kernel families (native layout and head-major, head_dim 32 to 128,
+both kernel families (native layout and head-major; head-major at every
+head_dim it takes a build for, 32, 64 and 128, and at 16, 48, 80 and 96,
 odd head counts, ragged lengths, ViT's non-causal 197, more than 65535
 heads in all) against their plain versions, RMSNorm with a bf16 weight
 too, and times them at the training shapes (GPT-2 124M and XL, ViT-B/16,
 the MoE) beside SDPA.  Each main path (``serve``, ``train``,
-``train_xl``, ``vit``, ``moe``, ``resnet``) is driven with the kernels'
-launch counts set to 0 just before it and read just after; the
-native-layout paths launch no head-major kernel, GPT-2 XL no
-native-layout one and ResNet none at all.
+``train_xl``, ``vit``, ``moe``, ``resnet``, ``runtime``,
+``serve_batching``) is driven with the kernels' launch counts set to 0
+just before it and read just after; the native-layout paths launch no
+head-major kernel, GPT-2 XL no native-layout one, and ResNet, the
+runtime and the toy decoder's serve path none at all.
 
 Then the kernels' summary line, the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``.  Any failure raises: no result
@@ -100,6 +119,13 @@ CROSS_LENGTHS = (130, 257)
 # item, and 64-key stages (at head_dim 128)
 DQ_EDGE_LENGTHS = (63, 64, 65, 128)
 DQ_CROSS_LENGTHS = (65, 191)
+# head-major head sizes between the built ones (32, 64, 128): each runs on
+# the next built kernel with its extra columns zeros (by_head_dim in
+# csrc/flash_common.cuh); held at these lengths and timed beside the built
+# sizes at HEAD_DIM_SHAPE's batch, length and heads
+PADDED_HEAD_DIMS = (16, 48, 80, 96)
+PADDED_LENGTHS = (1, 129, 1000)
+HEAD_DIM_SHAPE = (8, 1024, 16)
 # RMSNorm cases held but not timed: widths (1000 is no multiple of a
 # 16-byte vector of bf16, so it takes the one-element path; 1024 takes
 # few warps a row; 5120 and 8192 four or eight) at an odd row count, and
@@ -152,6 +178,11 @@ RELU_TIE = 1e-5
 # serve phase: cache path against flash path (see the comment there)
 SERVE_MAX_ABS = 1.0
 SERVE_MEAN_ABS = 0.12
+# tiny_parity, bf16: the card's logits against the CPU's, both bf16 (the
+# kernels round P to bf16 where the plain forward keeps it in f32);
+# measured 0.0036 against logits up to 1.5 on an H100, limit about ten
+# times that
+TINY_BF16_TOL = 0.04
 
 
 def emit(obj) -> None:
@@ -569,6 +600,25 @@ def phase_kernels():
                 add(bwd_case(timer, gen, (2, tq, heads, d),
                              torch.bfloat16, False, timed=False, hm=hm,
                              tk=tk))
+    # head-major at the head sizes between the built ones, held like the
+    # built ones, then timed beside them at one shape
+    for d in PADDED_HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (False, True):
+                add(flash_case(timer, gen, (2, 256, 3, d), dtype, causal,
+                               timed=False, hm=True))
+                add(bwd_case(timer, gen, (2, 256, 3, d), dtype, causal,
+                             timed=False, hm=True))
+            for t in PADDED_LENGTHS:
+                add(flash_case(timer, gen, (2, t, 3, d), dtype, True,
+                               timed=False, hm=True))
+                add(bwd_case(timer, gen, (2, t, 3, d), dtype, True,
+                             timed=False, hm=True))
+    for d in sorted(PADDED_HEAD_DIMS + (32, 64, 128)):
+        add(flash_case(timer, gen, HEAD_DIM_SHAPE + (d,), torch.bfloat16,
+                       True, timed=True, hm=True))
+        add(bwd_case(timer, gen, HEAD_DIM_SHAPE + (d,), torch.bfloat16, True,
+                     timed=True, hm=True))
     # GPT-2 XL's training shape
     add(flash_case(timer, gen, XL_SHAPE, torch.bfloat16, True,
                    timed=True, hm=True))
@@ -1404,6 +1454,337 @@ def phase_resnet(batch=256, steps=MODEL_STEPS):
         units=("images", batch), infer=infer, batch=batch)
 
 
+def phase_tiny_parity(batch=2, seq=128):
+    """The JAX package's ``LlamaConfig.tiny()`` (4 heads of 16, 2 KV
+    heads) on the card against the port's CPU path, f32, TF32 off: the
+    logits and every gradient of a loss over them.  Head_dim 16 takes the
+    head-major kernels (#5, #6, #7) on their 32-column build, the columns
+    past 16 zeros; then the same weights in bf16, the card's logits
+    against the CPU's."""
+    from ray_tpu_torch.models.llama import Llama, LlamaConfig
+    from ray_tpu_torch.ops.fused import fused_rmsnorm
+    cfg = LlamaConfig.tiny(dtype=torch.float32)
+    model = Llama(cfg, device="cpu",
+                  generator=torch.Generator().manual_seed(SEED))
+    model.requires_grad_(True)  # the model is built for inference
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq),
+                           generator=torch.Generator().manual_seed(SEED + 1))
+
+    def logits_and_grads(m, tok):
+        m.zero_grad(set_to_none=True)
+        logits = m(tok)
+        logits.float().square().mean().backward()
+        # copies: moving the module to the card moves its grads in place
+        return logits.detach().to("cpu", copy=True), {
+            n: p.grad.to("cpu", copy=True) for n, p in m.named_parameters()}
+
+    cpu_logits, cpu_grads = logits_and_grads(model, tokens)
+    model.to("cuda")
+    with no_tf32():
+        _zero_counts()
+        gpu_logits, gpu_grads = logits_and_grads(model, tokens.cuda())
+        torch.cuda.synchronize()
+        launches = {**_flash_counts(), "rmsnorm": fused_rmsnorm.launches}
+    assert launches == {**_flash_per(cfg.num_layers, hm=True),
+                        "rmsnorm": 2 * cfg.num_layers + 1}, launches
+    err = max_err(gpu_logits, cpu_logits)
+    torch.testing.assert_close(gpu_logits, cpu_logits, atol=PARITY_LOGIT_TOL,
+                               rtol=PARITY_LOGIT_TOL)
+    grad_err = {n: _gradient_err(gpu_grads[n], g)[1]
+                for n, g in cpu_grads.items()}
+    worst = max(grad_err, key=grad_err.get)
+    assert grad_err[worst] <= TRAIN_GRAD_TOL, (worst, grad_err[worst])
+    # the preset's own compute dtype, bf16: the card (bf16 kernels)
+    # against the CPU (plain versions) on the same bf16 weights.  Not
+    # against the f32 model: torch 2.11 draws other values for a bf16
+    # tensor's normal_ than for an f32 one from the same generator
+    bf16 = Llama(LlamaConfig.tiny(), device="cpu",
+                 generator=torch.Generator().manual_seed(SEED))
+    bf16_cpu = bf16(tokens)
+    bf16_logits = bf16.to("cuda")(tokens.cuda()).cpu()
+    assert torch.isfinite(bf16_logits).all()
+    bf16_err = max_err(bf16_logits, bf16_cpu)
+    assert bf16_err <= TINY_BF16_TOL, (bf16_err, TINY_BF16_TOL)
+    emit({"phase": "tiny_parity", "ok": True,
+          "config": "LlamaConfig.tiny() (2 layers, 4 heads of 16, 2 KV heads)",
+          "tokens": [batch, seq], "max_abs_err": err,
+          "max_abs_logit": cpu_logits.abs().max().item(),
+          "atol": PARITY_LOGIT_TOL, "worst_grad": worst,
+          "worst_grad_err_over_max": grad_err[worst],
+          "grad_tol": TRAIN_GRAD_TOL, "launches": launches,
+          "bf16_max_abs_err": bf16_err, "bf16_atol": TINY_BF16_TOL})
+    del model, bf16
+
+
+# runtime: the object store lives in /dev/shm; the phase moves RUNTIME_MIB
+# tensors and sizes the store at RUNTIME_STORE_MIB, refusing a smaller
+# /dev/shm with a clear message
+RUNTIME_MIB = 128
+RUNTIME_STORE_MIB = 2048
+# serve_batching: the toy decoder behind ContinuousBatcher on the card
+SERVE_REQUESTS = 64
+SERVE_NEW_TOKENS = 16
+SERVE_BATCHING = {"max_batch_size": 8, "max_seq_len": 64}
+SERVE_GPU_SHARE = 0.25  # of the one card, per replica or gang member
+
+
+def phase_runtime():
+    """The port's runtime on the card: ``init(num_cpus=4, num_gpus=1)``,
+    a GPU task returning a CUDA tensor through the object store, a CUDA
+    tensor put by the driver and read by a GPU actor, the workers'
+    GPU ids and modules, ``shutdown``.  Returns the runtime's launch
+    counts of the port's kernels (none: the runtime launches no kernel
+    of the port)."""
+    import ray_tpu_torch as rt
+
+    st = os.statvfs("/dev/shm")
+    shm = st.f_bavail * st.f_frsize
+    need = RUNTIME_STORE_MIB * 2**20
+    if shm < need:
+        raise RuntimeError(
+            f"/dev/shm has {shm / 2**20:.0f} MiB free; the runtime phase "
+            f"sizes the object store at {RUNTIME_STORE_MIB} MiB there")
+    n = int(math.isqrt(RUNTIME_MIB * 2**20 // 2))  # bf16 [n, n]
+    nbytes = n * n * 2
+
+    def seeded(seed):
+        import torch
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return torch.randn(n, n, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    @rt.remote(num_gpus=1)
+    def build_on_card(seed):
+        import sys
+        import torch
+        t = seeded(seed)
+        torch.cuda.synchronize()
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in
+                     ("jax", "jaxlib", "flax", "optax", "ray_tpu"))
+        return t, rt.get_gpu_ids(), torch.cuda.get_device_name(), bad
+
+    @rt.remote(num_gpus=0.5)
+    class Reader:
+        def warm(self):
+            import torch
+            torch.zeros(1, device="cuda")
+            torch.cuda.synchronize()
+            return rt.get_gpu_ids()
+
+        def checksum(self, t):
+            import time as _time
+            import torch
+            t0 = _time.perf_counter()
+            assert t.is_cuda
+            total = t.view(torch.int16).to(torch.int64).sum().item()
+            return total, _time.perf_counter() - t0
+
+    _zero_counts()
+    before = _flash_counts()
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4, num_gpus=1, object_store_memory=need)
+    init_s = time.perf_counter() - t0
+    try:
+        assert rt.cluster_resources().get("GPU") == 1.0
+        # (a) a GPU task builds the tensor on the card and returns it
+        t0 = time.perf_counter()
+        out, ids, name, bad = rt.get(build_on_card.remote(SEED), timeout=300)
+        task_s = time.perf_counter() - t0
+        want = seeded(SEED)
+        assert out.is_cuda and out.dtype == torch.bfloat16
+        assert torch.equal(out.view(torch.int16), want.view(torch.int16))
+        assert ids == [0], ids
+        assert name == torch.cuda.get_device_name(0), name
+        assert not bad, bad
+        # (b) the driver puts a CUDA tensor; a warm GPU actor reads it
+        reader = Reader.remote()
+        assert rt.get(reader.warm.remote(), timeout=300) == [0]
+        x = seeded(SEED + 1)
+        expect = x.view(torch.int16).to(torch.int64).sum().item()
+        trips = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = rt.put(x)
+            t_put = time.perf_counter() - t0
+            total, t_sum = rt.get(reader.checksum.remote(ref), timeout=300)
+            trips.append((time.perf_counter() - t0, t_put, t_sum))
+            assert total == expect, (total, expect)
+            del ref
+        trip_s, put_s, sum_s = min(trips)
+        launches = _delta(before, _flash_counts())
+        rt.kill(reader)
+    finally:
+        t0 = time.perf_counter()
+        rt.shutdown()
+        shutdown_s = time.perf_counter() - t0
+    emit({"phase": "runtime", "ok": True, "dev_shm_free_mib": shm / 2**20,
+          "object_store_mib": RUNTIME_STORE_MIB, "init_s": init_s,
+          "tensor": [n, n], "tensor_mib": nbytes / 2**20,
+          "gpu_task_return_s": task_s, "worker_gpu_ids": ids,
+          "worker_device": name, "put_s": put_s, "round_trip_s": trip_s,
+          "round_trip_gb_per_s": nbytes / trip_s / 1e9,
+          "actor_checksum_s": sum_s, "round_trips_s": [t[0] for t in trips],
+          "shutdown_s": shutdown_s, "card": card_line()})
+    return launches
+
+
+def _top2_margin(engine, payloads):
+    """The smallest gap between the two largest logits over the decode
+    steps of ``payloads`` (request at a time): how close the greedy
+    choice came to a tie."""
+    smallest = math.inf
+    for p in payloads:
+        state = engine.begin_request(dict(p, prompt=list(p["prompt"])))
+        seq = state["tokens"]
+        for _ in range(p["max_new_tokens"]):
+            tokens = torch.tensor([seq], device=engine.device)
+            pooled = engine._pooled(tokens, torch.tensor(
+                [len(seq)], device=engine.device), engine._embed)
+            logits = torch.tanh(pooled @ engine._w1) @ engine._w2
+            logits[:, engine.pad_token] = -1e9
+            top = logits.topk(2, dim=-1).values[0]
+            smallest = min(smallest, (top[0] - top[1]).item())
+            nxt = int(logits.argmax(-1)[0])
+            seq.append(nxt)
+            if nxt == engine.eos_token:
+                break
+    return smallest
+
+
+def phase_serve_batching():
+    """The port's continuous-batching serve path on the card: a
+    ContinuousBatcher deployment of the torch ToyDecoder (fractional
+    GPU), SERVE_REQUESTS concurrent requests by handle, one over HTTP, a
+    two-shard gang on the same card and a multiplexed deployment
+    swapping two seeds, each answer held to request-at-a-time decode on
+    the card and on the CPU."""
+    import urllib.request
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.http_proxy import start_proxy
+    from ray_tpu_torch.serve.toy_decoder import (ToyDecoder,
+                                                 ToyDecoderShard,
+                                                 make_prompt)
+
+    payloads = [{"prompt": make_prompt(i),
+                 "max_new_tokens": SERVE_NEW_TOKENS}
+                for i in range(SERVE_REQUESTS)]
+    card_engine, cpu_engine = ToyDecoder(), ToyDecoder(device="cpu")
+
+    def expected(engine, ps):
+        return [engine.generate_unbatched(dict(p, prompt=list(p["prompt"])))
+                ["tokens"] for p in ps]
+
+    want_card = expected(card_engine, payloads)
+    want_cpu = expected(cpu_engine, payloads)
+    if want_card != want_cpu:
+        raise AssertionError(
+            "request-at-a-time tokens differ between the card and the CPU; "
+            f"smallest top-2 logit margin {_top2_margin(card_engine, payloads)}")
+    opts = {"ray_actor_options": {"num_gpus": SERVE_GPU_SHARE}}
+    _zero_counts()
+    before = _flash_counts()
+    rt.init(num_cpus=4, num_gpus=1,
+            object_store_memory=RUNTIME_STORE_MIB * 2**20)
+    try:
+        dep = serve.deployment(name="toy", batching=dict(SERVE_BATCHING),
+                               max_concurrent_queries=SERVE_REQUESTS,
+                               **opts)(ToyDecoder)
+        handle = serve.run(dep.bind())
+        handle.call({"prompt": [2], "max_new_tokens": 2}, timeout=300)
+        t0 = time.perf_counter()
+        pending = {handle.remote(dict(p)): i for i, p in enumerate(payloads)}
+        outs, latency = [None] * len(payloads), []
+        while pending:
+            ready, _ = rt.wait(list(pending), num_returns=1, timeout=300)
+            assert ready, "serve requests timed out"
+            i = pending.pop(ready[0])
+            outs[i] = rt.get(ready[0], timeout=60)["tokens"]
+            latency.append(time.perf_counter() - t0)
+        wall = time.perf_counter() - t0
+        if outs != want_card:
+            wrong = [i for i, (a, b) in enumerate(zip(outs, want_card))
+                     if a != b]
+            raise AssertionError(
+                f"batched tokens differ from request-at-a-time decode at "
+                f"requests {wrong[:8]}; smallest top-2 logit margin "
+                f"{_top2_margin(card_engine, [payloads[i] for i in wrong])}")
+        from ray_tpu_torch.serve._internal import CONTROLLER_NAME
+        controller = rt.get_actor(CONTROLLER_NAME)
+        table = rt.get(controller.get_routing_table.remote(-1, 1.0),
+                       timeout=60)
+        m = rt.get(table["table"]["toy"]["replicas"][0].metrics.remote(),
+                   timeout=60)
+        assert all(bs == SERVE_BATCHING["max_batch_size"]
+                   for bs, _ in m["step_shapes"]), m["step_shapes"]
+        # one request over HTTP
+        host, port = start_proxy()
+        body = json.dumps(payloads[3]).encode()
+        req = urllib.request.Request(
+            f"http://{host}:{port}/toy", data=body,
+            headers={"content-type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            http_tokens = json.loads(resp.read())["result"]["tokens"]
+        assert http_tokens == want_card[3], (http_tokens, want_card[3])
+        serve.delete("toy")
+        # a two-shard gang on the same card
+        gang = serve.deployment(name="gang", batching=dict(SERVE_BATCHING),
+                                max_concurrent_queries=32, num_shards=2,
+                                **opts)(ToyDecoderShard)
+        gang_handle = serve.run(gang.bind())
+        gang_outs = rt.get([gang_handle.remote(dict(p))
+                            for p in payloads[:8]], timeout=300)
+        assert [o["tokens"] for o in gang_outs] == want_card[:8]
+        serve.delete("gang")
+        # a multiplexed deployment swapping between two seeds
+        mux = serve.deployment(
+            name="mux", batching=dict(SERVE_BATCHING),
+            max_concurrent_queries=32,
+            multiplexed_models={"s0": {"seed": 0}, "s1": {"seed": 1}},
+            multiplex_max_resident=1, **opts)(ToyDecoder)
+        mux_handle = serve.run(mux.bind())
+        mux_payloads = [dict(payloads[i], model=f"s{i % 2}")
+                        for i in range(8)]
+        mux_outs = rt.get([mux_handle.remote(dict(p))
+                           for p in mux_payloads], timeout=300)
+        for i, (p, o) in enumerate(zip(mux_payloads, mux_outs)):
+            seed_engine = ToyDecoder(seed=i % 2)
+            want = seed_engine.generate_unbatched(
+                {"prompt": list(p["prompt"]),
+                 "max_new_tokens": p["max_new_tokens"]})["tokens"]
+            assert o["tokens"] == want, (i, o["tokens"], want)
+        mux_m = rt.get(rt.get(controller.get_routing_table.remote(
+            -1, 1.0), timeout=60)["table"]["mux"]["replicas"][0]
+            .metrics.remote(), timeout=60)
+        assert mux_m["mux_swaps_total"] >= 2, mux_m
+        serve.delete("mux")
+        launches = _delta(before, _flash_counts())
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+    latency.sort()
+    tokens = sum(len(t) for t in outs)
+    emit({"phase": "serve_batching", "ok": True,
+          "requests": SERVE_REQUESTS, "new_tokens": SERVE_NEW_TOKENS,
+          "batching": SERVE_BATCHING, "gpu_share": SERVE_GPU_SHARE,
+          "wall_s": wall, "requests_per_s": SERVE_REQUESTS / wall,
+          "tokens_per_s": tokens / wall,
+          "latency_p50_s": latency[len(latency) // 2],
+          "latency_p99_s": latency[min(len(latency) - 1,
+                                       int(len(latency) * 0.99))],
+          "batch_steps": m["batch_steps"],
+          "batch_occupancy": m["batch_occupancy"],
+          "step_p50_ms": m["step_p50_ms"], "step_p99_ms": m["step_p99_ms"],
+          "decode_device_frac": m.get("device_frac"),
+          "step_shapes": m["step_shapes"],
+          "http_tokens_equal": True, "gang_requests": 8,
+          "mux_requests": 8, "mux_swaps": mux_m["mux_swaps_total"],
+          "card": card_line()})
+    return launches
+
+
 SYMBOLS = {"flash_fwd": "flash_fwd_bf16_kernel",  # the bf16 kernel's name
            "flash_hm_fwd": "flash_fwd_bf16_kernel",
            "flash_bwd_dkdv": "bwd_dkdv_bf16_kernel",
@@ -1522,6 +1903,15 @@ def main() -> int:
     phase_resnet_parity()
     _free()
     resnet = phase_resnet()
+    _free()
+    phase_tiny_parity()
+    _free()
+    runtime = phase_runtime()
+    _free()
+    serve_batching = phase_serve_batching()
+    # the runtime and the toy decoder launch no kernel of the port
+    assert not any(runtime.values()), runtime
+    assert not any(serve_batching.values()), serve_batching
     emit(kernel_summary(cases, {"serve": serve, "train": train,
                                 "train_xl": train_xl, "vit": vit,
                                 "moe": moe, "resnet": resnet}, usage))

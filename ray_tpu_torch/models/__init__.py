@@ -1,5 +1,5 @@
 """Models of the port: the JAX package's model zoo
-(``ray_tpu.models``), the same five models and their configurations."""
+(``ray_tpu/models``), the same five models and their configurations."""
 
 from ray_tpu_torch.models.gpt2 import GPT2, GPT2Config  # noqa: F401
 from ray_tpu_torch.models.llama import Llama, LlamaConfig  # noqa: F401

@@ -85,8 +85,9 @@
 // of a warp scores query (dK/dV) or key (dQ) j of a 32-wide tile, and
 // owns gradient columns j, j + 32, ...
 //
-// Head sizes: 32, 64 and 128.  Launches on the caller's stream; allocates
-// nothing.
+// Head sizes: built for 32, 64 and 128; any multiple of 8 up to 128 runs
+// on the next of those, its extra columns zeros (flash_common.cuh,
+// by_head_dim).  Launches on the caller's stream; allocates nothing.
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -643,14 +644,16 @@ bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
 // ----------------------------------------------------------------- f32 --
 
 // Copy rows [r0, r0 + ROWS) of one head into a shared tile with row
-// stride LD, zero past row `limit`.
+// stride LD, zero past row `limit` and past column `dim` (by_head_dim).
 template <int D, int ROWS, int LD>
 __device__ __forceinline__ void stage_f32(float* dst, const float* src,
-                                          int r0, int limit, size_t rs,
-                                          int tid) {
+                                          int r0, int limit, int dim,
+                                          size_t rs, int tid) {
   for (int c = tid; c < ROWS * D; c += kThreads) {
     const int r = c / D, d = c % D;
-    dst[r * LD + d] = r0 + r < limit ? src[(size_t)(r0 + r) * rs + d] : 0.f;
+    dst[r * LD + d] = r0 + r < limit && d < dim
+                          ? src[(size_t)(r0 + r) * rs + d]
+                          : 0.f;
   }
 }
 
@@ -660,14 +663,14 @@ constexpr size_t dkdv_f32_smem() {  // ks, vs [16][D]; qs, dos [32][D + 1]
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kF32MinBlocks)
 bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
                     const float* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dk,
-                    float* __restrict__ dv, int heads, int tq, int tk,
-                    float scale, int causal) {
+                    float* __restrict__ dv, int heads, int dim, int tq,
+                    int tk, float scale, int causal) {
   constexpr int KPW = 4, BN = KPW * kThreads / 32, BM = 32, DPL = D / 32;
   extern __shared__ __align__(16) unsigned char smem[];
   float* ks = reinterpret_cast<float*>(smem);  // [BN][D]
@@ -681,14 +684,14 @@ bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const Work w = work_head_tiles_adjacent();
   const int b = w.bh / heads, h = w.bh % heads;
   const int n0 = w.tile * BN;
-  const size_t rs = (size_t)heads * D;
-  const size_t qoff = slice_base<D>(b, h, heads, tq);
-  const size_t koff = slice_base<D>(b, h, heads, tk);
+  const size_t rs = (size_t)heads * dim;
+  const size_t qoff = slice_base(b, h, heads, tq, dim);
+  const size_t koff = slice_base(b, h, heads, tk, dim);
   const float* lse_b = lse + ((size_t)b * heads + h) * tq;
   const float* delta_b = delta + ((size_t)b * heads + h) * tq;
 
-  stage_f32<D, BN, D>(ks, k + koff, n0, tk, rs, tid);
-  stage_f32<D, BN, D>(vs, v + koff, n0, tk, rs, tid);
+  stage_f32<D, BN, D>(ks, k + koff, n0, tk, dim, rs, tid);
+  stage_f32<D, BN, D>(vs, v + koff, n0, tk, dim, rs, tid);
 
   float dka[KPW][DPL], dva[KPW][DPL];
 #pragma unroll
@@ -700,8 +703,8 @@ bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int mt = causal ? n0 / BM : 0; mt < m_tiles; ++mt) {
     const int m0 = mt * BM;
     __syncthreads();
-    stage_f32<D, BM, D + 1>(qs, q + qoff, m0, tq, rs, tid);
-    stage_f32<D, BM, D + 1>(dos, dout + qoff, m0, tq, rs, tid);
+    stage_f32<D, BM, D + 1>(qs, q + qoff, m0, tq, dim, rs, tid);
+    stage_f32<D, BM, D + 1>(dos, dout + qoff, m0, tq, dim, rs, tid);
     if (tid < BM) {
       const bool ok = m0 + tid < tq;
       lse_s[tid] = ok ? clamp_lse(lse_b[m0 + tid]) : 0.f;
@@ -761,6 +764,7 @@ bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (kpos >= tk) continue;
 #pragma unroll
     for (int i = 0; i < DPL; ++i) {
+      if (lane + 32 * i >= dim) continue;
       dk[koff + kpos * rs + lane + 32 * i] = dka[r][i];
       dv[koff + kpos * rs + lane + 32 * i] = dva[r][i];
     }
@@ -773,12 +777,13 @@ constexpr size_t dq_f32_smem() {  // qs, dos [16][D]; ks, vs [32][D + 1]
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kF32MinBlocks)
 bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ dout,
                   const float* __restrict__ lse,
                   const float* __restrict__ delta, float* __restrict__ dq,
-                  int heads, int tq, int tk, float scale, int causal) {
+                  int heads, int dim, int tq, int tk, float scale,
+                  int causal) {
   constexpr int RPW = 4, BM = RPW * kThreads / 32, BN = 32, DPL = D / 32;
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);  // [BM][D]
@@ -790,12 +795,12 @@ bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const Work w = work_longest_first();
   const int b = w.bh / heads, h = w.bh % heads;
   const int m0 = w.tile * BM;
-  const size_t rs = (size_t)heads * D;
-  const size_t qoff = slice_base<D>(b, h, heads, tq);
-  const size_t koff = slice_base<D>(b, h, heads, tk);
+  const size_t rs = (size_t)heads * dim;
+  const size_t qoff = slice_base(b, h, heads, tq, dim);
+  const size_t koff = slice_base(b, h, heads, tk, dim);
 
-  stage_f32<D, BM, D>(qs, q + qoff, m0, tq, rs, tid);
-  stage_f32<D, BM, D>(dos, dout + qoff, m0, tq, rs, tid);
+  stage_f32<D, BM, D>(qs, q + qoff, m0, tq, dim, rs, tid);
+  stage_f32<D, BM, D>(dos, dout + qoff, m0, tq, dim, rs, tid);
   float lse_r[RPW], delta_r[RPW], acc[RPW][DPL];
 #pragma unroll
   for (int r = 0; r < RPW; ++r) {
@@ -811,8 +816,8 @@ bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int n0 = kt * BN;
     __syncthreads();
-    stage_f32<D, BN, D + 1>(ks, k + koff, n0, tk, rs, tid);
-    stage_f32<D, BN, D + 1>(vs, v + koff, n0, tk, rs, tid);
+    stage_f32<D, BN, D + 1>(ks, k + koff, n0, tk, dim, rs, tid);
+    stage_f32<D, BN, D + 1>(vs, v + koff, n0, tk, dim, rs, tid);
     __syncthreads();
 
     // lane j: key n0 + j against each of this warp's RPW queries
@@ -857,7 +862,7 @@ bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (qpos >= tq) continue;
 #pragma unroll
     for (int i = 0; i < DPL; ++i)
-      dq[qoff + qpos * rs + lane + 32 * i] = acc[r][i];
+      if (lane + 32 * i < dim) dq[qoff + qpos * rs + lane + 32 * i] = acc[r][i];
   }
 }
 
@@ -880,14 +885,14 @@ int dkdv(const void* q, const void* k, const void* v, const void* dout,
                     static_cast<const float*>(v),
                     static_cast<const float*>(dout), l, dl,
                     static_cast<float*>(dk), static_cast<float*>(dv), heads,
-                    tq, tk, scale, causal);
+                    head_dim, tq, tk, scale, causal);
     CUtensorMap qm, km, vm, dom, dkm, dvm;
-    if (!hp::encode_map<D>(&qm, q, batch, tq, heads, kBwdBM) ||
-        !hp::encode_map<D>(&km, k, batch, tk, heads, 64) ||
-        !hp::encode_map<D>(&vm, v, batch, tk, heads, 64) ||
-        !hp::encode_map<D>(&dom, dout, batch, tq, heads, kBwdBM) ||
-        !hp::encode_map<D>(&dkm, dk, batch, tk, heads, 64) ||
-        !hp::encode_map<D>(&dvm, dv, batch, tk, heads, 64))
+    if (!hp::encode_map<D>(&qm, q, batch, tq, heads, head_dim, kBwdBM) ||
+        !hp::encode_map<D>(&km, k, batch, tk, heads, head_dim, 64) ||
+        !hp::encode_map<D>(&vm, v, batch, tk, heads, head_dim, 64) ||
+        !hp::encode_map<D>(&dom, dout, batch, tq, heads, head_dim, kBwdBM) ||
+        !hp::encode_map<D>(&dkm, dk, batch, tk, heads, head_dim, 64) ||
+        !hp::encode_map<D>(&dvm, dv, batch, tk, heads, head_dim, 64))
       return cudaErrorInvalidValue;
     return launch_block(bwd_dkdv_bf16_kernel<D>,
                         dim3(batch * heads, (tk + kBwdBN - 1) / kBwdBN),
@@ -912,14 +917,15 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
                     static_cast<const float*>(q), static_cast<const float*>(k),
                     static_cast<const float*>(v),
                     static_cast<const float*>(dout), l, dl,
-                    static_cast<float*>(dq_out), heads, tq, tk, scale, causal);
+                    static_cast<float*>(dq_out), heads, head_dim, tq, tk,
+                    scale, causal);
     CUtensorMap qm, km, vm, dom, dqm;
     constexpr int BN = DqSmem<D>::kBN;
-    if (!hp::encode_map<D>(&qm, q, batch, tq, heads, 64) ||
-        !hp::encode_map<D>(&km, k, batch, tk, heads, BN) ||
-        !hp::encode_map<D>(&vm, v, batch, tk, heads, BN) ||
-        !hp::encode_map<D>(&dom, dout, batch, tq, heads, 64) ||
-        !hp::encode_map<D>(&dqm, dq_out, batch, tq, heads, 64))
+    if (!hp::encode_map<D>(&qm, q, batch, tq, heads, head_dim, 64) ||
+        !hp::encode_map<D>(&km, k, batch, tk, heads, head_dim, BN) ||
+        !hp::encode_map<D>(&vm, v, batch, tk, heads, head_dim, BN) ||
+        !hp::encode_map<D>(&dom, dout, batch, tq, heads, head_dim, 64) ||
+        !hp::encode_map<D>(&dqm, dq_out, batch, tq, heads, head_dim, 64))
       return cudaErrorInvalidValue;
     int blocks = 0;
     const cudaError_t e = persistent_blocks(
@@ -934,7 +940,7 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // q, dout [B, Tq, H, D], k, v [B, Tk, H, D] contiguous; lse, delta
-// [B, H, Tq] f32; dk, dv like k; head_dim 32, 64 or 128.  dtype:
+// [B, H, Tq] f32; dk, dv like k; head_dim a multiple of 8 up to 128.  dtype:
 // 0 = float32, 1 = bfloat16.  Returns the launch's cudaError_t.
 extern "C" int rtt_flash_bwd_dkdv(const void* q, const void* k,
                                   const void* v, const void* dout,

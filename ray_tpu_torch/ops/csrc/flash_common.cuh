@@ -26,12 +26,15 @@ namespace flash {
 
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;
+// The f32 kernels' launch bound asks for two resident blocks: without it
+// ptxas spilled 4-8 bytes in two of them once they took a runtime column
+// bound (head_dim below the built D), with it none (H100 build, sm_90a).
+constexpr int kF32MinBlocks = 2;
 
-// Offset of position 0 of head h of batch b in a [B, seq, H, D] tensor.
-template <int D>
+// Offset of position 0 of head h of batch b in a [B, seq, H, dim] tensor.
 __device__ __forceinline__ size_t slice_base(int b, int h, int heads,
-                                             int seq) {
-  return ((size_t)b * seq * heads + h) * D;
+                                             int seq, int dim) {
+  return ((size_t)b * seq * heads + h) * dim;
 }
 
 // A work item is a (batch * head, sequence tile) pair.  Three orders,
@@ -143,13 +146,23 @@ inline bool bad_args(int batch, int tq, int tk, int heads, int dtype) {
 template <int D>
 using HeadDim = std::integral_constant<int, D>;
 
-// fn(HeadDim<D>{}) for the head sizes the kernels take: 32, 64 and 128.
+// The kernels are built for D = 32, 64 and 128 and take any head size
+// that is a multiple of 8 up to 128: fn(HeadDim<D>{}) for the smallest
+// built D at or above head_dim.  The kernels read and write head_dim
+// columns and treat the D - head_dim beyond as zeros: the bf16 ones
+// through tensor maps whose extent is head_dim (TMA fills the box's
+// columns past it with zeros on load and clips them on store), the f32
+// ones through a bound on their column loops.  Zero columns of Q and K
+// add nothing to S, zero columns of dO and V nothing to dP, and the
+// columns they give O, dQ, dK and dV are never written.  A multiple of 8:
+// a row of bf16 then spans a multiple of 16 bytes, the strides TMA takes.
 // Any other size is cudaErrorInvalidValue.
 template <typename Fn>
 cudaError_t by_head_dim(int head_dim, Fn&& fn) {
-  if (head_dim == 32) return fn(HeadDim<32>{});
-  if (head_dim == 64) return fn(HeadDim<64>{});
-  if (head_dim == 128) return fn(HeadDim<128>{});
+  if (head_dim <= 0 || head_dim % 8 != 0) return cudaErrorInvalidValue;
+  if (head_dim <= 32) return fn(HeadDim<32>{});
+  if (head_dim <= 64) return fn(HeadDim<64>{});
+  if (head_dim <= 128) return fn(HeadDim<128>{});
   return cudaErrorInvalidValue;
 }
 

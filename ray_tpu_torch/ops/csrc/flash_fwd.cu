@@ -66,8 +66,9 @@
 // columns j, j + 32, ...  It exists for the tight comparison with the
 // plain version and for f32 models; bf16 is the serving path.
 //
-// Head sizes: 32, 64 and 128.  Launches on the caller's stream; allocates
-// nothing.
+// Head sizes: built for 32, 64 and 128; any multiple of 8 up to 128 runs
+// on the next of those, its extra columns zeros (flash_common.cuh,
+// by_head_dim).  Launches on the caller's stream; allocates nothing.
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -390,11 +391,11 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
 // ----------------------------------------------------------------- f32 --
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kF32MinBlocks)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, int heads, int tq, int tk,
-                     float scale, int causal) {
+                     float* __restrict__ lse, int heads, int dim, int tq,
+                     int tk, float scale, int causal) {
   constexpr int RPW = 4, BM = RPW * kThreads / 32, BN = 32, DPL = D / 32;
   __shared__ float qs[BM][D];
   __shared__ float ks[BN][D + 1];  // padded: lane j reads row j conflict-free
@@ -404,15 +405,16 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const Work w = work_head_tiles_adjacent();
   const int b = w.bh / heads, h = w.bh % heads;
   const int m0 = w.tile * BM;
-  const size_t rs = (size_t)heads * D;
-  const size_t qoff = slice_base<D>(b, h, heads, tq);
+  const size_t rs = (size_t)heads * dim;
+  const size_t qoff = slice_base(b, h, heads, tq, dim);
   const float* qb = q + qoff;
-  const float* kb = k + slice_base<D>(b, h, heads, tk);
-  const float* vb = v + slice_base<D>(b, h, heads, tk);
+  const float* kb = k + slice_base(b, h, heads, tk, dim);
+  const float* vb = v + slice_base(b, h, heads, tk, dim);
 
+  // columns dim ... D - 1 are zeros (by_head_dim)
   for (int c = tid; c < BM * D; c += kThreads) {
     const int r = c / D, d = c % D;
-    qs[r][d] = m0 + r < tq ? qb[(m0 + r) * rs + d] : 0.f;
+    qs[r][d] = m0 + r < tq && d < dim ? qb[(m0 + r) * rs + d] : 0.f;
   }
 
   float m_run[RPW], l_run[RPW], acc[RPW][DPL];
@@ -430,7 +432,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     for (int c = tid; c < BN * D; c += kThreads) {
       const int r = c / D, d = c % D;
-      const bool ok = n0 + r < tk;
+      const bool ok = n0 + r < tk && d < dim;
       ks[r][d] = ok ? kb[(n0 + r) * rs + d] : 0.f;
       vs[r][d] = ok ? vb[(n0 + r) * rs + d] : 0.f;
     }
@@ -491,7 +493,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float l_safe = l_run[r] == 0.f ? 1.f : l_run[r];
     float* orow = o + qoff + qpos * rs;
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) orow[lane + 32 * i] = acc[r][i] / l_safe;
+    for (int i = 0; i < DPL; ++i)
+      if (lane + 32 * i < dim) orow[lane + 32 * i] = acc[r][i] / l_safe;
     if (lane == 0)
       lse[((size_t)b * heads + h) * tq + qpos] =
           m_run[r] <= kNegInf / 2 ? kNegInf : m_run[r] + logf(l_safe);
@@ -511,12 +514,12 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                     dim3(batch * heads, (tq + 15) / 16), 0, s,
                     static_cast<const float*>(q), static_cast<const float*>(k),
                     static_cast<const float*>(v), static_cast<float*>(o), l,
-                    heads, tq, tk, scale, causal);
+                    heads, head_dim, tq, tk, scale, causal);
     CUtensorMap qm, km, vm, om;
-    if (!hp::encode_map<D>(&qm, q, batch, tq, heads, 64) ||
-        !hp::encode_map<D>(&km, k, batch, tk, heads, kFwdBN) ||
-        !hp::encode_map<D>(&vm, v, batch, tk, heads, kFwdBN) ||
-        !hp::encode_map<D>(&om, o, batch, tq, heads, 64))
+    if (!hp::encode_map<D>(&qm, q, batch, tq, heads, head_dim, 64) ||
+        !hp::encode_map<D>(&km, k, batch, tk, heads, head_dim, kFwdBN) ||
+        !hp::encode_map<D>(&vm, v, batch, tk, heads, head_dim, kFwdBN) ||
+        !hp::encode_map<D>(&om, o, batch, tq, heads, head_dim, 64))
       return cudaErrorInvalidValue;
     int blocks = 0;
     const cudaError_t e = persistent_blocks(
@@ -531,7 +534,8 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
 }  // namespace
 
 // q [B, Tq, H, D], k/v [B, Tk, H, D] contiguous, o like q, lse [B, H, Tq]
-// f32; head_dim 32, 64 or 128.  dtype: 0 = float32, 1 = bfloat16.
+// f32; head_dim a multiple of 8 up to 128.  dtype: 0 = float32,
+// 1 = bfloat16.
 // Returns the launch's cudaError_t.
 extern "C" int rtt_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int batch, int tq, int tk,
@@ -541,7 +545,7 @@ extern "C" int rtt_flash_fwd(const void* q, const void* k, const void* v,
              dtype, stream);
 }
 
-// The bf16 kernel at head_dim as the runtime holds it (func_attrs: out[0]
+// The bf16 kernel for head_dim as the runtime holds it (func_attrs: out[0]
 // registers, out[1] static and out[2] dynamic shared bytes, the latter
 // as its last launch set them).  Returns a cudaError_t.
 extern "C" int rtt_flash_fwd_attrs(int head_dim, int* out) {

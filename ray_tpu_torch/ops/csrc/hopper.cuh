@@ -315,13 +315,16 @@ __device__ __forceinline__ void mma_rs_box(float (&d)[Swz<D>::kCols / 2],
 
 // -------------------------------------------------------------- host --
 
-// A 4-D map over a contiguous [B, T, H, D] bf16 tensor, dims innermost
-// first (D, H, T, B), read in boxes of Swz<D>::kCols columns x `rows`
-// positions of one head.  Encoded per call through the driver's entry
-// point, so the library needs no -lcuda.  False if the driver refuses.
+// A 4-D map over a contiguous [B, T, H, dim] bf16 tensor, dims innermost
+// first (dim, H, T, B), read in boxes of Swz<D>::kCols columns x `rows`
+// positions of one head, for a kernel built for D >= dim columns: the
+// columns of a box past dim are zeros on load and not written on store
+// (flash_common.cuh, by_head_dim).  Encoded per call through the driver's
+// entry point, so the library needs no -lcuda.  False if the driver
+// refuses.
 template <int D>
 inline bool encode_map(CUtensorMap* map, const void* base, int batch, int seq,
-                       int heads, int rows) {
+                       int heads, int dim, int rows) {
   using Encode = CUresult (*)(
       CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
       const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
@@ -342,10 +345,11 @@ inline bool encode_map(CUtensorMap* map, const void* base, int batch, int seq,
                : nullptr;
   }();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+  const cuuint64_t dims[4] = {(cuuint64_t)dim, (cuuint64_t)heads,
                               (cuuint64_t)seq, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)seq * heads * D * 2};
+  const cuuint64_t strides[3] = {(cuuint64_t)dim * 2,
+                                 (cuuint64_t)heads * dim * 2,
+                                 (cuuint64_t)seq * heads * dim * 2};
   const cuuint32_t box[4] = {(cuuint32_t)Swz<D>::kCols, 1, (cuuint32_t)rows,
                              1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};

@@ -13,7 +13,11 @@ Counterpart of ``ray_tpu/ops/flash_attention.py``:
   ``_flash_backward`` with ``_fa_bwd_dkdv_kernel`` and
   ``_fa_bwd_dq_kernel``, and ``_flash`` (here
   :func:`flash_attention_hm_fwd`, :func:`flash_attention_hm_bwd` and the
-  same Function); head_dim 32, 64 or 128.  The JAX wrappers transpose
+  same Function); on the card any head_dim that is a multiple of 8 up
+  to 128 (the Pallas kernels span the full head_dim, whatever it is;
+  the CUDA kernels are built for 32, 64 and 128 and run a smaller
+  multiple of 8 on the next of those, ``csrc/flash_common.cuh``'s
+  ``by_head_dim``).  The JAX wrappers transpose
   to ``[B, H, T, D]`` for the TPU's tiles; the CUDA kernels read
   ``[B, T, H, D]`` by strides, so both families launch them on the
   caller's tensors and count their launches apart.
@@ -42,7 +46,7 @@ from ray_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 NL_HEAD_DIMS = (64, 128)  # the JAX package's _nl_eligible
-HM_HEAD_DIMS = (32, 64, 128)
+HM_HEAD_DIMS = tuple(range(8, 129, 8))  # every multiple of 8 up to 128
 
 
 def _check_causal(q, k, causal):
@@ -164,19 +168,27 @@ def _validate_bwd(q, k, v, out, lse, do, causal):
                         f"{q.dtype} and f32)")
 
 
-def _check_kernel_inputs(head_dims, *tensors):
+def _check_head_dim(dim: int, hm: bool) -> None:
+    """Raise unless the kernels of the family take ``dim``: the
+    native-layout ones 64 or 128, the head-major ones a multiple of 8 up
+    to 128."""
+    if dim not in (HM_HEAD_DIMS if hm else NL_HEAD_DIMS):
+        takes = ("a multiple of 8 up to 128" if hm
+                 else f"one of {NL_HEAD_DIMS}")
+        raise ValueError(f"flash kernel takes head_dim {takes}, got {dim}")
+
+
+def _check_kernel_inputs(hm, *tensors):
     """What the CUDA kernels take: one CUDA device, contiguous 16-byte
-    aligned tensors, a head_dim in ``head_dims``, no empty input."""
+    aligned tensors, a head_dim of the family (:func:`_check_head_dim`),
+    no empty input."""
     q, k = tensors[0], tensors[1]
     if q.device.type != "cuda" or any(x.device != q.device
                                       for x in tensors):
         raise ValueError("flash_attention: inputs on "
                          f"{[str(x.device) for x in tensors]}; need one "
                          "CUDA device")
-    dim = q.shape[-1]
-    if dim not in head_dims:
-        raise ValueError(f"flash kernel takes head_dim in {head_dims}, "
-                         f"got {dim}")
+    _check_head_dim(q.shape[-1], hm)
     if not all(x.is_contiguous() and x.data_ptr() % 16 == 0
                for x in tensors):
         raise ValueError("flash_attention: inputs must be contiguous and "
@@ -211,7 +223,7 @@ def _forward(q, k, v, causal, scale, hm):
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return attention_reference(q, k, v, causal, scale)
-    _check_kernel_inputs(HM_HEAD_DIMS if hm else NL_HEAD_DIMS, q, k, v)
+    _check_kernel_inputs(hm, q, k, v)
     return _launch_fwd(q, k, v, causal, scale, hm)
 
 
@@ -236,8 +248,8 @@ def flash_attention_hm_fwd(q: torch.Tensor, k: torch.Tensor,
                            scale: Optional[float] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Head-major family (``_flash_forward``): as
-    :func:`flash_attention_fwd`, launching kernel #5 (head_dim 32, 64 or
-    128) on the caller's ``[B,T,H,D]`` tensors, or raising."""
+    :func:`flash_attention_fwd`, launching kernel #5 (head_dim a multiple
+    of 8 up to 128) on the caller's ``[B,T,H,D]`` tensors, or raising."""
     return _forward(q, k, v, causal, scale, hm=True)
 
 
@@ -286,8 +298,7 @@ def _backward(q, k, v, out, lse, do, causal, scale, hm):
     if q.device.type == "cpu":
         return attention_backward_reference(q, k, v, out, lse, do, causal,
                                             scale)
-    _check_kernel_inputs(HM_HEAD_DIMS if hm else NL_HEAD_DIMS,
-                         q, k, v, out, lse, do)
+    _check_kernel_inputs(hm, q, k, v, out, lse, do)
     delta = attention_delta(out, do)
     dk, dv = _launch_dkdv(q, k, v, do, lse, delta, causal, scale, hm)
     return _launch_dq(q, k, v, do, lse, delta, causal, scale, hm), dk, dv
@@ -321,7 +332,7 @@ def flash_attention_hm_bwd(q: torch.Tensor, k: torch.Tensor,
                                       torch.Tensor]:
     """Head-major family (``_flash_backward``): as
     :func:`flash_attention_bwd`, launching kernels #6 (dK/dV) and #7
-    (dQ) (head_dim 32, 64 or 128), or raising."""
+    (dQ) (head_dim a multiple of 8 up to 128), or raising."""
     return _backward(q, k, v, out, lse, do, causal, scale, hm=True)
 
 
@@ -372,8 +383,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     The kernel family is the JAX package's pick (``_resolve_native``):
     ``native=True`` the native-layout kernels (head_dim 64 or 128, the
     head count divisible by ``128 // head_dim``; any other shape raises,
-    on the CPU too), ``native=False`` the head-major ones (head_dim 32, 64
-    or 128 on the card); ``None`` the native-layout ones where eligible
+    on the CPU too), ``native=False`` the head-major ones (on the card,
+    head_dim a multiple of 8 up to 128); ``None`` the native-layout ones where eligible
     unless ``RAY_TPU_FLASH_NATIVE=0``.
     """
     if native and not _nl_eligible(q, k, v):

@@ -48,9 +48,51 @@ def test_port_imports_no_jax_or_ray_tpu(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+def _strings(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            yield node.lineno, node.value
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_strings_name_no_jax_module_or_env(path):
+    """No string in a port file (docstrings included) names a module of
+    the JAX package: a spawn string such as ``-m ray_tpu.core.worker_main``
+    would start the JAX package's workers, which speak the same protocol.
+    Every ``RAY_TPU_*`` environment name carries the port's own
+    ``RAY_TPU_TORCH_`` prefix, so the two runtimes never read each
+    other's (``RAY_TPU_ADDRESS`` would attach a port driver to a JAX
+    cluster), except ``RAY_TPU_FLASH_NATIVE``, the JAX package's own
+    switch that the port's flash dispatch reads with its rules."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for line, text in _strings(tree):
+        bad += [(line, m) for m in re.findall(r"\bray_tpu\.[A-Za-z_]", text)]
+        bad += [(line, m) for m in re.findall(r"\bRAY_TPU_[A-Z0-9_]*", text)
+                if not m.startswith("RAY_TPU_TORCH_")
+                and m != "RAY_TPU_FLASH_NATIVE"]
+    assert not bad, f"{path.name}: {bad}"
+
+
+def test_worker_main_import_leaves_torch_unloaded():
+    """A worker (``python -m ray_tpu_torch.core.worker_main``) and the
+    zygote import the runtime without torch: each would otherwise pay
+    torch's import, seconds and hundreds of MB, before its first task."""
+    code = ("import sys, ray_tpu_torch.core.worker_main, "
+            "ray_tpu_torch.core.worker_zygote, ray_tpu_torch.serve; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{('torch',) + FORBIDDEN!r}]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_import_leaves_jax_unloaded():
     code = ("import sys, ray_tpu_torch.models, "
-            "ray_tpu_torch.models.convert; "
+            "ray_tpu_torch.models.convert, ray_tpu_torch.serve, "
+            "ray_tpu_torch.core.worker; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

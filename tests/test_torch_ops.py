@@ -264,6 +264,55 @@ def test_flash_hm_bwd_matches_pallas_f32(shape, causal):
         np.testing.assert_allclose(a, b, atol=tol, rtol=tol, err_msg=name)
 
 
+# head sizes between the CUDA kernels' built ones (32, 64, 128): the card
+# runs them on the next built size with the extra columns zero; the
+# Pallas kernels span any head_dim, so both sides take them as they are
+_PADDED_HM_SHAPES = [(1, 128, 2, 16), (1, 128, 2, 48), (1, 128, 2, 80),
+                     (1, 128, 2, 96)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", _PADDED_HM_SHAPES,
+                         ids=lambda s: f"d{s[-1]}")
+def test_flash_hm_padded_head_dims_match_pallas_f32(shape, causal):
+    """Forward (O, LSE) and the vjp of the head-major family at head_dim
+    16, 48, 80 and 96 against the head-major Pallas kernels (interpret
+    mode), at the head-major tests' tolerances."""
+    q, k, v, do = _qkv(shape, seed=shape[-1]) + _qkv(shape, seed=4)[:1]
+    ref_out, ref_lse = _jax_flash_hm(q, k, v, causal, jnp.float32)
+    out, lse = flash_attention_hm_fwd(*map(torch.from_numpy, (q, k, v)),
+                                      causal=causal)
+    np.testing.assert_allclose(out.numpy(), ref_out, atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), ref_lse, atol=2e-5, rtol=2e-5)
+    ref = _jax_flash_grads(q, k, v, do, causal, jnp.float32, native=False)
+    got = _torch_flash_grads(q, k, v, do, causal, torch.float32, hm=True)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, ref):
+        tol = 2e-5 if name == "out" else 2e-4
+        np.testing.assert_allclose(a, b, atol=tol, rtol=tol, err_msg=name)
+
+
+@pytest.mark.parametrize("dim", [8, 16, 32, 48, 64, 80, 96, 128])
+def test_kernel_head_dims_take_every_multiple_of_8(dim):
+    """What the card takes (``_check_head_dim``, checked before any
+    launch): the head-major kernels every multiple of 8 up to 128, the
+    native-layout ones 64 and 128 only, as the JAX package's
+    ``_nl_eligible`` picks them."""
+    torch_fa._check_head_dim(dim, hm=True)
+    if dim in (64, 128):
+        torch_fa._check_head_dim(dim, hm=False)
+    else:
+        with pytest.raises(ValueError, match="one of"):
+            torch_fa._check_head_dim(dim, hm=False)
+
+
+@pytest.mark.parametrize("dim", [4, 12, 20, 100, 136, 256])
+def test_kernel_head_dims_still_refused(dim):
+    """A head_dim that is no multiple of 8, or above 128, still raises
+    on the card before any launch (ROADMAP fault 3.5)."""
+    with pytest.raises(ValueError, match="multiple of 8 up to 128"):
+        torch_fa._check_head_dim(dim, hm=True)
+
+
 def test_flash_hm_bf16_keeps_dtype():
     """bf16 through the head-major family at odd heads, held as
     test_flash_bwd_bf16_keeps_dtype holds the native family, at its
