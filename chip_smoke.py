@@ -56,13 +56,24 @@ no network.  Phases, one JSON line each:
     of 16, 2 KV heads), f32: logits and every gradient on the card (the
     head-major kernels at head_dim 16) against the CPU; then bf16,
     finite.
-16. ``runtime``: the port's own cluster, ``init(num_cpus=4,
+16. ``head_dims``: GPT-2 of 2 layers at head_dim 160 (csrc/
+    flash_generic.cu) and 20 (the head-major kernels on zero-padded
+    inputs), f32: one step's loss and every gradient on the card against
+    the CPU, with each route's launches.
+17. ``runtime``: the port's own cluster, ``init(num_cpus=4,
     num_gpus=1)`` with the object store in /dev/shm: a GPU task returns
     a seeded bf16 [8192, 8192] CUDA tensor (128 MiB) equal to the
     driver's; a CUDA tensor put by the driver is read by a GPU actor
     (round trip timed); the workers' GPU ids, device and modules (no
     JAX); ``shutdown``.
-17. ``serve_batching``: a ContinuousBatcher deployment of the torch
+18. ``train_gang``: GPT-2 124M through ``TorchTrainer`` on the port's
+    runtime (one GPU worker, streaming ingest from a dataset of seeded
+    token rows, 8 steps of 32 x 1024 tokens), its worker killed once
+    after a checkpoint at step 4 and resumed from it; every loss against
+    the same steps run directly in this process, every batch's checksum,
+    the worker's modules and launches (12 of #1/#3/#4 per step), and
+    ``TorchPredictor`` on the final checkpoint against the direct model.
+19. ``serve_batching``: a ContinuousBatcher deployment of the torch
     ToyDecoder on the card (a quarter of it), 64 concurrent requests of
     16 new tokens by handle, one over HTTP through ``start_proxy``, a
     two-shard gang and a deployment multiplexing two seeds, every
@@ -73,13 +84,15 @@ no network.  Phases, one JSON line each:
 The ``kernels`` phase also holds the backward kernels (dK/dV and dQ) and
 both kernel families (native layout and head-major; head-major at every
 head_dim it takes a build for, 32, 64 and 128, and at 16, 48, 80 and 96,
-odd head counts, ragged lengths, ViT's non-causal 197, more than 65535
-heads in all) against their plain versions, RMSNorm with a bf16 weight
+at 20 and 44 on zero-padded inputs and at 160 to 1024 on
+csrc/flash_generic.cu, odd head counts, ragged lengths, ViT's non-causal
+197, more than 65535 heads in all) against their plain versions, RMSNorm with a bf16 weight
 too, and times them at the training shapes (GPT-2 124M and XL, ViT-B/16,
 the MoE) beside SDPA.  Each main path (``serve``, ``train``,
-``train_xl``, ``vit``, ``moe``, ``resnet``, ``runtime``,
-``serve_batching``) is driven with the kernels' launch counts set to 0
-just before it and read just after; the native-layout paths launch no
+``train_xl``, ``vit``, ``moe``, ``resnet``, ``head_dims``, ``runtime``,
+``train_gang``, whose worker counts its own, and ``serve_batching``) is
+driven with the kernels' launch counts set to 0 just before it and read
+just after; the native-layout paths launch no
 head-major kernel, GPT-2 XL no native-layout one, and ResNet, the
 runtime and the toy decoder's serve path none at all.
 
@@ -126,6 +139,17 @@ DQ_CROSS_LENGTHS = (65, 191)
 PADDED_HEAD_DIMS = (16, 48, 80, 96)
 PADDED_LENGTHS = (1, 129, 1000)
 HEAD_DIM_SHAPE = (8, 1024, 16)
+# head-major head sizes no build takes as they are (flash_attention.
+# _hm_route): 20 and 44 run on the 24 and 48 builds' kernels on
+# zero-padded copies, 160 and up on csrc/flash_generic.cu (its blocks own
+# 64 rows up to 256, 32 up to 512, 16 up to 1024); each held and timed at
+# HEAD_DIM_SHAPE's batch, length and heads, causal and full, and in f32 at
+# ROUTED_F32, then held at ragged lengths and at the generic kernels'
+# limit
+ROUTED_HEAD_DIMS = (20, 44, 160, 256)
+ROUTED_WIDE = (2, 512, 4, 512)
+ROUTED_F32 = (2, 256, 4)
+ROUTED_RAGGED = ((2, 100, 3), (1, 1, 2), (2, 257, 3))
 # RMSNorm cases held but not timed: widths (1000 is no multiple of a
 # 16-byte vector of bf16, so it takes the one-element path; 1024 takes
 # few warps a row; 5120 and 8192 four or eight) at an odd row count, and
@@ -334,6 +358,26 @@ def _heads_first(*xs):
     return tuple(x.transpose(1, 2).contiguous() for x in xs)
 
 
+def _case_kernel(hm, d, part):
+    """A case's kernel name: the native-layout family's, the head-major
+    family's, or flash_generic.cu's where _hm_route sends head_dim d."""
+    from ray_tpu_torch.ops.flash_attention import _hm_route
+    if not hm:
+        return f"flash_{part}"
+    return f"flash_{'generic' if _hm_route(d)[0] == 'generic' else 'hm'}_{part}"
+
+
+def _launched(hm, d):
+    """The launch counts a head-major or native-layout call at head_dim d
+    moves: (forward, dK/dV, dQ) as (function, attribute)."""
+    from ray_tpu_torch.ops.flash_attention import _hm_route
+    fwd, bwd = _family(hm)
+    if hm and _hm_route(d)[0] == "generic":
+        return ((fwd, "launches_generic"), (bwd, "launches_generic_dkdv"),
+                (bwd, "launches_generic_dq"))
+    return ((fwd, "launches"), (bwd, "launches_dkdv"), (bwd, "launches_dq"))
+
+
 def flash_case(timer, gen, shape, dtype, causal, timed, hm=False, tk=None):
     """The forward of one family (kernel #1, or #5 with ``hm``) against
     attention_reference; keys ``tk`` long if given (not causal).  Timed:
@@ -348,10 +392,11 @@ def flash_case(timer, gen, shape, dtype, causal, timed, hm=False, tk=None):
     k, v = (torch.randn(kv_shape, generator=gen, device="cuda").to(dtype)
             for _ in range(2))
     scale = d ** -0.5
-    before = fwd.launches
+    counter = _launched(hm, d)[0]
+    before = getattr(*counter)
     out, lse = fwd(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert fwd.launches == before + 1
+    assert getattr(*counter) == before + 1
     ref, ref_lse = attention_reference(q, k, v, causal, scale)
     # f32: the FMA kernel and the reference differ in summation order
     # only (tests/test_ops.py's 2e-5).  bf16: P is rounded to bf16 before
@@ -362,7 +407,7 @@ def flash_case(timer, gen, shape, dtype, causal, timed, hm=False, tk=None):
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
     row_err = row_scaled_err(out, ref)
     assert row_err <= ROW_TOL[dtype], ("O", row_err, ROW_TOL[dtype])
-    res = {"kernel": "flash_hm_fwd" if hm else "flash_fwd",
+    res = {"kernel": _case_kernel(hm, d, "fwd"),
            "shape": list(shape), **({} if tk is None else {"tk": tk}),
            "dtype": str(dtype).replace("torch.", ""), "causal": causal,
            "max_abs_err": max_err(out, ref), "lse_max_abs_err":
@@ -441,8 +486,8 @@ def bwd_case(timer, gen, shape, dtype, causal, timed, hm=False, tk=None):
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from ray_tpu_torch.ops.flash_attention import (
-        _launch_dkdv, _launch_dq, attention_backward_reference,
-        attention_delta)
+        _bwd_inputs, _kernel_dkdv, _kernel_dq, _unpad,
+        attention_backward_reference, attention_delta)
     fwd, bwd = _family(hm)
     b, t, h, d = shape
     kv_shape = shape if tk is None else (b, tk, h, d)
@@ -452,14 +497,14 @@ def bwd_case(timer, gen, shape, dtype, causal, timed, hm=False, tk=None):
             for _ in range(2))
     scale = d ** -0.5
     out, lse = fwd(q, k, v, causal=causal)
-    before = (bwd.launches_dkdv, bwd.launches_dq)
+    counters = _launched(hm, d)[1:]
+    before = [getattr(*c) for c in counters]
     grads = bwd(q, k, v, out, lse, do, causal=causal, scale=scale)
     torch.cuda.synchronize()
-    assert (bwd.launches_dkdv, bwd.launches_dq) == (before[0] + 1,
-                                                    before[1] + 1)
+    assert [getattr(*c) for c in counters] == [n + 1 for n in before]
     ref = attention_backward_reference(q, k, v, out, lse, do, causal, scale)
     tol = ROW_TOL[dtype]
-    res = {"kernel": "flash_hm_bwd" if hm else "flash_bwd",
+    res = {"kernel": _case_kernel(hm, d, "bwd"),
            "shape": list(shape), **({} if tk is None else {"tk": tk}),
            "dtype": str(dtype).replace("torch.", ""), "causal": causal,
            "row_tol": tol, "launches": 1}
@@ -478,10 +523,13 @@ def bwd_case(timer, gen, shape, dtype, causal, timed, hm=False, tk=None):
         pairs = t * (t + 1) // 2 if causal else t * t
         one = q.numel() * q.element_size()  # one [B, T, H, D] tensor
         rows = 2 * b * h * t * 4            # lse and delta, f32
-        delta = attention_delta(out, do)
-        args = (q, k, v, do, lse, delta, causal, scale)
-        res["kernel_ms_dkdv"] = timer(lambda: _launch_dkdv(*args, hm=hm))
-        res["kernel_ms_dq"] = timer(lambda: _launch_dq(*args, hm=hm))
+        args = (q, k, v, do, lse, attention_delta(out, do), causal, scale)
+        # each kernel as the wrapper runs it: inputs padded to the route's
+        # width, outputs sliced back (neither copies off the pad route)
+        res["kernel_ms_dkdv"] = timer(lambda: [
+            _unpad(g, d) for g in _kernel_dkdv(*_bwd_inputs(*args, hm))])
+        res["kernel_ms_dq"] = timer(lambda: _unpad(
+            _kernel_dq(*_bwd_inputs(*args, hm)), d))
         res["kernel_ms"] = res["kernel_ms_dkdv"] + res["kernel_ms_dq"]
         res["plain_ms"] = timer(lambda: attention_backward_reference(
             q, k, v, out, lse, do, causal, scale))
@@ -493,10 +541,24 @@ def bwd_case(timer, gen, shape, dtype, causal, timed, hm=False, tk=None):
             return F.scaled_dot_product_attention(qt, kt, vt,
                                                   is_causal=causal)
 
-        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-            fwd_ms = timer(sdpa)
-            both_ms = timer(lambda: torch.autograd.grad(sdpa(),
-                                                        (qt, kt, vt), dot))
+        def sdpa_ms():
+            return timer(sdpa), timer(lambda: torch.autograd.grad(
+                sdpa(), (qt, kt, vt), dot))
+
+        # bf16: SDPA's flash backend where it takes the shape; where it
+        # refuses (head_dim above 256) and for f32, which it does not
+        # take, PyTorch's own pick, as the forward's case times
+        res["library_backend"] = "default"
+        if dtype == torch.bfloat16:
+            try:
+                with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                    fwd_ms, both_ms = sdpa_ms()
+                res["library_backend"] = "flash"
+            except RuntimeError as e:
+                if "No available kernel" not in str(e):
+                    raise
+        if res["library_backend"] == "default":
+            fwd_ms, both_ms = sdpa_ms()
         res["library_ms"] = both_ms - fwd_ms
         res["library_fwd_bwd_ms"] = both_ms
         res["bound_ms_dkdv"], res["bound_by_dkdv"] = bound(
@@ -614,11 +676,12 @@ def phase_kernels():
                                timed=False, hm=True))
                 add(bwd_case(timer, gen, (2, t, 3, d), dtype, True,
                              timed=False, hm=True))
-    for d in sorted(PADDED_HEAD_DIMS + (32, 64, 128)):
+    for d in sorted(PADDED_HEAD_DIMS + (24, 32, 64, 128)):
         add(flash_case(timer, gen, HEAD_DIM_SHAPE + (d,), torch.bfloat16,
                        True, timed=True, hm=True))
         add(bwd_case(timer, gen, HEAD_DIM_SHAPE + (d,), torch.bfloat16, True,
                      timed=True, hm=True))
+    routed_head_dim_cases(timer, gen, add, cases)
     # GPT-2 XL's training shape
     add(flash_case(timer, gen, XL_SHAPE, torch.bfloat16, True,
                    timed=True, hm=True))
@@ -626,6 +689,58 @@ def phase_kernels():
                  timed=True, hm=True))
     emit({"phase": "kernels", "ok": True, "cases": len(cases)})
     return cases
+
+
+def routed_head_dim_cases(timer, gen, add, cases):
+    """The head-major family at the head sizes _hm_route pads (20, 44)
+    or sends to flash_generic.cu (160 and up), against the plain versions
+    at ROW_TOL, forward and backward; then the pad route's cost beside
+    its build's (d 20 against 24, 44 against 48), as one line."""
+    for d in ROUTED_HEAD_DIMS:
+        for causal in (False, True):
+            add(flash_case(timer, gen, HEAD_DIM_SHAPE + (d,), torch.bfloat16,
+                           causal, timed=True, hm=True))
+            add(bwd_case(timer, gen, HEAD_DIM_SHAPE + (d,), torch.bfloat16,
+                         causal, timed=True, hm=True))
+    for causal in (False, True):
+        add(flash_case(timer, gen, ROUTED_WIDE, torch.bfloat16, causal,
+                       timed=True, hm=True))
+        add(bwd_case(timer, gen, ROUTED_WIDE, torch.bfloat16, causal,
+                     timed=True, hm=True))
+    for d in ROUTED_HEAD_DIMS + (ROUTED_WIDE[-1],):
+        for causal in (False, True):
+            add(flash_case(timer, gen, ROUTED_F32 + (d,), torch.float32,
+                           causal, timed=True, hm=True))
+            add(bwd_case(timer, gen, ROUTED_F32 + (d,), torch.float32,
+                         causal, timed=True, hm=True))
+    # ragged ends of every route's tiles, one position, Tq != Tk, and the
+    # generic kernels' widest head (16-row blocks)
+    for d in ROUTED_HEAD_DIMS + (1000, 1024):
+        for dtype in (torch.float32, torch.bfloat16):
+            for shape in ROUTED_RAGGED:
+                add(flash_case(timer, gen, shape + (d,), dtype, True,
+                               timed=False, hm=True))
+                add(bwd_case(timer, gen, shape + (d,), dtype, True,
+                             timed=False, hm=True))
+            add(flash_case(timer, gen, (2, 130, 3, d), dtype, False,
+                           timed=False, hm=True, tk=257))
+            add(bwd_case(timer, gen, (2, 130, 3, d), dtype, False,
+                         timed=False, hm=True, tk=257))
+
+    def timed(kind, d):
+        return next(c for c in cases if c["kernel"].endswith(kind)
+                    and c["shape"] == list(HEAD_DIM_SHAPE + (d,))
+                    and c["causal"] and "plain_ms" in c)
+
+    emit({"phase": "kernels", "pad_route_cost": [
+        {"head_dim": d, "build": b,
+         **{f"{part}_ms": timed(kind, d)[key] for part, kind, key in (
+             ("fwd", "fwd", "kernel_ms"), ("dkdv", "bwd", "kernel_ms_dkdv"),
+             ("dq", "bwd", "kernel_ms_dq"))},
+         **{f"build_{part}_ms": timed(kind, b)[key] for part, kind, key in (
+             ("fwd", "fwd", "kernel_ms"), ("dkdv", "bwd", "kernel_ms_dkdv"),
+             ("dq", "bwd", "kernel_ms_dq"))}}
+        for d, b in ((20, 24), (44, 48))]})
 
 
 def phase_model_parity():
@@ -759,24 +874,30 @@ def phase_serve(batch=4, prompt=1024, new_tokens=64):
     return launches
 
 
-FLASH_NL =("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
+FLASH_NL = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
 FLASH_HM = ("flash_hm_fwd", "flash_hm_bwd_dkdv", "flash_hm_bwd_dq")
+FLASH_GENERIC = ("flash_generic_fwd", "flash_generic_bwd_dkdv",
+                 "flash_generic_bwd_dq")
+FLASH_ALL = FLASH_NL + FLASH_HM + FLASH_GENERIC
 
 
 def _flash_counts():
     nl_fwd, nl_bwd = _family(False)
     hm_fwd, hm_bwd = _family(True)
-    return dict(zip(FLASH_NL + FLASH_HM, (
+    return dict(zip(FLASH_ALL, (
         nl_fwd.launches, nl_bwd.launches_dkdv, nl_bwd.launches_dq,
-        hm_fwd.launches, hm_bwd.launches_dkdv, hm_bwd.launches_dq)))
+        hm_fwd.launches, hm_bwd.launches_dkdv, hm_bwd.launches_dq,
+        hm_fwd.launches_generic, hm_bwd.launches_generic_dkdv,
+        hm_bwd.launches_generic_dq)))
 
 
-def _flash_per(fwd, hm=False, bwd=None):
-    """Launches of one family's kernels: ``fwd`` forwards and ``bwd`` of
-    each backward kernel (default ``fwd``); none of the other family."""
+def _flash_per(fwd, hm=False, bwd=None, generic=False):
+    """Launches of one family's kernels (or, with ``generic``,
+    flash_generic.cu's): ``fwd`` forwards and ``bwd`` of each backward
+    kernel (default ``fwd``); none of the others."""
     bwd = fwd if bwd is None else bwd
-    counts = dict.fromkeys(FLASH_NL + FLASH_HM, 0)
-    names = FLASH_HM if hm else FLASH_NL
+    counts = dict.fromkeys(FLASH_ALL, 0)
+    names = FLASH_GENERIC if generic else FLASH_HM if hm else FLASH_NL
     counts.update(zip(names, (fwd, bwd, bwd)))
     return counts
 
@@ -785,6 +906,9 @@ def _zero_counts():
     from ray_tpu_torch.ops.fused import fused_rmsnorm
     for fwd, bwd in (_family(False), _family(True)):
         fwd.launches = bwd.launches_dkdv = bwd.launches_dq = 0
+    hm_fwd, hm_bwd = _family(True)
+    hm_fwd.launches_generic = 0
+    hm_bwd.launches_generic_dkdv = hm_bwd.launches_generic_dq = 0
     fused_rmsnorm.launches = 0
 
 
@@ -1629,6 +1753,352 @@ def phase_runtime():
     return launches
 
 
+# head_dims: GPT-2 of 2 layers (GPT2Config.tiny's vocabulary and length)
+# at head sizes only the routes take: (heads, width) for head_dim 160
+# (flash_generic.cu) and 20 (zero-padded onto the 24 build's kernels)
+HEAD_DIM_MODELS = ((4, 640), (4, 80))
+
+
+def phase_head_dim_parity(batch=2, seq=128):
+    """The model path through the routed head-major kernels: one
+    training step's loss and every gradient of each HEAD_DIM_MODELS
+    GPT-2, f32, TF32 off, on the card against the CPU, with its launches
+    (2 of each flash_generic.cu kernel for head_dim 160; 2 of #5, #6, #7
+    for head_dim 20).  Returns the launch counts of both."""
+    from ray_tpu_torch.models.gpt2 import GPT2, GPT2Config, loss_fn
+    from ray_tpu_torch.ops.flash_attention import _hm_route
+    rows, total = [], dict.fromkeys(FLASH_ALL, 0)
+    for heads, width in HEAD_DIM_MODELS:
+        cfg = GPT2Config.tiny(dtype=torch.float32, num_heads=heads,
+                              embed_dim=width, max_seq_len=seq)
+        d = width // heads
+        model = GPT2(cfg, device="cpu",
+                     generator=torch.Generator().manual_seed(SEED))
+        tokens = torch.randint(
+            0, cfg.vocab_size, (batch, seq),
+            generator=torch.Generator().manual_seed(SEED + 1))
+        cpu_loss, cpu_grads = step_grads(model, loss_fn, tokens)
+        cpu_grads = {n: g.clone() for n, g in cpu_grads.items()}
+        model.to("cuda")
+        with no_tf32():
+            _zero_counts()
+            gpu_loss, gpu_grads = step_grads(model, loss_fn, tokens.cuda())
+            torch.cuda.synchronize()
+            launches = _flash_counts()
+        route = _hm_route(d)[0]
+        assert launches == _flash_per(cfg.num_layers, hm=True,
+                                      generic=route == "generic"), launches
+        assert abs(gpu_loss - cpu_loss) <= PARITY_LOSS_RTOL * abs(cpu_loss), (
+            gpu_loss, cpu_loss)
+        grad_err = {n: _gradient_err(gpu_grads[n].cpu(), g)[1]
+                    for n, g in cpu_grads.items()}
+        worst = max(grad_err, key=grad_err.get)
+        assert grad_err[worst] <= TRAIN_GRAD_TOL, (d, worst, grad_err[worst])
+        rows.append({"head_dim": d, "route": route, "heads": heads,
+                     "width": width, "loss_cpu": cpu_loss,
+                     "loss_gpu": gpu_loss, "worst_grad": worst,
+                     "worst_grad_err_over_max": grad_err[worst],
+                     "launches": {k: v for k, v in launches.items() if v}})
+        total = {k: total[k] + launches[k] for k in total}
+        del model
+    emit({"phase": "head_dims", "ok": True,
+          "config": "GPT2Config.tiny(dtype=float32, num_heads, embed_dim)",
+          "tokens": [batch, seq], "grad_tol_err_over_max": TRAIN_GRAD_TOL,
+          "loss_rtol": PARITY_LOSS_RTOL, "models": rows})
+    return total
+
+
+# train_gang: GPT-2 124M through TorchTrainer on the port's runtime,
+# GANG_STEPS steps of 32 x 1024 tokens; the loop reports a checkpoint
+# (model and AdamW state) after GANG_KILL_AFTER steps and its process
+# dies once, and FailureConfig(max_failures=1) resumes it from there.
+# The object store carries the 1.5 GB checkpoint back to this process.
+GANG_STEPS = 8
+GANG_KILL_AFTER = 4
+GANG_STORE_MIB = 4096
+# losses through the trainer against the direct run's: the same weights,
+# batches and kernels on one card give the same sums, so 0 is expected;
+# rtol 1e-3 leaves room for a reduction whose order changes between runs
+GANG_LOSS_RTOL = 1e-3
+GANG_PROBE = (4, 64)  # predictor: sequences x tokens
+GANG_WAIT_S = 600  # the loop's bounded wait for its checkpoint's registration
+
+
+def gang_train_loop(config):
+    """TorchTrainer's loop for train_gang, on the GPU worker: GPT-2 124M
+    from ``config["seed"]``, AdamW(3e-4, 0.01), the dataset shard through
+    ``to_torch``, each step between ``session.step_monitor()`` brackets,
+    every step reported, checkpoints after ``kill_after`` steps and at
+    the end.  The first attempt dies after its checkpoint is registered
+    (``config["marker"]`` records that it did); a resumed attempt restores
+    the model and optimizer and skips the batches it has done."""
+    import hashlib
+    import json as _json
+    import os as _os
+    import sys as _sys
+    import time as _time
+    import torch as _torch
+    from ray_tpu_torch.models.gpt2 import GPT2, GPT2Config, adamw, train_step
+    from ray_tpu_torch.ops.flash_attention import (flash_attention_bwd,
+                                                   flash_attention_fwd,
+                                                   flash_attention_hm_bwd,
+                                                   flash_attention_hm_fwd)
+    from ray_tpu_torch.ops.fused import fused_rmsnorm
+    from ray_tpu_torch.train import Checkpoint, session
+
+    t_start = _time.time()
+    counters = ((flash_attention_fwd, "launches"),
+                (flash_attention_bwd, "launches_dkdv"),
+                (flash_attention_bwd, "launches_dq"),
+                (flash_attention_hm_fwd, "launches"),
+                (flash_attention_hm_fwd, "launches_generic"),
+                (flash_attention_hm_bwd, "launches_dkdv"),
+                (flash_attention_hm_bwd, "launches_dq"),
+                (flash_attention_hm_bwd, "launches_generic_dkdv"),
+                (flash_attention_hm_bwd, "launches_generic_dq"),
+                (fused_rmsnorm, "launches"))
+    for fn, attr in counters:
+        setattr(fn, attr, 0)
+
+    def counts():
+        names = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
+                 "flash_hm_fwd", "flash_generic_fwd", "flash_hm_bwd_dkdv",
+                 "flash_hm_bwd_dq", "flash_generic_bwd_dkdv",
+                 "flash_generic_bwd_dq", "rmsnorm")
+        return {n: getattr(fn, a) for n, (fn, a) in zip(names, counters)}
+
+    cfg = GPT2Config.gpt2_small(max_seq_len=config["seq"])
+    model = GPT2(cfg, device="cuda", generator=_torch.Generator(
+        device="cuda").manual_seed(config["seed"]))
+    opt = adamw(model.parameters(), lr=3e-4, weight_decay=0.01)
+    start, resumed = 0, session.get_checkpoint()
+    t_restored = None
+    if resumed is not None:
+        tree = resumed.to_pytree({"model": model.state_dict(),
+                                  "optim": opt.state_dict(), "step": 0})
+        model.load_state_dict(tree["model"])
+        opt.load_state_dict(tree["optim"])
+        start = tree["step"]
+        t_restored = _time.time()
+    mon = session.step_monitor()
+    mon.flops_per_token = cfg.flops_per_token()
+    shard = session.get_dataset_shard("train")
+    batches = iter(shard.to_torch(batch_size=config["batch"]))
+    for step in range(1, config["steps"] + 1):
+        t0 = _time.perf_counter()
+        tokens = next(batches)["data"]
+        wait = _time.perf_counter() - t0
+        if step <= start:
+            continue  # done before the restart
+        before = counts()
+        span = mon.step(data_wait_s=wait)
+        t1 = _time.perf_counter()
+        loss = train_step(model, opt, tokens,
+                          head_logits_dtype=_torch.bfloat16)
+        span.dispatched()
+        span.device_done(loss)
+        step_s = _time.perf_counter() - t1
+        span.done(tokens=float(tokens.numel()))
+        after = counts()
+        metrics = {
+            "step": step, "loss": loss.item(), "attempt": 2 if resumed else 1,
+            "step_s": step_s, "data_wait_s": wait,
+            "batch_sha1": hashlib.sha1(
+                tokens.cpu().numpy().tobytes()).hexdigest(),
+            "launches": {k: after[k] - before[k] for k in after},
+            "device": mon.stats(), "t_loop_start": t_start,
+            "t_restored": t_restored,
+            "gpu": _torch.cuda.get_device_name(),
+            "foreign_modules": sorted(
+                {m.split(".")[0] for m in _sys.modules}
+                & {"jax", "jaxlib", "flax", "optax", "ray_tpu"})}
+        if _os.path.exists(config["marker"]):
+            with open(config["marker"]) as f:
+                metrics["killed"] = _json.load(f)
+        ckpt = None
+        if step in (config["kill_after"], config["steps"]):
+            ckpt = Checkpoint.from_pytree(
+                {"model": model.state_dict(), "optim": opt.state_dict(),
+                 "step": step})
+            metrics["ckpt_bytes"] = len(ckpt.to_dict()["pytree_torch"])
+        t_report = _time.time()
+        session.report(metrics, checkpoint=ckpt)
+        if step == config["kill_after"] and not resumed \
+                and not _os.path.exists(config["marker"]):
+            # die once the trainer holds the checkpoint on disk
+            registered = _os.path.join(config["storage"], "checkpoint_000001",
+                                       ".metrics.json")
+            deadline = _time.time() + config["wait_s"]
+            while not _os.path.exists(registered):
+                if _time.time() > deadline:
+                    raise TimeoutError(f"{registered} never appeared")
+                _time.sleep(0.05)
+            with open(config["marker"], "w") as f:
+                _json.dump({"t_kill": _time.time(),
+                            "report_to_registered_s":
+                            _time.time() - t_report,
+                            "ckpt_bytes": metrics["ckpt_bytes"]}, f)
+            _os._exit(1)
+
+
+def phase_train_gang(steps=GANG_STEPS, kill_after=GANG_KILL_AFTER,
+                     batch=32, seq=1024):
+    """GPT-2 124M through ``TorchTrainer`` on the port's runtime (the
+    path of the JAX package's examples/train_gpt2.py): the direct run of
+    ``train_step`` on the same seed and batches first, then the trainer
+    with streaming ingest over a dataset of the same token rows, one
+    injected worker death and a resume from the checkpoint; every loss
+    against the direct run's, every batch's checksum against this
+    process's, the worker's modules and launches, and the final
+    checkpoint through ``TorchPredictor`` against the direct model's
+    logits.  Returns the worker's launch counts over both attempts."""
+    import hashlib
+    import shutil
+    import tempfile
+    import numpy as np
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data as rdata
+    from ray_tpu_torch.data.context import DataContext
+    from ray_tpu_torch.models.gpt2 import GPT2, GPT2Config, adamw, train_step
+    from ray_tpu_torch.train import (FailureConfig, RunConfig, ScalingConfig,
+                                     TorchPredictor, TorchTrainer)
+
+    st = os.statvfs("/dev/shm")
+    if st.f_bavail * st.f_frsize < GANG_STORE_MIB * 2**20:
+        raise RuntimeError(f"/dev/shm has less than {GANG_STORE_MIB} MiB "
+                           "free; train_gang sizes the object store there")
+    cfg = GPT2Config.gpt2_small(max_seq_len=seq)
+    rows = np.random.default_rng(SEED + 7).integers(
+        0, cfg.vocab_size, (steps * batch, seq), dtype=np.int64)
+    batches = [rows[i * batch:(i + 1) * batch] for i in range(steps)]
+    digests = [hashlib.sha1(b.tobytes()).hexdigest() for b in batches]
+    probe = rows[:GANG_PROBE[0], :GANG_PROBE[1]]
+
+    # 1. the direct reference in this process, then its memory freed
+    model = GPT2(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(SEED))
+    opt = adamw(model.parameters(), lr=3e-4, weight_decay=0.01)
+    direct, direct_s = [], []
+    for b in batches:
+        tokens = torch.as_tensor(b).cuda()
+        t0 = time.perf_counter()
+        loss = train_step(model, opt, tokens,
+                          head_logits_dtype=torch.bfloat16)
+        direct.append(loss.item())
+        direct_s.append(time.perf_counter() - t0)
+    with torch.inference_mode():
+        direct_logits = model.eval()(
+            torch.as_tensor(probe).cuda()).float().cpu()
+    del model, opt, loss, tokens
+    _free()
+
+    # 2. the trainer, on the same seed and rows
+    store = tempfile.mkdtemp(prefix="chip_smoke_gang_")
+    ctx = DataContext.get_current()
+    ctx.streaming_train_ingest = True
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4, num_gpus=1,
+            object_store_memory=GANG_STORE_MIB * 2**20)
+    init_s = time.perf_counter() - t0
+    try:
+        trainer = TorchTrainer(
+            gang_train_loop,
+            train_loop_config={"seed": SEED, "steps": steps, "batch": batch,
+                               "seq": seq,
+                               "kill_after": kill_after, "storage": store,
+                               "marker": os.path.join(store, "killed.json"),
+                               "wait_s": GANG_WAIT_S},
+            scaling_config=ScalingConfig(num_workers=1,
+                                         gpus_per_worker=1),
+            datasets={"train": rdata.from_numpy(batches)},
+            run_config=RunConfig(name="chip_smoke_train_gang",
+                                 storage_path=store,
+                                 failure_config=FailureConfig(
+                                     max_failures=1)))
+        t_fit = time.time()
+        result = trainer.fit()
+        fit_s = time.time() - t_fit
+    finally:
+        ctx.streaming_train_ingest = False
+        t0 = time.perf_counter()
+        rt.shutdown()
+        shutdown_s = time.perf_counter() - t0
+    try:
+        assert result.error is None, result.error
+        hist = result.metrics_history
+        assert [h["step"] for h in hist] == list(range(1, steps + 1)), [
+            h["step"] for h in hist]
+        assert [h["attempt"] for h in hist] == [1] * kill_after + [2] * (
+            steps - kill_after)
+        assert [h["batch_sha1"] for h in hist] == digests
+        diffs = [abs(h["loss"] - d) for h, d in zip(hist, direct)]
+        for h, d in zip(hist, direct):
+            assert abs(h["loss"] - d) <= GANG_LOSS_RTOL * abs(d), (
+                h["step"], h["loss"], d)
+        assert all(not h["foreign_modules"] for h in hist), hist[-1]
+        per_step = {**_flash_per(cfg.num_layers), "rmsnorm": 0}
+        for h in hist:
+            assert h["launches"] == per_step, (h["step"], h["launches"])
+        launches = dict.fromkeys(FLASH_ALL, 0)
+        for h in hist:
+            for k in launches:
+                launches[k] += h["launches"][k]
+        # 3. the final checkpoint through TorchPredictor
+        t0 = time.perf_counter()
+        predictor = TorchPredictor.from_checkpoint(
+            result.checkpoint, model=GPT2(cfg, device="cuda"))
+        logits = torch.from_numpy(predictor.predict({"data": probe})[
+            "predictions"])
+        predictor_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    # one bf16 ulp at the largest logit: the weights are the same f32
+    # masters, so 0 is expected; a rounding of the bf16 compute that
+    # flips costs at most one ulp
+    logit_err = max_err(logits, direct_logits)
+    logit_tol = 2.0 ** -7 * direct_logits.abs().max().item()
+    assert logit_err <= logit_tol, (logit_err, logit_tol)
+    first, second = hist[:kill_after], hist[kill_after:]
+    killed = second[0]["killed"]
+    timed = [h for h in first[1:] + second[1:]]  # each attempt's first is warm-up
+    step_ms = statistics.mean(h["step_s"] for h in timed) * 1e3
+    direct_ms = statistics.mean(direct_s[1:]) * 1e3
+    emit({"phase": "train_gang", "ok": True,
+          "config": f"gpt2_small ({cfg.num_layers} layers, {cfg.embed_dim} "
+          "wide, bf16 compute, f32 masters, AdamW(3e-4, 0.01), bf16 head "
+          "logits) through TorchTrainer(ScalingConfig(num_workers=1, "
+          "gpus_per_worker=1), FailureConfig(max_failures=1)), "
+          "streaming ingest",
+          "batch": batch, "seq": seq, "steps": steps,
+          "killed_after_step": kill_after, "init_s": init_s,
+          "gang_start_s": first[0]["t_loop_start"] - t_fit,
+          "restart_s": second[0]["t_loop_start"] - killed["t_kill"],
+          "restore_s": second[0]["t_restored"] - second[0]["t_loop_start"],
+          "fit_s": fit_s, "shutdown_s": shutdown_s,
+          "step_ms": step_ms, "tokens_per_s": batch * seq / step_ms * 1e3,
+          "direct_step_ms": direct_ms,
+          "step_ms_each": [h["step_s"] * 1e3 for h in hist],
+          "direct_step_ms_each": [t * 1e3 for t in direct_s],
+          "mfu": second[-1]["device"]["mfu"],
+          "mfu_steady": batch * seq / step_ms * 1e3 * cfg.flops_per_token()
+          / PEAK_FLOPS[torch.bfloat16],
+          "mfu_attempt_1": first[-1]["device"]["mfu"],
+          "device_frac": second[-1]["device"]["device_frac"],
+          "batch_wait_p50_s": statistics.median(
+              h["data_wait_s"] for h in hist),
+          "ckpt_bytes": killed["ckpt_bytes"],
+          "ckpt_report_to_registered_s": killed["report_to_registered_s"],
+          "losses": [h["loss"] for h in hist], "direct_losses": direct,
+          "loss_rtol": GANG_LOSS_RTOL, "loss_max_abs_diff": max(diffs),
+          "batches_equal": True, "worker_gpu": hist[0]["gpu"],
+          "foreign_modules": [], "launches_per_step": per_step,
+          "launches": {k: v for k, v in launches.items() if v},
+          "predictor_s": predictor_s, "predictor_probe": list(GANG_PROBE),
+          "predictor_max_abs_err": logit_err,
+          "predictor_atol": logit_tol, "card": card_line()})
+    return launches
+
+
 def _top2_margin(engine, payloads):
     """The smallest gap between the two largest logits over the decode
     steps of ``payloads`` (request at a time): how close the greedy
@@ -1808,6 +2278,16 @@ SUMMARY = {  # name: (source, TPU kernel it replaces, shape in the table)
                           list(XL_SHAPE)),
     "flash_hm_bwd_dq": ("ray_tpu_torch/ops/csrc/flash_bwd.cu",
                         "ray_tpu/ops/flash_attention.py:268", list(XL_SHAPE)),
+    # the head-major kernels above head_dim 128
+    "flash_generic_fwd": ("ray_tpu_torch/ops/csrc/flash_generic.cu",
+                          "ray_tpu/ops/flash_attention.py:82",
+                          list(HEAD_DIM_SHAPE + (256,))),
+    "flash_generic_bwd_dkdv": ("ray_tpu_torch/ops/csrc/flash_generic.cu",
+                               "ray_tpu/ops/flash_attention.py:212",
+                               list(HEAD_DIM_SHAPE + (256,))),
+    "flash_generic_bwd_dq": ("ray_tpu_torch/ops/csrc/flash_generic.cu",
+                             "ray_tpu/ops/flash_attention.py:268",
+                             list(HEAD_DIM_SHAPE + (256,))),
 }
 
 
@@ -1827,7 +2307,7 @@ def kernel_summary(cases, by_path, usage):
         kind, part = name.rsplit("_", 1) if "_bwd_" in name else (name, None)
         c = next(c for c in cases if c["kernel"] == kind
                  and c["shape"] == shape and c["dtype"] == "bfloat16"
-                 and "plain_ms" in c)
+                 and c.get("causal", True) and "plain_ms" in c)
         launches = {path: n[name] for path, n in by_path.items()
                     if n.get(name)}
         assert launches, f"{name} was not launched on any main path"
@@ -1842,13 +2322,17 @@ def kernel_summary(cases, by_path, usage):
                "bound_by": c[f"bound_by_{part}"] if part else c["bound_by"],
                "library_ms": c["library_ms"], "shape": shape,
                "dtype": "bfloat16"}
+        if part:  # which SDPA backend ran the backward
+            row["library_backend"] = c["library_backend"]
         if part or name.endswith("fwd"):  # the other timed model shapes
             row["other_shapes"] = [
                 {"shape": o["shape"], "causal": o["causal"],
                  "ms": o[f"kernel_ms_{part}"] if part else o["kernel_ms"],
                  "bound_ms": o[f"bound_ms_{part}"] if part
                  else o["bound_ms"], "plain_ms": o["plain_ms"],
-                 "library_ms": o["library_ms"]}
+                 "library_ms": o["library_ms"],
+                 **({"library_backend": o["library_backend"]} if part
+                    else {})}
                 for o in cases if o["kernel"] == kind and "plain_ms" in o
                 and o["dtype"] == "bfloat16" and o["shape"] != shape]
         if name == "rmsnorm":  # and at the decode step's shape
@@ -1906,7 +2390,11 @@ def main() -> int:
     _free()
     phase_tiny_parity()
     _free()
+    head_dims = phase_head_dim_parity()
+    _free()
     runtime = phase_runtime()
+    _free()
+    train_gang = phase_train_gang()
     _free()
     serve_batching = phase_serve_batching()
     # the runtime and the toy decoder launch no kernel of the port
@@ -1914,7 +2402,9 @@ def main() -> int:
     assert not any(serve_batching.values()), serve_batching
     emit(kernel_summary(cases, {"serve": serve, "train": train,
                                 "train_xl": train_xl, "vit": vit,
-                                "moe": moe, "resnet": resnet}, usage))
+                                "moe": moe, "resnet": resnet,
+                                "head_dims": head_dims,
+                                "train_gang": train_gang}, usage))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -6,12 +6,17 @@ from __future__ import annotations
 from typing import Any, Mapping
 
 
+# the JAX package's TPU keywords and the port's GPU ones in their place
+_TPU_OPTIONS = {"num_tpus": "num_gpus", "tpus_per_worker": "gpus_per_worker"}
+
+
 def reject_tpu_options(where: str, options: Mapping[str, Any]) -> None:
     """Raise if ``options`` asks for TPUs: the port schedules GPUs."""
-    if "num_tpus" in options:
-        raise TypeError(
-            f"{where}: num_tpus= is the JAX package's option; "
-            "ray_tpu_torch schedules GPUs: pass num_gpus=")
+    for tpu, gpu in _TPU_OPTIONS.items():
+        if tpu in options:
+            raise TypeError(
+                f"{where}: {tpu}= is the JAX package's option; "
+                f"ray_tpu_torch schedules GPUs: pass {gpu}=")
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:

@@ -49,6 +49,14 @@ SIGNATURES = {
     # scale, causal, dtype, stream
     "rtt_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                          _I, _I, _P],
+    # flash_generic.cu, the head-major family above head_dim 128: as
+    # rtt_flash_fwd, rtt_flash_bwd_dkdv and rtt_flash_bwd_dq
+    "rtt_flash_generic_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                              _I, _I, _P],
+    "rtt_flash_generic_bwd_dkdv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _I, _I, _I, _F, _I, _I, _P],
+    "rtt_flash_generic_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _F, _I, _I, _P],
     # the bf16 kernels' registers and shared bytes as the runtime holds
     # them: head_dim, out (int[3]); kernel (0 = dK/dV, 1 = dQ), head_dim,
     # out

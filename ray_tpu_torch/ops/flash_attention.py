@@ -1,6 +1,7 @@
-"""Flash attention: the CUDA kernels ``csrc/flash_fwd.cu`` (forward) and
-``csrc/flash_bwd.cu`` (dK/dV and dQ), behind the JAX package's two kernel
-families, each beside its plain version.
+"""Flash attention: the CUDA kernels ``csrc/flash_fwd.cu`` (forward),
+``csrc/flash_bwd.cu`` (dK/dV and dQ) and, above head_dim 128,
+``csrc/flash_generic.cu``, behind the JAX package's two kernel families,
+each beside its plain version.
 
 Counterpart of ``ray_tpu/ops/flash_attention.py``:
 
@@ -13,11 +14,13 @@ Counterpart of ``ray_tpu/ops/flash_attention.py``:
   ``_flash_backward`` with ``_fa_bwd_dkdv_kernel`` and
   ``_fa_bwd_dq_kernel``, and ``_flash`` (here
   :func:`flash_attention_hm_fwd`, :func:`flash_attention_hm_bwd` and the
-  same Function); on the card any head_dim that is a multiple of 8 up
-  to 128 (the Pallas kernels span the full head_dim, whatever it is;
-  the CUDA kernels are built for 32, 64 and 128 and run a smaller
-  multiple of 8 on the next of those, ``csrc/flash_common.cuh``'s
-  ``by_head_dim``).  The JAX wrappers transpose
+  same Function); on the card any head_dim from 1 to 1024 (the Pallas
+  kernels span the full head_dim, whatever it is).  :func:`_hm_route`
+  picks the kernels: a multiple of 8 up to 128 runs on the Hopper
+  kernels' 32/64/128 builds (``csrc/flash_common.cuh``'s
+  ``by_head_dim``); another size below 128 on the same kernels, its
+  inputs zero-padded to the next multiple of 8; a size above 128 on
+  ``csrc/flash_generic.cu``'s three kernels.  The JAX wrappers transpose
   to ``[B, H, T, D]`` for the TPU's tiles; the CUDA kernels read
   ``[B, T, H, D]`` by strides, so both families launch them on the
   caller's tensors and count their launches apart.
@@ -46,7 +49,8 @@ from ray_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 NL_HEAD_DIMS = (64, 128)  # the JAX package's _nl_eligible
-HM_HEAD_DIMS = tuple(range(8, 129, 8))  # every multiple of 8 up to 128
+HM_BUILT_MAX = 128  # the largest head_dim the Hopper kernels are built for
+HM_MAX_HEAD_DIM = 1024  # csrc/flash_generic.cu's kMaxHeadDim
 
 
 def _check_causal(q, k, causal):
@@ -170,12 +174,63 @@ def _validate_bwd(q, k, v, out, lse, do, causal):
 
 def _check_head_dim(dim: int, hm: bool) -> None:
     """Raise unless the kernels of the family take ``dim``: the
-    native-layout ones 64 or 128, the head-major ones a multiple of 8 up
-    to 128."""
-    if dim not in (HM_HEAD_DIMS if hm else NL_HEAD_DIMS):
-        takes = ("a multiple of 8 up to 128" if hm
-                 else f"one of {NL_HEAD_DIMS}")
-        raise ValueError(f"flash kernel takes head_dim {takes}, got {dim}")
+    native-layout ones 64 or 128, the head-major ones 1 to
+    ``HM_MAX_HEAD_DIM`` (:func:`_hm_route` says on which kernels).  The
+    head-major wrappers hold their limit on every device, CPU tensors
+    included."""
+    if hm and not 1 <= dim <= HM_MAX_HEAD_DIM:
+        raise ValueError(f"head-major flash attention takes head_dim 1 to "
+                         f"{HM_MAX_HEAD_DIM}, got {dim}")
+    if not hm and dim not in NL_HEAD_DIMS:
+        raise ValueError(f"flash kernel takes head_dim one of "
+                         f"{NL_HEAD_DIMS}, got {dim}")
+
+
+def _hm_route(head_dim: int) -> Tuple[str, int]:
+    """Where the head-major family runs ``head_dim`` on the card, and at
+    what width:
+
+    * ``("kernel", d)``: a multiple of 8 up to 128 runs on kernels #5-#7
+      as it is (on their next 32/64/128 build);
+    * ``("pad", d8)``: another size below 128 runs on the same kernels
+      with q, k, v (and dO) zero-padded to ``d8``, the next multiple of
+      8, and the true ``head_dim ** -0.5`` as the scale.  Zero columns
+      add nothing to ``Q K^T`` or to ``dO V^T``, the outputs' extra
+      columns are sliced off, and a padded bf16 row spans a multiple of
+      16 bytes, the stride TMA takes;
+    * ``("generic", d)``: above 128, ``csrc/flash_generic.cu``'s
+      forward, dK/dV and dQ.
+
+    Raises above ``HM_MAX_HEAD_DIM``, as :func:`_check_head_dim` does."""
+    _check_head_dim(head_dim, hm=True)
+    if head_dim > HM_BUILT_MAX:
+        return "generic", head_dim
+    if head_dim % 8:
+        return "pad", head_dim + (-head_dim) % 8
+    return "kernel", head_dim
+
+
+def _kernel_for(q, hm) -> Tuple[str, int]:
+    """The kernel selector for ``q``'s family and head_dim, and the
+    head_dim the kernel runs at: ``"nl"`` (#1/#3/#4, as it is), ``"hm"``
+    (#5-#7, at the width :func:`_hm_route` pads to) or ``"generic"``
+    (``flash_generic.cu``, as it is)."""
+    if not hm:
+        return "nl", q.shape[-1]
+    route, d = _hm_route(q.shape[-1])
+    return ("generic" if route == "generic" else "hm"), d
+
+
+def _pad_cols(d, *xs):
+    """``xs`` with zero columns up to head_dim ``d`` (contiguous copies;
+    ``xs`` themselves where they are ``d`` wide)."""
+    return tuple(x if x.shape[-1] == d
+                 else torch.nn.functional.pad(x, (0, d - x.shape[-1]))
+                 for x in xs)
+
+
+def _unpad(x, dim):
+    return x if x.shape[-1] == dim else x[..., :dim].contiguous()
 
 
 def _check_kernel_inputs(hm, *tensors):
@@ -197,28 +252,56 @@ def _check_kernel_inputs(hm, *tensors):
         raise ValueError("flash_attention: empty input")
 
 
-def _launch_fwd(q, k, v, causal, scale, hm=False):
-    """The forward kernel on checked CUDA inputs, counted as #1 (native
-    layout) or, with ``hm``, #5 (head-major): ``(out like q, lse
-    [B,H,Tq] f32)``."""
+def _entry(kind, part):
+    """Kernel ``part`` (``fwd``, ``bwd_dkdv`` or ``bwd_dq``) of ``kind``:
+    its library entry and the name its errors carry."""
+    name = f"flash_{'generic_' if kind == 'generic' else ''}{part}"
+    return getattr(_build.load_library(), f"rtt_{name}"), f"{name} kernel"
+
+
+def _count(kind, part):
+    """One launch of ``part`` ("", "_dkdv" or "_dq") on ``kind``: #1/#3/#4
+    on the native-layout wrappers' counters, #5-#7 and flash_generic.cu
+    on the head-major ones' (``launches_generic*``)."""
+    fns = ((flash_attention_fwd, flash_attention_bwd) if kind == "nl"
+           else (flash_attention_hm_fwd, flash_attention_hm_bwd))
+    fn = fns[bool(part)]
+    attr = ("launches_generic" if kind == "generic" else "launches") + part
+    setattr(fn, attr, getattr(fn, attr) + 1)
+
+
+def _kernel_fwd(q, k, v, causal, scale, kind):
+    """The forward kernel ``kind`` (:func:`_kernel_for`) on checked CUDA
+    inputs at its width: ``(out like q, lse [B,H,Tq] f32)``."""
     batch, seq_q, heads, dim = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(batch, heads, seq_q, dtype=torch.float32,
                       device=q.device)
-    lib = _build.load_library()
+    entry, what = _entry(kind, "fwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _build.check(lib.rtt_flash_fwd(
+        _build.check(entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), batch, seq_q, k.shape[1], heads, dim,
             float(scale), int(causal), _build.dtype_code(q.dtype), stream),
-            "flash_fwd kernel")
-    (flash_attention_hm_fwd if hm else flash_attention_fwd).launches += 1
+            what)
+    _count(kind, "")
     return out, lse
+
+
+def _launch_fwd(q, k, v, causal, scale, hm=False):
+    """The family's forward on checked CUDA inputs, on the kernel
+    :func:`_kernel_for` picks: q, k and v padded to its width, O sliced
+    back."""
+    kind, d = _kernel_for(q, hm)
+    out, lse = _kernel_fwd(*_pad_cols(d, q, k, v), causal, scale, kind)
+    return _unpad(out, q.shape[-1]), lse
 
 
 def _forward(q, k, v, causal, scale, hm):
     _validate(q, k, v, causal)
+    if hm:
+        _check_head_dim(q.shape[-1], hm)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
@@ -248,12 +331,25 @@ def flash_attention_hm_fwd(q: torch.Tensor, k: torch.Tensor,
                            scale: Optional[float] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Head-major family (``_flash_forward``): as
-    :func:`flash_attention_fwd`, launching kernel #5 (head_dim a multiple
-    of 8 up to 128) on the caller's ``[B,T,H,D]`` tensors, or raising."""
+    :func:`flash_attention_fwd`, for head_dim 1 to ``HM_MAX_HEAD_DIM`` on
+    every device; on the card it launches kernel #5 on the caller's
+    ``[B,T,H,D]`` tensors (on zero-padded copies for a head_dim below 128
+    that is no multiple of 8) or, above 128, ``flash_generic.cu``'s
+    forward (counted in ``launches_generic``), or raises."""
     return _forward(q, k, v, causal, scale, hm=True)
 
 
 flash_attention_hm_fwd.launches = 0
+flash_attention_hm_fwd.launches_generic = 0
+
+
+def _bwd_inputs(q, k, v, do, lse, delta, causal, scale, hm=False):
+    """The arguments of both backward kernels for checked CUDA inputs:
+    q, k, v and dO padded to the width of the kernel :func:`_kernel_for`
+    picks, and its selector.  ``delta`` comes from the unpadded O and dO:
+    on the pad route their zero columns would add nothing to it."""
+    kind, d = _kernel_for(q, hm)
+    return (*_pad_cols(d, q, k, v, do), lse, delta, causal, scale, kind)
 
 
 def _bwd_args(q, k, v, do, lse, delta, causal, scale):
@@ -264,44 +360,51 @@ def _bwd_args(q, k, v, do, lse, delta, causal, scale):
         _build.dtype_code(q.dtype))
 
 
-def _launch_dkdv(q, k, v, do, lse, delta, causal, scale, hm=False):
-    """The dK/dV kernel on checked CUDA inputs, counted as #3 (native
-    layout) or, with ``hm``, #6 (head-major): ``(dk, dv)``."""
+def _kernel_dkdv(q, k, v, do, lse, delta, causal, scale, kind):
+    """The dK/dV kernel ``kind`` on :func:`_bwd_inputs`: ``(dk, dv)`` at
+    its width."""
     ins, dims = _bwd_args(q, k, v, do, lse, delta, causal, scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lib = _build.load_library()
+    entry, what = _entry(kind, "bwd_dkdv")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _build.check(lib.rtt_flash_bwd_dkdv(*ins, dk.data_ptr(),
-                                            dv.data_ptr(), *dims, stream),
-                     "flash_bwd_dkdv kernel")
-    (flash_attention_hm_bwd if hm else flash_attention_bwd).launches_dkdv += 1
+        _build.check(entry(*ins, dk.data_ptr(), dv.data_ptr(), *dims, stream),
+                     what)
+    _count(kind, "_dkdv")
     return dk, dv
 
 
-def _launch_dq(q, k, v, do, lse, delta, causal, scale, hm=False):
-    """The dQ kernel on checked CUDA inputs, counted as #4 (native layout)
-    or, with ``hm``, #7 (head-major): ``dq``."""
+def _kernel_dq(q, k, v, do, lse, delta, causal, scale, kind):
+    """The dQ kernel ``kind`` on :func:`_bwd_inputs`: ``dq`` at its
+    width."""
     ins, dims = _bwd_args(q, k, v, do, lse, delta, causal, scale)
     dq = torch.empty_like(q)
-    lib = _build.load_library()
+    entry, what = _entry(kind, "bwd_dq")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _build.check(lib.rtt_flash_bwd_dq(*ins, dq.data_ptr(), *dims, stream),
-                     "flash_bwd_dq kernel")
-    (flash_attention_hm_bwd if hm else flash_attention_bwd).launches_dq += 1
+        _build.check(entry(*ins, dq.data_ptr(), *dims, stream), what)
+    _count(kind, "_dq")
     return dq
+
+
+def _launch_bwd(q, k, v, out, lse, do, causal, scale, hm=False):
+    """The family's dK/dV and dQ on checked CUDA inputs, routed as
+    :func:`_launch_fwd` (one padding for both): ``(dq, dk, dv)``."""
+    ins = _bwd_inputs(q, k, v, do, lse, attention_delta(out, do), causal,
+                      scale, hm)
+    dk, dv = _kernel_dkdv(*ins)
+    return tuple(_unpad(g, q.shape[-1]) for g in (_kernel_dq(*ins), dk, dv))
 
 
 def _backward(q, k, v, out, lse, do, causal, scale, hm):
     _validate_bwd(q, k, v, out, lse, do, causal)
+    if hm:
+        _check_head_dim(q.shape[-1], hm)
     if q.device.type == "cpu":
         return attention_backward_reference(q, k, v, out, lse, do, causal,
                                             scale)
     _check_kernel_inputs(hm, q, k, v, out, lse, do)
-    delta = attention_delta(out, do)
-    dk, dv = _launch_dkdv(q, k, v, do, lse, delta, causal, scale, hm)
-    return _launch_dq(q, k, v, do, lse, delta, causal, scale, hm), dk, dv
+    return _launch_bwd(q, k, v, out, lse, do, causal, scale, hm)
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -331,13 +434,18 @@ def flash_attention_hm_bwd(q: torch.Tensor, k: torch.Tensor,
                            ) -> Tuple[torch.Tensor, torch.Tensor,
                                       torch.Tensor]:
     """Head-major family (``_flash_backward``): as
-    :func:`flash_attention_bwd`, launching kernels #6 (dK/dV) and #7
-    (dQ) (head_dim a multiple of 8 up to 128), or raising."""
+    :func:`flash_attention_bwd`, for head_dim 1 to ``HM_MAX_HEAD_DIM``,
+    launching kernels #6 (dK/dV) and #7 (dQ), or above 128
+    ``flash_generic.cu``'s (counted in ``launches_generic_dkdv`` and
+    ``launches_generic_dq``), routed as :func:`flash_attention_hm_fwd`,
+    or raising."""
     return _backward(q, k, v, out, lse, do, causal, scale, hm=True)
 
 
 flash_attention_hm_bwd.launches_dkdv = 0
 flash_attention_hm_bwd.launches_dq = 0
+flash_attention_hm_bwd.launches_generic_dkdv = 0
+flash_attention_hm_bwd.launches_generic_dq = 0
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -383,9 +491,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     The kernel family is the JAX package's pick (``_resolve_native``):
     ``native=True`` the native-layout kernels (head_dim 64 or 128, the
     head count divisible by ``128 // head_dim``; any other shape raises,
-    on the CPU too), ``native=False`` the head-major ones (on the card,
-    head_dim a multiple of 8 up to 128); ``None`` the native-layout ones where eligible
-    unless ``RAY_TPU_FLASH_NATIVE=0``.
+    on the CPU too), ``native=False`` the head-major ones (head_dim 1 to
+    ``HM_MAX_HEAD_DIM``; :func:`_hm_route`); ``None`` the native-layout
+    ones where eligible unless ``RAY_TPU_FLASH_NATIVE=0``.
     """
     if native and not _nl_eligible(q, k, v):
         raise ValueError(

@@ -6,7 +6,10 @@ turns, within one call on one card.
 
 Each OTHER is the root of another checkout of the repository: the parent
 commit, unpacked with ``git archive`` into a directory that .gitignore
-lists, or a copy of this one with a kernel source changed.  Each checkout
+lists, or a copy of this one with a kernel source changed; it times the
+backward through ``_bwd_inputs``, ``_kernel_dkdv`` and ``_kernel_dq`` of
+ray_tpu_torch/ops/flash_attention.py, so each checkout must have them.
+Each checkout
 builds its own kernel library (nvcc) into its own build/ and is timed in
 a process of its own, in the order OTHER..., this, this, ...OTHER
 (reversed), so drift of the card over the call weighs on all alike.
@@ -54,8 +57,8 @@ def measure(tree: str) -> None:
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from ray_tpu_torch.ops.flash_attention import (
-        _launch_dkdv, _launch_dq, attention_delta, flash_attention_fwd,
-        flash_attention_hm_fwd)
+        _bwd_inputs, _kernel_dkdv, _kernel_dq, attention_delta,
+        flash_attention_fwd, flash_attention_hm_fwd)
     from ray_tpu_torch.ops.fused import fused_rmsnorm
     assert os.path.samefile(
         os.path.dirname(sys.modules["ray_tpu_torch"].__file__),
@@ -69,7 +72,8 @@ def measure(tree: str) -> None:
         scale = shape[-1] ** -0.5
         fwd = flash_attention_hm_fwd if hm else flash_attention_fwd
         out, lse = fwd(q, k, v, causal=True)
-        args = (q, k, v, do, lse, attention_delta(out, do), True, scale)
+        ins = _bwd_inputs(q, k, v, do, lse, attention_delta(out, do), True,
+                          scale, hm)
         qt, kt, vt, dot = cs._heads_first(q, k, v, do)
         qt, kt, vt = (x.requires_grad_() for x in (qt, kt, vt))
 
@@ -80,8 +84,8 @@ def measure(tree: str) -> None:
             fwd_ms = timer(sdpa)
             both_ms = timer(lambda: torch.autograd.grad(
                 sdpa(), (qt, kt, vt), dot))
-        for name, fn in (("dq", _launch_dq), ("dkdv", _launch_dkdv)):
-            ms = timer(lambda: fn(*args, hm=hm))
+        for name, fn in (("dq", _kernel_dq), ("dkdv", _kernel_dkdv)):
+            ms = timer(lambda: fn(*ins))
             print(json.dumps({"kernel": name, "shape": list(shape),
                               "head_major": hm, "ms": ms}), flush=True)
         print(json.dumps({"kernel": "sdpa_bwd", "shape": list(shape),

@@ -89,10 +89,33 @@ def test_worker_main_import_leaves_torch_unloaded():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_train_and_data_imports_leave_torch_unloaded():
+    """Importing Train, the data plane, AIR and the parallel vocabulary
+    loads no torch (and no JAX): a CPU worker that runs a data task or a
+    train loop that never touches torch pays no torch import.  torch
+    comes with a loop's own import or with ``to_torch``."""
+    code = ("import sys, ray_tpu_torch.train, ray_tpu_torch.data, "
+            "ray_tpu_torch.air, ray_tpu_torch.parallel, "
+            "ray_tpu_torch.train.pytree_io, ray_tpu_torch.util.actor_pool; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{('torch',) + FORBIDDEN!r}]; print(bad); "
+            "import numpy as np; "
+            "ds = ray_tpu_torch.data.dataset.Dataset([]); "
+            "it = ray_tpu_torch.data.dataset.torch_batches("
+            "iter([np.zeros(2)]), 'cpu'); "
+            "before = 'torch' in sys.modules; next(it); "
+            "sys.exit(1 if bad or before or 'torch' not in sys.modules "
+            "else 0)")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_import_leaves_jax_unloaded():
     code = ("import sys, ray_tpu_torch.models, "
             "ray_tpu_torch.models.convert, ray_tpu_torch.serve, "
-            "ray_tpu_torch.core.worker; "
+            "ray_tpu_torch.core.worker, ray_tpu_torch.train, "
+            "ray_tpu_torch.data, ray_tpu_torch.parallel; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -124,6 +147,9 @@ def test_cpu_tensors_never_touch_the_library(monkeypatch):
     monkeypatch.setattr(flash_attention_hm_fwd, "launches", 0)
     monkeypatch.setattr(flash_attention_hm_bwd, "launches_dkdv", 0)
     monkeypatch.setattr(flash_attention_hm_bwd, "launches_dq", 0)
+    monkeypatch.setattr(flash_attention_hm_fwd, "launches_generic", 0)
+    monkeypatch.setattr(flash_attention_hm_bwd, "launches_generic_dkdv", 0)
+    monkeypatch.setattr(flash_attention_hm_bwd, "launches_generic_dq", 0)
     q = torch.randn(1, 16, 2, 64, requires_grad=True)
     flash_attention(q, q, q).sum().backward()
     q_hm = torch.randn(1, 16, 3, 32, requires_grad=True)  # head-major
@@ -131,6 +157,10 @@ def test_cpu_tensors_never_touch_the_library(monkeypatch):
     out, lse = flash_attention_hm_fwd(q_hm, q_hm, q_hm)
     flash_attention_hm_bwd(q_hm, q_hm, q_hm, out, lse, out, causal=True,
                            scale=1.0)
+    for dim in (20, 160):  # the pad route's and flash_generic.cu's sizes
+        x = torch.randn(1, 16, 3, dim, requires_grad=True)
+        flash_attention(x, x, x).sum().backward()
+        assert x.grad is not None
     x = torch.randn(3, 64, requires_grad=True)
     fused_rmsnorm(x, torch.ones(64, requires_grad=True)).sum().backward()
     assert q.grad is not None and x.grad is not None
@@ -141,6 +171,9 @@ def test_cpu_tensors_never_touch_the_library(monkeypatch):
     assert flash_attention_hm_fwd.launches == 0
     assert flash_attention_hm_bwd.launches_dkdv == 0
     assert flash_attention_hm_bwd.launches_dq == 0
+    assert flash_attention_hm_fwd.launches_generic == 0
+    assert flash_attention_hm_bwd.launches_generic_dkdv == 0
+    assert flash_attention_hm_bwd.launches_generic_dq == 0
     assert fused_rmsnorm.launches == 0
 
 
@@ -149,14 +182,19 @@ def test_library_name_hashes_sources():
     assert path.parent == ROOT / "build" / "ray_tpu_torch"
     assert path.name.startswith("libray_tpu_torch_") and path.suffix == ".so"
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
-        "flash_bwd.cu", "flash_fwd.cu", "rmsnorm.cu"}
+        "flash_bwd.cu", "flash_fwd.cu", "flash_generic.cu", "rmsnorm.cu"}
     assert {p.name for p in _build.CSRC.glob("*.cuh")} == {
         "flash_common.cuh", "hopper.cuh"}
-    # both kernel families launch the same three flash entry points; two
-    # more report the bf16 flash kernels' registers and shared bytes
+    # both kernel families launch the same three flash entry points,
+    # and the head-major family above head_dim 128 flash_generic.cu's
+    # three; two more report the bf16 flash kernels' registers and
+    # shared bytes
     assert set(_build.SIGNATURES) == {"rtt_rmsnorm_fwd", "rtt_flash_fwd",
                                       "rtt_flash_bwd_dkdv",
                                       "rtt_flash_bwd_dq",
+                                      "rtt_flash_generic_fwd",
+                                      "rtt_flash_generic_bwd_dkdv",
+                                      "rtt_flash_generic_bwd_dq",
                                       "rtt_flash_fwd_attrs",
                                       "rtt_flash_bwd_attrs"}
     for flag in ("arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"):

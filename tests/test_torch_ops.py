@@ -305,12 +305,124 @@ def test_kernel_head_dims_take_every_multiple_of_8(dim):
             torch_fa._check_head_dim(dim, hm=False)
 
 
-@pytest.mark.parametrize("dim", [4, 12, 20, 100, 136, 256])
+@pytest.mark.parametrize("dim", [0, 1025, 1032, 1536, 2048, 4096])
 def test_kernel_head_dims_still_refused(dim):
-    """A head_dim that is no multiple of 8, or above 128, still raises
-    on the card before any launch (ROADMAP fault 3.5)."""
-    with pytest.raises(ValueError, match="multiple of 8 up to 128"):
+    """The head-major family takes head_dim 1 to 1024 (every size on the
+    card since the pad route and csrc/flash_generic.cu); a size outside
+    raises before any launch, on CPU tensors as on the card."""
+    with pytest.raises(ValueError, match="head_dim 1 to 1024"):
         torch_fa._check_head_dim(dim, hm=True)
+    if dim:
+        x = torch.zeros(1, 2, 1, dim)
+        with pytest.raises(ValueError, match="head_dim 1 to 1024"):
+            flash_attention_hm_fwd(x, x, x)
+        with pytest.raises(ValueError, match="head_dim 1 to 1024"):
+            flash_attention(x, x, x, native=False)
+
+
+@pytest.mark.parametrize("dim,route", [
+    (4, ("pad", 8)), (8, ("kernel", 8)), (20, ("pad", 24)),
+    (44, ("pad", 48)), (64, ("kernel", 64)), (128, ("kernel", 128)),
+    (160, ("generic", 160)), (256, ("generic", 256)),
+    (512, ("generic", 512))])
+def test_hm_route(dim, route):
+    """Where the head-major family runs each head_dim on the card: a
+    multiple of 8 up to 128 on kernels #5-#7 as it is, another size below
+    128 on them padded to the next multiple of 8, above 128 on
+    flash_generic.cu."""
+    assert torch_fa._hm_route(dim) == route
+
+
+def _plain_kernels(monkeypatch, seen):
+    """The three kernel launchers replaced by the plain versions on CPU
+    tensors, recording (kernel, head_dim, selector) for each call: the
+    wrappers' routing (padding, slicing, the kernel selector) then runs
+    on the CPU."""
+    def fwd(q, k, v, causal, scale, kind):
+        seen.append(("fwd", q.shape[-1], kind))
+        out, lse = attention_reference(q, k, v, causal, scale)
+        return out.contiguous(), lse  # as the kernel's torch.empty_like
+
+    def grads(q, k, v, do, lse, delta, causal, scale):
+        out, _ = attention_reference(q, k, v, causal, scale)
+        # delta comes from the unpadded O and dO: their zero columns add
+        # nothing to it
+        assert torch.allclose(delta, torch_fa.attention_delta(out, do),
+                              atol=1e-6)
+        return attention_backward_reference(q, k, v, out, lse, do, causal,
+                                            scale)
+
+    def dkdv(q, k, v, do, lse, delta, causal, scale, kind):
+        seen.append(("dkdv", q.shape[-1], kind))
+        return tuple(g.contiguous()
+                     for g in grads(q, k, v, do, lse, delta, causal, scale)[1:])
+
+    def dq(q, k, v, do, lse, delta, causal, scale, kind):
+        seen.append(("dq", q.shape[-1], kind))
+        return grads(q, k, v, do, lse, delta, causal, scale)[0].contiguous()
+
+    monkeypatch.setattr(torch_fa, "_kernel_fwd", fwd)
+    monkeypatch.setattr(torch_fa, "_kernel_dkdv", dkdv)
+    monkeypatch.setattr(torch_fa, "_kernel_dq", dq)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dim", [20, 44, 160])
+def test_routes_pad_and_slice_exactly(dim, causal, monkeypatch):
+    """The routes as the wrappers run them on the card, with the plain
+    versions in place of the launches: q, k, v and dO padded with zero
+    columns to the next multiple of 8 (20, 44) and run with the true
+    scale, O, dQ, dK, dV sliced back; 160 unpadded on the generic
+    kernels.  Zero columns add nothing to Q K^T or dO V^T, so the routed
+    results equal the unpadded plain versions to the last bit but for
+    summation order (f32)."""
+    seen = []
+    _plain_kernels(monkeypatch, seen)
+    q, k, v, do = map(torch.from_numpy,
+                      _qkv((2, 33, 3, dim), seed=dim) + _qkv(
+                          (2, 33, 3, dim), seed=1)[:1])
+    scale = dim ** -0.5
+    out, lse = torch_fa._launch_fwd(q, k, v, causal, scale, hm=True)
+    ref_out, ref_lse = attention_reference(q, k, v, causal, scale)
+    assert out.shape == q.shape and out.is_contiguous()
+    torch.testing.assert_close(out, ref_out, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-6, rtol=1e-6)
+    ref = attention_backward_reference(q, k, v, out, lse, do, causal, scale)
+    got = torch_fa._launch_bwd(q, k, v, out, lse, do, causal, scale,
+                               hm=True)
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        assert a.shape == q.shape and a.is_contiguous(), name
+        torch.testing.assert_close(a, r, atol=1e-6, rtol=1e-6, msg=name)
+    route, width = torch_fa._hm_route(dim)
+    kind = "generic" if route == "generic" else "hm"
+    assert {(w, s) for _, w, s in seen} == {(width, kind)}
+    assert [part for part, _, _ in seen] == ["fwd", "dkdv", "dq"]
+
+
+# head sizes no Hopper build takes as they are: 20 (padded onto the 24
+# build on the card) and 160 (flash_generic.cu); the Pallas kernels take
+# both as they are
+_ROUTED_HM_SHAPES = [(1, 128, 2, 20), (2, 128, 2, 160)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", _ROUTED_HM_SHAPES,
+                         ids=lambda s: f"d{s[-1]}")
+def test_flash_hm_routed_head_dims_match_pallas_f32(shape, causal):
+    """Forward (O, LSE) and the vjp of the head-major family at head_dim
+    20 and 160 against the head-major Pallas kernels (interpret mode,
+    ``native=False``), at the head-major tests' tolerances."""
+    q, k, v, do = _qkv(shape, seed=shape[-1] + 5) + _qkv(shape, seed=6)[:1]
+    ref_out, ref_lse = _jax_flash_hm(q, k, v, causal, jnp.float32)
+    out, lse = flash_attention_hm_fwd(*map(torch.from_numpy, (q, k, v)),
+                                      causal=causal)
+    np.testing.assert_allclose(out.numpy(), ref_out, atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), ref_lse, atol=2e-5, rtol=2e-5)
+    ref = _jax_flash_grads(q, k, v, do, causal, jnp.float32, native=False)
+    got = _torch_flash_grads(q, k, v, do, causal, torch.float32, hm=True)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, ref):
+        tol = 2e-5 if name == "out" else 2e-4
+        np.testing.assert_allclose(a, b, atol=tol, rtol=tol, err_msg=name)
 
 
 def test_flash_hm_bf16_keeps_dtype():
