@@ -80,6 +80,21 @@ no network.  Phases, one JSON line each:
     answer equal to request-at-a-time decode on the card and on the
     CPU; requests/s, tokens/s, latency percentiles, batch steps,
     occupancy and the decode device share.
+20. ``long_context``: bench.py's long-context attention, causal forward
+    + backward through ``flash_attention`` at [1, 32768, 12, 64] and
+    [1, 131072, 12, 64] bf16: ms, tokens/s, the launches, and O, dQ, dK,
+    dV against a plain version computed 256 queries at a time (at
+    131072, the last 1024 queries and keys).
+21. ``seq_parallel``: GPT-2 124M at 1 x 32768 tokens through
+    ``attn_impl`` "flash", "ring" and "ulysses" on a world-size-1 NCCL
+    mesh, a warm-up and 4 AdamW steps each from the same seeded weights:
+    the losses against flash's, step ms, tokens/s, peak memory and the
+    launches (the ring's steps launch only the chunk mode of #1/#3/#4);
+    then ring attention over 4 ranks driven in one process
+    (``simulate_ring``) at [1, 32768, 12, 64], [1, 8192, 25, 64] and
+    [1, 4096, 4, 256], and Ulysses (``simulate_ulysses``) at
+    [1, 32768, 12, 64], against ``flash_attention`` on the whole
+    sequence, row by row.
 
 The ``kernels`` phase also holds the backward kernels (dK/dV and dQ) and
 both kernel families (native layout and head-major; head-major at every
@@ -88,9 +103,14 @@ at 20 and 44 on zero-padded inputs and at 160 to 1024 on
 csrc/flash_generic.cu, odd head counts, ragged lengths, ViT's non-causal
 197, more than 65535 heads in all) against their plain versions, RMSNorm with a bf16 weight
 too, and times them at the training shapes (GPT-2 124M and XL, ViT-B/16,
-the MoE) beside SDPA.  Each main path (``serve``, ``train``,
+the MoE) beside SDPA; and the chunk mode of ring attention
+(``_flash_chunk_fwd`` / ``_flash_chunk_bwd``: bf16 in, f32 out, the
+backward from a given LSE and delta) on every route, timed at a 4-way
+ring's chunk of 32768 tokens of GPT-2 124M and of XL's head count, and
+at head_dim 256.  Each main path (``serve``, ``train``,
 ``train_xl``, ``vit``, ``moe``, ``resnet``, ``head_dims``, ``runtime``,
-``train_gang``, whose worker counts its own, and ``serve_batching``) is
+``train_gang``, whose worker counts its own, ``serve_batching``,
+``long_context`` and each run of ``seq_parallel``) is
 driven with the kernels' launch counts set to 0 just before it and read
 just after; the native-layout paths launch no
 head-major kernel, GPT-2 XL no native-layout one, and ResNet, the
@@ -326,20 +346,21 @@ def ptxas_usage(lines):
     return usage
 
 
-def runtime_attrs(symbol, d):
-    """(registers, static shared bytes, dynamic shared bytes) of a bf16
-    flash kernel at head_dim ``d`` as the CUDA runtime holds them; the
-    dynamic bytes are those its last launch set."""
+def runtime_attrs(symbol, d, f32_out=False):
+    """(registers, static shared bytes, dynamic shared bytes) of a
+    bf16-input flash kernel at head_dim ``d``, with bf16 or (``f32_out``)
+    f32 outputs, as the CUDA runtime holds them; the dynamic bytes are
+    those its last launch set."""
     import ctypes
     from ray_tpu_torch.ops import _build
     lib = _build.load_library()
     out = (ctypes.c_int * 3)()
     if symbol == "flash_fwd_bf16_kernel":
-        rc = lib.rtt_flash_fwd_attrs(d, out)
+        rc = lib.rtt_flash_fwd_attrs(d, int(f32_out), out)
     else:
         rc = lib.rtt_flash_bwd_attrs(
             {"bwd_dkdv_bf16_kernel": 0, "bwd_dq_bf16_kernel": 1}[symbol], d,
-            out)
+            int(f32_out), out)
     _build.check(rc, f"attributes of {symbol}")
     return tuple(out)
 
@@ -570,6 +591,165 @@ def bwd_case(timer, gen, shape, dtype, causal, timed, hm=False, tk=None):
     return res
 
 
+# The chunk mode (ring attention's _flash_chunk_fwd / _flash_chunk_bwd):
+# bf16 inputs, f32 outputs, the backward from a given LSE and delta.  Its
+# shapes: a 4-way ring over 32768 tokens of GPT-2 124M (12 heads of 64,
+# native layout) and of GPT-2 XL's head count (25, head-major), causal
+# (the diagonal chunk) and not (a past one); flash_generic.cu at one
+# head_dim above 128; then the tiles' edges of every route untimed.
+CHUNK_NL = (1, 8192, 12, 64)
+CHUNK_HM = (1, 8192, 25, 64)
+CHUNK_GENERIC = HEAD_DIM_SHAPE + (256,)
+CHUNK_EDGES = (((2, 200, 2, 64), True, None), ((2, 1000, 2, 128), True, None),
+               ((2, 65, 2, 64), True, None), ((2, 130, 2, 64), False, 257),
+               ((2, 200, 3, 32), True, None), ((2, 63, 3, 128), True, None),
+               ((2, 129, 3, 20), True, None), ((2, 100, 3, 160), True, None),
+               ((2, 130, 3, 160), False, 257))
+# the plain versions of the chunk cases run over this many heads at a time
+# (a [1, 8192, 25, 64] backward at once holds 30 GB of [T, T] f32 tensors)
+PLAIN_HEADS = 4
+
+
+def _by_heads(fn, *xs, heads=PLAIN_HEADS):
+    """``fn`` over slices of ``heads`` heads of the ``[B, T, H, ...]``
+    tensors ``xs``, its outputs (tuples of ``[B, T, H, ...]`` tensors)
+    joined again: exact, as attention is per head."""
+    parts = [fn(*(x[:, :, h:h + heads] for x in xs))
+             for h in range(0, xs[0].shape[2], heads)]
+    return tuple(torch.cat(p, dim=2) for p in zip(*parts))
+
+
+def _chunk_kind(q):
+    """The chunk case's kernel family (_flash_chunk_fwd's dispatch):
+    "", "hm" or "generic", and its counters' suffix."""
+    from ray_tpu_torch.ops.flash_attention import _chunk_family, _hm_route
+    if not _chunk_family(q, q, q):
+        return ""
+    return "generic" if _hm_route(q.shape[-1])[0] == "generic" else "hm"
+
+
+def chunk_name(kind, part):
+    """The kernels line's name of a chunk-mode kernel."""
+    return f"flash_{kind + '_' if kind else ''}{part}_f32out"
+
+
+def chunk_case(timer, gen, shape, causal, timed, tk=None):
+    """The chunk mode of one family: ``_flash_chunk_fwd`` (f32 O and the
+    LSE) and ``_flash_chunk_bwd`` (f32 dQ, dK, dV from the forward's LSE
+    and a given delta) on bf16 inputs, against the plain versions with
+    the same LSE and delta, row by row at the bf16 limit: P is still
+    rounded to bf16 inside, so the f32 outputs do not earn the f32 one.
+    The delta given is half of rowsum(dO * O), so that a kernel which
+    recomputed it would fail.  Timed: each kernel as its wrapper runs it,
+    and with bf16 outputs on the same inputs (``bf16out_ms*``), the
+    plain versions over PLAIN_HEADS heads at a time; no library call
+    returns f32 O from bf16 inputs (library_ms null)."""
+    from ray_tpu_torch.ops.flash_attention import (
+        _bwd_inputs, _flash_chunk_bwd, _flash_chunk_fwd, _kernel_dkdv,
+        _kernel_dq, _kernel_for, _kernel_fwd, _pad_cols,
+        attention_backward_reference, attention_delta, attention_reference)
+    b, t, h, d = shape
+    kv_shape = shape if tk is None else (b, tk, h, d)
+    bf = torch.bfloat16
+    q, g = (torch.randn(shape, generator=gen, device="cuda").to(bf)
+            for _ in range(2))
+    k, v = (torch.randn(kv_shape, generator=gen, device="cuda").to(bf)
+            for _ in range(2))
+    scale = d ** -0.5
+    kind = _chunk_kind(q)
+    sfx = "_" + kind if kind else ""
+    fwd_n = _flash_chunk_fwd, "launches" + sfx
+    bwd_n = [(_flash_chunk_bwd, f"launches{sfx}_{p}")
+             for p in ("dkdv", "dq")]
+    before = [getattr(*c) for c in [fwd_n] + bwd_n]
+    out, lse = _flash_chunk_fwd(q, k, v, causal, scale)
+    out_bf = out.to(bf)
+    delta = 0.5 * attention_delta(out_bf, g).transpose(1, 2)  # [B, T, H]
+    grads = _flash_chunk_bwd(q, k, v, out_bf, lse, g, causal, scale,
+                             delta=delta)
+    torch.cuda.synchronize()
+    assert [getattr(*c) for c in [fwd_n] + bwd_n] == [n + 1 for n in before]
+    assert out.dtype == torch.float32 and lse.shape == (b, t, h)
+    lse_h = lse.transpose(1, 2)
+
+    def plain_fwd(q_, k_, v_):
+        o, l_ = attention_reference(q_, k_, v_, causal, scale,
+                                    out_dtype=torch.float32)
+        return o, l_.transpose(1, 2)
+
+    def plain_bwd(q_, k_, v_, o_, l_, g_, dl_):
+        return attention_backward_reference(
+            q_, k_, v_, o_, l_.transpose(1, 2).contiguous(), g_, causal,
+            scale, delta=dl_.transpose(1, 2).contiguous(),
+            grad_dtype=torch.float32)
+
+    ref, ref_lse = _by_heads(plain_fwd, q, k, v)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
+    tol = ROW_TOL[bf]
+    res = {"kernel": chunk_name(kind, "fwd"), "mode": "f32out",
+           "shape": list(shape), **({} if tk is None else {"tk": tk}),
+           "dtype": "bfloat16", "out_dtype": "float32", "causal": causal,
+           "row_tol": tol, "launches": 1,
+           "max_abs_err": max_err(out, ref),
+           "lse_max_abs_err": max_err(lse, ref_lse),
+           "row_scaled_err": row_scaled_err(out, ref)}
+    assert res["row_scaled_err"] <= tol, ("O", res["row_scaled_err"])
+    refs = _by_heads(plain_bwd, q, k, v, out_bf, lse, g, delta)
+    for name, x, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert x.dtype == torch.float32 and torch.isfinite(x).all(), name
+        res[f"{name}_max_abs_err"] = max_err(x, r)
+        res[f"{name}_row_scaled_err"] = err = held_err(name, x, r, causal)
+        assert err <= tol, (name, err, tol)
+    res["max_abs_err_dq"] = res["dq_max_abs_err"]
+    res["max_abs_err_dkdv"] = max(res["dk_max_abs_err"],
+                                  res["dv_max_abs_err"])
+    if timed:
+        tkk = t if tk is None else tk
+        pairs = t * (t + 1) // 2 if causal else t * tkk
+        one = q.numel() * 2          # one bf16 [B, T, H, D] input
+        rows = b * h * t * 4         # one f32 [B, T, H] row statistic
+        hm = bool(kind)
+        args = (q, k, v, g, lse_h.contiguous(),
+                delta.transpose(1, 2).contiguous(), causal, scale)
+        f32 = torch.float32
+        res["kernel_ms"] = timer(lambda: _flash_chunk_fwd(q, k, v, causal,
+                                                          scale))
+        res["kernel_ms_dkdv"] = timer(lambda: _kernel_dkdv(
+            *_bwd_inputs(*args, hm), out_dtype=f32))
+        res["kernel_ms_dq"] = timer(lambda: _kernel_dq(
+            *_bwd_inputs(*args, hm), out_dtype=f32))
+        # the same kernels with bf16 outputs, on the same inputs
+        kernel, d_k = _kernel_for(q, hm)
+        res["bf16out_ms"] = timer(lambda: _kernel_fwd(
+            *_pad_cols(d_k, q, k, v), causal, scale, kernel))
+        res["bf16out_ms_dkdv"] = timer(lambda: _kernel_dkdv(
+            *_bwd_inputs(*args, hm)))
+        res["bf16out_ms_dq"] = timer(lambda: _kernel_dq(
+            *_bwd_inputs(*args, hm)))
+        res["plain_ms"] = timer(lambda: _by_heads(plain_fwd, q, k, v))
+        res["plain_ms_bwd"] = timer(lambda: _by_heads(
+            plain_bwd, q, k, v, out_bf, lse, g, delta))
+        res["library_ms"] = None
+        res["bound_ms"], res["bound_by"] = bound(
+            4 * d * b * h * pairs, 3 * one + 2 * one + rows, bf)
+        res["bound_ms_dkdv"], res["bound_by_dkdv"] = bound(
+            8 * d * b * h * pairs, 4 * one + 4 * one + 2 * rows, bf)
+        res["bound_ms_dq"], res["bound_by_dq"] = bound(
+            6 * d * b * h * pairs, 4 * one + 2 * one + 2 * rows, bf)
+    return res
+
+
+def chunk_cases(timer, gen, add):
+    """The chunk mode's cases: timed at CHUNK_NL, CHUNK_HM and
+    CHUNK_GENERIC, causal and not, then held at CHUNK_EDGES."""
+    for shape in (CHUNK_NL, CHUNK_HM, CHUNK_GENERIC):
+        for causal in (True, False):
+            add(chunk_case(timer, gen, shape, causal, timed=True))
+            _free()
+    for shape, causal, tk in CHUNK_EDGES:
+        add(chunk_case(timer, gen, shape, causal, timed=False, tk=tk))
+
+
 def phase_kernels():
     timer = Timer()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -687,6 +867,8 @@ def phase_kernels():
                    timed=True, hm=True))
     add(bwd_case(timer, gen, XL_SHAPE, torch.bfloat16, True,
                  timed=True, hm=True))
+    # ring attention's chunk mode: f32 outputs, a given LSE and delta
+    chunk_cases(timer, gen, add)
     emit({"phase": "kernels", "ok": True, "cases": len(cases)})
     return cases
 
@@ -2255,6 +2437,321 @@ def phase_serve_batching():
     return launches
 
 
+# long_context: bench.py's bench_long_context lengths on one card, GPT-2
+# 124M's heads (12 of 64, bf16, causal), forward + backward through
+# flash_attention; held against a plain version computed LONG_BLOCK
+# queries at a time (a whole [T, T] f32 score matrix is 4 GiB per head
+# at 32768).  At LONG_LENGTHS[-1] only the last LONG_TAIL queries (the
+# longest rows: O and dQ) and the last LONG_TAIL keys (dK and dV, which
+# only those queries see) are held.
+LONG_LENGTHS = (32768, 131072)
+LONG_HEADS = (12, 64)
+LONG_BLOCK = 256
+LONG_TAIL = 1024
+# seq_parallel: GPT-2 124M at 1 x SP_SEQ tokens (max_seq_len SP_SEQ),
+# bf16 compute, f32 masters, AdamW, 1 warm-up and SP_STEPS steps through
+# attn_impl "flash", "ring" and "ulysses" on a world-size-1 mesh; the
+# losses of ring and Ulysses within SP_LOSS_RTOL of flash's (the
+# embedding's backward sums by atomics, so two runs of one model need not
+# agree to the bit).  Then the ring's composition across SP_RANKS ranks
+# in one process at SP_RING_SHAPES, and Ulysses' at SP_ULYSSES_SHAPE,
+# against flash_attention on the whole sequence, row by row at ROW_TOL.
+SP_SEQ = 32768
+SP_STEPS = 4
+SP_LOSS_RTOL = 1e-3
+SP_RANKS = 4
+SP_RING_SHAPES = ((1, 32768, 12, 64), (1, 8192, 25, 64), (1, 4096, 4, 256))
+SP_ULYSSES_SHAPE = (1, 32768, 12, 64)
+
+
+def _chunk_counts():
+    """The chunk mode's launch counts by kernels-line name."""
+    from ray_tpu_torch.ops.flash_attention import (_flash_chunk_bwd,
+                                                   _flash_chunk_fwd)
+    out = {}
+    for kind in ("", "hm", "generic"):
+        sfx = "_" + kind if kind else ""
+        out[chunk_name(kind, "fwd")] = getattr(_flash_chunk_fwd,
+                                               "launches" + sfx)
+        for part in ("dkdv", "dq"):
+            out[chunk_name(kind, "bwd_" + part)] = getattr(
+                _flash_chunk_bwd, f"launches{sfx}_{part}")
+    return out
+
+
+def _zero_chunk_counts():
+    from ray_tpu_torch.ops.flash_attention import (_flash_chunk_bwd,
+                                                   _flash_chunk_fwd)
+    for fn in (_flash_chunk_fwd, _flash_chunk_bwd):
+        for attr in list(vars(fn)):
+            if attr.startswith("launches"):
+                setattr(fn, attr, 0)
+
+
+def _all_counts():
+    return {**_flash_counts(), **_chunk_counts(),
+            "rmsnorm": _rmsnorm_launches()}
+
+
+def _zero_all_counts():
+    _zero_counts()
+    _zero_chunk_counts()
+
+
+def plain_blocked(q, k, v, do, out, q_from=0, block=LONG_BLOCK):
+    """Causal attention and its backward, plain, LONG_BLOCK queries at a
+    time from query ``q_from`` on, as the kernels compute it (P~ rounded
+    to bf16 for dV, dS~ for dK and dQ; delta from the kernel's bf16
+    ``out``): (O, dQ) of those queries, f32, and dK, dV of every key, f32,
+    complete for the keys from ``q_from`` on (only those queries see
+    them)."""
+    b, t, h, d = q.shape
+    scale = d ** -0.5
+    bf = torch.bfloat16
+    o_rows, dq_rows = [], []
+    dk = torch.zeros(b, t, h, d, device=q.device)
+    dv = torch.zeros(b, t, h, d, device=q.device)
+    for a in range(q_from, t, block):
+        e = min(a + block, t)
+        qb, dob = q[:, a:e].float(), do[:, a:e].float()
+        kk, vv = k[:, :e].float(), v[:, :e].float()
+        s = torch.einsum("bqhd,bkhd->bhqk", qb, kk) * scale
+        keep = (torch.arange(e, device=q.device)[None, :]
+                <= torch.arange(a, e, device=q.device)[:, None])
+        s = s.masked_fill(~keep, -1e30)
+        p = torch.softmax(s, dim=-1)
+        del s
+        o_rows.append(torch.einsum("bhqk,bkhd->bqhd", p, vv))
+        delta = (dob * out[:, a:e].float()).sum(-1).transpose(1, 2)
+        dp = torch.einsum("bqhd,bkhd->bhqk", dob, vv)
+        ds = (p * (dp - delta[..., None]) * scale).to(bf).float()
+        del dp
+        dq_rows.append(torch.einsum("bhqk,bkhd->bqhd", ds, kk))
+        dk[:, :e] += torch.einsum("bhqk,bqhd->bkhd", ds, qb)
+        dv[:, :e] += torch.einsum("bhqk,bqhd->bkhd", p.to(bf).float(), dob)
+        del p, ds
+    return torch.cat(o_rows, 1), torch.cat(dq_rows, 1), dk, dv
+
+
+def phase_long_context(lengths=LONG_LENGTHS):
+    """Causal flash attention forward + backward at each of ``lengths``
+    tokens (1 sequence, 12 heads of 64, bf16) through flash_attention:
+    ms and tokens/s (CUDA events, 5 runs), the launches, and O, dQ, dK,
+    dV held against :func:`plain_blocked`."""
+    from ray_tpu_torch.ops.flash_attention import flash_attention
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    timer = Timer(iters=5, warmup=1)
+    launches = dict.fromkeys(_all_counts(), 0)
+    for t in lengths:
+        shape = (1, t) + LONG_HEADS
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                       .to(torch.bfloat16) for _ in range(4))
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+        _zero_all_counts()
+        out = flash_attention(q, k, v, causal=True)
+        grads = torch.autograd.grad(out, (q, k, v), do)
+        torch.cuda.synchronize()
+        run = _all_counts()
+        assert run == {**dict.fromkeys(run, 0), **_flash_per(1)}, run
+        launches = {k_: launches[k_] + run[k_] for k_ in run}
+        q_from = 0 if t == lengths[0] else t - LONG_TAIL
+        with torch.no_grad():
+            o_ref, dq_ref, dk_ref, dv_ref = plain_blocked(
+                q.detach(), k.detach(), v.detach(), do, out.detach(),
+                q_from)
+        held = {"O": (out[:, q_from:], o_ref),
+                "dq": (grads[0][:, q_from:], dq_ref),
+                "dk": (grads[1][:, q_from:], dk_ref[:, q_from:]),
+                "dv": (grads[2][:, q_from:], dv_ref[:, q_from:])}
+        line = {"phase": "long_context", "shape": list(shape),
+                "dtype": "bfloat16", "causal": True,
+                "held_from_position": q_from, "row_tol": ROW_TOL[
+                    torch.bfloat16], "launches": run}
+        for name, (got, ref) in held.items():
+            assert torch.isfinite(got).all(), name
+            line[f"{name}_row_scaled_err"] = err = row_scaled_err(got, ref)
+            assert err <= ROW_TOL[torch.bfloat16], (t, name, err)
+        del held, o_ref, dq_ref, dk_ref, dv_ref
+        line["fwd_ms"] = timer(lambda: flash_attention(q, k, v, causal=True))
+        line["fwd_bwd_ms"] = timer(lambda: torch.autograd.grad(
+            flash_attention(q, k, v, causal=True), (q, k, v), do))
+        line["tokens_per_s"] = t / (line["fwd_bwd_ms"] / 1e3)
+        # the kernels' work: 4 D flops a visible pair forward, 8 D in
+        # dK/dV and 6 D in dQ; q, k, v, dO read and O, dQ, dK, dV written
+        # once, with the LSE
+        pairs = t * (t + 1) // 2
+        line["bound_ms"], line["bound_by"] = bound(
+            18 * shape[3] * shape[2] * pairs,
+            8 * q.numel() * 2 + t * shape[2] * 4, torch.bfloat16)
+        line["card"] = card_line()
+        emit(line)
+        del q, k, v, do, out, grads
+        _free()
+    emit({"phase": "long_context", "ok": True})
+    return launches
+
+
+def _nccl_world_of_one():
+    """A one-rank NCCL process group at a free localhost port (nothing
+    on the machine tells a program of a cluster)."""
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+
+
+def _sp_train(impl, mesh, steps=SP_STEPS):
+    """GPT-2 124M at 1 x SP_SEQ tokens through ``attn_impl=impl`` under
+    ``mesh``: 1 warm-up and ``steps`` steps from the seeded weights and
+    batch; (losses, step ms, peak GB, launches)."""
+    from ray_tpu_torch.models.gpt2 import (GPT2, GPT2Config, adamw,
+                                           loss_fn, train_step)
+    from ray_tpu_torch.parallel import use_mesh
+    cfg = GPT2Config.gpt2_small(max_seq_len=SP_SEQ, attn_impl=impl)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    model = GPT2(cfg, device="cuda", generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (1, SP_SEQ), generator=gen,
+                           device="cuda")
+    opt = adamw(model.parameters(), lr=3e-4, weight_decay=0.01)
+    losses = []
+
+    def step():
+        losses.append(train_step(model, opt, tokens,
+                                 head_logits_dtype=torch.bfloat16))
+
+    with use_mesh(mesh):
+        _zero_all_counts()
+        torch.cuda.reset_peak_memory_stats()
+        _sync_time(step)
+        _, elapsed = _sync_time(lambda: [step() for _ in range(steps)])
+        launches = _all_counts()
+    losses = [x.item() for x in losses]
+    assert all(map(math.isfinite, losses)), (impl, losses)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del model, opt
+    _free()
+    return losses, elapsed / steps * 1e3, peak, launches, cfg
+
+
+def _ring_compose(shape, gen):
+    """The kernel ring of SP_RANKS ranks driven in one process
+    (simulate_ring) against flash_attention on the whole sequence:
+    row-scaled O, dQ, dK, dV, and the launches of the ring's run."""
+    from ray_tpu_torch.ops.flash_attention import flash_attention
+    from ray_tpu_torch.parallel.ring_attention import simulate_ring
+    q, k, v, g = (torch.randn(shape, generator=gen, device="cuda")
+                  .to(torch.bfloat16) for _ in range(4))
+    _zero_all_counts()
+    out, grads = simulate_ring(q, k, v, g, SP_RANKS, causal=True)
+    torch.cuda.synchronize()
+    launches = _all_counts()
+    # rank r runs the diagonal and its r past chunks, forward and back
+    pairs = SP_RANKS * (SP_RANKS + 1) // 2
+    kind = _chunk_kind(q)
+    assert launches == {**dict.fromkeys(launches, 0), **{
+        chunk_name(kind, p): pairs for p in ("fwd", "bwd_dkdv", "bwd_dq")}
+    }, (shape, launches)
+    qr, kr, vr = (x.clone().requires_grad_() for x in (q, k, v))
+    ref = flash_attention(qr, kr, vr, causal=True)
+    ref_grads = torch.autograd.grad(ref, (qr, kr, vr), g)
+    res = {"shape": list(shape), "ranks": SP_RANKS, "launches": {
+        k_: v_ for k_, v_ in launches.items() if v_}}
+    for name, got, r in zip(("O", "dq", "dk", "dv"), (out, *grads),
+                            (ref, *ref_grads)):
+        res[f"{name}_row_scaled_err"] = err = row_scaled_err(got, r)
+        assert err <= ROW_TOL[torch.bfloat16], (shape, name, err)
+    return res, launches
+
+
+def phase_seq_parallel():
+    """Sequence-parallel GPT-2 and its attention on the card: the 124M
+    training step at 1 x SP_SEQ through flash, ring and Ulysses on a
+    world-size-1 mesh (losses against flash's; the ring's steps launch
+    only the chunk mode of #1/#3/#4), then the ring's and Ulysses'
+    composition over SP_RANKS ranks in one process against
+    flash_attention.  Returns the launches of every run, summed."""
+    import torch.distributed as dist
+    from ray_tpu_torch.ops.flash_attention import flash_attention
+    from ray_tpu_torch.parallel import MeshConfig, build_mesh
+    from ray_tpu_torch.parallel.ulysses import simulate_ulysses
+    _nccl_world_of_one()
+    total = dict.fromkeys(_all_counts(), 0)
+
+    def add(run):
+        for k_, v_ in run.items():
+            total[k_] += v_
+
+    try:
+        mesh = build_mesh(MeshConfig(sp=1))
+        runs = {}
+        for impl in ("flash", "ring", "ulysses"):
+            losses, step_ms, peak, launches, cfg = _sp_train(impl, mesh)
+            add(launches)
+            per_step = {**_flash_per(cfg.num_layers * (SP_STEPS + 1)),
+                        **dict.fromkeys(_chunk_counts(), 0), "rmsnorm": 0}
+            if impl == "ring":  # every layer's attention in chunk mode
+                per_step.update(dict.fromkeys(FLASH_NL, 0))
+                per_step.update({chunk_name("", p): cfg.num_layers
+                                 * (SP_STEPS + 1)
+                                 for p in ("fwd", "bwd_dkdv", "bwd_dq")})
+            assert launches == per_step, (impl, launches, per_step)
+            runs[impl] = {"losses": losses, "step_ms": step_ms,
+                          "tokens_per_s": SP_SEQ / (step_ms / 1e3),
+                          "mfu": SP_SEQ / (step_ms / 1e3)
+                          * cfg.flops_per_token()
+                          / PEAK_FLOPS[torch.bfloat16],
+                          "peak_memory_gb": peak, "launches": {
+                              k_: v_ for k_, v_ in launches.items() if v_}}
+        for impl in ("ring", "ulysses"):
+            rel = max(abs(a - b) / abs(b) for a, b in zip(
+                runs[impl]["losses"], runs["flash"]["losses"]))
+            runs[impl]["loss_max_rel_diff_vs_flash"] = rel
+            assert rel <= SP_LOSS_RTOL, (impl, rel, runs)
+        emit({"phase": "seq_parallel", "part": "gpt2_124m",
+              "config": f"gpt2_small (12 layers, 768 wide, 12 heads, bf16 "
+              f"compute, f32 masters), 1 x {SP_SEQ} tokens, world-size-1 "
+              f"mesh", "steps": SP_STEPS, "warmup_steps": 1,
+              "loss_rtol": SP_LOSS_RTOL, "runs": runs, "card": card_line()})
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        for shape in SP_RING_SHAPES:
+            res, launches = _ring_compose(shape, gen)
+            add(launches)
+            emit({"phase": "seq_parallel", "part": "ring_in_process",
+                  **res})
+            _free()
+        q, k, v, g = (torch.randn(SP_ULYSSES_SHAPE, generator=gen,
+                                  device="cuda").to(torch.bfloat16)
+                      for _ in range(4))
+        qr, kr, vr = (x.clone().requires_grad_() for x in (q, k, v))
+        _zero_all_counts()
+        out = simulate_ulysses(qr, kr, vr, SP_RANKS, causal=True)
+        grads = torch.autograd.grad(out, (qr, kr, vr), g)
+        torch.cuda.synchronize()
+        launches = _all_counts()
+        # each rank's 3 heads of 64 take the head-major kernels
+        assert launches == {**dict.fromkeys(launches, 0),
+                            **_flash_per(SP_RANKS, hm=True)}, launches
+        add(launches)
+        qr, kr, vr = (x.clone().requires_grad_() for x in (q, k, v))
+        ref = flash_attention(qr, kr, vr, causal=True)
+        ref_grads = torch.autograd.grad(ref, (qr, kr, vr), g)
+        res = {"phase": "seq_parallel", "part": "ulysses_in_process",
+               "shape": list(SP_ULYSSES_SHAPE), "ranks": SP_RANKS,
+               "launches": {k_: v_ for k_, v_ in launches.items() if v_}}
+        for name, got, r in zip(("O", "dq", "dk", "dv"), (out, *grads),
+                                (ref, *ref_grads)):
+            res[f"{name}_row_scaled_err"] = err = row_scaled_err(got, r)
+            assert err <= ROW_TOL[torch.bfloat16], ("ulysses", name, err)
+        emit(res)
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "seq_parallel", "ok": True})
+    return total
+
+
 SYMBOLS = {"flash_fwd": "flash_fwd_bf16_kernel",  # the bf16 kernel's name
            "flash_hm_fwd": "flash_fwd_bf16_kernel",
            "flash_bwd_dkdv": "bwd_dkdv_bf16_kernel",
@@ -2289,6 +2786,65 @@ SUMMARY = {  # name: (source, TPU kernel it replaces, shape in the table)
                              "ray_tpu/ops/flash_attention.py:268",
                              list(HEAD_DIM_SHAPE + (256,))),
 }
+
+
+CHUNK_SUMMARY = {  # the chunk mode's rows: kind, TPU kernel lines, shape
+    "": ("ray_tpu_torch/ops/csrc/flash_{}.cu", (447, 606, 680), CHUNK_NL),
+    "hm": ("ray_tpu_torch/ops/csrc/flash_{}.cu", (82, 212, 268), CHUNK_HM),
+    "generic": ("ray_tpu_torch/ops/csrc/flash_generic.cu", (82, 212, 268),
+                CHUNK_GENERIC)}
+
+
+def chunk_summary(cases, by_path, usage):
+    """The kernels line's rows of the chunk mode (bf16 in, f32 out, the
+    backward from a given LSE and delta): the diagonal (causal) case at
+    its shape, the past (not causal) one in ``other_shapes``, each with
+    the same kernels' time with bf16 outputs beside it.  No library call
+    returns f32 O from bf16 inputs, so ``library_ms`` is null;
+    ``plain_ms`` of a backward row is the whole plain backward."""
+    rows = []
+    for kind, (src, lines, shape) in CHUNK_SUMMARY.items():
+        found = {c["causal"]: c for c in cases
+                 if c.get("mode") == "f32out" and "kernel_ms" in c
+                 and c["kernel"] == chunk_name(kind, "fwd")
+                 and c["shape"] == list(shape)}
+        for part, line in zip(("fwd", "bwd_dkdv", "bwd_dq"), lines):
+            name = chunk_name(kind, part)
+            sfx = "" if part == "fwd" else part[3:]  # "", "_dkdv", "_dq"
+
+            def timing(c):
+                return {"ms": c["kernel_ms" + sfx],
+                        "bf16out_ms": c["bf16out_ms" + sfx],
+                        "bound_ms": c["bound_ms" + sfx],
+                        "bound_by": c["bound_by" + sfx],
+                        "plain_ms": c["plain_ms" if part == "fwd"
+                                      else "plain_ms_bwd"],
+                        "library_ms": None}
+
+            c = found[True]
+            launches = {path: n[name] for path, n in by_path.items()
+                        if n.get(name)}
+            assert launches, f"{name} was not launched on any main path"
+            row = {"name": name, "route": "cuda",
+                   "source": src.format(part[:3]),
+                   "replaces": f"ray_tpu/ops/flash_attention.py:{line}",
+                   "launches": sum(launches.values()),
+                   "launches_by_path": launches,
+                   "max_abs_err": c["max_abs_err" + sfx], **timing(c),
+                   "library": "none: no PyTorch call returns f32 outputs "
+                   "from bf16 inputs", "shape": list(shape),
+                   "dtype": "bfloat16", "out_dtype": "float32",
+                   "causal": True,
+                   "other_shapes": [{"shape": list(shape), "causal": False,
+                                     **timing(found[False])}]}
+            sym = SYMBOLS.get(f"flash_{part}")
+            if kind != "generic":
+                d = shape[-1]
+                row["registers"], static = next(
+                    v for k, v in usage.items() if f"{sym}ILi{d}ELb1E" in k)
+                row["smem_bytes"] = static + runtime_attrs(sym, d, True)[2]
+            rows.append(row)
+    return rows
 
 
 def kernel_summary(cases, by_path, usage):
@@ -2344,11 +2900,11 @@ def kernel_summary(cases, by_path, usage):
         if name in SYMBOLS:
             sym, d = SYMBOLS[name], shape[-1]
             regs, static = next(v for k, v in usage.items()
-                                if f"{sym}ILi{d}E" in k)
+                                if f"{sym}ILi{d}ELb0E" in k)
             row["registers"] = regs
             row["smem_bytes"] = static + runtime_attrs(sym, d)[2]
         rows.append(row)
-    return {"kernels": rows}
+    return {"kernels": rows + chunk_summary(cases, by_path, usage)}
 
 
 def main() -> int:
@@ -2397,6 +2953,10 @@ def main() -> int:
     train_gang = phase_train_gang()
     _free()
     serve_batching = phase_serve_batching()
+    _free()
+    long_context = phase_long_context()
+    _free()
+    seq_parallel = phase_seq_parallel()
     # the runtime and the toy decoder launch no kernel of the port
     assert not any(runtime.values()), runtime
     assert not any(serve_batching.values()), serve_batching
@@ -2404,7 +2964,9 @@ def main() -> int:
                                 "train_xl": train_xl, "vit": vit,
                                 "moe": moe, "resnet": resnet,
                                 "head_dims": head_dims,
-                                "train_gang": train_gang}, usage))
+                                "train_gang": train_gang,
+                                "long_context": long_context,
+                                "seq_parallel": seq_parallel}, usage))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,18 @@ head-major ones otherwise (GPT-2 XL: 25 heads of 64; ``tiny``: head_dim
 32).  LayerNorm, GELU, the dense products and the LM head are plain
 torch, as the JAX package left them to XLA.
 
+Sequence parallelism (``attn_impl="ring" | "ulysses"``) runs attention
+through ``parallel.ring_attention`` or ``parallel.ulysses_attention``
+over the ``sp_axis`` of the global mesh (``parallel.use_mesh``).  Under
+GSPMD the JAX model sees the global sequence; here each rank of that
+axis holds its contiguous chunk of it, so the model does three things
+itself: positions start at the rank's offset (``wpe``), the label of a
+chunk's last position is the next rank's first token, and
+:func:`loss_fn` divides by the global count of predicted tokens;
+:func:`train_step` then sums the parameters' gradients over ``sp`` and
+``dp``.  With one rank on those axes (or no mesh) all of this is the
+single-device step.
+
 Numerics follow the flax model:
 
 * parameters are f32 masters (``param_dtype``), cast to ``cfg.dtype``
@@ -38,6 +50,7 @@ import functools
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import (checkpoint,
@@ -47,6 +60,9 @@ from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.ops.flash_attention import (attention_reference,
                                                flash_attention)
 from ray_tpu_torch.ops.fused import chunked_lm_loss
+from ray_tpu_torch.parallel.mesh import axis_group, get_global_mesh
+from ray_tpu_torch.parallel.ring_attention import ring_attention, ring_shift
+from ray_tpu_torch.parallel.ulysses import ulysses_attention
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default
 
@@ -67,13 +83,9 @@ class GPT2Config:
     dropout: float = 0.0
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
-    #: "flash" | "reference"; "ring" | "ulysses" raise until the port's
-    #: parallel layer exists
+    #: "flash" | "ring" | "ulysses" | "reference"
     attn_impl: str = "flash"
-    #: mesh axis name for ring/ulysses attention.  Nothing reads it until
-    #: the port's parallel layer exists; it is kept so that the JAX
-    #: package's GPT2Config maps onto this one field for field (the same
-    #: keyword arguments build either).
+    #: mesh axis name for ring/ulysses attention (sequence-parallel impls)
     sp_axis: str = "sp"
     #: activation rematerialization per block: "" (store activations),
     #: "full" (recompute everything in backward), or "dots" (save
@@ -175,7 +187,15 @@ class Block(nn.Module):
         # jnp.split gives views; the flash kernels take contiguous q, k, v
         q, k, v = (t.reshape(batch, seq, cfg.num_heads, head_dim)
                    .contiguous() for t in qkv.split(cfg.embed_dim, dim=-1))
-        if cfg.attn_impl == "reference":
+        if cfg.attn_impl == "ring":
+            # this rank's chunk of the sequence, over the global mesh's
+            # sp axis (the whole sequence without one)
+            attn = ring_attention(q, k, v, axis_name=cfg.sp_axis,
+                                  causal=True, mesh=get_global_mesh())
+        elif cfg.attn_impl == "ulysses":
+            attn = ulysses_attention(q, k, v, axis_name=cfg.sp_axis,
+                                     causal=True, mesh=get_global_mesh())
+        elif cfg.attn_impl == "reference":
             attn = attention_reference(q, k, v, True, head_dim ** -0.5)[0]
         else:
             attn = flash_attention(q, k, v, causal=True)
@@ -204,11 +224,8 @@ class GPT2(nn.Module):
     def __init__(self, config: GPT2Config, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if config.attn_impl in ("ring", "ulysses"):
-            raise NotImplementedError(
-                f"attn_impl={config.attn_impl!r} needs the port's parallel "
-                "layer (ROADMAP.md, slice 5: ring attention and Ulysses)")
-        if config.attn_impl not in ("flash", "reference"):
+        if config.attn_impl not in ("flash", "ring", "ulysses",
+                                    "reference"):
             raise ValueError(f"unknown attn_impl {config.attn_impl!r}")
         if config.remat not in ("", "full", "dots"):
             raise ValueError(f"unknown remat {config.remat!r}")
@@ -255,15 +272,18 @@ class GPT2(nn.Module):
 
     def hidden(self, tokens: torch.Tensor, deterministic: bool = True
                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``tokens`` is this rank's chunk of the sequence under sequence
+        parallelism (:func:`sp_place`), the whole sequence otherwise."""
         cfg = self.config
         seq = tokens.shape[1]
-        if seq > cfg.max_seq_len:
-            raise ValueError(f"{seq} tokens exceed max_seq_len "
+        size, rank = sp_place(cfg)
+        if seq * size > cfg.max_seq_len:
+            raise ValueError(f"{seq * size} tokens exceed max_seq_len "
                              f"{cfg.max_seq_len}")
         # the gather commutes with the cast: the same values as casting
         # the whole table first (wte.astype(dtype)[tokens] in JAX)
         x = F.embedding(tokens.long(), self.wte).to(cfg.dtype) + \
-            self.wpe[:seq].to(cfg.dtype)
+            self.wpe[rank * seq:(rank + 1) * seq].to(cfg.dtype)
         for block in self.h:
             x = self._block(block, x, deterministic)
         return self.ln_f(x, torch.float32), self.wte
@@ -274,17 +294,75 @@ class GPT2(nn.Module):
         return x @ wte.float().T
 
 
+def _sp_groups(config: GPT2Config):
+    """The process groups of the global mesh's sp and dp axes (None for
+    an axis of one rank, or without a mesh)."""
+    if config.attn_impl not in ("ring", "ulysses"):
+        return None, None
+    mesh = get_global_mesh()
+    return axis_group(mesh, config.sp_axis), axis_group(mesh, "dp")
+
+
+def sp_place(config: GPT2Config) -> Tuple[int, int]:
+    """(ranks, this rank) on the global mesh's ``sp_axis`` for a
+    sequence-parallel ``config`` (``attn_impl`` "ring" or "ulysses");
+    (1, 0) for any other, or without a mesh."""
+    group = _sp_groups(config)[0]
+    if group is None:
+        return 1, 0
+    return dist.get_world_size(group), dist.get_rank(group)
+
+
 def loss_fn(model: GPT2, tokens: torch.Tensor, head_chunk: int = 8192,
             head_logits_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Next-token cross entropy (labels = tokens shifted left) through
     the chunked LM head; a bf16 model runs the head's products on bf16
-    operands, with logits in ``head_logits_dtype`` (f32 by default)."""
+    operands, with logits in ``head_logits_dtype`` (f32 by default).
+
+    Under sequence parallelism ``tokens`` is this rank's chunk: the label
+    of its last position is the next rank's first token (the last rank's
+    last position predicts nothing), and the mean is over the predicted
+    tokens of the whole sequence and every ``dp`` rank (batches of equal
+    size).  The value returned is that global loss; its gradient is this
+    rank's share, which :func:`train_step` sums over the ranks."""
     x, wte = model.hidden(tokens)
     compute = torch.bfloat16 if model.config.dtype == torch.bfloat16 \
         else None
-    return chunked_lm_loss(x[:, :-1], wte, tokens[:, 1:], chunk=head_chunk,
-                           compute_dtype=compute,
-                           logits_dtype=head_logits_dtype)
+    sp, dp = _sp_groups(model.config)
+    if sp is None and dp is None:
+        return chunked_lm_loss(x[:, :-1], wte, tokens[:, 1:],
+                               chunk=head_chunk, compute_dtype=compute,
+                               logits_dtype=head_logits_dtype)
+    size, rank = sp_place(model.config)
+    batch, seq = tokens.shape
+    after = ring_shift(tokens[:, :1], sp, -1)  # the next rank's first
+    if rank < size - 1:
+        labels = torch.cat([tokens[:, 1:], after], dim=1)
+    else:
+        x, labels = x[:, :-1], tokens[:, 1:]
+    n_dp = 1 if dp is None else dist.get_world_size(dp)
+    count = batch * (seq * size - 1) * n_dp  # predicted tokens, globally
+    local = chunked_lm_loss(x, wte, labels, chunk=head_chunk,
+                            compute_dtype=compute,
+                            logits_dtype=head_logits_dtype) \
+        * (labels.numel() / count)
+    total = local.detach().clone()
+    for group in (sp, dp):
+        if group is not None:
+            dist.all_reduce(total, group=group)
+    return local + (total - local.detach())
+
+
+def reduce_gradients(model: GPT2) -> None:
+    """Sum the parameters' gradients over the global mesh's ``sp`` and
+    ``dp`` ranks (a sequence-parallel config; nothing otherwise): each
+    rank's backward gives its share of the global loss's gradient."""
+    for group in _sp_groups(model.config):
+        if group is None:
+            continue
+        for p in model.parameters():
+            if p.grad is not None:
+                dist.all_reduce(p.grad, group=group)
 
 
 def adamw(params, lr: float = 3e-4,
@@ -305,6 +383,7 @@ def train_step(model: GPT2, optimizer: torch.optim.Optimizer,
     optimizer.zero_grad(set_to_none=True)
     loss = loss_fn(model, tokens, **loss_kw)
     loss.backward()
+    reduce_gradients(model)
     optimizer.step()
     return loss.detach()
 

@@ -38,30 +38,30 @@ SIGNATURES = {
     # x, weight, out, rows, cols, eps, dtype, stream
     "rtt_rmsnorm_fwd": [_P, _P, _P, _I, _I, _F, _I, _P],
     # q, k, v, out, lse, batch, seq_q, seq_k, heads, head_dim, scale,
-    # causal, dtype, stream
+    # causal, dtype, out_dtype, stream
     "rtt_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
-                      _P],
+                      _I, _P],
     # q, k, v, dout, lse, delta, dk, dv, batch, seq_q, seq_k, heads,
-    # head_dim, scale, causal, dtype, stream
+    # head_dim, scale, causal, dtype, out_dtype, stream
     "rtt_flash_bwd_dkdv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _I, _F, _I, _I, _P],
+                           _I, _F, _I, _I, _I, _P],
     # q, k, v, dout, lse, delta, dq, batch, seq_q, seq_k, heads, head_dim,
-    # scale, causal, dtype, stream
+    # scale, causal, dtype, out_dtype, stream
     "rtt_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                         _I, _I, _P],
+                         _I, _I, _I, _P],
     # flash_generic.cu, the head-major family above head_dim 128: as
     # rtt_flash_fwd, rtt_flash_bwd_dkdv and rtt_flash_bwd_dq
     "rtt_flash_generic_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                              _I, _I, _P],
+                              _I, _I, _I, _P],
     "rtt_flash_generic_bwd_dkdv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                   _I, _I, _I, _F, _I, _I, _P],
+                                   _I, _I, _I, _F, _I, _I, _I, _P],
     "rtt_flash_generic_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                 _I, _F, _I, _I, _P],
-    # the bf16 kernels' registers and shared bytes as the runtime holds
-    # them: head_dim, out (int[3]); kernel (0 = dK/dV, 1 = dQ), head_dim,
-    # out
-    "rtt_flash_fwd_attrs": [_I, _P],
-    "rtt_flash_bwd_attrs": [_I, _I, _P],
+                                 _I, _F, _I, _I, _I, _P],
+    # the bf16-input kernels' registers and shared bytes as the runtime
+    # holds them: head_dim, f32_out, out (int[3]); kernel (0 = dK/dV,
+    # 1 = dQ), head_dim, f32_out, out
+    "rtt_flash_fwd_attrs": [_I, _I, _P],
+    "rtt_flash_bwd_attrs": [_I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -163,7 +163,8 @@ def check(rc: int, what: str) -> None:
 
 
 def dtype_code(dtype) -> int:
-    """The C side's dtype switch: 0 = float32, 1 = bfloat16."""
+    """The C side's dtype switch, for inputs and outputs alike:
+    0 = float32, 1 = bfloat16."""
     codes = {torch.float32: 0, torch.bfloat16: 1}
     if dtype not in codes:
         raise TypeError(f"CUDA kernels take float32 or bfloat16, got {dtype}")

@@ -80,6 +80,14 @@
 // producer thread stores by TMA (positions past tq are not written); the
 // buffer then takes item k + 2's Q and dO.
 //
+// f32 dQ, dK and dV from bf16 inputs (F32O; _flash_chunk_bwd, ring
+// attention's chunk mode, whose gradients are summed over the ring in f32):
+// neither kernel has shared memory for f32 staging (dQ has about 3 KB left
+// at D = 128), so each consumer thread stores its accumulators' pairs as
+// float2 straight to global memory, guarding positions past T and columns
+// past head_dim itself.  P~ and dS~ are still rounded to bf16; the LSE and
+// delta are the caller's (the ring's global ones).
+//
 // f32 inputs take plain FMA kernels (no tensor cores, so no TF32 rounding) for
 // the tight comparison with the plain version and for f32 models: lane j
 // of a warp scores query (dK/dV) or key (dQ) j of a 32-wide tile, and
@@ -124,7 +132,8 @@ struct DkdvSmem {
   static constexpr size_t kBytes = 1024 + kBars + 8 * (1 + 2 * kStages);
 };
 
-template <int D>
+// F32O: dK and dV in f32 through dk32 and dv32 (dkmap, dvmap unused).
+template <int D, bool F32O>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap kmap,
@@ -133,8 +142,10 @@ bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap dkmap,
                      const __grid_constant__ CUtensorMap dvmap,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, int heads, int tq,
-                     int tk, float scale, int causal) {
+                     const float* __restrict__ delta,
+                     float* __restrict__ dk32, float* __restrict__ dv32,
+                     int heads, int dim, int tq, int tk, float scale,
+                     int causal) {
   using L = hp::Swz<D>;
   using SM = DkdvSmem<D>;
   constexpr int BN = kBwdBN, BM = kBwdBM, NS = SM::kStages;
@@ -315,6 +326,29 @@ bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
     hp::mbar_arrive(empty(st));
   }
 
+  if constexpr (F32O) {
+    // f32 straight from the accumulators: element 4c + 2i + e of box bx is
+    // (key[i], column bx kCols + 8c + 2t + e)
+    const size_t rs = (size_t)heads * dim;
+    const size_t base = slice_base(b, h, heads, tk, dim);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (key[i] >= tk) continue;
+      const size_t at = base + (size_t)key[i] * rs;
+#pragma unroll
+      for (int bx = 0; bx < L::kBoxes; ++bx)
+#pragma unroll
+        for (int c = 0; c < L::kCols / 8; ++c) {
+          const int col = bx * L::kCols + 8 * c + 2 * t;
+          if (col >= dim) continue;  // dim is a multiple of 8
+          *reinterpret_cast<float2*>(dk32 + at + col) = make_float2(
+              dka[bx][4 * c + 2 * i], dka[bx][4 * c + 2 * i + 1]);
+          *reinterpret_cast<float2*>(dv32 + at + col) = make_float2(
+              dva[bx][4 * c + 2 * i], dva[bx][4 * c + 2 * i + 1]);
+        }
+    }
+    return;
+  }
   // dK and dV in bf16 over this warpgroup's own K and V rows, then by TMA
 #pragma unroll
   for (int bx = 0; bx < L::kBoxes; ++bx)
@@ -373,7 +407,9 @@ struct DqSmem {
 
 // Persistent: block c takes the work items 2u and 2u + 1 (in the order of
 // work_head_tile_pairs, as the forward) for u = c, c + gridDim.x, ...
-template <int D>
+// F32O: dQ in f32 through dq32, stored by the consumers (dqmap unused);
+// the second producer thread then only frees the item's buffer.
+template <int D, bool F32O>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
@@ -381,7 +417,8 @@ bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap domap,
                    const __grid_constant__ CUtensorMap dqmap,
                    const float* __restrict__ lse,
-                   const float* __restrict__ delta, int batch, int heads,
+                   const float* __restrict__ delta,
+                   float* __restrict__ dq32, int batch, int heads, int dim,
                    int tq, int tk, float scale, int causal) {
   using L = hp::Swz<D>;
   using SM = DqSmem<D>;
@@ -476,13 +513,15 @@ bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
         const int qb = k & 1;
         const uint32_t qs = item_s + qb * SM::kItem;
         hp::mbar_wait(dq_full(qb), (k >> 1) & 1);
-        for (int half = 0; half < 2; ++half)
-          for (int bx = 0; bx < L::kBoxes; ++bx)
-            hp::tma_store(&dqmap,
-                          qs + bx * SM::kQBox + half * 64 * L::kRowBytes,
-                          bx * L::kCols, h, m0 + half * 64, b);
-        hp::tma_commit();
-        hp::tma_wait_read();
+        if constexpr (!F32O) {
+          for (int half = 0; half < 2; ++half)
+            for (int bx = 0; bx < L::kBoxes; ++bx)
+              hp::tma_store(&dqmap,
+                            qs + bx * SM::kQBox + half * 64 * L::kRowBytes,
+                            bx * L::kCols, h, m0 + half * 64, b);
+          hp::tma_commit();
+          hp::tma_wait_read();
+        }
         hp::mbar_arrive(q_empty(qb));
       }
     }
@@ -621,20 +660,42 @@ bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
     turn(n_tiles, std::true_type{}, std::false_type{});
     kv0 += n_tiles;
 
-    // dQ in bf16 over this warpgroup's Q rows (its last S is done), for
-    // the producer's store
+    if constexpr (F32O) {
+      // f32 straight from the accumulators: element 4c + 2i + e of box bx
+      // is (row[i], column bx kCols + 8c + 2t + e)
+      const size_t rs = (size_t)heads * dim;
+      float* qb = dq32 + slice_base(b, h, heads, tq, dim);
 #pragma unroll
-    for (int bx = 0; bx < L::kBoxes; ++bx)
+      for (int i = 0; i < 2; ++i) {
+        if (row[i] >= tq) continue;
+        float* qrow = qb + (size_t)row[i] * rs;
 #pragma unroll
-      for (int c = 0; c < L::kCols / 8; ++c)
+        for (int bx = 0; bx < L::kBoxes; ++bx)
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
-          hp::st_shared(qa + bx * SM::kQBox +
-                            hp::swizzled<D>(warp * 16 + g + 8 * i,
-                                            8 * c + 2 * t),
-                        pack_f32(dq[bx][4 * c + 2 * i],
-                                 dq[bx][4 * c + 2 * i + 1]));
-    hp::fence_proxy_async();
+          for (int c = 0; c < L::kCols / 8; ++c) {
+            const int col = bx * L::kCols + 8 * c + 2 * t;
+            if (col < dim)  // dim is a multiple of 8
+              *reinterpret_cast<float2*>(qrow + col) = make_float2(
+                  dq[bx][4 * c + 2 * i], dq[bx][4 * c + 2 * i + 1]);
+          }
+      }
+    } else {
+      // dQ in bf16 over this warpgroup's Q rows (its last S is done), for
+      // the producer's store
+#pragma unroll
+      for (int bx = 0; bx < L::kBoxes; ++bx)
+#pragma unroll
+        for (int c = 0; c < L::kCols / 8; ++c)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            hp::st_shared(qa + bx * SM::kQBox +
+                              hp::swizzled<D>(warp * 16 + g + 8 * i,
+                                              8 * c + 2 * t),
+                          pack_f32(dq[bx][4 * c + 2 * i],
+                                   dq[bx][4 * c + 2 * i + 1]));
+      hp::fence_proxy_async();
+    }
+    // the buffer's Q and dO are read: dQ staged, or stored
     hp::mbar_arrive(dq_full(k & 1));
   }
   // consumer 1's arrival after its last turn
@@ -871,8 +932,9 @@ using bf16 = __nv_bfloat16;
 int dkdv(const void* q, const void* k, const void* v, const void* dout,
          const void* lse, const void* delta, void* dk, void* dv, int batch,
          int tq, int tk, int heads, int head_dim, float scale, int causal,
-         int dtype, void* stream) {
-  if (bad_args(batch, tq, tk, heads, dtype)) return (int)cudaErrorInvalidValue;
+         int dtype, int out_dtype, void* stream) {
+  if (bad_args(batch, tq, tk, heads, dtype, out_dtype))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
@@ -886,26 +948,39 @@ int dkdv(const void* q, const void* k, const void* v, const void* dout,
                     static_cast<const float*>(dout), l, dl,
                     static_cast<float*>(dk), static_cast<float*>(dv), heads,
                     head_dim, tq, tk, scale, causal);
+    const bool f32o = out_dtype == 0;
     CUtensorMap qm, km, vm, dom, dkm, dvm;
     if (!hp::encode_map<D>(&qm, q, batch, tq, heads, head_dim, kBwdBM) ||
         !hp::encode_map<D>(&km, k, batch, tk, heads, head_dim, 64) ||
         !hp::encode_map<D>(&vm, v, batch, tk, heads, head_dim, 64) ||
         !hp::encode_map<D>(&dom, dout, batch, tq, heads, head_dim, kBwdBM) ||
-        !hp::encode_map<D>(&dkm, dk, batch, tk, heads, head_dim, 64) ||
-        !hp::encode_map<D>(&dvm, dv, batch, tk, heads, head_dim, 64))
+        (!f32o &&
+         (!hp::encode_map<D>(&dkm, dk, batch, tk, heads, head_dim, 64) ||
+          !hp::encode_map<D>(&dvm, dv, batch, tk, heads, head_dim, 64))))
       return cudaErrorInvalidValue;
-    return launch_block(bwd_dkdv_bf16_kernel<D>,
-                        dim3(batch * heads, (tk + kBwdBN - 1) / kBwdBN),
-                        kBwdThreads, DkdvSmem<D>::kBytes, s, qm, km, vm, dom,
-                        dkm, dvm, l, dl, heads, tq, tk, scale, causal);
+    if (f32o) {  // unused: f32 dK and dV leave from the registers
+      dkm = km;
+      dvm = vm;
+    }
+    auto go = [&](auto kernel) {
+      return launch_block(kernel,
+                          dim3(batch * heads, (tk + kBwdBN - 1) / kBwdBN),
+                          kBwdThreads, DkdvSmem<D>::kBytes, s, qm, km, vm,
+                          dom, dkm, dvm, l, dl, static_cast<float*>(dk),
+                          static_cast<float*>(dv), heads, head_dim, tq, tk,
+                          scale, causal);
+    };
+    return f32o ? go(bwd_dkdv_bf16_kernel<D, true>)
+                : go(bwd_dkdv_bf16_kernel<D, false>);
   });
 }
 
 int dq(const void* q, const void* k, const void* v, const void* dout,
        const void* lse, const void* delta, void* dq_out, int batch, int tq,
        int tk, int heads, int head_dim, float scale, int causal, int dtype,
-       void* stream) {
-  if (bad_args(batch, tq, tk, heads, dtype)) return (int)cudaErrorInvalidValue;
+       int out_dtype, void* stream) {
+  if (bad_args(batch, tq, tk, heads, dtype, out_dtype))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
@@ -919,58 +994,72 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
                     static_cast<const float*>(dout), l, dl,
                     static_cast<float*>(dq_out), heads, head_dim, tq, tk,
                     scale, causal);
+    const bool f32o = out_dtype == 0;
     CUtensorMap qm, km, vm, dom, dqm;
     constexpr int BN = DqSmem<D>::kBN;
     if (!hp::encode_map<D>(&qm, q, batch, tq, heads, head_dim, 64) ||
         !hp::encode_map<D>(&km, k, batch, tk, heads, head_dim, BN) ||
         !hp::encode_map<D>(&vm, v, batch, tk, heads, head_dim, BN) ||
         !hp::encode_map<D>(&dom, dout, batch, tq, heads, head_dim, 64) ||
-        !hp::encode_map<D>(&dqm, dq_out, batch, tq, heads, head_dim, 64))
+        (!f32o &&
+         !hp::encode_map<D>(&dqm, dq_out, batch, tq, heads, head_dim, 64)))
       return cudaErrorInvalidValue;
+    if (f32o) dqm = qm;  // unused: the consumers store f32 dQ themselves
     int blocks = 0;
     const cudaError_t e = persistent_blocks(
         (long)batch * heads * ((tq + kDqBM - 1) / kDqBM), &blocks);
     if (e != cudaSuccess) return e;
-    return launch_block(bwd_dq_bf16_kernel<D>, dim3(blocks), kBwdThreads,
-                        DqSmem<D>::kBytes, s, qm, km, vm, dom, dqm, l, dl,
-                        batch, heads, tq, tk, scale, causal);
+    auto go = [&](auto kernel) {
+      return launch_block(kernel, dim3(blocks), kBwdThreads,
+                          DqSmem<D>::kBytes, s, qm, km, vm, dom, dqm, l, dl,
+                          static_cast<float*>(dq_out), batch, heads,
+                          head_dim, tq, tk, scale, causal);
+    };
+    return f32o ? go(bwd_dq_bf16_kernel<D, true>)
+                : go(bwd_dq_bf16_kernel<D, false>);
   });
 }
 
 }  // namespace
 
 // q, dout [B, Tq, H, D], k, v [B, Tk, H, D] contiguous; lse, delta
-// [B, H, Tq] f32; dk, dv like k; head_dim a multiple of 8 up to 128.  dtype:
-// 0 = float32, 1 = bfloat16.  Returns the launch's cudaError_t.
+// [B, H, Tq] f32; dk, dv [B, Tk, H, D]; head_dim a multiple of 8 up to
+// 128.  dtype (the inputs') and out_dtype (dk's and dv's): 0 = float32,
+// 1 = bfloat16; out_dtype is dtype, or 0 with dtype 1.  Returns the
+// launch's cudaError_t.
 extern "C" int rtt_flash_bwd_dkdv(const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const void* lse, const void* delta,
                                   void* dk, void* dv, int batch, int tq,
                                   int tk, int heads, int head_dim,
                                   float scale, int causal, int dtype,
-                                  void* stream) {
+                                  int out_dtype, void* stream) {
   return dkdv(q, k, v, dout, lse, delta, dk, dv, batch, tq, tk, heads,
-              head_dim, scale, causal, dtype, stream);
+              head_dim, scale, causal, dtype, out_dtype, stream);
 }
 
-// As rtt_flash_bwd_dkdv; dq like q.
+// As rtt_flash_bwd_dkdv; dq [B, Tq, H, D] in out_dtype.
 extern "C" int rtt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, void* dq_out, int batch,
                                 int tq, int tk, int heads, int head_dim,
                                 float scale, int causal, int dtype,
-                                void* stream) {
+                                int out_dtype, void* stream) {
   return dq(q, k, v, dout, lse, delta, dq_out, batch, tq, tk, heads,
-            head_dim, scale, causal, dtype, stream);
+            head_dim, scale, causal, dtype, out_dtype, stream);
 }
 
-// As rtt_flash_fwd_attrs, for the bf16 dK/dV kernel (kernel 0) or the
-// bf16 dQ kernel (kernel 1).
-extern "C" int rtt_flash_bwd_attrs(int kernel, int head_dim, int* out) {
+// As rtt_flash_fwd_attrs, for the bf16-input dK/dV kernel (kernel 0) or
+// dQ kernel (kernel 1), with bf16 or (f32_out) f32 outputs.
+extern "C" int rtt_flash_bwd_attrs(int kernel, int head_dim, int f32_out,
+                                   int* out) {
   if (kernel != 0 && kernel != 1) return (int)cudaErrorInvalidValue;
   return (int)by_head_dim(head_dim, [&](auto d) {
     constexpr int D = decltype(d)::value;
-    return kernel == 0 ? func_attrs(bwd_dkdv_bf16_kernel<D>, out)
-                       : func_attrs(bwd_dq_bf16_kernel<D>, out);
+    if (kernel == 0)
+      return f32_out ? func_attrs(bwd_dkdv_bf16_kernel<D, true>, out)
+                     : func_attrs(bwd_dkdv_bf16_kernel<D, false>, out);
+    return f32_out ? func_attrs(bwd_dq_bf16_kernel<D, true>, out)
+                   : func_attrs(bwd_dq_bf16_kernel<D, false>, out);
   });
 }

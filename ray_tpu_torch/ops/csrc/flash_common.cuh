@@ -138,9 +138,14 @@ cudaError_t launch(void (*kernel)(KArgs...), dim3 grid, size_t smem,
   return launch_block(kernel, grid, kThreads, smem, s, args...);
 }
 
-inline bool bad_args(int batch, int tq, int tk, int heads, int dtype) {
+// dtype: the inputs' (0 = float32, 1 = bfloat16); out_dtype: the outputs'
+// (O; dQ, dK, dV), the inputs' own or, from bfloat16 inputs, float32 (the
+// chunk mode of ring attention: the f32 accumulators leave unrounded).
+inline bool bad_args(int batch, int tq, int tk, int heads, int dtype,
+                     int out_dtype) {
   return batch <= 0 || tq <= 0 || tk <= 0 || heads <= 0 ||
-         (dtype != 0 && dtype != 1);
+         (dtype != 0 && dtype != 1) ||
+         (out_dtype != dtype && !(dtype == 1 && out_dtype == 0));
 }
 
 template <int D>

@@ -59,6 +59,12 @@
 // stores it by TMA (positions past tq are not written) while the next
 // item starts.  Shared memory at D = 128: 2 x Q 32 KB + 2 stages x (K 32
 // KB + V 32 KB) + O 32 KB; at D = 64: 2 x Q 16 KB + 4 x 32 KB + O 16 KB.
+// f32 O from bf16 inputs (F32O; _flash_chunk_fwd, ring attention's chunk
+// mode, whose partials are merged in f32): an f32 staging tile would need
+// 64 KB more at D = 128, which shared memory does not have, so each thread
+// stores its accumulators' pairs as float2 straight to global memory,
+// guarding rows past tq and columns past head_dim itself (TMA's clipping
+// did that).  P is still rounded to bf16 before P V.
 //
 // f32: a plain FMA kernel (no tensor cores, so no TF32 rounding): four
 // warps, each owning 4 query rows; lane j scores key j of a 32-key tile,
@@ -107,14 +113,16 @@ struct FwdSmem {
 
 // Persistent: block c takes the work items 2u and 2u + 1 (in the order of
 // work_head_tile_pairs) for u = c, c + gridDim.x, ...
-template <int D>
+// F32O: O in f32 through o32 (omap unused), else in bf16 through omap.
+template <int D, bool F32O>
 __global__ void __launch_bounds__(kFwdThreads, 1)
 flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
                       const __grid_constant__ CUtensorMap kmap,
                       const __grid_constant__ CUtensorMap vmap,
                       const __grid_constant__ CUtensorMap omap,
-                      float* __restrict__ lse, int batch, int heads, int tq,
-                      int tk, float scale, int causal) {
+                      float* __restrict__ lse, float* __restrict__ o32,
+                      int batch, int heads, int dim, int tq, int tk,
+                      float scale, int causal) {
   using L = hp::Swz<D>;
   using SM = FwdSmem<D>;
   constexpr int BM = kFwdBM, BN = kFwdBN, NS = SM::kStages;
@@ -361,31 +369,53 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
                 ? kNegInf
                 : fmaf(m_run[i], sl2, log2f(l_safe)) * 0.6931471805599453f;
     }
-    if (tid % kWg == 0) hp::tma_wait_read();
-    hp::named_sync(1 + wg, kWg);
+    if constexpr (F32O) {
+      // element 4c + 2i + e of box bx: row[i], column bx kCols + 8c + 2t + e
+      const size_t rs = (size_t)heads * dim;
+      float* ob = o32 + slice_base(b, h, heads, tq, dim);
 #pragma unroll
-    for (int bx = 0; bx < L::kBoxes; ++bx)
+      for (int i = 0; i < 2; ++i) {
+        if (row[i] >= tq) continue;
+        float* orow = ob + (size_t)row[i] * rs;
 #pragma unroll
-      for (int c = 0; c < L::kCols / 8; ++c)
+        for (int bx = 0; bx < L::kBoxes; ++bx)
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
-          hp::st_shared(oa + bx * SM::kQBox +
-                            hp::swizzled<D>(warp * 16 + g + 8 * i,
-                                            8 * c + 2 * t),
-                        pack_f32(o[bx][4 * c + 2 * i] * inv[i],
-                                 o[bx][4 * c + 2 * i + 1] * inv[i]));
-    hp::fence_proxy_async();
-    hp::named_sync(1 + wg, kWg);
-    if (tid % kWg == 0) {
+          for (int c = 0; c < L::kCols / 8; ++c) {
+            const int col = bx * L::kCols + 8 * c + 2 * t;
+            if (col < dim)  // dim is a multiple of 8: col + 1 < dim too
+              *reinterpret_cast<float2*>(orow + col) =
+                  make_float2(o[bx][4 * c + 2 * i] * inv[i],
+                              o[bx][4 * c + 2 * i + 1] * inv[i]);
+          }
+      }
+    } else {
+      if (tid % kWg == 0) hp::tma_wait_read();
+      hp::named_sync(1 + wg, kWg);
+#pragma unroll
       for (int bx = 0; bx < L::kBoxes; ++bx)
-        hp::tma_store(&omap, oa + bx * SM::kQBox, bx * L::kCols, h,
-                      first_row, b);
-      hp::tma_commit();
+#pragma unroll
+        for (int c = 0; c < L::kCols / 8; ++c)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            hp::st_shared(oa + bx * SM::kQBox +
+                              hp::swizzled<D>(warp * 16 + g + 8 * i,
+                                              8 * c + 2 * t),
+                          pack_f32(o[bx][4 * c + 2 * i] * inv[i],
+                                   o[bx][4 * c + 2 * i + 1] * inv[i]));
+      hp::fence_proxy_async();
+      hp::named_sync(1 + wg, kWg);
+      if (tid % kWg == 0) {
+        for (int bx = 0; bx < L::kBoxes; ++bx)
+          hp::tma_store(&omap, oa + bx * SM::kQBox, bx * L::kCols, h,
+                        first_row, b);
+        hp::tma_commit();
+      }
     }
   }
   // consumer 1's arrival after its last turn
   if (wg == 0) hp::named_sync(kTurnBar, 2 * kWg);
-  if (tid % kWg == 0) hp::tma_wait_read();
+  if constexpr (!F32O)
+    if (tid % kWg == 0) hp::tma_wait_read();
 }
 
 // ----------------------------------------------------------------- f32 --
@@ -503,8 +533,9 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
         int batch, int tq, int tk, int heads, int head_dim, float scale,
-        int causal, int dtype, void* stream) {
-  if (bad_args(batch, tq, tk, heads, dtype)) return (int)cudaErrorInvalidValue;
+        int causal, int dtype, int out_dtype, void* stream) {
+  if (bad_args(batch, tq, tk, heads, dtype, out_dtype))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   return (int)by_head_dim(head_dim, [&](auto d) {
@@ -515,41 +546,51 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                     static_cast<const float*>(q), static_cast<const float*>(k),
                     static_cast<const float*>(v), static_cast<float*>(o), l,
                     heads, head_dim, tq, tk, scale, causal);
+    const bool f32o = out_dtype == 0;
     CUtensorMap qm, km, vm, om;
     if (!hp::encode_map<D>(&qm, q, batch, tq, heads, head_dim, 64) ||
         !hp::encode_map<D>(&km, k, batch, tk, heads, head_dim, kFwdBN) ||
         !hp::encode_map<D>(&vm, v, batch, tk, heads, head_dim, kFwdBN) ||
-        !hp::encode_map<D>(&om, o, batch, tq, heads, head_dim, 64))
+        (!f32o && !hp::encode_map<D>(&om, o, batch, tq, heads, head_dim, 64)))
       return cudaErrorInvalidValue;
+    if (f32o) om = qm;  // unused: f32 O leaves from the registers
     int blocks = 0;
     const cudaError_t e = persistent_blocks(
         (long)batch * heads * ((tq + kFwdBM - 1) / kFwdBM), &blocks);
     if (e != cudaSuccess) return e;
-    return launch_block(flash_fwd_bf16_kernel<D>, dim3(blocks),
-                        kFwdThreads, FwdSmem<D>::kBytes, s, qm, km, vm, om, l,
-                        batch, heads, tq, tk, scale, causal);
+    auto go = [&](auto kernel) {
+      return launch_block(kernel, dim3(blocks), kFwdThreads,
+                          FwdSmem<D>::kBytes, s, qm, km, vm, om, l,
+                          static_cast<float*>(o), batch, heads, head_dim, tq,
+                          tk, scale, causal);
+    };
+    return f32o ? go(flash_fwd_bf16_kernel<D, true>)
+                : go(flash_fwd_bf16_kernel<D, false>);
   });
 }
 
 }  // namespace
 
-// q [B, Tq, H, D], k/v [B, Tk, H, D] contiguous, o like q, lse [B, H, Tq]
-// f32; head_dim a multiple of 8 up to 128.  dtype: 0 = float32,
-// 1 = bfloat16.
-// Returns the launch's cudaError_t.
+// q [B, Tq, H, D], k/v [B, Tk, H, D] contiguous, o [B, Tq, H, D], lse
+// [B, H, Tq] f32; head_dim a multiple of 8 up to 128.  dtype (the inputs')
+// and out_dtype (o's): 0 = float32, 1 = bfloat16; out_dtype is dtype, or
+// 0 with dtype 1.  Returns the launch's cudaError_t.
 extern "C" int rtt_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int batch, int tq, int tk,
                              int heads, int head_dim, float scale, int causal,
-                             int dtype, void* stream) {
+                             int dtype, int out_dtype, void* stream) {
   return fwd(q, k, v, o, lse, batch, tq, tk, heads, head_dim, scale, causal,
-             dtype, stream);
+             dtype, out_dtype, stream);
 }
 
-// The bf16 kernel for head_dim as the runtime holds it (func_attrs: out[0]
-// registers, out[1] static and out[2] dynamic shared bytes, the latter
-// as its last launch set them).  Returns a cudaError_t.
-extern "C" int rtt_flash_fwd_attrs(int head_dim, int* out) {
+// The bf16-input kernel for head_dim, with bf16 O or (f32_out) f32 O, as
+// the runtime holds it (func_attrs: out[0] registers, out[1] static and
+// out[2] dynamic shared bytes, the latter as its last launch set them).
+// Returns a cudaError_t.
+extern "C" int rtt_flash_fwd_attrs(int head_dim, int f32_out, int* out) {
   return (int)by_head_dim(head_dim, [&](auto d) {
-    return func_attrs(flash_fwd_bf16_kernel<decltype(d)::value>, out);
+    constexpr int D = decltype(d)::value;
+    return f32_out ? func_attrs(flash_fwd_bf16_kernel<D, true>, out)
+                   : func_attrs(flash_fwd_bf16_kernel<D, false>, out);
   });
 }

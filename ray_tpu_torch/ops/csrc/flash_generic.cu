@@ -9,8 +9,10 @@
 // at 128), and the wrapper zero-pads a head_dim below 128 that is no
 // multiple of 8 onto them; above 128 it launches these three.  They
 // compute what the others compute, with the same contract: the causal
-// mask aligned top-left, f32 LSE and delta, bf16 or f32 in and out, P
-// rounded to the input dtype before P V and dV, dS before dK and dQ;
+// mask aligned top-left, f32 LSE and delta, bf16 or f32 in and out (and
+// f32 out from bf16 in, ring attention's chunk mode: the accumulators are
+// f32 already, so only the output type O differs from the input type T),
+// P rounded to the input dtype before P V and dV, dS before dK and dQ;
 // a row with no visible key gives O = 0 and LSE = -1e30.
 //
 // Bound: at [8, 1024, 16, 256] bf16 causal the forward does 4 * D flops
@@ -145,10 +147,10 @@ constexpr size_t tiles_bytes(int n_acc, int n_sq, int n_rows, int dp) {
 
 // ------------------------------------------------------------- forward --
 
-template <typename T, int R>
+template <typename T, typename O, int R>
 __global__ void __launch_bounds__(kGThreads, 1)
 fwd_generic_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, T* __restrict__ o,
+                   const T* __restrict__ v, O* __restrict__ o,
                    float* __restrict__ lse, int heads, int dim, int tq,
                    int tk, float scale, int causal) {
   constexpr int P = R / 16, RPW = R / 8;
@@ -258,7 +260,7 @@ fwd_generic_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (m0 + row >= tq || c >= dim) continue;
     const float l = l_s[row];
     o[qoff + (size_t)(m0 + row) * rs + c] =
-        from_f<T>(acc[e] / (l == 0.f ? 1.f : l));
+        from_f<O>(acc[e] / (l == 0.f ? 1.f : l));
   }
   if (tid < R && m0 + tid < tq) {
     const float l = l_s[tid], m = m_s[tid];
@@ -269,13 +271,13 @@ fwd_generic_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // --------------------------------------------------------------- dK/dV --
 
-template <typename T, int R>
+template <typename T, typename O, int R>
 __global__ void __launch_bounds__(kGThreads, 1)
 dkdv_generic_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dk,
-                    T* __restrict__ dv, int heads, int dim, int tq, int tk,
+                    const float* __restrict__ delta, O* __restrict__ dk,
+                    O* __restrict__ dv, int heads, int dim, int tq, int tk,
                     float scale, int causal) {
   constexpr int P = R / 16, RPW = R / 8;
   const int dp = padded_dim(dim);
@@ -360,19 +362,19 @@ dkdv_generic_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = e / dp, c = e % dp;
     if (n0 + row >= tk || c >= dim) continue;
     const size_t at = koff + (size_t)(n0 + row) * rs + c;
-    dk[at] = from_f<T>(dka[e]);
-    dv[at] = from_f<T>(dva[e]);
+    dk[at] = from_f<O>(dka[e]);
+    dv[at] = from_f<O>(dva[e]);
   }
 }
 
 // ------------------------------------------------------------------ dQ --
 
-template <typename T, int R>
+template <typename T, typename O, int R>
 __global__ void __launch_bounds__(kGThreads, 1)
 dq_generic_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const T* __restrict__ dout,
                   const float* __restrict__ lse,
-                  const float* __restrict__ delta, T* __restrict__ dq,
+                  const float* __restrict__ delta, O* __restrict__ dq,
                   int heads, int dim, int tq, int tk, float scale,
                   int causal) {
   constexpr int P = R / 16, RPW = R / 8;
@@ -447,7 +449,7 @@ dq_generic_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int e = tid; e < R * dp; e += kGThreads) {
     const int row = e / dp, c = e % dp;
     if (m0 + row >= tq || c >= dim) continue;
-    dq[qoff + (size_t)(m0 + row) * rs + c] = from_f<T>(acc[e]);
+    dq[qoff + (size_t)(m0 + row) * rs + c] = from_f<O>(acc[e]);
   }
 }
 
@@ -456,14 +458,17 @@ dq_generic_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <int R>
 using Rows = std::integral_constant<int, R>;
 
-// fn(Rows<R>{}, T{}) for the block's rows at head_dim and the dtype
-// (0 = float32, 1 = bfloat16); any head_dim from 1 to kMaxHeadDim.
+// fn(Rows<R>{}, T{}, O{}) for the block's rows at head_dim, the input
+// type T and the output type O (dtype, out_dtype: 0 = float32,
+// 1 = bfloat16; bad_args holds the pair); any head_dim from 1 to
+// kMaxHeadDim.
 template <typename Fn>
-cudaError_t by_rows(int head_dim, int dtype, Fn&& fn) {
-  if (head_dim <= 0 || head_dim > kMaxHeadDim || (dtype != 0 && dtype != 1))
-    return cudaErrorInvalidValue;
+cudaError_t by_rows(int head_dim, int dtype, int out_dtype, Fn&& fn) {
+  if (head_dim <= 0 || head_dim > kMaxHeadDim) return cudaErrorInvalidValue;
   auto typed = [&](auto rows) {
-    return dtype == 0 ? fn(rows, float{}) : fn(rows, bf16{});
+    if (dtype == 0) return fn(rows, float{}, float{});
+    return out_dtype == 0 ? fn(rows, bf16{}, float{})
+                          : fn(rows, bf16{}, bf16{});
   };
   if (head_dim <= 256) return typed(Rows<64>{});
   if (head_dim <= 512) return typed(Rows<32>{});
@@ -472,17 +477,20 @@ cudaError_t by_rows(int head_dim, int dtype, Fn&& fn) {
 
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
         int batch, int tq, int tk, int heads, int head_dim, float scale,
-        int causal, int dtype, void* stream) {
-  if (bad_args(batch, tq, tk, heads, dtype)) return (int)cudaErrorInvalidValue;
+        int causal, int dtype, int out_dtype, void* stream) {
+  if (bad_args(batch, tq, tk, heads, dtype, out_dtype))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)by_rows(head_dim, dtype, [&](auto rows, auto t) {
+  return (int)by_rows(head_dim, dtype, out_dtype,
+                      [&](auto rows, auto t, auto out_t) {
     constexpr int R = decltype(rows)::value;
     using T = decltype(t);
-    return launch_block(fwd_generic_kernel<T, R>,
+    using O = decltype(out_t);
+    return launch_block(fwd_generic_kernel<T, O, R>,
                         dim3(batch * heads, (tq + R - 1) / R), kGThreads,
                         tiles_bytes<R>(1, 1, 3, padded_dim(head_dim)), s,
                         static_cast<const T*>(q), static_cast<const T*>(k),
-                        static_cast<const T*>(v), static_cast<T*>(o),
+                        static_cast<const T*>(v), static_cast<O*>(o),
                         static_cast<float*>(lse), heads, head_dim, tq, tk,
                         scale, causal);
   });
@@ -491,13 +499,16 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
 int dkdv(const void* q, const void* k, const void* v, const void* dout,
          const void* lse, const void* delta, void* dk, void* dv, int batch,
          int tq, int tk, int heads, int head_dim, float scale, int causal,
-         int dtype, void* stream) {
-  if (bad_args(batch, tq, tk, heads, dtype)) return (int)cudaErrorInvalidValue;
+         int dtype, int out_dtype, void* stream) {
+  if (bad_args(batch, tq, tk, heads, dtype, out_dtype))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)by_rows(head_dim, dtype, [&](auto rows, auto t) {
+  return (int)by_rows(head_dim, dtype, out_dtype,
+                      [&](auto rows, auto t, auto out_t) {
     constexpr int R = decltype(rows)::value;
     using T = decltype(t);
-    return launch_block(dkdv_generic_kernel<T, R>,
+    using O = decltype(out_t);
+    return launch_block(dkdv_generic_kernel<T, O, R>,
                         dim3(batch * heads, (tk + R - 1) / R), kGThreads,
                         tiles_bytes<R>(2, 2, 2, padded_dim(head_dim)), s,
                         static_cast<const T*>(q), static_cast<const T*>(k),
@@ -505,7 +516,7 @@ int dkdv(const void* q, const void* k, const void* v, const void* dout,
                         static_cast<const T*>(dout),
                         static_cast<const float*>(lse),
                         static_cast<const float*>(delta),
-                        static_cast<T*>(dk), static_cast<T*>(dv), heads,
+                        static_cast<O*>(dk), static_cast<O*>(dv), heads,
                         head_dim, tq, tk, scale, causal);
   });
 }
@@ -513,13 +524,16 @@ int dkdv(const void* q, const void* k, const void* v, const void* dout,
 int dq(const void* q, const void* k, const void* v, const void* dout,
        const void* lse, const void* delta, void* dq_out, int batch, int tq,
        int tk, int heads, int head_dim, float scale, int causal, int dtype,
-       void* stream) {
-  if (bad_args(batch, tq, tk, heads, dtype)) return (int)cudaErrorInvalidValue;
+       int out_dtype, void* stream) {
+  if (bad_args(batch, tq, tk, heads, dtype, out_dtype))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)by_rows(head_dim, dtype, [&](auto rows, auto t) {
+  return (int)by_rows(head_dim, dtype, out_dtype,
+                      [&](auto rows, auto t, auto out_t) {
     constexpr int R = decltype(rows)::value;
     using T = decltype(t);
-    return launch_block(dq_generic_kernel<T, R>,
+    using O = decltype(out_t);
+    return launch_block(dq_generic_kernel<T, O, R>,
                         dim3(batch * heads, (tq + R - 1) / R), kGThreads,
                         tiles_bytes<R>(1, 1, 2, padded_dim(head_dim)), s,
                         static_cast<const T*>(q), static_cast<const T*>(k),
@@ -527,7 +541,7 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
                         static_cast<const T*>(dout),
                         static_cast<const float*>(lse),
                         static_cast<const float*>(delta),
-                        static_cast<T*>(dq_out), heads, head_dim, tq, tk,
+                        static_cast<O*>(dq_out), heads, head_dim, tq, tk,
                         scale, causal);
   });
 }
@@ -540,9 +554,9 @@ extern "C" int rtt_flash_generic_fwd(const void* q, const void* k,
                                      const void* v, void* o, void* lse,
                                      int batch, int tq, int tk, int heads,
                                      int head_dim, float scale, int causal,
-                                     int dtype, void* stream) {
+                                     int dtype, int out_dtype, void* stream) {
   return fwd(q, k, v, o, lse, batch, tq, tk, heads, head_dim, scale, causal,
-             dtype, stream);
+             dtype, out_dtype, stream);
 }
 
 // As rtt_flash_bwd_dkdv (flash_bwd.cu), for head_dim 1 to 1024.
@@ -553,9 +567,9 @@ extern "C" int rtt_flash_generic_bwd_dkdv(const void* q, const void* k,
                                           int tq, int tk, int heads,
                                           int head_dim, float scale,
                                           int causal, int dtype,
-                                          void* stream) {
+                                          int out_dtype, void* stream) {
   return dkdv(q, k, v, dout, lse, delta, dk, dv, batch, tq, tk, heads,
-              head_dim, scale, causal, dtype, stream);
+              head_dim, scale, causal, dtype, out_dtype, stream);
 }
 
 // As rtt_flash_bwd_dq (flash_bwd.cu), for head_dim 1 to 1024.
@@ -565,7 +579,7 @@ extern "C" int rtt_flash_generic_bwd_dq(const void* q, const void* k,
                                         void* dq_out, int batch, int tq,
                                         int tk, int heads, int head_dim,
                                         float scale, int causal, int dtype,
-                                        void* stream) {
+                                        int out_dtype, void* stream) {
   return dq(q, k, v, dout, lse, delta, dq_out, batch, tq, tk, heads,
-            head_dim, scale, causal, dtype, stream);
+            head_dim, scale, causal, dtype, out_dtype, stream);
 }

@@ -27,6 +27,10 @@ Counterpart of ``ray_tpu/ops/flash_attention.py``:
 * the dispatch between the two, ``_nl_eligible`` and ``_resolve_native``
   (with its ``RAY_TPU_FLASH_NATIVE`` switch), and
   ``_attention_reference``.
+* the chunk entry points of ring attention, ``_flash_chunk_fwd`` and
+  ``_flash_chunk_bwd``: the same kernels, dispatched the same way, with
+  bf16 inputs and f32 outputs (O; dQ, dK, dV), the backward from the
+  caller's LSE and delta, each with its own launch counters.
 
 Every public function takes and returns ``[batch, seq, heads,
 head_dim]``, as in the JAX package.
@@ -72,17 +76,18 @@ def _scores(q, k, causal, scale):
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool, scale: float
+                        causal: bool, scale: float,
+                        out_dtype: Optional[torch.dtype] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch attention: ``(out [B,Tq,H,D] in q's dtype,
-    lse [B,H,Tq] f32)``.  Products take f32 operands, as the JAX
-    reference's ``preferred_element_type=f32`` does (a bf16 x bf16
+    """Plain PyTorch attention: ``(out [B,Tq,H,D] in out_dtype (q's by
+    default), lse [B,H,Tq] f32)``.  Products take f32 operands, as the
+    JAX reference's ``preferred_element_type=f32`` does (a bf16 x bf16
     product is exact in f32).  Causal needs ``Tq == Tk``."""
     s = _scores(q, k, causal, scale)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
-    return out.to(q.dtype), lse
+    return out.to(out_dtype or q.dtype), lse
 
 
 def fit_block(seq: int, block: int) -> int:
@@ -104,26 +109,31 @@ def kernel_block_for(seq: int, block: int = 1024):
 def attention_backward_reference(q: torch.Tensor, k: torch.Tensor,
                                  v: torch.Tensor, out: torch.Tensor,
                                  lse: torch.Tensor, do: torch.Tensor,
-                                 causal: bool, scale: float
+                                 causal: bool, scale: float,
+                                 delta: Optional[torch.Tensor] = None,
+                                 grad_dtype: Optional[torch.dtype] = None
                                  ) -> Tuple[torch.Tensor, torch.Tensor,
                                             torch.Tensor]:
     """Plain PyTorch backward, step by step as the kernels compute it:
-    ``(dq, dk, dv)`` in the input dtype from the forward's ``out`` and
-    ``lse [B,H,Tq]`` and the cotangent ``do``.  P is recomputed from the
-    LSE (clamped to 0 where a row saw no key), rounded to ``do``'s dtype
-    for dV; dS is rounded to the input dtype for dK and dQ; every product
-    takes f32 operands."""
+    ``(dq, dk, dv)`` in ``grad_dtype`` (the input dtype by default) from
+    the forward's ``out`` and ``lse [B,H,Tq]`` and the cotangent ``do``;
+    ``delta [B,H,Tq]`` where given, else :func:`attention_delta` of
+    ``out`` and ``do``.  P is recomputed from the LSE (clamped to 0 where
+    a row saw no key), rounded to ``do``'s dtype for dV; dS is rounded to
+    the input dtype for dK and dQ; every product takes f32 operands."""
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     s = _scores(q, k, causal, scale)
     lse = torch.where(lse <= NEG_INF / 2, torch.zeros_like(lse), lse)
     p = torch.exp(s - lse[..., None])
-    delta = attention_delta(out, do)
+    if delta is None:
+        delta = attention_delta(out, do)
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), dof)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
     ds = (p * (dp - delta[..., None]) * scale).to(q.dtype).float()
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return tuple(g.to(grad_dtype or x.dtype)
+                 for g, x in ((dq, q), (dk, k), (dv, v)))
 
 
 def attention_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -259,22 +269,39 @@ def _entry(kind, part):
     return getattr(_build.load_library(), f"rtt_{name}"), f"{name} kernel"
 
 
-def _count(kind, part):
+def _count(kind, part, chunk=False):
     """One launch of ``part`` ("", "_dkdv" or "_dq") on ``kind``: #1/#3/#4
     on the native-layout wrappers' counters, #5-#7 and flash_generic.cu
-    on the head-major ones' (``launches_generic*``)."""
-    fns = ((flash_attention_fwd, flash_attention_bwd) if kind == "nl"
-           else (flash_attention_hm_fwd, flash_attention_hm_bwd))
-    fn = fns[bool(part)]
-    attr = ("launches_generic" if kind == "generic" else "launches") + part
+    on the head-major ones' (``launches_generic*``); with ``chunk`` (f32
+    outputs) on :func:`_flash_chunk_fwd`'s and :func:`_flash_chunk_bwd`'s
+    (``launches``, ``launches_hm``, ``launches_generic``, each with the
+    part)."""
+    if chunk:
+        fn = (_flash_chunk_fwd, _flash_chunk_bwd)[bool(part)]
+        attr = "launches" + ("" if kind == "nl" else "_" + kind) + part
+    else:
+        fns = ((flash_attention_fwd, flash_attention_bwd) if kind == "nl"
+               else (flash_attention_hm_fwd, flash_attention_hm_bwd))
+        fn = fns[bool(part)]
+        attr = ("launches_generic" if kind == "generic"
+                else "launches") + part
     setattr(fn, attr, getattr(fn, attr) + 1)
 
 
-def _kernel_fwd(q, k, v, causal, scale, kind):
+def _codes(dtype, out_dtype):
+    """The C entry points' (dtype, out_dtype) codes for inputs of
+    ``dtype`` and outputs of ``out_dtype`` (None: the inputs')."""
+    return (_build.dtype_code(dtype),
+            _build.dtype_code(out_dtype or dtype))
+
+
+def _kernel_fwd(q, k, v, causal, scale, kind, out_dtype=None):
     """The forward kernel ``kind`` (:func:`_kernel_for`) on checked CUDA
-    inputs at its width: ``(out like q, lse [B,H,Tq] f32)``."""
+    inputs at its width: ``(out like q in out_dtype (q's by default),
+    lse [B,H,Tq] f32)``; f32 ``out_dtype`` from bf16 inputs is the chunk
+    mode, counted as such."""
     batch, seq_q, heads, dim = q.shape
-    out = torch.empty_like(q)
+    out = torch.empty_like(q, dtype=out_dtype or q.dtype)
     lse = torch.empty(batch, heads, seq_q, dtype=torch.float32,
                       device=q.device)
     entry, what = _entry(kind, "fwd")
@@ -283,9 +310,9 @@ def _kernel_fwd(q, k, v, causal, scale, kind):
         _build.check(entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), batch, seq_q, k.shape[1], heads, dim,
-            float(scale), int(causal), _build.dtype_code(q.dtype), stream),
+            float(scale), int(causal), *_codes(q.dtype, out_dtype), stream),
             what)
-    _count(kind, "")
+    _count(kind, "", chunk=out.dtype != q.dtype)
     return out, lse
 
 
@@ -352,38 +379,42 @@ def _bwd_inputs(q, k, v, do, lse, delta, causal, scale, hm=False):
     return (*_pad_cols(d, q, k, v, do), lse, delta, causal, scale, kind)
 
 
-def _bwd_args(q, k, v, do, lse, delta, causal, scale):
+def _bwd_args(q, k, v, do, lse, delta, causal, scale, out_dtype):
     batch, seq_q, heads, dim = q.shape
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr()), (
         batch, seq_q, k.shape[1], heads, dim, float(scale), int(causal),
-        _build.dtype_code(q.dtype))
+        *_codes(q.dtype, out_dtype))
 
 
-def _kernel_dkdv(q, k, v, do, lse, delta, causal, scale, kind):
+def _kernel_dkdv(q, k, v, do, lse, delta, causal, scale, kind,
+                 out_dtype=None):
     """The dK/dV kernel ``kind`` on :func:`_bwd_inputs`: ``(dk, dv)`` at
-    its width."""
-    ins, dims = _bwd_args(q, k, v, do, lse, delta, causal, scale)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    its width, in ``out_dtype`` (the inputs' by default; f32 from bf16 is
+    the chunk mode, counted as such)."""
+    ins, dims = _bwd_args(q, k, v, do, lse, delta, causal, scale, out_dtype)
+    dk = torch.empty_like(k, dtype=out_dtype or k.dtype)
+    dv = torch.empty_like(v, dtype=out_dtype or v.dtype)
     entry, what = _entry(kind, "bwd_dkdv")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.check(entry(*ins, dk.data_ptr(), dv.data_ptr(), *dims, stream),
                      what)
-    _count(kind, "_dkdv")
+    _count(kind, "_dkdv", chunk=dk.dtype != k.dtype)
     return dk, dv
 
 
-def _kernel_dq(q, k, v, do, lse, delta, causal, scale, kind):
+def _kernel_dq(q, k, v, do, lse, delta, causal, scale, kind,
+               out_dtype=None):
     """The dQ kernel ``kind`` on :func:`_bwd_inputs`: ``dq`` at its
-    width."""
-    ins, dims = _bwd_args(q, k, v, do, lse, delta, causal, scale)
-    dq = torch.empty_like(q)
+    width, in ``out_dtype`` as :func:`_kernel_dkdv`."""
+    ins, dims = _bwd_args(q, k, v, do, lse, delta, causal, scale, out_dtype)
+    dq = torch.empty_like(q, dtype=out_dtype or q.dtype)
     entry, what = _entry(kind, "bwd_dq")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.check(entry(*ins, dq.data_ptr(), *dims, stream), what)
-    _count(kind, "_dq")
+    _count(kind, "_dq", chunk=dq.dtype != q.dtype)
     return dq
 
 
@@ -503,3 +534,103 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         scale = q.shape[-1] ** -0.5
     return _FlashAttention.apply(q, k, v, causal, scale,
                                  not _resolve_native(q, k, v, native))
+
+
+# ---------------------------------------------------------------------------
+# Chunk entry points: ring attention's per-(Q-chunk, KV-chunk) calls.
+
+
+def _chunk_family(q, k, v):
+    """``hm`` for a chunk call: the family ``flash_attention`` would pick
+    with no ``native`` (the JAX chunk functions dispatch the same way),
+    its head_dim held as that family holds it."""
+    hm = not _resolve_native(q, k, v, None)
+    if hm:
+        _check_head_dim(q.shape[-1], hm)
+    return hm
+
+
+def _flash_chunk_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     causal: bool, scale: float
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward-only chunk attention (the JAX package's
+    ``_flash_chunk_fwd``): ``(out, lse)`` with ``out [B,Tq,H,D]`` the f32
+    chunk-normalised output and ``lse [B,Tq,H]`` f32 the chunk's
+    log-sum-exp, the pair ring attention merges across chunks.  No
+    autograd: the ring builds the backward from :func:`_flash_chunk_bwd`.
+
+    CPU tensors take :func:`attention_reference` with f32 out; CUDA
+    tensors launch the forward kernel of the family ``flash_attention``
+    picks (#1, #5, or flash_generic.cu above head_dim 128) with f32 O
+    (from bf16 inputs, counted in ``_flash_chunk_fwd.launches``,
+    ``.launches_hm``, ``.launches_generic``), or raise."""
+    _validate(q, k, v, causal)
+    hm = _chunk_family(q, k, v)
+    if q.device.type == "cpu":
+        out, lse = attention_reference(q, k, v, causal, scale,
+                                       out_dtype=torch.float32)
+    else:
+        _check_kernel_inputs(hm, q, k, v)
+        kind, d = _kernel_for(q, hm)
+        out, lse = _kernel_fwd(*_pad_cols(d, q, k, v), causal, scale, kind,
+                               out_dtype=torch.float32)
+        out = _unpad(out, q.shape[-1])
+    return out, lse.transpose(1, 2).contiguous()
+
+
+_flash_chunk_fwd.launches = 0
+_flash_chunk_fwd.launches_hm = 0
+_flash_chunk_fwd.launches_generic = 0
+
+
+def _flash_chunk_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     out: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
+                     causal: bool, scale: float,
+                     delta: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Backward of one (Q-chunk, KV-chunk) pair given the GLOBAL row
+    statistics (the JAX package's ``_flash_chunk_bwd``): ``lse [B,Tq,H]``
+    is the final merged log-sum-exp, ``out`` and ``g`` the final output
+    and its cotangent for the Q chunk, ``delta [B,Tq,H]`` their rowsum
+    product (computed from them when absent).  The LSE is never
+    recomputed: that is what makes the chunks' gradients sum to the
+    global one.  Returns f32 ``(dq, dk, dv)``.
+
+    CPU tensors take :func:`attention_backward_reference` with f32
+    gradients; CUDA tensors launch the dK/dV and dQ kernels of the
+    family :func:`_flash_chunk_fwd` picks with f32 outputs (counted in
+    ``_flash_chunk_bwd.launches_dkdv``, ``.launches_dq`` and their
+    ``_hm`` and ``_generic`` forms), or raise."""
+    _validate(q, k, v, causal)
+    hm = _chunk_family(q, k, v)
+    rows = (q.shape[0], q.shape[1], q.shape[2])
+    if out.shape != q.shape or g.shape != q.shape or lse.shape != rows \
+            or (delta is not None and delta.shape != rows):
+        raise ValueError(
+            f"_flash_chunk_bwd: out {tuple(out.shape)}, g "
+            f"{tuple(g.shape)}, lse {tuple(lse.shape)}, delta "
+            f"{None if delta is None else tuple(delta.shape)} do not fit "
+            f"q {tuple(q.shape)}")
+    if g.dtype != q.dtype:
+        raise TypeError(f"_flash_chunk_bwd: g {g.dtype}, need q's dtype "
+                        f"{q.dtype}")
+    lse_h = lse.float().transpose(1, 2).contiguous()  # the kernels' [B,H,T]
+    delta_h = (attention_delta(out, g) if delta is None
+               else delta.float().transpose(1, 2).contiguous())
+    if q.device.type == "cpu":
+        return attention_backward_reference(q, k, v, out, lse_h, g, causal,
+                                            scale, delta=delta_h,
+                                            grad_dtype=torch.float32)
+    _check_kernel_inputs(hm, q, k, v, g, lse_h, delta_h)
+    ins = _bwd_inputs(q, k, v, g, lse_h, delta_h, causal, scale, hm)
+    dk, dv = _kernel_dkdv(*ins, out_dtype=torch.float32)
+    dq = _kernel_dq(*ins, out_dtype=torch.float32)
+    return tuple(_unpad(x, q.shape[-1]) for x in (dq, dk, dv))
+
+
+_flash_chunk_bwd.launches_dkdv = 0
+_flash_chunk_bwd.launches_dq = 0
+_flash_chunk_bwd.launches_hm_dkdv = 0
+_flash_chunk_bwd.launches_hm_dq = 0
+_flash_chunk_bwd.launches_generic_dkdv = 0
+_flash_chunk_bwd.launches_generic_dq = 0

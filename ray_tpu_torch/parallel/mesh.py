@@ -1,6 +1,13 @@
-"""The declarative mesh vocabulary of the JAX package's
-``parallel/mesh.py``: ``MeshConfig``, ``AXIS_ORDER`` and
-``mesh_shape_for``, which ``train.config.ScalingConfig`` names.
+"""Device mesh construction: the JAX package's ``parallel/mesh.py`` on a
+``torch.distributed`` ``DeviceMesh``.
+
+The JAX package declares parallelism as named axes of a
+``jax.sharding.Mesh`` over the devices of one program, and XLA compiles
+the collectives.  Here every rank is a process with one device, and the
+mesh is a ``DeviceMesh`` over the ranks of the default process group with
+the same six named axes, each axis a process group for the collectives
+of the port's per-rank functions (ring attention's sends, Ulysses'
+all-to-all, the gradients' all-reduce).
 
 Axis vocabulary (outermost first):
 
@@ -13,22 +20,25 @@ Axis vocabulary (outermost first):
 - ``ep``   — expert parallelism (MoE all-to-all), usually aliasing dp/fsdp
 
 Axes listed in ``dcn_axes`` cross host boundaries; the rest stay inside
-a host.  Building a device mesh from a config (``build_mesh``, the
-global mesh, ``shard_map``) comes with the port's parallel layer on
-torch ``DeviceMesh`` (ROADMAP.md, queue 1, item 5); those names raise
-until then.
+a host.
+
+``shard_map`` has no counterpart: the JAX package maps a per-device
+function over a global array with it, and the port's functions are
+per-rank already (each rank passes its own shard and names the axis its
+collectives run over), so it raises with a message that says so.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import TYPE_CHECKING, Dict, Optional, Sequence, Tuple
 
-from ray_tpu_torch import _port
+if TYPE_CHECKING:  # torch is imported where a mesh is built: the
+    # vocabulary below serves Train's config, which loads no torch
+    from torch.distributed.device_mesh import DeviceMesh
 
 AXIS_ORDER = ("dp", "fsdp", "pp", "sp", "tp", "ep")
-_LATER = "queue 1, item 5"
 
 
 @dataclass
@@ -79,18 +89,91 @@ def mesh_shape_for(n_devices: int, *, tp: int = 1, sp: int = 1,
     return cfg.resolved(n_devices)
 
 
-def build_mesh(config=None, devices=None):
-    raise _port.not_ported("build_mesh", _LATER)
+def build_mesh(config: Optional[MeshConfig] = None,
+               devices: Optional[Sequence[int]] = None, *,
+               device: str = "cuda") -> DeviceMesh:
+    """A ``DeviceMesh`` with all six named axes over the ranks of the
+    default process group, or over ``devices`` (global ranks, each
+    process's one device), laid out in ``AXIS_ORDER``: the innermost
+    axes (tp, sp) over neighbouring ranks.  Every rank calls it with the
+    same arguments; it makes one process group per axis.  ``device`` is
+    ``"cuda"`` (NCCL) unless the caller asks for the CPU (``"cpu"``, a
+    gloo group).
+
+    Needs ``torch.distributed`` initialised: nothing tells a program of
+    its cluster, so the caller gives ``init_process_group`` its address,
+    world size and rank."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "build_mesh needs torch.distributed initialised: call "
+            "init_process_group(backend, init_method='tcp://host:port', "
+            "world_size=..., rank=...) on every rank first")
+    if device not in ("cuda", "cpu"):
+        raise ValueError(f"build_mesh: device 'cuda' or 'cpu', got "
+                         f"{device!r}")
+    ranks = list(range(dist.get_world_size()) if devices is None
+                 else devices)
+    config = (config or MeshConfig(dp=-1)).resolved(len(ranks))
+    sizes = config.axis_sizes()
+    shape = tuple(sizes[a] for a in AXIS_ORDER)
+    return DeviceMesh(device, torch.tensor(ranks).reshape(shape),
+                      mesh_dim_names=AXIS_ORDER)
 
 
-def set_global_mesh(mesh) -> None:
-    raise _port.not_ported("set_global_mesh", _LATER)
+def mesh_axis_size(mesh: DeviceMesh, axis: str) -> int:
+    return mesh.shape[mesh.mesh_dim_names.index(axis)]
+
+
+def axis_group(mesh: Optional[DeviceMesh], axis: str):
+    """The process group of ``axis`` on ``mesh``, or None where the
+    axis has one rank (or there is no mesh): its collectives are then
+    the identity and need no group."""
+    if mesh is None or mesh_axis_size(mesh, axis) == 1:
+        return None
+    return mesh.get_group(axis)
+
+
+_global_mesh: Optional[DeviceMesh] = None
+
+
+def set_global_mesh(mesh: Optional[DeviceMesh]) -> None:
+    """Install the process-wide mesh the model's sequence-parallel
+    attention reads (GPT-2's ``attn_impl="ring" | "ulysses"``)."""
+    global _global_mesh
+    _global_mesh = mesh
+
+
+def get_global_mesh() -> Optional[DeviceMesh]:
+    return _global_mesh
 
 
 class use_mesh:
-    def __init__(self, mesh):
-        raise _port.not_ported("use_mesh", _LATER)
+    """Context manager form of :func:`set_global_mesh`."""
+
+    def __init__(self, mesh: DeviceMesh):
+        self.mesh = mesh
+        self._prev: Optional[DeviceMesh] = None
+
+    def __enter__(self) -> DeviceMesh:
+        self._prev = get_global_mesh()
+        set_global_mesh(self.mesh)
+        return self.mesh
+
+    def __exit__(self, *exc) -> None:
+        set_global_mesh(self._prev)
+
+
+def local_mesh_summary(mesh: DeviceMesh) -> Dict[str, int]:
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
 
 
 def shard_map(f, *, mesh, in_specs, out_specs, **kwargs):
-    raise _port.not_ported("shard_map", _LATER)
+    raise NotImplementedError(
+        "shard_map has no ray_tpu_torch counterpart: the port's functions "
+        "are per-rank already; call them on each rank's shard with the "
+        "mesh and the axis name (ring_attention(q, k, v, mesh=mesh, "
+        "axis_name='sp'))")

@@ -215,13 +215,6 @@ def test_reference_attention_matches_flash_path():
                                    msg=name)
 
 
-@pytest.mark.parametrize("impl", ["ring", "ulysses"])
-def test_sequence_parallel_attention_raises(impl):
-    cfg = tgpt2.GPT2Config.tiny(attn_impl=impl, **_SHAPE)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tgpt2.GPT2(cfg, device="cpu")
-
-
 @pytest.mark.parametrize("preset", ["gpt2_small", "gpt2_medium",
                                     "gpt2_large", "gpt2_xl", "tiny"])
 def test_config_presets_match_jax(preset):
