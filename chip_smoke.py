@@ -56,10 +56,12 @@ no network.  Phases, one JSON line each:
     of 16, 2 KV heads), f32: logits and every gradient on the card (the
     head-major kernels at head_dim 16) against the CPU; then bf16,
     finite.
-16. ``head_dims``: GPT-2 of 2 layers at head_dim 160 (csrc/
-    flash_generic.cu) and 20 (the head-major kernels on zero-padded
+16. ``head_dims``: GPT-2 of 2 layers at head_dim 160 and 256 (f32:
+    csrc/flash_generic.cu) and 20 (the head-major kernels on zero-padded
     inputs), f32: one step's loss and every gradient on the card against
-    the CPU, with each route's launches.
+    the CPU, with each route's launches; then at 160 and 256 in bf16
+    (csrc/flash_wide.cu's forward and dK/dV, flash_generic.cu's dQ)
+    against the f32 step.
 17. ``runtime``: the port's own cluster, ``init(num_cpus=4,
     num_gpus=1)`` with the object store in /dev/shm: a GPU task returns
     a seeded bf16 [8192, 8192] CUDA tensor (128 MiB) equal to the
@@ -91,15 +93,17 @@ no network.  Phases, one JSON line each:
     the losses against flash's, step ms, tokens/s, peak memory and the
     launches (the ring's steps launch only the chunk mode of #1/#3/#4);
     then ring attention over 4 ranks driven in one process
-    (``simulate_ring``) at [1, 32768, 12, 64], [1, 8192, 25, 64] and
-    [1, 4096, 4, 256], and Ulysses (``simulate_ulysses``) at
+    (``simulate_ring``) at [1, 32768, 12, 64], [1, 8192, 25, 64],
+    [1, 4096, 4, 256] and [1, 2048, 4, 512], and Ulysses
+    (``simulate_ulysses``) at
     [1, 32768, 12, 64], against ``flash_attention`` on the whole
     sequence, row by row.
 
 The ``kernels`` phase also holds the backward kernels (dK/dV and dQ) and
 both kernel families (native layout and head-major; head-major at every
 head_dim it takes a build for, 32, 64 and 128, and at 16, 48, 80 and 96,
-at 20 and 44 on zero-padded inputs and at 160 to 1024 on
+at 20 and 44 on zero-padded inputs, at 160, 200 and 256 on
+csrc/flash_wide.cu (bf16 forward and dK/dV) and at 160 to 1024 on
 csrc/flash_generic.cu, odd head counts, ragged lengths, ViT's non-causal
 197, more than 65535 heads in all) against their plain versions, RMSNorm with a bf16 weight
 too, and times them at the training shapes (GPT-2 124M and XL, ViT-B/16,
@@ -107,7 +111,7 @@ the MoE) beside SDPA; and the chunk mode of ring attention
 (``_flash_chunk_fwd`` / ``_flash_chunk_bwd``: bf16 in, f32 out, the
 backward from a given LSE and delta) on every route, timed at a 4-way
 ring's chunk of 32768 tokens of GPT-2 124M and of XL's head count, and
-at head_dim 256.  Each main path (``serve``, ``train``,
+at head_dim 256 and 512.  Each main path (``serve``, ``train``,
 ``train_xl``, ``vit``, ``moe``, ``resnet``, ``head_dims``, ``runtime``,
 ``train_gang``, whose worker counts its own, ``serve_batching``,
 ``long_context`` and each run of ``seq_parallel``) is
@@ -159,13 +163,15 @@ DQ_CROSS_LENGTHS = (65, 191)
 PADDED_HEAD_DIMS = (16, 48, 80, 96)
 PADDED_LENGTHS = (1, 129, 1000)
 HEAD_DIM_SHAPE = (8, 1024, 16)
-# head-major head sizes no build takes as they are (flash_attention.
-# _hm_route): 20 and 44 run on the 24 and 48 builds' kernels on
-# zero-padded copies, 160 and up on csrc/flash_generic.cu (its blocks own
-# 64 rows up to 256, 32 up to 512, 16 up to 1024); each held and timed at
-# HEAD_DIM_SHAPE's batch, length and heads, causal and full, and in f32 at
-# ROUTED_F32, then held at ragged lengths and at the generic kernels'
-# limit
+# head-major head sizes no 32/64/128 build takes as they are
+# (flash_attention._hm_route): 20 and 44 run on the 24 and 48 builds'
+# kernels on zero-padded copies; 160 and 256 in bf16 on csrc/flash_wide.cu
+# (the forward and dK/dV; its 192 and 256 builds) and csrc/
+# flash_generic.cu (dQ), in f32 on flash_generic.cu (its blocks own 64
+# rows up to 256, 32 up to 512, 16 up to 1024), as is everything above 256
+# (ROUTED_WIDE); each held and timed at HEAD_DIM_SHAPE's batch, length and
+# heads, causal and full, and in f32 at ROUTED_F32, then held at ragged
+# lengths and at the generic kernels' limit
 ROUTED_HEAD_DIMS = (20, 44, 160, 256)
 ROUTED_WIDE = (2, 512, 4, 512)
 ROUTED_F32 = (2, 256, 4)
@@ -357,6 +363,10 @@ def runtime_attrs(symbol, d, f32_out=False):
     out = (ctypes.c_int * 3)()
     if symbol == "flash_fwd_bf16_kernel":
         rc = lib.rtt_flash_fwd_attrs(d, int(f32_out), out)
+    elif symbol.startswith("wide_"):
+        rc = lib.rtt_flash_wide_attrs(
+            {"wide_fwd_kernel": 0, "wide_dkdv_kernel": 1}[symbol], d,
+            int(f32_out), out)
     else:
         rc = lib.rtt_flash_bwd_attrs(
             {"bwd_dkdv_bf16_kernel": 0, "bwd_dq_bf16_kernel": 1}[symbol], d,
@@ -379,24 +389,35 @@ def _heads_first(*xs):
     return tuple(x.transpose(1, 2).contiguous() for x in xs)
 
 
-def _case_kernel(hm, d, part):
-    """A case's kernel name: the native-layout family's, the head-major
-    family's, or flash_generic.cu's where _hm_route sends head_dim d."""
-    from ray_tpu_torch.ops.flash_attention import _hm_route
-    if not hm:
-        return f"flash_{part}"
-    return f"flash_{'generic' if _hm_route(d)[0] == 'generic' else 'hm'}_{part}"
+def _route_kinds(hm, d, dtype):
+    """The kernel selector of each part ("fwd", "dkdv", "dq") of a call
+    of one family at head_dim d with inputs of dtype: "nl", or
+    _hm_route's "hm", "wide" or "generic"."""
+    from ray_tpu_torch.ops.flash_attention import PARTS, _hm_route
+    return {p: _hm_route(d, dtype, p)[0] if hm else "nl" for p in PARTS}
 
 
-def _launched(hm, d):
+def _case_kernel(hm, d, dtype, part):
+    """A case's kernel name for ``part`` ("fwd", "bwd_dkdv", "bwd_dq"):
+    the native-layout family's (flash_fwd), or the head-major kernel
+    _hm_route picks (flash_hm_fwd, flash_wide_fwd, flash_generic_fwd)."""
+    kind = _route_kinds(hm, d, dtype)[part.split("_")[-1]]
+    return f"flash_{'' if kind == 'nl' else kind + '_'}{part}"
+
+
+def _launched(hm, d, dtype):
     """The launch counts a head-major or native-layout call at head_dim d
-    moves: (forward, dK/dV, dQ) as (function, attribute)."""
-    from ray_tpu_torch.ops.flash_attention import _hm_route
+    with inputs of dtype moves: (forward, dK/dV, dQ) as (function,
+    attribute)."""
     fwd, bwd = _family(hm)
-    if hm and _hm_route(d)[0] == "generic":
-        return ((fwd, "launches_generic"), (bwd, "launches_generic_dkdv"),
-                (bwd, "launches_generic_dq"))
-    return ((fwd, "launches"), (bwd, "launches_dkdv"), (bwd, "launches_dq"))
+    kinds = _route_kinds(hm, d, dtype)
+
+    def attr(part):
+        kind = kinds[part]
+        return "launches" + ("" if kind in ("nl", "hm") else "_" + kind) + (
+            "" if part == "fwd" else "_" + part)
+
+    return ((fwd, attr("fwd")), (bwd, attr("dkdv")), (bwd, attr("dq")))
 
 
 def flash_case(timer, gen, shape, dtype, causal, timed, hm=False, tk=None):
@@ -413,7 +434,7 @@ def flash_case(timer, gen, shape, dtype, causal, timed, hm=False, tk=None):
     k, v = (torch.randn(kv_shape, generator=gen, device="cuda").to(dtype)
             for _ in range(2))
     scale = d ** -0.5
-    counter = _launched(hm, d)[0]
+    counter = _launched(hm, d, dtype)[0]
     before = getattr(*counter)
     out, lse = fwd(q, k, v, causal=causal)
     torch.cuda.synchronize()
@@ -428,7 +449,7 @@ def flash_case(timer, gen, shape, dtype, causal, timed, hm=False, tk=None):
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
     row_err = row_scaled_err(out, ref)
     assert row_err <= ROW_TOL[dtype], ("O", row_err, ROW_TOL[dtype])
-    res = {"kernel": _case_kernel(hm, d, "fwd"),
+    res = {"kernel": _case_kernel(hm, d, dtype, "fwd"),
            "shape": list(shape), **({} if tk is None else {"tk": tk}),
            "dtype": str(dtype).replace("torch.", ""), "causal": causal,
            "max_abs_err": max_err(out, ref), "lse_max_abs_err":
@@ -518,14 +539,18 @@ def bwd_case(timer, gen, shape, dtype, causal, timed, hm=False, tk=None):
             for _ in range(2))
     scale = d ** -0.5
     out, lse = fwd(q, k, v, causal=causal)
-    counters = _launched(hm, d)[1:]
+    counters = _launched(hm, d, dtype)[1:]
     before = [getattr(*c) for c in counters]
     grads = bwd(q, k, v, out, lse, do, causal=causal, scale=scale)
     torch.cuda.synchronize()
     assert [getattr(*c) for c in counters] == [n + 1 for n in before]
     ref = attention_backward_reference(q, k, v, out, lse, do, causal, scale)
     tol = ROW_TOL[dtype]
-    res = {"kernel": _case_kernel(hm, d, "bwd"),
+    # one name for the pair, and each part's kernel: at head_dim 129-256
+    # in bf16, dK/dV runs on flash_wide.cu and dQ on flash_generic.cu
+    res = {"kernel": _case_kernel(hm, d, dtype, "bwd_dkdv")[:-len("_dkdv")],
+           "kernel_dkdv": _case_kernel(hm, d, dtype, "bwd_dkdv"),
+           "kernel_dq": _case_kernel(hm, d, dtype, "bwd_dq"),
            "shape": list(shape), **({} if tk is None else {"tk": tk}),
            "dtype": str(dtype).replace("torch.", ""), "causal": causal,
            "row_tol": tol, "launches": 1}
@@ -548,9 +573,9 @@ def bwd_case(timer, gen, shape, dtype, causal, timed, hm=False, tk=None):
         # each kernel as the wrapper runs it: inputs padded to the route's
         # width, outputs sliced back (neither copies off the pad route)
         res["kernel_ms_dkdv"] = timer(lambda: [
-            _unpad(g, d) for g in _kernel_dkdv(*_bwd_inputs(*args, hm))])
+            _unpad(g, d) for g in _kernel_dkdv(*_bwd_inputs(*args, hm)[0])])
         res["kernel_ms_dq"] = timer(lambda: _unpad(
-            _kernel_dq(*_bwd_inputs(*args, hm)), d))
+            _kernel_dq(*_bwd_inputs(*args, hm)[1]), d))
         res["kernel_ms"] = res["kernel_ms_dkdv"] + res["kernel_ms_dq"]
         res["plain_ms"] = timer(lambda: attention_backward_reference(
             q, k, v, out, lse, do, causal, scale))
@@ -595,16 +620,21 @@ def bwd_case(timer, gen, shape, dtype, causal, timed, hm=False, tk=None):
 # bf16 inputs, f32 outputs, the backward from a given LSE and delta.  Its
 # shapes: a 4-way ring over 32768 tokens of GPT-2 124M (12 heads of 64,
 # native layout) and of GPT-2 XL's head count (25, head-major), causal
-# (the diagonal chunk) and not (a past one); flash_generic.cu at one
-# head_dim above 128; then the tiles' edges of every route untimed.
+# (the diagonal chunk) and not (a past one); head_dim 256 (flash_wide.cu's
+# forward and dK/dV, flash_generic.cu's dQ) and 512 (flash_generic.cu);
+# then the tiles' edges of every route untimed, with the ring's chunk at
+# head_dim 256 (SP_RING_SHAPES) on the diagonal and a past one.
 CHUNK_NL = (1, 8192, 12, 64)
 CHUNK_HM = (1, 8192, 25, 64)
-CHUNK_GENERIC = HEAD_DIM_SHAPE + (256,)
+CHUNK_WIDE = HEAD_DIM_SHAPE + (256,)
+CHUNK_GENERIC = ROUTED_WIDE
 CHUNK_EDGES = (((2, 200, 2, 64), True, None), ((2, 1000, 2, 128), True, None),
                ((2, 65, 2, 64), True, None), ((2, 130, 2, 64), False, 257),
                ((2, 200, 3, 32), True, None), ((2, 63, 3, 128), True, None),
                ((2, 129, 3, 20), True, None), ((2, 100, 3, 160), True, None),
-               ((2, 130, 3, 160), False, 257))
+               ((2, 130, 3, 160), False, 257), ((2, 100, 3, 200), True, None),
+               ((1, 4096, 4, 256), True, None),
+               ((1, 4096, 4, 256), False, None))
 # the plain versions of the chunk cases run over this many heads at a time
 # (a [1, 8192, 25, 64] backward at once holds 30 GB of [T, T] f32 tensors)
 PLAIN_HEADS = 4
@@ -619,18 +649,29 @@ def _by_heads(fn, *xs, heads=PLAIN_HEADS):
     return tuple(torch.cat(p, dim=2) for p in zip(*parts))
 
 
-def _chunk_kind(q):
-    """The chunk case's kernel family (_flash_chunk_fwd's dispatch):
-    "", "hm" or "generic", and its counters' suffix."""
-    from ray_tpu_torch.ops.flash_attention import _chunk_family, _hm_route
-    if not _chunk_family(q, q, q):
-        return ""
-    return "generic" if _hm_route(q.shape[-1])[0] == "generic" else "hm"
+def _chunk_kinds(q):
+    """The chunk call's kernel of each part ("fwd", "dkdv", "dq"), as
+    _flash_chunk_fwd / _flash_chunk_bwd dispatch it: "" (native layout),
+    "hm", "wide" or "generic", its counters' suffix."""
+    from ray_tpu_torch.ops.flash_attention import _chunk_family
+    kinds = _route_kinds(_chunk_family(q, q, q), q.shape[-1], q.dtype)
+    return {p: "" if k == "nl" else k for p, k in kinds.items()}
 
 
 def chunk_name(kind, part):
     """The kernels line's name of a chunk-mode kernel."""
     return f"flash_{kind + '_' if kind else ''}{part}_f32out"
+
+
+def _chunk_counter(kind, part):
+    """(function, attribute) counting chunk-mode launches of ``part``
+    ("fwd", "dkdv", "dq") on ``kind``."""
+    from ray_tpu_torch.ops.flash_attention import (_flash_chunk_bwd,
+                                                   _flash_chunk_fwd)
+    sfx = "_" + kind if kind else ""
+    if part == "fwd":
+        return _flash_chunk_fwd, "launches" + sfx
+    return _flash_chunk_bwd, f"launches{sfx}_{part}"
 
 
 def chunk_case(timer, gen, shape, causal, timed, tk=None):
@@ -656,19 +697,16 @@ def chunk_case(timer, gen, shape, causal, timed, tk=None):
     k, v = (torch.randn(kv_shape, generator=gen, device="cuda").to(bf)
             for _ in range(2))
     scale = d ** -0.5
-    kind = _chunk_kind(q)
-    sfx = "_" + kind if kind else ""
-    fwd_n = _flash_chunk_fwd, "launches" + sfx
-    bwd_n = [(_flash_chunk_bwd, f"launches{sfx}_{p}")
-             for p in ("dkdv", "dq")]
-    before = [getattr(*c) for c in [fwd_n] + bwd_n]
+    kinds = _chunk_kinds(q)
+    counters = [_chunk_counter(kinds[p], p) for p in ("fwd", "dkdv", "dq")]
+    before = [getattr(*c) for c in counters]
     out, lse = _flash_chunk_fwd(q, k, v, causal, scale)
     out_bf = out.to(bf)
     delta = 0.5 * attention_delta(out_bf, g).transpose(1, 2)  # [B, T, H]
     grads = _flash_chunk_bwd(q, k, v, out_bf, lse, g, causal, scale,
                              delta=delta)
     torch.cuda.synchronize()
-    assert [getattr(*c) for c in [fwd_n] + bwd_n] == [n + 1 for n in before]
+    assert [getattr(*c) for c in counters] == [n + 1 for n in before]
     assert out.dtype == torch.float32 and lse.shape == (b, t, h)
     lse_h = lse.transpose(1, 2)
 
@@ -686,7 +724,9 @@ def chunk_case(timer, gen, shape, causal, timed, tk=None):
     ref, ref_lse = _by_heads(plain_fwd, q, k, v)
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
     tol = ROW_TOL[bf]
-    res = {"kernel": chunk_name(kind, "fwd"), "mode": "f32out",
+    res = {"kernel": chunk_name(kinds["fwd"], "fwd"),
+           "kernel_dkdv": chunk_name(kinds["dkdv"], "bwd_dkdv"),
+           "kernel_dq": chunk_name(kinds["dq"], "bwd_dq"), "mode": "f32out",
            "shape": list(shape), **({} if tk is None else {"tk": tk}),
            "dtype": "bfloat16", "out_dtype": "float32", "causal": causal,
            "row_tol": tol, "launches": 1,
@@ -708,24 +748,24 @@ def chunk_case(timer, gen, shape, causal, timed, tk=None):
         pairs = t * (t + 1) // 2 if causal else t * tkk
         one = q.numel() * 2          # one bf16 [B, T, H, D] input
         rows = b * h * t * 4         # one f32 [B, T, H] row statistic
-        hm = bool(kind)
+        hm = bool(kinds["fwd"])
         args = (q, k, v, g, lse_h.contiguous(),
                 delta.transpose(1, 2).contiguous(), causal, scale)
         f32 = torch.float32
         res["kernel_ms"] = timer(lambda: _flash_chunk_fwd(q, k, v, causal,
                                                           scale))
         res["kernel_ms_dkdv"] = timer(lambda: _kernel_dkdv(
-            *_bwd_inputs(*args, hm), out_dtype=f32))
+            *_bwd_inputs(*args, hm)[0], out_dtype=f32))
         res["kernel_ms_dq"] = timer(lambda: _kernel_dq(
-            *_bwd_inputs(*args, hm), out_dtype=f32))
+            *_bwd_inputs(*args, hm)[1], out_dtype=f32))
         # the same kernels with bf16 outputs, on the same inputs
         kernel, d_k = _kernel_for(q, hm)
         res["bf16out_ms"] = timer(lambda: _kernel_fwd(
             *_pad_cols(d_k, q, k, v), causal, scale, kernel))
         res["bf16out_ms_dkdv"] = timer(lambda: _kernel_dkdv(
-            *_bwd_inputs(*args, hm)))
+            *_bwd_inputs(*args, hm)[0]))
         res["bf16out_ms_dq"] = timer(lambda: _kernel_dq(
-            *_bwd_inputs(*args, hm)))
+            *_bwd_inputs(*args, hm)[1]))
         res["plain_ms"] = timer(lambda: _by_heads(plain_fwd, q, k, v))
         res["plain_ms_bwd"] = timer(lambda: _by_heads(
             plain_bwd, q, k, v, out_bf, lse, g, delta))
@@ -740,9 +780,9 @@ def chunk_case(timer, gen, shape, causal, timed, tk=None):
 
 
 def chunk_cases(timer, gen, add):
-    """The chunk mode's cases: timed at CHUNK_NL, CHUNK_HM and
-    CHUNK_GENERIC, causal and not, then held at CHUNK_EDGES."""
-    for shape in (CHUNK_NL, CHUNK_HM, CHUNK_GENERIC):
+    """The chunk mode's cases: timed at CHUNK_NL, CHUNK_HM, CHUNK_WIDE
+    and CHUNK_GENERIC, causal and not, then held at CHUNK_EDGES."""
+    for shape in (CHUNK_NL, CHUNK_HM, CHUNK_WIDE, CHUNK_GENERIC):
         for causal in (True, False):
             add(chunk_case(timer, gen, shape, causal, timed=True))
             _free()
@@ -895,9 +935,11 @@ def routed_head_dim_cases(timer, gen, add, cases):
                            causal, timed=True, hm=True))
             add(bwd_case(timer, gen, ROUTED_F32 + (d,), torch.float32,
                          causal, timed=True, hm=True))
-    # ragged ends of every route's tiles, one position, Tq != Tk, and the
-    # generic kernels' widest head (16-row blocks)
-    for d in ROUTED_HEAD_DIMS + (1000, 1024):
+    # ragged ends of every route's tiles, one position, Tq != Tk (150: the
+    # wide kernels on inputs padded to 152; 200: the 256 build's last box
+    # partly past head_dim), and the generic kernels' widest head (16-row
+    # blocks)
+    for d in ROUTED_HEAD_DIMS + (150, 200, 1000, 1024):
         for dtype in (torch.float32, torch.bfloat16):
             for shape in ROUTED_RAGGED:
                 add(flash_case(timer, gen, shape + (d,), dtype, True,
@@ -1060,7 +1102,10 @@ FLASH_NL = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
 FLASH_HM = ("flash_hm_fwd", "flash_hm_bwd_dkdv", "flash_hm_bwd_dq")
 FLASH_GENERIC = ("flash_generic_fwd", "flash_generic_bwd_dkdv",
                  "flash_generic_bwd_dq")
-FLASH_ALL = FLASH_NL + FLASH_HM + FLASH_GENERIC
+# head_dim 129-256 in bf16: flash_wide.cu's forward and dK/dV, and
+# flash_generic.cu's dQ
+FLASH_WIDE = ("flash_wide_fwd", "flash_wide_bwd_dkdv", "flash_generic_bwd_dq")
+FLASH_ALL = FLASH_NL + FLASH_HM + FLASH_WIDE[:2] + FLASH_GENERIC
 
 
 def _flash_counts():
@@ -1069,17 +1114,20 @@ def _flash_counts():
     return dict(zip(FLASH_ALL, (
         nl_fwd.launches, nl_bwd.launches_dkdv, nl_bwd.launches_dq,
         hm_fwd.launches, hm_bwd.launches_dkdv, hm_bwd.launches_dq,
+        hm_fwd.launches_wide, hm_bwd.launches_wide_dkdv,
         hm_fwd.launches_generic, hm_bwd.launches_generic_dkdv,
         hm_bwd.launches_generic_dq)))
 
 
-def _flash_per(fwd, hm=False, bwd=None, generic=False):
-    """Launches of one family's kernels (or, with ``generic``,
-    flash_generic.cu's): ``fwd`` forwards and ``bwd`` of each backward
-    kernel (default ``fwd``); none of the others."""
+def _flash_per(fwd, hm=False, bwd=None, route=None):
+    """Launches of one family's kernels (or, with ``route`` "wide" or
+    "generic", of that head-major route's: FLASH_WIDE or FLASH_GENERIC):
+    ``fwd`` forwards and ``bwd`` of each backward kernel (default
+    ``fwd``); none of the others."""
     bwd = fwd if bwd is None else bwd
     counts = dict.fromkeys(FLASH_ALL, 0)
-    names = FLASH_GENERIC if generic else FLASH_HM if hm else FLASH_NL
+    names = {"wide": FLASH_WIDE, "generic": FLASH_GENERIC}.get(
+        route, FLASH_HM if hm else FLASH_NL)
     counts.update(zip(names, (fwd, bwd, bwd)))
     return counts
 
@@ -1089,6 +1137,7 @@ def _zero_counts():
     for fwd, bwd in (_family(False), _family(True)):
         fwd.launches = bwd.launches_dkdv = bwd.launches_dq = 0
     hm_fwd, hm_bwd = _family(True)
+    hm_fwd.launches_wide = hm_bwd.launches_wide_dkdv = 0
     hm_fwd.launches_generic = 0
     hm_bwd.launches_generic_dkdv = hm_bwd.launches_generic_dq = 0
     fused_rmsnorm.launches = 0
@@ -1938,17 +1987,28 @@ def phase_runtime():
 # head_dims: GPT-2 of 2 layers (GPT2Config.tiny's vocabulary and length)
 # at head sizes only the routes take: (heads, width) for head_dim 160
 # (flash_generic.cu) and 20 (zero-padded onto the 24 build's kernels)
-HEAD_DIM_MODELS = ((4, 640), (4, 80))
+HEAD_DIM_MODELS = ((4, 640), (4, 80), (4, 1024))  # head_dim 160, 20, 256
+# head_dims in bf16 (head_dim 160 and 256 only: flash_wide.cu's forward and
+# dK/dV, flash_generic.cu's dQ) against the same weights' f32 step on the
+# card: the loss within HEAD_DIM_BF16_LOSS_RTOL, each gradient within
+# HEAD_DIM_BF16_GRAD_TOL of its tensor's largest element: bf16 rounding of
+# every product.  Measured on an H100: 0.7-1.2e-5 (loss) and 0.0106-0.0108
+# (gradients); the plain versions on the CPU read 3-4e-5 and 0.010-0.011.
+# Limits about 2.5 and 3 times the worst of those.
+HEAD_DIM_BF16_LOSS_RTOL = 1e-4
+HEAD_DIM_BF16_GRAD_TOL = 3e-2
 
 
 def phase_head_dim_parity(batch=2, seq=128):
     """The model path through the routed head-major kernels: one
     training step's loss and every gradient of each HEAD_DIM_MODELS
     GPT-2, f32, TF32 off, on the card against the CPU, with its launches
-    (2 of each flash_generic.cu kernel for head_dim 160; 2 of #5, #6, #7
-    for head_dim 20).  Returns the launch counts of both."""
+    (2 of each flash_generic.cu kernel for head_dim 160 and 256; 2 of #5,
+    #6, #7 for head_dim 20); then, above 128, the same weights in bf16 on
+    the card (2 of flash_wide.cu's forward and dK/dV and of
+    flash_generic.cu's dQ) against the f32 step.  Returns the launch
+    counts of all runs."""
     from ray_tpu_torch.models.gpt2 import GPT2, GPT2Config, loss_fn
-    from ray_tpu_torch.ops.flash_attention import _hm_route
     rows, total = [], dict.fromkeys(FLASH_ALL, 0)
     for heads, width in HEAD_DIM_MODELS:
         cfg = GPT2Config.tiny(dtype=torch.float32, num_heads=heads,
@@ -1967,26 +2027,58 @@ def phase_head_dim_parity(batch=2, seq=128):
             gpu_loss, gpu_grads = step_grads(model, loss_fn, tokens.cuda())
             torch.cuda.synchronize()
             launches = _flash_counts()
-        route = _hm_route(d)[0]
-        assert launches == _flash_per(cfg.num_layers, hm=True,
-                                      generic=route == "generic"), launches
+        route = _route_kinds(True, d, torch.float32)["fwd"]
+        assert launches == _flash_per(
+            cfg.num_layers, hm=True,
+            route=None if route == "hm" else route), launches
         assert abs(gpu_loss - cpu_loss) <= PARITY_LOSS_RTOL * abs(cpu_loss), (
             gpu_loss, cpu_loss)
         grad_err = {n: _gradient_err(gpu_grads[n].cpu(), g)[1]
                     for n, g in cpu_grads.items()}
         worst = max(grad_err, key=grad_err.get)
         assert grad_err[worst] <= TRAIN_GRAD_TOL, (d, worst, grad_err[worst])
-        rows.append({"head_dim": d, "route": route, "heads": heads,
-                     "width": width, "loss_cpu": cpu_loss,
+        rows.append({"head_dim": d, "dtype": "float32", "route": route,
+                     "heads": heads, "width": width, "loss_cpu": cpu_loss,
                      "loss_gpu": gpu_loss, "worst_grad": worst,
                      "worst_grad_err_over_max": grad_err[worst],
                      "launches": {k: v for k, v in launches.items() if v}})
         total = {k: total[k] + launches[k] for k in total}
+        if d > 128:
+            f32_grads = {n: g.clone() for n, g in gpu_grads.items()}
+            cfg_bf = dataclasses.replace(cfg, dtype=torch.bfloat16)
+            model_bf = GPT2(cfg_bf, device="cuda",
+                            generator=torch.Generator(device="cuda"))
+            model_bf.load_state_dict(model.state_dict())
+            _zero_counts()
+            bf_loss, bf_grads = step_grads(model_bf, loss_fn, tokens.cuda())
+            torch.cuda.synchronize()
+            launches = _flash_counts()
+            assert launches == _flash_per(cfg.num_layers, route="wide"), (
+                launches)
+            loss_rel = abs(bf_loss - gpu_loss) / abs(gpu_loss)
+            grad_err = {n: _gradient_err(bf_grads[n], g)[1]
+                        for n, g in f32_grads.items()}
+            worst = max(grad_err, key=grad_err.get)
+            rows.append({"head_dim": d, "dtype": "bfloat16",
+                         "route": _route_kinds(True, d, torch.bfloat16),
+                         "heads": heads, "width": width,
+                         "loss_gpu_f32": gpu_loss, "loss_gpu": bf_loss,
+                         "loss_rel_diff": loss_rel, "worst_grad": worst,
+                         "worst_grad_err_over_max": grad_err[worst],
+                         "launches": {k: v for k, v in launches.items()
+                                      if v}})
+            assert loss_rel <= HEAD_DIM_BF16_LOSS_RTOL, rows[-1]
+            assert grad_err[worst] <= HEAD_DIM_BF16_GRAD_TOL, rows[-1]
+            total = {k: total[k] + launches[k] for k in total}
+            del model_bf
         del model
     emit({"phase": "head_dims", "ok": True,
-          "config": "GPT2Config.tiny(dtype=float32, num_heads, embed_dim)",
-          "tokens": [batch, seq], "grad_tol_err_over_max": TRAIN_GRAD_TOL,
-          "loss_rtol": PARITY_LOSS_RTOL, "models": rows})
+          "config": "GPT2Config.tiny(dtype=float32 | bfloat16, num_heads, "
+          "embed_dim)", "tokens": [batch, seq],
+          "grad_tol_err_over_max": TRAIN_GRAD_TOL,
+          "loss_rtol": PARITY_LOSS_RTOL,
+          "bf16_grad_tol_err_over_max": HEAD_DIM_BF16_GRAD_TOL,
+          "bf16_loss_rtol": HEAD_DIM_BF16_LOSS_RTOL, "models": rows})
     return total
 
 
@@ -2033,9 +2125,11 @@ def gang_train_loop(config):
                 (flash_attention_bwd, "launches_dkdv"),
                 (flash_attention_bwd, "launches_dq"),
                 (flash_attention_hm_fwd, "launches"),
+                (flash_attention_hm_fwd, "launches_wide"),
                 (flash_attention_hm_fwd, "launches_generic"),
                 (flash_attention_hm_bwd, "launches_dkdv"),
                 (flash_attention_hm_bwd, "launches_dq"),
+                (flash_attention_hm_bwd, "launches_wide_dkdv"),
                 (flash_attention_hm_bwd, "launches_generic_dkdv"),
                 (flash_attention_hm_bwd, "launches_generic_dq"),
                 (fused_rmsnorm, "launches"))
@@ -2044,8 +2138,9 @@ def gang_train_loop(config):
 
     def counts():
         names = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
-                 "flash_hm_fwd", "flash_generic_fwd", "flash_hm_bwd_dkdv",
-                 "flash_hm_bwd_dq", "flash_generic_bwd_dkdv",
+                 "flash_hm_fwd", "flash_wide_fwd", "flash_generic_fwd",
+                 "flash_hm_bwd_dkdv", "flash_hm_bwd_dq",
+                 "flash_wide_bwd_dkdv", "flash_generic_bwd_dkdv",
                  "flash_generic_bwd_dq", "rmsnorm")
         return {n: getattr(fn, a) for n, (fn, a) in zip(names, counters)}
 
@@ -2460,22 +2555,23 @@ SP_SEQ = 32768
 SP_STEPS = 4
 SP_LOSS_RTOL = 1e-3
 SP_RANKS = 4
-SP_RING_SHAPES = ((1, 32768, 12, 64), (1, 8192, 25, 64), (1, 4096, 4, 256))
+# the in-process ring at GPT-2 124M's and XL's head counts (the chunk mode
+# of #1/#3/#4 and #5-#7), at head_dim 256 (flash_wide.cu's forward and
+# dK/dV, flash_generic.cu's dQ) and at 512 (flash_generic.cu)
+SP_RING_SHAPES = ((1, 32768, 12, 64), (1, 8192, 25, 64), (1, 4096, 4, 256),
+                  (1, 2048, 4, 512))
 SP_ULYSSES_SHAPE = (1, 32768, 12, 64)
 
 
 def _chunk_counts():
     """The chunk mode's launch counts by kernels-line name."""
-    from ray_tpu_torch.ops.flash_attention import (_flash_chunk_bwd,
-                                                   _flash_chunk_fwd)
     out = {}
-    for kind in ("", "hm", "generic"):
-        sfx = "_" + kind if kind else ""
-        out[chunk_name(kind, "fwd")] = getattr(_flash_chunk_fwd,
-                                               "launches" + sfx)
-        for part in ("dkdv", "dq"):
-            out[chunk_name(kind, "bwd_" + part)] = getattr(
-                _flash_chunk_bwd, f"launches{sfx}_{part}")
+    for kind in ("", "hm", "wide", "generic"):
+        for part in ("fwd", "dkdv", "dq"):
+            fn, attr = _chunk_counter(kind, part)
+            if hasattr(fn, attr):  # flash_wide.cu has no dQ
+                out[chunk_name(kind, part if part == "fwd"
+                               else "bwd_" + part)] = getattr(fn, attr)
     return out
 
 
@@ -2650,9 +2746,10 @@ def _ring_compose(shape, gen):
     launches = _all_counts()
     # rank r runs the diagonal and its r past chunks, forward and back
     pairs = SP_RANKS * (SP_RANKS + 1) // 2
-    kind = _chunk_kind(q)
+    kinds = _chunk_kinds(q)
     assert launches == {**dict.fromkeys(launches, 0), **{
-        chunk_name(kind, p): pairs for p in ("fwd", "bwd_dkdv", "bwd_dq")}
+        chunk_name(kinds[p], n): pairs for p, n in (
+            ("fwd", "fwd"), ("dkdv", "bwd_dkdv"), ("dq", "bwd_dq"))}
     }, (shape, launches)
     qr, kr, vr = (x.clone().requires_grad_() for x in (q, k, v))
     ref = flash_attention(qr, kr, vr, causal=True)
@@ -2757,7 +2854,10 @@ SYMBOLS = {"flash_fwd": "flash_fwd_bf16_kernel",  # the bf16 kernel's name
            "flash_bwd_dkdv": "bwd_dkdv_bf16_kernel",
            "flash_hm_bwd_dkdv": "bwd_dkdv_bf16_kernel",
            "flash_bwd_dq": "bwd_dq_bf16_kernel",
-           "flash_hm_bwd_dq": "bwd_dq_bf16_kernel"}
+           "flash_hm_bwd_dq": "bwd_dq_bf16_kernel",
+           "flash_wide_fwd": "wide_fwd_kernel",
+           "flash_wide_bwd_dkdv": "wide_dkdv_kernel"}
+WIDE_SHAPE = list(HEAD_DIM_SHAPE + (256,))
 SUMMARY = {  # name: (source, TPU kernel it replaces, shape in the table)
     "flash_fwd": ("ray_tpu_torch/ops/csrc/flash_fwd.cu",
                   "ray_tpu/ops/flash_attention.py:447", [4, 1024, 32, 128]),
@@ -2775,24 +2875,42 @@ SUMMARY = {  # name: (source, TPU kernel it replaces, shape in the table)
                           list(XL_SHAPE)),
     "flash_hm_bwd_dq": ("ray_tpu_torch/ops/csrc/flash_bwd.cu",
                         "ray_tpu/ops/flash_attention.py:268", list(XL_SHAPE)),
-    # the head-major kernels above head_dim 128
+    # the head-major kernels above head_dim 128: bf16 forward and dK/dV up
+    # to 256 on flash_wide.cu, the rest on flash_generic.cu (its bf16
+    # forward and dK/dV above 256)
+    "flash_wide_fwd": ("ray_tpu_torch/ops/csrc/flash_wide.cu",
+                       "ray_tpu/ops/flash_attention.py:82", WIDE_SHAPE),
+    "flash_wide_bwd_dkdv": ("ray_tpu_torch/ops/csrc/flash_wide.cu",
+                            "ray_tpu/ops/flash_attention.py:212", WIDE_SHAPE),
     "flash_generic_fwd": ("ray_tpu_torch/ops/csrc/flash_generic.cu",
                           "ray_tpu/ops/flash_attention.py:82",
-                          list(HEAD_DIM_SHAPE + (256,))),
+                          list(ROUTED_WIDE)),
     "flash_generic_bwd_dkdv": ("ray_tpu_torch/ops/csrc/flash_generic.cu",
                                "ray_tpu/ops/flash_attention.py:212",
-                               list(HEAD_DIM_SHAPE + (256,))),
+                               list(ROUTED_WIDE)),
     "flash_generic_bwd_dq": ("ray_tpu_torch/ops/csrc/flash_generic.cu",
                              "ray_tpu/ops/flash_attention.py:268",
-                             list(HEAD_DIM_SHAPE + (256,))),
+                             WIDE_SHAPE),
 }
 
 
-CHUNK_SUMMARY = {  # the chunk mode's rows: kind, TPU kernel lines, shape
-    "": ("ray_tpu_torch/ops/csrc/flash_{}.cu", (447, 606, 680), CHUNK_NL),
-    "hm": ("ray_tpu_torch/ops/csrc/flash_{}.cu", (82, 212, 268), CHUNK_HM),
-    "generic": ("ray_tpu_torch/ops/csrc/flash_generic.cu", (82, 212, 268),
-                CHUNK_GENERIC)}
+def _case_is(c, name):
+    """Whether case ``c`` ran kernel ``name`` (a forward's, or one part of
+    a backward pair's; chunk-mode names too)."""
+    for part in ("dkdv", "dq"):
+        if f"_bwd_{part}" in name:
+            return c.get(f"kernel_{part}") == name
+    return c["kernel"] == name
+
+
+CHUNK_SUMMARY = (  # the chunk mode's rows: kind, part, TPU line, shape
+    ("", "fwd", 447, CHUNK_NL), ("", "bwd_dkdv", 606, CHUNK_NL),
+    ("", "bwd_dq", 680, CHUNK_NL), ("hm", "fwd", 82, CHUNK_HM),
+    ("hm", "bwd_dkdv", 212, CHUNK_HM), ("hm", "bwd_dq", 268, CHUNK_HM),
+    ("wide", "fwd", 82, CHUNK_WIDE), ("wide", "bwd_dkdv", 212, CHUNK_WIDE),
+    ("generic", "bwd_dq", 268, CHUNK_WIDE),
+    ("generic", "fwd", 82, CHUNK_GENERIC),
+    ("generic", "bwd_dkdv", 212, CHUNK_GENERIC))
 
 
 def chunk_summary(cases, by_path, usage):
@@ -2803,47 +2921,47 @@ def chunk_summary(cases, by_path, usage):
     returns f32 O from bf16 inputs, so ``library_ms`` is null;
     ``plain_ms`` of a backward row is the whole plain backward."""
     rows = []
-    for kind, (src, lines, shape) in CHUNK_SUMMARY.items():
+    for kind, part, line, shape in CHUNK_SUMMARY:
+        name = chunk_name(kind, part)
         found = {c["causal"]: c for c in cases
                  if c.get("mode") == "f32out" and "kernel_ms" in c
-                 and c["kernel"] == chunk_name(kind, "fwd")
-                 and c["shape"] == list(shape)}
-        for part, line in zip(("fwd", "bwd_dkdv", "bwd_dq"), lines):
-            name = chunk_name(kind, part)
-            sfx = "" if part == "fwd" else part[3:]  # "", "_dkdv", "_dq"
+                 and _case_is(c, name) and c["shape"] == list(shape)}
+        sfx = "" if part == "fwd" else part[3:]  # "", "_dkdv", "_dq"
 
-            def timing(c):
-                return {"ms": c["kernel_ms" + sfx],
-                        "bf16out_ms": c["bf16out_ms" + sfx],
-                        "bound_ms": c["bound_ms" + sfx],
-                        "bound_by": c["bound_by" + sfx],
-                        "plain_ms": c["plain_ms" if part == "fwd"
-                                      else "plain_ms_bwd"],
-                        "library_ms": None}
+        def timing(c):
+            return {"ms": c["kernel_ms" + sfx],
+                    "bf16out_ms": c["bf16out_ms" + sfx],
+                    "bound_ms": c["bound_ms" + sfx],
+                    "bound_by": c["bound_by" + sfx],
+                    "plain_ms": c["plain_ms" if part == "fwd"
+                                  else "plain_ms_bwd"],
+                    "library_ms": None}
 
-            c = found[True]
-            launches = {path: n[name] for path, n in by_path.items()
-                        if n.get(name)}
-            assert launches, f"{name} was not launched on any main path"
-            row = {"name": name, "route": "cuda",
-                   "source": src.format(part[:3]),
-                   "replaces": f"ray_tpu/ops/flash_attention.py:{line}",
-                   "launches": sum(launches.values()),
-                   "launches_by_path": launches,
-                   "max_abs_err": c["max_abs_err" + sfx], **timing(c),
-                   "library": "none: no PyTorch call returns f32 outputs "
-                   "from bf16 inputs", "shape": list(shape),
-                   "dtype": "bfloat16", "out_dtype": "float32",
-                   "causal": True,
-                   "other_shapes": [{"shape": list(shape), "causal": False,
-                                     **timing(found[False])}]}
-            sym = SYMBOLS.get(f"flash_{part}")
-            if kind != "generic":
-                d = shape[-1]
-                row["registers"], static = next(
-                    v for k, v in usage.items() if f"{sym}ILi{d}ELb1E" in k)
-                row["smem_bytes"] = static + runtime_attrs(sym, d, True)[2]
-            rows.append(row)
+        c = found[True]
+        launches = {path: n[name] for path, n in by_path.items()
+                    if n.get(name)}
+        assert launches, f"{name} was not launched on any main path"
+        src = {"": "flash_{}.cu", "hm": "flash_{}.cu",
+               "wide": "flash_wide.cu", "generic": "flash_generic.cu"}[kind]
+        row = {"name": name, "route": "cuda",
+               "source": "ray_tpu_torch/ops/csrc/" + src.format(part[:3]),
+               "replaces": f"ray_tpu/ops/flash_attention.py:{line}",
+               "launches": sum(launches.values()),
+               "launches_by_path": launches,
+               "max_abs_err": c["max_abs_err" + sfx], **timing(c),
+               "library": "none: no PyTorch call returns f32 outputs "
+               "from bf16 inputs", "shape": list(shape),
+               "dtype": "bfloat16", "out_dtype": "float32",
+               "causal": True,
+               "other_shapes": [{"shape": list(shape), "causal": False,
+                                 **timing(found[False])}]}
+        sym = SYMBOLS.get(f"flash_{'wide_' if kind == 'wide' else ''}{part}")
+        if kind != "generic":
+            d = shape[-1]
+            row["registers"], static = next(
+                v for k, v in usage.items() if f"{sym}ILi{d}ELb1E" in k)
+            row["smem_bytes"] = static + runtime_attrs(sym, d, True)[2]
+        rows.append(row)
     return rows
 
 
@@ -2860,10 +2978,11 @@ def kernel_summary(cases, by_path, usage):
     decode step's shape (``decode``)."""
     rows = []
     for name, (src, replaces, shape) in SUMMARY.items():
-        kind, part = name.rsplit("_", 1) if "_bwd_" in name else (name, None)
-        c = next(c for c in cases if c["kernel"] == kind
+        part = name.rsplit("_", 1)[1] if "_bwd_" in name else None
+        c = next(c for c in cases if _case_is(c, name)
                  and c["shape"] == shape and c["dtype"] == "bfloat16"
-                 and c.get("causal", True) and "plain_ms" in c)
+                 and c.get("causal", True) and "plain_ms" in c
+                 and c.get("mode") != "f32out")
         launches = {path: n[name] for path, n in by_path.items()
                     if n.get(name)}
         assert launches, f"{name} was not launched on any main path"
@@ -2889,10 +3008,11 @@ def kernel_summary(cases, by_path, usage):
                  "library_ms": o["library_ms"],
                  **({"library_backend": o["library_backend"]} if part
                     else {})}
-                for o in cases if o["kernel"] == kind and "plain_ms" in o
+                for o in cases if _case_is(o, name) and "plain_ms" in o
+                and o.get("mode") != "f32out"
                 and o["dtype"] == "bfloat16" and o["shape"] != shape]
         if name == "rmsnorm":  # and at the decode step's shape
-            c = next(c for c in cases if c["kernel"] == kind
+            c = next(c for c in cases if c["kernel"] == name
                      and c["shape"] == list(RMSNORM_DECODE)
                      and c["dtype"] == "bfloat16" and "plain_ms" in c)
             row["decode"] = {k: c[k] for k in (

@@ -1,12 +1,14 @@
 // Hopper (sm_90a) building blocks in raw PTX, shared by the bf16 flash
-// forward (flash_fwd.cu), dK/dV and dQ (flash_bwd.cu) kernels: mbarriers, TMA
+// forward (flash_fwd.cu), dK/dV and dQ (flash_bwd.cu) kernels and the
+// 192/256-column forward and dK/dV (flash_wide.cu): mbarriers, TMA
 // loads and stores of 4-D [B, T, H, D] tiles, wgmma shared-memory
 // descriptors and the few wgmma shapes the kernels issue, register
 // rebalancing between warpgroups, and the host-side tensor-map encoder.
 //
 // Tiles in shared memory.  A tile of `rows` positions x D bf16 is stored
 // as D / C boxes of rows x C columns, C = 64 (128-byte rows, 128-byte
-// swizzle) or, at D = 32, C = 32 (64-byte rows, 64-byte swizzle), one box
+// swizzle; D = 64, 128, 192, 256: one to four boxes) or, at D = 32, C = 32
+// (64-byte rows, 64-byte swizzle), one box
 // after the other; each box starts on a 1024-byte boundary.  TMA writes a
 // box in that swizzle, and the wgmma descriptors below read it in the same
 // one, so the two must agree on C (Swz<D>).
@@ -21,8 +23,9 @@
 //  * MN-major (the output dimension contiguous: V for P V, dO and Q for
 //    dV and dK): a swizzle atom is C output columns x 8 reduction rows;
 //    SBO = the 8 rows' bytes, LBO = the distance between atoms along the
-//    output dimension (one box).  The kernels issue one wgmma per box, so
-//    an instruction never crosses a box.
+//    output dimension (one box).  flash_fwd.cu and flash_bwd.cu issue one
+//    wgmma per box; flash_wide.cu's products span two to four boxes in one
+//    instruction, stepping from atom to atom by LBO.
 
 #pragma once
 
@@ -43,7 +46,8 @@ struct Swz {
   static constexpr int kMode = kRowBytes == 128 ? 1 : 2;  // descriptor
   static constexpr int kKSteps = kCols / 16;  // k16 steps inside one row
   static constexpr int kAtomBytes = 8 * kRowBytes;
-  static_assert(D == 32 || D == 64 || D == 128, "head_dim 32, 64 or 128");
+  static_assert(D == 32 || D == 64 || D == 128 || D == 192 || D == 256,
+                "head_dim 32, 64, 128, 192 or 256");
 };
 
 // Byte offset of element (row, col) of a box, swizzled as TMA stores it.
@@ -231,8 +235,9 @@ __device__ __forceinline__ void regs_inc() {
 #define RTT_F16(d, i) \
   RTT_F4(d, i), RTT_F4(d, i + 4), RTT_F4(d, i + 8), RTT_F4(d, i + 12)
 
-// d (64 x 128, f32) (+)= A (64 x 16, smem K-major) B (16 x 128, smem
-// K-major); scale_d = 0 overwrites d.
+// d (64 x N, f32) (+)= A (64 x 16, smem K-major) B (16 x N, smem K-major,
+// or with TransB = 1 MN-major); scale_d = 0 overwrites d.
+template <int TransB = 0>
 __device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a,
                                             uint64_t b, int scale_d) {
   asm volatile(
@@ -242,12 +247,12 @@ __device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a,
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
       "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
       "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, %67;\n}\n"
       : RTT_F16(d, 0), RTT_F16(d, 16), RTT_F16(d, 32), RTT_F16(d, 48)
-      : "l"(a), "l"(b), "r"(scale_d));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TransB));
 }
 
-// As mma_ss_n128 with N = 64.
+template <int TransB = 0>
 __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t a,
                                            uint64_t b, int scale_d) {
   asm volatile(
@@ -255,20 +260,35 @@ __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t a,
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, %35;\n}\n"
       : RTT_F16(d, 0), RTT_F16(d, 16)
-      : "l"(a), "l"(b), "r"(scale_d));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TransB));
 }
 
-// One SS product of width N = 64 or 128.
-template <int N>
+template <int TransB = 0>
+__device__ __forceinline__ void mma_ss_n32(float (&d)[16], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, %19;\n}\n"
+      : RTT_F16(d, 0)
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TransB));
+}
+
+// One SS product of width N = 32, 64 or 128; B K-major (TransB = 0) or
+// MN-major (TransB = 1).
+template <int N, int TransB = 0>
 __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t a,
                                        uint64_t b, int scale_d) {
-  static_assert(N == 64 || N == 128, "N = 64 or 128");
+  static_assert(N == 32 || N == 64 || N == 128, "N = 32, 64 or 128");
   if constexpr (N == 128)
-    mma_ss_n128(d, a, b, scale_d);
+    mma_ss_n128<TransB>(d, a, b, scale_d);
+  else if constexpr (N == 64)
+    mma_ss_n64<TransB>(d, a, b, scale_d);
   else
-    mma_ss_n64(d, a, b, scale_d);
+    mma_ss_n32<TransB>(d, a, b, scale_d);
 }
 
 // d (64 x 64, f32) += A (64 x 16 bf16, registers: the mma.sync A-fragment
@@ -297,6 +317,70 @@ __device__ __forceinline__ void mma_rs_n32(float (&d)[16],
       "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
       : RTT_F16(d, 0)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// As mma_rs_n64 with N = 192 and 256: the whole head of a 192- or
+// 256-column build, V read MN-major across its three or four boxes (LBO =
+// the distance between boxes).
+__device__ __forceinline__ void mma_rs_n192(float (&d)[96],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : RTT_F16(d, 0), RTT_F16(d, 16), RTT_F16(d, 32), RTT_F16(d, 48),
+        RTT_F16(d, 64), RTT_F16(d, 80)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void mma_rs_n256(float (&d)[128],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, "
+      "%107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, "
+      "%119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : RTT_F16(d, 0), RTT_F16(d, 16), RTT_F16(d, 32), RTT_F16(d, 48),
+        RTT_F16(d, 64), RTT_F16(d, 80), RTT_F16(d, 96), RTT_F16(d, 112)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// One RS product of width N = 32, 64, 192 or 256.
+template <int N>
+__device__ __forceinline__ void mma_rs(float (&d)[N / 2],
+                                       const uint32_t (&a)[4], uint64_t b) {
+  static_assert(N == 32 || N == 64 || N == 192 || N == 256,
+                "N = 32, 64, 192 or 256");
+  if constexpr (N == 256)
+    mma_rs_n256(d, a, b);
+  else if constexpr (N == 192)
+    mma_rs_n192(d, a, b);
+  else if constexpr (N == 64)
+    mma_rs_n64(d, a, b);
+  else
+    mma_rs_n32(d, a, b);
 }
 
 // One box-wide RS product: N = the box's columns.

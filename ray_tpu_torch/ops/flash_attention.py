@@ -1,7 +1,8 @@
 """Flash attention: the CUDA kernels ``csrc/flash_fwd.cu`` (forward),
 ``csrc/flash_bwd.cu`` (dK/dV and dQ) and, above head_dim 128,
-``csrc/flash_generic.cu``, behind the JAX package's two kernel families,
-each beside its plain version.
+``csrc/flash_wide.cu`` (the bf16 forward and dK/dV up to 256) and
+``csrc/flash_generic.cu`` (the rest), behind the JAX package's two kernel
+families, each beside its plain version.
 
 Counterpart of ``ray_tpu/ops/flash_attention.py``:
 
@@ -19,8 +20,10 @@ Counterpart of ``ray_tpu/ops/flash_attention.py``:
   picks the kernels: a multiple of 8 up to 128 runs on the Hopper
   kernels' 32/64/128 builds (``csrc/flash_common.cuh``'s
   ``by_head_dim``); another size below 128 on the same kernels, its
-  inputs zero-padded to the next multiple of 8; a size above 128 on
-  ``csrc/flash_generic.cu``'s three kernels.  The JAX wrappers transpose
+  inputs zero-padded to the next multiple of 8; with bf16 inputs up to
+  256 the forward and dK/dV on ``csrc/flash_wide.cu``'s 192/256 builds
+  (padded the same way); the rest (dQ and f32 above 128, everything
+  above 256) on ``csrc/flash_generic.cu``.  The JAX wrappers transpose
   to ``[B, H, T, D]`` for the TPU's tiles; the CUDA kernels read
   ``[B, T, H, D]`` by strides, so both families launch them on the
   caller's tensors and count their launches apart.
@@ -53,7 +56,9 @@ from ray_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 NL_HEAD_DIMS = (64, 128)  # the JAX package's _nl_eligible
-HM_BUILT_MAX = 128  # the largest head_dim the Hopper kernels are built for
+HM_BUILT_MAX = 128  # the largest head_dim of flash_fwd.cu / flash_bwd.cu
+WIDE_MAX = 256  # the largest of flash_wide.cu (bf16 forward and dK/dV)
+PARTS = ("fwd", "dkdv", "dq")
 HM_MAX_HEAD_DIM = 1024  # csrc/flash_generic.cu's kMaxHeadDim
 
 
@@ -196,39 +201,48 @@ def _check_head_dim(dim: int, hm: bool) -> None:
                          f"{NL_HEAD_DIMS}, got {dim}")
 
 
-def _hm_route(head_dim: int) -> Tuple[str, int]:
-    """Where the head-major family runs ``head_dim`` on the card, and at
-    what width:
+def _hm_route(head_dim: int, dtype=torch.bfloat16,
+              part: str = "fwd") -> Tuple[str, int]:
+    """Where the head-major family runs ``part`` (``"fwd"``, ``"dkdv"``
+    or ``"dq"``) at ``head_dim`` for inputs of ``dtype`` on the card:
+    ``(kernel selector, width)``.
 
-    * ``("kernel", d)``: a multiple of 8 up to 128 runs on kernels #5-#7
-      as it is (on their next 32/64/128 build);
-    * ``("pad", d8)``: another size below 128 runs on the same kernels
-      with q, k, v (and dO) zero-padded to ``d8``, the next multiple of
-      8, and the true ``head_dim ** -0.5`` as the scale.  Zero columns
-      add nothing to ``Q K^T`` or to ``dO V^T``, the outputs' extra
-      columns are sliced off, and a padded bf16 row spans a multiple of
-      16 bytes, the stride TMA takes;
-    * ``("generic", d)``: above 128, ``csrc/flash_generic.cu``'s
-      forward, dK/dV and dQ.
+    * ``"hm"``: up to 128, kernels #5-#7 (their 32/64/128 builds);
+    * ``"wide"``: from 129 to 256 with bf16 inputs, the forward and dK/dV
+      of ``csrc/flash_wide.cu`` (192/256 builds);
+    * ``"generic"``: ``csrc/flash_generic.cu``'s SIMT kernels: dQ and f32
+      inputs above 128, everything above 256.
+
+    The width is ``head_dim`` or, where the part's kernel is a Hopper one
+    and ``head_dim`` no multiple of 8, the next multiple of 8: q, k, v
+    (and dO) zero-padded to it, with the true ``head_dim ** -0.5`` as the
+    scale.  Zero columns add nothing to ``Q K^T`` or to ``dO V^T``, the
+    outputs' extra columns are sliced off, and a padded bf16 row spans a
+    multiple of 16 bytes, the stride TMA takes.  The width does not depend
+    on the part, so the backward pads once for dK/dV and dQ (dQ's generic
+    kernel takes the padded width as it is).  A multiple of 8 runs on the
+    next build at or above it, its columns past ``head_dim`` zeros inside
+    the kernel.
 
     Raises above ``HM_MAX_HEAD_DIM``, as :func:`_check_head_dim` does."""
     _check_head_dim(head_dim, hm=True)
-    if head_dim > HM_BUILT_MAX:
-        return "generic", head_dim
-    if head_dim % 8:
-        return "pad", head_dim + (-head_dim) % 8
-    return "kernel", head_dim
+    if part not in PARTS:
+        raise ValueError(f"part is one of {PARTS}, got {part!r}")
+    wide = dtype == torch.bfloat16 and head_dim <= WIDE_MAX
+    width = (head_dim + (-head_dim) % 8
+             if head_dim <= HM_BUILT_MAX or wide else head_dim)
+    if head_dim <= HM_BUILT_MAX:
+        return "hm", width
+    return ("wide" if wide and part != "dq" else "generic"), width
 
 
-def _kernel_for(q, hm) -> Tuple[str, int]:
-    """The kernel selector for ``q``'s family and head_dim, and the
-    head_dim the kernel runs at: ``"nl"`` (#1/#3/#4, as it is), ``"hm"``
-    (#5-#7, at the width :func:`_hm_route` pads to) or ``"generic"``
-    (``flash_generic.cu``, as it is)."""
+def _kernel_for(q, hm, part="fwd") -> Tuple[str, int]:
+    """The kernel selector for ``part`` of ``q``'s family, head_dim and
+    dtype, and the head_dim the kernel runs at: ``"nl"`` (#1/#3/#4, as
+    it is) or :func:`_hm_route`'s."""
     if not hm:
         return "nl", q.shape[-1]
-    route, d = _hm_route(q.shape[-1])
-    return ("generic" if route == "generic" else "hm"), d
+    return _hm_route(q.shape[-1], q.dtype, part)
 
 
 def _pad_cols(d, *xs):
@@ -265,17 +279,18 @@ def _check_kernel_inputs(hm, *tensors):
 def _entry(kind, part):
     """Kernel ``part`` (``fwd``, ``bwd_dkdv`` or ``bwd_dq``) of ``kind``:
     its library entry and the name its errors carry."""
-    name = f"flash_{'generic_' if kind == 'generic' else ''}{part}"
+    name = f"flash_{'' if kind in ('nl', 'hm') else kind + '_'}{part}"
     return getattr(_build.load_library(), f"rtt_{name}"), f"{name} kernel"
 
 
 def _count(kind, part, chunk=False):
     """One launch of ``part`` ("", "_dkdv" or "_dq") on ``kind``: #1/#3/#4
-    on the native-layout wrappers' counters, #5-#7 and flash_generic.cu
-    on the head-major ones' (``launches_generic*``); with ``chunk`` (f32
+    on the native-layout wrappers' counters, #5-#7, flash_wide.cu and
+    flash_generic.cu on the head-major ones' (``launches``,
+    ``launches_wide*``, ``launches_generic*``); with ``chunk`` (f32
     outputs) on :func:`_flash_chunk_fwd`'s and :func:`_flash_chunk_bwd`'s
-    (``launches``, ``launches_hm``, ``launches_generic``, each with the
-    part)."""
+    (``launches``, ``launches_hm``, ``launches_wide``,
+    ``launches_generic``, each with the part)."""
     if chunk:
         fn = (_flash_chunk_fwd, _flash_chunk_bwd)[bool(part)]
         attr = "launches" + ("" if kind == "nl" else "_" + kind) + part
@@ -283,8 +298,8 @@ def _count(kind, part, chunk=False):
         fns = ((flash_attention_fwd, flash_attention_bwd) if kind == "nl"
                else (flash_attention_hm_fwd, flash_attention_hm_bwd))
         fn = fns[bool(part)]
-        attr = ("launches_generic" if kind == "generic"
-                else "launches") + part
+        attr = "launches" + ("" if kind in ("nl", "hm") else "_" + kind) \
+            + part
     setattr(fn, attr, getattr(fn, attr) + 1)
 
 
@@ -360,23 +375,28 @@ def flash_attention_hm_fwd(q: torch.Tensor, k: torch.Tensor,
     """Head-major family (``_flash_forward``): as
     :func:`flash_attention_fwd`, for head_dim 1 to ``HM_MAX_HEAD_DIM`` on
     every device; on the card it launches kernel #5 on the caller's
-    ``[B,T,H,D]`` tensors (on zero-padded copies for a head_dim below 128
-    that is no multiple of 8) or, above 128, ``flash_generic.cu``'s
-    forward (counted in ``launches_generic``), or raises."""
+    ``[B,T,H,D]`` tensors (on zero-padded copies for a head_dim that is
+    no multiple of 8) or, above 128, ``flash_wide.cu``'s forward (bf16
+    up to 256, counted in ``launches_wide``) or ``flash_generic.cu``'s
+    (counted in ``launches_generic``), as :func:`_hm_route` says, or
+    raises."""
     return _forward(q, k, v, causal, scale, hm=True)
 
 
 flash_attention_hm_fwd.launches = 0
+flash_attention_hm_fwd.launches_wide = 0
 flash_attention_hm_fwd.launches_generic = 0
 
 
 def _bwd_inputs(q, k, v, do, lse, delta, causal, scale, hm=False):
-    """The arguments of both backward kernels for checked CUDA inputs:
-    q, k, v and dO padded to the width of the kernel :func:`_kernel_for`
-    picks, and its selector.  ``delta`` comes from the unpadded O and dO:
-    on the pad route their zero columns would add nothing to it."""
-    kind, d = _kernel_for(q, hm)
-    return (*_pad_cols(d, q, k, v, do), lse, delta, causal, scale, kind)
+    """The arguments of the dK/dV and of the dQ kernel for checked CUDA
+    inputs: q, k, v and dO padded once to the width :func:`_kernel_for`
+    gives (the same for both parts), each with its part's kernel
+    selector.  ``delta`` comes from the unpadded O and dO: on the pad
+    route their zero columns would add nothing to it."""
+    kind_dkdv, d = _kernel_for(q, hm, "dkdv")
+    args = (*_pad_cols(d, q, k, v, do), lse, delta, causal, scale)
+    return args + (kind_dkdv,), args + (_kernel_for(q, hm, "dq")[0],)
 
 
 def _bwd_args(q, k, v, do, lse, delta, causal, scale, out_dtype):
@@ -419,12 +439,15 @@ def _kernel_dq(q, k, v, do, lse, delta, causal, scale, kind,
 
 
 def _launch_bwd(q, k, v, out, lse, do, causal, scale, hm=False):
-    """The family's dK/dV and dQ on checked CUDA inputs, routed as
-    :func:`_launch_fwd` (one padding for both): ``(dq, dk, dv)``."""
-    ins = _bwd_inputs(q, k, v, do, lse, attention_delta(out, do), causal,
-                      scale, hm)
-    dk, dv = _kernel_dkdv(*ins)
-    return tuple(_unpad(g, q.shape[-1]) for g in (_kernel_dq(*ins), dk, dv))
+    """The family's dK/dV and dQ on checked CUDA inputs, each on the
+    kernel :func:`_kernel_for` picks for its part (one padding for both):
+    ``(dq, dk, dv)``."""
+    dkdv_args, dq_args = _bwd_inputs(q, k, v, do, lse,
+                                     attention_delta(out, do), causal,
+                                     scale, hm)
+    dk, dv = _kernel_dkdv(*dkdv_args)
+    return tuple(_unpad(g, q.shape[-1])
+                 for g in (_kernel_dq(*dq_args), dk, dv))
 
 
 def _backward(q, k, v, out, lse, do, causal, scale, hm):
@@ -467,14 +490,16 @@ def flash_attention_hm_bwd(q: torch.Tensor, k: torch.Tensor,
     """Head-major family (``_flash_backward``): as
     :func:`flash_attention_bwd`, for head_dim 1 to ``HM_MAX_HEAD_DIM``,
     launching kernels #6 (dK/dV) and #7 (dQ), or above 128
+    ``flash_wide.cu``'s dK/dV (counted in ``launches_wide_dkdv``) and
     ``flash_generic.cu``'s (counted in ``launches_generic_dkdv`` and
-    ``launches_generic_dq``), routed as :func:`flash_attention_hm_fwd`,
-    or raising."""
+    ``launches_generic_dq``), each part routed by :func:`_hm_route`, or
+    raising."""
     return _backward(q, k, v, out, lse, do, causal, scale, hm=True)
 
 
 flash_attention_hm_bwd.launches_dkdv = 0
 flash_attention_hm_bwd.launches_dq = 0
+flash_attention_hm_bwd.launches_wide_dkdv = 0
 flash_attention_hm_bwd.launches_generic_dkdv = 0
 flash_attention_hm_bwd.launches_generic_dq = 0
 
@@ -561,9 +586,10 @@ def _flash_chunk_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CPU tensors take :func:`attention_reference` with f32 out; CUDA
     tensors launch the forward kernel of the family ``flash_attention``
-    picks (#1, #5, or flash_generic.cu above head_dim 128) with f32 O
-    (from bf16 inputs, counted in ``_flash_chunk_fwd.launches``,
-    ``.launches_hm``, ``.launches_generic``), or raise."""
+    picks (#1, #5, or above head_dim 128 flash_wide.cu up to 256 and
+    flash_generic.cu beyond) with f32 O (from bf16 inputs, counted in
+    ``_flash_chunk_fwd.launches``, ``.launches_hm``, ``.launches_wide``,
+    ``.launches_generic``), or raise."""
     _validate(q, k, v, causal)
     hm = _chunk_family(q, k, v)
     if q.device.type == "cpu":
@@ -580,6 +606,7 @@ def _flash_chunk_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 _flash_chunk_fwd.launches = 0
 _flash_chunk_fwd.launches_hm = 0
+_flash_chunk_fwd.launches_wide = 0
 _flash_chunk_fwd.launches_generic = 0
 
 
@@ -598,9 +625,10 @@ def _flash_chunk_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CPU tensors take :func:`attention_backward_reference` with f32
     gradients; CUDA tensors launch the dK/dV and dQ kernels of the
-    family :func:`_flash_chunk_fwd` picks with f32 outputs (counted in
+    family :func:`_flash_chunk_fwd` picks with f32 outputs, each part
+    routed by :func:`_hm_route` (counted in
     ``_flash_chunk_bwd.launches_dkdv``, ``.launches_dq`` and their
-    ``_hm`` and ``_generic`` forms), or raise."""
+    ``_hm``, ``_wide`` and ``_generic`` forms), or raise."""
     _validate(q, k, v, causal)
     hm = _chunk_family(q, k, v)
     rows = (q.shape[0], q.shape[1], q.shape[2])
@@ -622,9 +650,10 @@ def _flash_chunk_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                             scale, delta=delta_h,
                                             grad_dtype=torch.float32)
     _check_kernel_inputs(hm, q, k, v, g, lse_h, delta_h)
-    ins = _bwd_inputs(q, k, v, g, lse_h, delta_h, causal, scale, hm)
-    dk, dv = _kernel_dkdv(*ins, out_dtype=torch.float32)
-    dq = _kernel_dq(*ins, out_dtype=torch.float32)
+    dkdv_args, dq_args = _bwd_inputs(q, k, v, g, lse_h, delta_h, causal,
+                                     scale, hm)
+    dk, dv = _kernel_dkdv(*dkdv_args, out_dtype=torch.float32)
+    dq = _kernel_dq(*dq_args, out_dtype=torch.float32)
     return tuple(_unpad(x, q.shape[-1]) for x in (dq, dk, dv))
 
 
@@ -632,5 +661,6 @@ _flash_chunk_bwd.launches_dkdv = 0
 _flash_chunk_bwd.launches_dq = 0
 _flash_chunk_bwd.launches_hm_dkdv = 0
 _flash_chunk_bwd.launches_hm_dq = 0
+_flash_chunk_bwd.launches_wide_dkdv = 0
 _flash_chunk_bwd.launches_generic_dkdv = 0
 _flash_chunk_bwd.launches_generic_dq = 0

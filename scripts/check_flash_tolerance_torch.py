@@ -13,15 +13,20 @@ build/ray_tpu_torch/planted/ (the sources themselves are never touched):
 * ``dq_drop_diag``: the bf16 dQ kernel does the same at its last
   128-query item (its diagonal tile is 128 keys, 64 at head_dim 128);
 * ``dkdv_drop_last``: the bf16 dK/dV kernel skips the last query tile
-  (64 queries) of the last key tile (128 keys).
+  (64 queries) of the last key tile (128 keys);
+* ``wide_fwd_drop_diag``, ``wide_dkdv_drop_last``: the same faults in
+  flash_wide.cu's forward (its diagonal tile is 64 keys) and dK/dV (64
+  keys a block, 64 queries a tile), shown at head_dim 256 and 160.
 
 Each fault touches the last 64 or 128 positions only, where causal rows
 are smallest: the kind of fault a limit scaled to the tensor's max
 misses.  Each shortens the tile count that its kernel's producer and
 consumers share, so the faulty kernels still run to their end.
 Both kernel families (native layout and head-major) launch the same
-kernels, so each fault is shown through both: the native family at the
-GPT-2 124M and Llama shapes, the head-major one at GPT-2 XL's.
+kernels, so each fault in flash_fwd.cu and flash_bwd.cu is shown through
+both: the native family at the GPT-2 124M and Llama shapes, the
+head-major one at GPT-2 XL's; flash_wide.cu's at [8, 1024, 16, 256] and
+[8, 1024, 16, 160].
 
 Each build runs in a process of its own (the library loads once per
 process).  For each case, one JSON line: the error of O (and LSE), dQ,
@@ -29,7 +34,8 @@ dK and dV against the plain version by two measures, max |diff| over
 the tensor's max |reference| (``over_max``) and ``row_scaled_err``, the
 one chip_smoke.py holds the kernels to (``row``).  The sound build runs
 the shapes and dtypes of chip_smoke.py's kernels phase (its grid-limit
-cases aside); the faulty ones run the three bf16 causal training shapes.
+cases aside) and the wide shapes; the faulty ones run the bf16 causal
+shapes of their kernel.
 Exits nonzero unless the sound
 build meets chip_smoke.ROW_TOL everywhere and every planted fault
 exceeds it in the tensor its kernel writes.  Then the card's name and
@@ -55,17 +61,27 @@ import chip_smoke  # noqa: E402
 KEY_TILES = "return key_tiles(m0, BM, BN, tq, tk, causal);"
 DROP_DIAG = KEY_TILES.replace("causal);", "causal) - (m0 + BM >= tq);")
 DKDV_END = "const int m_end = (tq + BM - 1) / BM;"
-# name: (source, first occurrence (the bf16 kernel's), replacement, the
-# tensors the faulty kernel writes)
-PLANTED = {
-    "fwd_drop_diag": ("flash_fwd.cu", KEY_TILES, DROP_DIAG, ("O",)),
-    "dq_drop_diag": ("flash_bwd.cu", KEY_TILES, DROP_DIAG, ("dq",)),
-    "dkdv_drop_last": ("flash_bwd.cu", DKDV_END, DKDV_END.replace(
-        "/ BM;", "/ BM - (n0 + BN >= tk);"), ("dk", "dv")),
-}
+DKDV_DROP_LAST = DKDV_END.replace("/ BM;", "/ BM - (n0 + BN >= tk);")
 # (shape, head-major): the bf16 causal training shapes of each family
 TRAIN_SHAPES = ((chip_smoke.GPT2_SHAPE, False), ((4, 1024, 32, 128), False),
                 (chip_smoke.XL_SHAPE, True))
+# flash_wide.cu's two builds (256, and 192 at head_dim 160)
+WIDE_SHAPES = tuple((chip_smoke.HEAD_DIM_SHAPE + (d,), True)
+                    for d in (256, 160))
+# name: (source, first occurrence (the bf16 kernel's), replacement, the
+# tensors the faulty kernel writes, the shapes it is shown at)
+PLANTED = {
+    "fwd_drop_diag": ("flash_fwd.cu", KEY_TILES, DROP_DIAG, ("O",),
+                      TRAIN_SHAPES),
+    "dq_drop_diag": ("flash_bwd.cu", KEY_TILES, DROP_DIAG, ("dq",),
+                     TRAIN_SHAPES),
+    "dkdv_drop_last": ("flash_bwd.cu", DKDV_END, DKDV_DROP_LAST,
+                       ("dk", "dv"), TRAIN_SHAPES),
+    "wide_fwd_drop_diag": ("flash_wide.cu", KEY_TILES, DROP_DIAG, ("O",),
+                           WIDE_SHAPES),
+    "wide_dkdv_drop_last": ("flash_wide.cu", DKDV_END, DKDV_DROP_LAST,
+                            ("dk", "dv"), WIDE_SHAPES),
+}
 
 
 def use_planted(name: str) -> None:
@@ -119,7 +135,9 @@ def run_build(name: str) -> None:
     if name != "sound":
         use_planted(name)
     gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
-    cases = [(s, hm, torch.bfloat16, True) for s, hm in TRAIN_SHAPES]
+    shapes = (TRAIN_SHAPES + WIDE_SHAPES if name == "sound"
+              else PLANTED[name][4])
+    cases = [(s, hm, torch.bfloat16, True) for s, hm in shapes]
     if name == "sound":
         for dtype in (torch.float32, torch.bfloat16):
             cases += [((1, 512, 4, 64), False, dtype, c)

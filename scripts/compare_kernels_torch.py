@@ -74,6 +74,10 @@ def measure(tree: str) -> None:
         out, lse = fwd(q, k, v, causal=True)
         ins = _bwd_inputs(q, k, v, do, lse, attention_delta(out, do), True,
                           scale, hm)
+        # each part's arguments (an older checkout returns one tuple for
+        # both)
+        ins = dict(zip(("dkdv", "dq"), ins if isinstance(ins[0], tuple)
+                       else (ins, ins)))
         qt, kt, vt, dot = cs._heads_first(q, k, v, do)
         qt, kt, vt = (x.requires_grad_() for x in (qt, kt, vt))
 
@@ -85,7 +89,7 @@ def measure(tree: str) -> None:
             both_ms = timer(lambda: torch.autograd.grad(
                 sdpa(), (qt, kt, vt), dot))
         for name, fn in (("dq", _kernel_dq), ("dkdv", _kernel_dkdv)):
-            ms = timer(lambda: fn(*ins))
+            ms = timer(lambda: fn(*ins[name]))
             print(json.dumps({"kernel": name, "shape": list(shape),
                               "head_major": hm, "ms": ms}), flush=True)
         print(json.dumps({"kernel": "sdpa_bwd", "shape": list(shape),

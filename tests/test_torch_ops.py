@@ -320,17 +320,38 @@ def test_kernel_head_dims_still_refused(dim):
             flash_attention(x, x, x, native=False)
 
 
-@pytest.mark.parametrize("dim,route", [
-    (4, ("pad", 8)), (8, ("kernel", 8)), (20, ("pad", 24)),
-    (44, ("pad", 48)), (64, ("kernel", 64)), (128, ("kernel", 128)),
-    (160, ("generic", 160)), (256, ("generic", 256)),
-    (512, ("generic", 512))])
-def test_hm_route(dim, route):
-    """Where the head-major family runs each head_dim on the card: a
-    multiple of 8 up to 128 on kernels #5-#7 as it is, another size below
-    128 on them padded to the next multiple of 8, above 128 on
-    flash_generic.cu."""
-    assert torch_fa._hm_route(dim) == route
+_BF16, _F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("dim,dtype,part,route", [
+    (4, _BF16, "fwd", ("hm", 8)), (8, _BF16, "fwd", ("hm", 8)),
+    (20, _BF16, "fwd", ("hm", 24)), (44, _F32, "dkdv", ("hm", 48)),
+    (64, _F32, "dq", ("hm", 64)), (128, _BF16, "dq", ("hm", 128)),
+    # bf16 forward and dK/dV from 129 to 256: flash_wide.cu (160 on its
+    # 192 build as it is, 200 and 256 on the 256 one, 150 padded to 152)
+    (160, _BF16, "fwd", ("wide", 160)), (160, _BF16, "dkdv", ("wide", 160)),
+    (200, _BF16, "fwd", ("wide", 200)), (256, _BF16, "fwd", ("wide", 256)),
+    (256, _BF16, "dkdv", ("wide", 256)), (150, _BF16, "fwd", ("wide", 152)),
+    (150, _BF16, "dkdv", ("wide", 152)),
+    # dQ above 128: flash_generic.cu, at the width dK/dV pads to
+    (150, _BF16, "dq", ("generic", 152)), (160, _BF16, "dq", ("generic", 160)),
+    (256, _BF16, "dq", ("generic", 256)), (512, _BF16, "dq", ("generic", 512)),
+    # above 256, and f32 above 128: flash_generic.cu as it is
+    (264, _BF16, "fwd", ("generic", 264)), (512, _BF16, "dkdv", ("generic", 512)),
+    (160, _F32, "fwd", ("generic", 160)), (256, _F32, "dkdv", ("generic", 256)),
+    (150, _F32, "fwd", ("generic", 150))])
+def test_hm_route(dim, dtype, part, route):
+    """Where the head-major family runs each head_dim's part on the card,
+    by input dtype: up to 128 on kernels #5-#7 (a size that is no
+    multiple of 8 padded to the next one); from 129 to 256 the bf16
+    forward and dK/dV on flash_wide.cu (padded the same way); dQ above
+    128, f32 above 128 and everything above 256 on flash_generic.cu."""
+    assert torch_fa._hm_route(dim, dtype, part) == route
+
+
+def test_hm_route_takes_three_parts():
+    with pytest.raises(ValueError, match="part is one of"):
+        torch_fa._hm_route(160, _BF16, "bwd")
 
 
 def _plain_kernels(monkeypatch, seen):
@@ -367,42 +388,52 @@ def _plain_kernels(monkeypatch, seen):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("dim", [20, 44, 160])
+@pytest.mark.parametrize("dim", [20, 44, 150, 160, 256])
 def test_routes_pad_and_slice_exactly(dim, causal, monkeypatch):
-    """The routes as the wrappers run them on the card, with the plain
-    versions in place of the launches: q, k, v and dO padded with zero
-    columns to the next multiple of 8 (20, 44) and run with the true
-    scale, O, dQ, dK, dV sliced back; 160 unpadded on the generic
-    kernels.  Zero columns add nothing to Q K^T or dO V^T, so the routed
-    results equal the unpadded plain versions to the last bit but for
-    summation order (f32)."""
-    seen = []
-    _plain_kernels(monkeypatch, seen)
-    q, k, v, do = map(torch.from_numpy,
-                      _qkv((2, 33, 3, dim), seed=dim) + _qkv(
-                          (2, 33, 3, dim), seed=1)[:1])
-    scale = dim ** -0.5
-    out, lse = torch_fa._launch_fwd(q, k, v, causal, scale, hm=True)
-    ref_out, ref_lse = attention_reference(q, k, v, causal, scale)
-    assert out.shape == q.shape and out.is_contiguous()
-    torch.testing.assert_close(out, ref_out, atol=1e-6, rtol=1e-6)
-    torch.testing.assert_close(lse, ref_lse, atol=1e-6, rtol=1e-6)
-    ref = attention_backward_reference(q, k, v, out, lse, do, causal, scale)
-    got = torch_fa._launch_bwd(q, k, v, out, lse, do, causal, scale,
-                               hm=True)
-    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
-        assert a.shape == q.shape and a.is_contiguous(), name
-        torch.testing.assert_close(a, r, atol=1e-6, rtol=1e-6, msg=name)
-    route, width = torch_fa._hm_route(dim)
-    kind = "generic" if route == "generic" else "hm"
-    assert {(w, s) for _, w, s in seen} == {(width, kind)}
-    assert [part for part, _, _ in seen] == ["fwd", "dkdv", "dq"]
+    """The routes as the wrappers run them on the card, in f32 and bf16,
+    with the plain versions in place of the launches: q, k, v and dO
+    padded with zero columns to the next multiple of 8 where the route
+    pads (20 and 44; 150 in bf16, whose forward and dK/dV run on
+    flash_wide.cu and whose dQ runs on flash_generic.cu at the same
+    width) and run with the true scale, O, dQ, dK, dV sliced back; 160
+    and 256 unpadded (bf16: the wide kernels and the generic dQ; f32: the
+    generic kernels).  Zero columns add nothing to Q K^T or dO V^T, so the
+    routed results equal the unpadded plain versions but for summation
+    order (f32: to 1e-6; bf16: the outputs' rounding, 1e-2)."""
+    for dtype in (_F32, _BF16):
+        seen = []
+        _plain_kernels(monkeypatch, seen)
+        q, k, v, do = (x.to(dtype) for x in map(
+            torch.from_numpy, _qkv((2, 33, 3, dim), seed=dim)
+            + _qkv((2, 33, 3, dim), seed=1)[:1]))
+        tol = 1e-6 if dtype == _F32 else 1e-2
+        scale = dim ** -0.5
+        out, lse = torch_fa._launch_fwd(q, k, v, causal, scale, hm=True)
+        ref_out, ref_lse = attention_reference(q, k, v, causal, scale)
+        assert out.shape == q.shape and out.is_contiguous()
+        assert out.dtype == dtype
+        torch.testing.assert_close(out, ref_out, atol=tol, rtol=tol)
+        torch.testing.assert_close(lse, ref_lse, atol=1e-6, rtol=1e-6)
+        ref = attention_backward_reference(q, k, v, out, lse, do, causal,
+                                           scale)
+        got = torch_fa._launch_bwd(q, k, v, out, lse, do, causal, scale,
+                                   hm=True)
+        for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+            assert a.shape == q.shape and a.is_contiguous(), name
+            torch.testing.assert_close(a, r, atol=tol, rtol=tol, msg=name)
+        # each part on its own kernel, at the one width of the route
+        routes = [(part, torch_fa._hm_route(dim, dtype, part))
+                  for part in torch_fa.PARTS]
+        assert seen == [(part, width, kind)
+                        for part, (kind, width) in routes], (dtype, seen)
+        assert len({w for _, w, _ in seen}) == 1, seen
 
 
-# head sizes no Hopper build takes as they are: 20 (padded onto the 24
-# build on the card) and 160 (flash_generic.cu); the Pallas kernels take
-# both as they are
-_ROUTED_HM_SHAPES = [(1, 128, 2, 20), (2, 128, 2, 160)]
+# head sizes no 32/64/128 build takes as they are: 20 (padded onto the 24
+# build on the card), 160 and 256 (in f32 flash_generic.cu, in bf16 the
+# forward and dK/dV on flash_wide.cu); the Pallas kernels take all three as
+# they are
+_ROUTED_HM_SHAPES = [(1, 128, 2, 20), (2, 128, 2, 160), (1, 128, 2, 256)]
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -410,7 +441,7 @@ _ROUTED_HM_SHAPES = [(1, 128, 2, 20), (2, 128, 2, 160)]
                          ids=lambda s: f"d{s[-1]}")
 def test_flash_hm_routed_head_dims_match_pallas_f32(shape, causal):
     """Forward (O, LSE) and the vjp of the head-major family at head_dim
-    20 and 160 against the head-major Pallas kernels (interpret mode,
+    20, 160 and 256 against the head-major Pallas kernels (interpret mode,
     ``native=False``), at the head-major tests' tolerances."""
     q, k, v, do = _qkv(shape, seed=shape[-1] + 5) + _qkv(shape, seed=6)[:1]
     ref_out, ref_lse = _jax_flash_hm(q, k, v, causal, jnp.float32)
