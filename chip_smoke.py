@@ -56,11 +56,12 @@ no network.  Phases, one JSON line each:
     of 16, 2 KV heads), f32: logits and every gradient on the card (the
     head-major kernels at head_dim 16) against the CPU; then bf16,
     finite.
-16. ``head_dims``: GPT-2 of 2 layers at head_dim 160 and 256 (f32:
+16. ``head_dims``: GPT-2 of 2 layers at head_dim 160, 256 and 512 (f32:
     csrc/flash_generic.cu) and 20 (the head-major kernels on zero-padded
     inputs), f32: one step's loss and every gradient on the card against
-    the CPU, with each route's launches; then at 160 and 256 in bf16
-    (csrc/flash_wide.cu's forward and dK/dV, flash_generic.cu's dQ)
+    the CPU, with each route's launches; then at 160, 256 and 512 in bf16
+    (csrc/flash_wide.cu's forward, dK/dV and dQ; at 512
+    csrc/flash_xwide.cu's forward and flash_generic.cu's dK/dV and dQ)
     against the f32 step.
 17. ``runtime``: the port's own cluster, ``init(num_cpus=4,
     num_gpus=1)`` with the object store in /dev/shm: a GPU task returns
@@ -94,7 +95,9 @@ no network.  Phases, one JSON line each:
     launches (the ring's steps launch only the chunk mode of #1/#3/#4);
     then ring attention over 4 ranks driven in one process
     (``simulate_ring``) at [1, 32768, 12, 64], [1, 8192, 25, 64],
-    [1, 4096, 4, 256] and [1, 2048, 4, 512], and Ulysses
+    [1, 4096, 4, 256] (flash_wide.cu's chunk kernels), [1, 2048, 4, 512]
+    (flash_xwide.cu's forward) and [1, 1024, 2, 1024] (flash_generic.cu),
+    and Ulysses
     (``simulate_ulysses``) at
     [1, 32768, 12, 64], against ``flash_attention`` on the whole
     sequence, row by row.
@@ -102,16 +105,17 @@ no network.  Phases, one JSON line each:
 The ``kernels`` phase also holds the backward kernels (dK/dV and dQ) and
 both kernel families (native layout and head-major; head-major at every
 head_dim it takes a build for, 32, 64 and 128, and at 16, 48, 80 and 96,
-at 20 and 44 on zero-padded inputs, at 160, 200 and 256 on
-csrc/flash_wide.cu (bf16 forward and dK/dV) and at 160 to 1024 on
-csrc/flash_generic.cu, odd head counts, ragged lengths, ViT's non-causal
-197, more than 65535 heads in all) against their plain versions, RMSNorm with a bf16 weight
+at 20 and 44 on zero-padded inputs, at 136 to 256 on csrc/flash_wide.cu
+(bf16 forward, dK/dV and dQ), at 264 to 512 on csrc/flash_xwide.cu (the
+bf16 forward) and at 160 to 1024 on csrc/flash_generic.cu, odd head
+counts, ragged lengths, ViT's non-causal 197, more than 65535 heads in
+all) against their plain versions, RMSNorm with a bf16 weight
 too, and times them at the training shapes (GPT-2 124M and XL, ViT-B/16,
 the MoE) beside SDPA; and the chunk mode of ring attention
 (``_flash_chunk_fwd`` / ``_flash_chunk_bwd``: bf16 in, f32 out, the
 backward from a given LSE and delta) on every route, timed at a 4-way
 ring's chunk of 32768 tokens of GPT-2 124M and of XL's head count, and
-at head_dim 256 and 512.  Each main path (``serve``, ``train``,
+at head_dim 256, 512 and 1024, and held at the new kernels' ragged ends.  Each main path (``serve``, ``train``,
 ``train_xl``, ``vit``, ``moe``, ``resnet``, ``head_dims``, ``runtime``,
 ``train_gang``, whose worker counts its own, ``serve_batching``,
 ``long_context`` and each run of ``seq_parallel``) is
@@ -166,16 +170,25 @@ HEAD_DIM_SHAPE = (8, 1024, 16)
 # head-major head sizes no 32/64/128 build takes as they are
 # (flash_attention._hm_route): 20 and 44 run on the 24 and 48 builds'
 # kernels on zero-padded copies; 160 and 256 in bf16 on csrc/flash_wide.cu
-# (the forward and dK/dV; its 192 and 256 builds) and csrc/
-# flash_generic.cu (dQ), in f32 on flash_generic.cu (its blocks own 64
-# rows up to 256, 32 up to 512, 16 up to 1024), as is everything above 256
-# (ROUTED_WIDE); each held and timed at HEAD_DIM_SHAPE's batch, length and
-# heads, causal and full, and in f32 at ROUTED_F32, then held at ragged
-# lengths and at the generic kernels' limit
+# (the forward, dK/dV and dQ; its 192 and 256 builds), in f32 on
+# flash_generic.cu (its blocks own 64 rows up to 256, 32 up to 512, 16 up
+# to 1024); 512 (ROUTED_WIDE, and HEAD_DIM_SHAPE at 512 and 384, forward
+# only) in bf16 on csrc/flash_xwide.cu (the forward; its 384 and 512
+# builds) and flash_generic.cu (dK/dV, dQ); 1024 (ROUTED_GENERIC, forward
+# only) on flash_generic.cu; each held and timed at HEAD_DIM_SHAPE's
+# batch, length and heads, causal and full, and in f32 at ROUTED_F32, then
+# held at ragged lengths (ROUTED_RAGGED_DIMS: the wide kernels' 136-256,
+# flash_xwide.cu's 264-512, the generic kernels' limit)
 ROUTED_HEAD_DIMS = (20, 44, 160, 256)
 ROUTED_WIDE = (2, 512, 4, 512)
+ROUTED_XWIDE_DIMS = (384, 512)
+ROUTED_GENERIC = (2, 512, 4, 1024)
 ROUTED_F32 = (2, 256, 4)
 ROUTED_RAGGED = ((2, 100, 3), (1, 1, 2), (2, 257, 3))
+WIDE_HELD_DIMS = (136, 150, 160, 200, 256)
+XWIDE_HELD_DIMS = (264, 300, 384, 400, 512)
+ROUTED_RAGGED_DIMS = (20, 44) + WIDE_HELD_DIMS + XWIDE_HELD_DIMS + (1000,
+                                                                    1024)
 # RMSNorm cases held but not timed: widths (1000 is no multiple of a
 # 16-byte vector of bf16, so it takes the one-element path; 1024 takes
 # few warps a row; 5120 and 8192 four or eight) at an odd row count, and
@@ -363,10 +376,12 @@ def runtime_attrs(symbol, d, f32_out=False):
     out = (ctypes.c_int * 3)()
     if symbol == "flash_fwd_bf16_kernel":
         rc = lib.rtt_flash_fwd_attrs(d, int(f32_out), out)
+    elif symbol == "xwide_fwd_kernel":
+        rc = lib.rtt_flash_xwide_attrs(d, int(f32_out), out)
     elif symbol.startswith("wide_"):
         rc = lib.rtt_flash_wide_attrs(
-            {"wide_fwd_kernel": 0, "wide_dkdv_kernel": 1}[symbol], d,
-            int(f32_out), out)
+            {"wide_fwd_kernel": 0, "wide_dkdv_kernel": 1,
+             "wide_dq_kernel": 2}[symbol], d, int(f32_out), out)
     else:
         rc = lib.rtt_flash_bwd_attrs(
             {"bwd_dkdv_bf16_kernel": 0, "bwd_dq_bf16_kernel": 1}[symbol], d,
@@ -546,8 +561,9 @@ def bwd_case(timer, gen, shape, dtype, causal, timed, hm=False, tk=None):
     assert [getattr(*c) for c in counters] == [n + 1 for n in before]
     ref = attention_backward_reference(q, k, v, out, lse, do, causal, scale)
     tol = ROW_TOL[dtype]
-    # one name for the pair, and each part's kernel: at head_dim 129-256
-    # in bf16, dK/dV runs on flash_wide.cu and dQ on flash_generic.cu
+    # one name for the pair, and each part's kernel: at head_dim 257-512
+    # in bf16 the forward runs on flash_xwide.cu, dK/dV and dQ on
+    # flash_generic.cu
     res = {"kernel": _case_kernel(hm, d, dtype, "bwd_dkdv")[:-len("_dkdv")],
            "kernel_dkdv": _case_kernel(hm, d, dtype, "bwd_dkdv"),
            "kernel_dq": _case_kernel(hm, d, dtype, "bwd_dq"),
@@ -620,14 +636,17 @@ def bwd_case(timer, gen, shape, dtype, causal, timed, hm=False, tk=None):
 # bf16 inputs, f32 outputs, the backward from a given LSE and delta.  Its
 # shapes: a 4-way ring over 32768 tokens of GPT-2 124M (12 heads of 64,
 # native layout) and of GPT-2 XL's head count (25, head-major), causal
-# (the diagonal chunk) and not (a past one); head_dim 256 (flash_wide.cu's
-# forward and dK/dV, flash_generic.cu's dQ) and 512 (flash_generic.cu);
-# then the tiles' edges of every route untimed, with the ring's chunk at
-# head_dim 256 (SP_RING_SHAPES) on the diagonal and a past one.
+# (the diagonal chunk) and not (a past one); head_dim 256 (flash_wide.cu),
+# 512 (flash_xwide.cu's forward, flash_generic.cu's dK/dV and dQ) and
+# 1024 (flash_generic.cu); then the tiles' edges of every route untimed,
+# with the ring's chunk at head_dim 256 (SP_RING_SHAPES) on the diagonal
+# and a past one, and the new kernels' ragged ends at every head_dim
+# chip_smoke holds them at (WIDE_HELD_DIMS, XWIDE_HELD_DIMS).
 CHUNK_NL = (1, 8192, 12, 64)
 CHUNK_HM = (1, 8192, 25, 64)
 CHUNK_WIDE = HEAD_DIM_SHAPE + (256,)
-CHUNK_GENERIC = ROUTED_WIDE
+CHUNK_XWIDE = ROUTED_WIDE
+CHUNK_GENERIC = ROUTED_GENERIC
 CHUNK_EDGES = (((2, 200, 2, 64), True, None), ((2, 1000, 2, 128), True, None),
                ((2, 65, 2, 64), True, None), ((2, 130, 2, 64), False, 257),
                ((2, 200, 3, 32), True, None), ((2, 63, 3, 128), True, None),
@@ -738,7 +757,9 @@ def chunk_case(timer, gen, shape, causal, timed, tk=None):
     for name, x, r in zip(("dq", "dk", "dv"), grads, refs):
         assert x.dtype == torch.float32 and torch.isfinite(x).all(), name
         res[f"{name}_max_abs_err"] = max_err(x, r)
-        res[f"{name}_row_scaled_err"] = err = held_err(name, x, r, causal)
+        # row by row everywhere, one causal position too: with half of
+        # delta, dS = P (dP - delta) is dP / 2 there, not 0 (held_err)
+        res[f"{name}_row_scaled_err"] = err = row_scaled_err(x, r)
         assert err <= tol, (name, err, tol)
     res["max_abs_err_dq"] = res["dq_max_abs_err"]
     res["max_abs_err_dkdv"] = max(res["dk_max_abs_err"],
@@ -780,14 +801,22 @@ def chunk_case(timer, gen, shape, causal, timed, tk=None):
 
 
 def chunk_cases(timer, gen, add):
-    """The chunk mode's cases: timed at CHUNK_NL, CHUNK_HM, CHUNK_WIDE
-    and CHUNK_GENERIC, causal and not, then held at CHUNK_EDGES."""
-    for shape in (CHUNK_NL, CHUNK_HM, CHUNK_WIDE, CHUNK_GENERIC):
+    """The chunk mode's cases: timed at CHUNK_NL, CHUNK_HM, CHUNK_WIDE,
+    CHUNK_XWIDE and CHUNK_GENERIC, causal and not, then held at
+    CHUNK_EDGES and at the ragged ends of flash_wide.cu's and
+    flash_xwide.cu's head sizes."""
+    for shape in (CHUNK_NL, CHUNK_HM, CHUNK_WIDE, CHUNK_XWIDE,
+                  CHUNK_GENERIC):
         for causal in (True, False):
             add(chunk_case(timer, gen, shape, causal, timed=True))
             _free()
     for shape, causal, tk in CHUNK_EDGES:
         add(chunk_case(timer, gen, shape, causal, timed=False, tk=tk))
+    for d in WIDE_HELD_DIMS + XWIDE_HELD_DIMS:
+        for shape in ROUTED_RAGGED:
+            add(chunk_case(timer, gen, shape + (d,), True, timed=False))
+        add(chunk_case(timer, gen, (2, 130, 3, d), False, timed=False,
+                       tk=257))
 
 
 def phase_kernels():
@@ -915,9 +944,10 @@ def phase_kernels():
 
 def routed_head_dim_cases(timer, gen, add, cases):
     """The head-major family at the head sizes _hm_route pads (20, 44)
-    or sends to flash_generic.cu (160 and up), against the plain versions
-    at ROW_TOL, forward and backward; then the pad route's cost beside
-    its build's (d 20 against 24, 44 against 48), as one line."""
+    or sends to flash_wide.cu, flash_xwide.cu or flash_generic.cu (136
+    and up), against the plain versions at ROW_TOL, forward and backward;
+    then the pad route's cost beside its build's (d 20 against 24, 44
+    against 48), as one line."""
     for d in ROUTED_HEAD_DIMS:
         for causal in (False, True):
             add(flash_case(timer, gen, HEAD_DIM_SHAPE + (d,), torch.bfloat16,
@@ -929,17 +959,24 @@ def routed_head_dim_cases(timer, gen, add, cases):
                        timed=True, hm=True))
         add(bwd_case(timer, gen, ROUTED_WIDE, torch.bfloat16, causal,
                      timed=True, hm=True))
+        for d in ROUTED_XWIDE_DIMS:
+            add(flash_case(timer, gen, HEAD_DIM_SHAPE + (d,), torch.bfloat16,
+                           causal, timed=True, hm=True))
+        add(flash_case(timer, gen, ROUTED_GENERIC, torch.bfloat16, causal,
+                       timed=True, hm=True))
+        _free()
     for d in ROUTED_HEAD_DIMS + (ROUTED_WIDE[-1],):
         for causal in (False, True):
             add(flash_case(timer, gen, ROUTED_F32 + (d,), torch.float32,
                            causal, timed=True, hm=True))
             add(bwd_case(timer, gen, ROUTED_F32 + (d,), torch.float32,
                          causal, timed=True, hm=True))
-    # ragged ends of every route's tiles, one position, Tq != Tk (150: the
-    # wide kernels on inputs padded to 152; 200: the 256 build's last box
-    # partly past head_dim), and the generic kernels' widest head (16-row
-    # blocks)
-    for d in ROUTED_HEAD_DIMS + (150, 200, 1000, 1024):
+    # ragged ends of every route's tiles, one position, Tq != Tk (150 and
+    # 300: the wide kernels and the xwide forward on inputs padded to 152
+    # and 304; 136, 200, 264 and 400: a build's last box partly past
+    # head_dim, and at 264 and 400 a box wholly past it), and the generic
+    # kernels' widest head (16-row blocks)
+    for d in ROUTED_RAGGED_DIMS:
         for dtype in (torch.float32, torch.bfloat16):
             for shape in ROUTED_RAGGED:
                 add(flash_case(timer, gen, shape + (d,), dtype, True,
@@ -1102,10 +1139,13 @@ FLASH_NL = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
 FLASH_HM = ("flash_hm_fwd", "flash_hm_bwd_dkdv", "flash_hm_bwd_dq")
 FLASH_GENERIC = ("flash_generic_fwd", "flash_generic_bwd_dkdv",
                  "flash_generic_bwd_dq")
-# head_dim 129-256 in bf16: flash_wide.cu's forward and dK/dV, and
-# flash_generic.cu's dQ
-FLASH_WIDE = ("flash_wide_fwd", "flash_wide_bwd_dkdv", "flash_generic_bwd_dq")
-FLASH_ALL = FLASH_NL + FLASH_HM + FLASH_WIDE[:2] + FLASH_GENERIC
+# head_dim 129-256 in bf16: flash_wide.cu's forward, dK/dV and dQ
+FLASH_WIDE = ("flash_wide_fwd", "flash_wide_bwd_dkdv", "flash_wide_bwd_dq")
+# head_dim 257-512 in bf16: flash_xwide.cu's forward, and
+# flash_generic.cu's dK/dV and dQ
+FLASH_XWIDE = ("flash_xwide_fwd", "flash_generic_bwd_dkdv",
+               "flash_generic_bwd_dq")
+FLASH_ALL = FLASH_NL + FLASH_HM + FLASH_WIDE + FLASH_XWIDE[:1] + FLASH_GENERIC
 
 
 def _flash_counts():
@@ -1115,18 +1155,21 @@ def _flash_counts():
         nl_fwd.launches, nl_bwd.launches_dkdv, nl_bwd.launches_dq,
         hm_fwd.launches, hm_bwd.launches_dkdv, hm_bwd.launches_dq,
         hm_fwd.launches_wide, hm_bwd.launches_wide_dkdv,
+        hm_bwd.launches_wide_dq, hm_fwd.launches_xwide,
         hm_fwd.launches_generic, hm_bwd.launches_generic_dkdv,
         hm_bwd.launches_generic_dq)))
 
 
 def _flash_per(fwd, hm=False, bwd=None, route=None):
-    """Launches of one family's kernels (or, with ``route`` "wide" or
-    "generic", of that head-major route's: FLASH_WIDE or FLASH_GENERIC):
+    """Launches of one family's kernels (or, with ``route`` "wide",
+    "xwide" or "generic", of the kernels a head-major call on that
+    forward route launches: FLASH_WIDE, FLASH_XWIDE or FLASH_GENERIC):
     ``fwd`` forwards and ``bwd`` of each backward kernel (default
     ``fwd``); none of the others."""
     bwd = fwd if bwd is None else bwd
     counts = dict.fromkeys(FLASH_ALL, 0)
-    names = {"wide": FLASH_WIDE, "generic": FLASH_GENERIC}.get(
+    names = {"wide": FLASH_WIDE, "xwide": FLASH_XWIDE,
+             "generic": FLASH_GENERIC}.get(
         route, FLASH_HM if hm else FLASH_NL)
     counts.update(zip(names, (fwd, bwd, bwd)))
     return counts
@@ -1138,6 +1181,7 @@ def _zero_counts():
         fwd.launches = bwd.launches_dkdv = bwd.launches_dq = 0
     hm_fwd, hm_bwd = _family(True)
     hm_fwd.launches_wide = hm_bwd.launches_wide_dkdv = 0
+    hm_bwd.launches_wide_dq = hm_fwd.launches_xwide = 0
     hm_fwd.launches_generic = 0
     hm_bwd.launches_generic_dkdv = hm_bwd.launches_generic_dq = 0
     fused_rmsnorm.launches = 0
@@ -1985,11 +2029,14 @@ def phase_runtime():
 
 
 # head_dims: GPT-2 of 2 layers (GPT2Config.tiny's vocabulary and length)
-# at head sizes only the routes take: (heads, width) for head_dim 160
-# (flash_generic.cu) and 20 (zero-padded onto the 24 build's kernels)
-HEAD_DIM_MODELS = ((4, 640), (4, 80), (4, 1024))  # head_dim 160, 20, 256
-# head_dims in bf16 (head_dim 160 and 256 only: flash_wide.cu's forward and
-# dK/dV, flash_generic.cu's dQ) against the same weights' f32 step on the
+# at head sizes only the routes take: (heads, width) for head_dim 160, 256
+# and 512 (f32: flash_generic.cu) and 20 (zero-padded onto the 24 build's
+# kernels)
+HEAD_DIM_MODELS = ((4, 640), (4, 80), (4, 1024),
+                   (4, 2048))  # head_dim 160, 20, 256, 512
+# head_dims in bf16 (head_dim 160 and 256: flash_wide.cu's forward, dK/dV
+# and dQ; 512: flash_xwide.cu's forward, flash_generic.cu's dK/dV and dQ)
+# against the same weights' f32 step on the
 # card: the loss within HEAD_DIM_BF16_LOSS_RTOL, each gradient within
 # HEAD_DIM_BF16_GRAD_TOL of its tensor's largest element: bf16 rounding of
 # every product.  Measured on an H100: 0.7-1.2e-5 (loss) and 0.0106-0.0108
@@ -2003,11 +2050,11 @@ def phase_head_dim_parity(batch=2, seq=128):
     """The model path through the routed head-major kernels: one
     training step's loss and every gradient of each HEAD_DIM_MODELS
     GPT-2, f32, TF32 off, on the card against the CPU, with its launches
-    (2 of each flash_generic.cu kernel for head_dim 160 and 256; 2 of #5,
-    #6, #7 for head_dim 20); then, above 128, the same weights in bf16 on
-    the card (2 of flash_wide.cu's forward and dK/dV and of
-    flash_generic.cu's dQ) against the f32 step.  Returns the launch
-    counts of all runs."""
+    (2 of each flash_generic.cu kernel for head_dim 160, 256 and 512; 2
+    of #5, #6, #7 for head_dim 20); then, above 128, the same weights in
+    bf16 on the card (2 of each flash_wide.cu kernel at 160 and 256; 2 of
+    flash_xwide.cu's forward and of flash_generic.cu's dK/dV and dQ at
+    512) against the f32 step.  Returns the launch counts of all runs."""
     from ray_tpu_torch.models.gpt2 import GPT2, GPT2Config, loss_fn
     rows, total = [], dict.fromkeys(FLASH_ALL, 0)
     for heads, width in HEAD_DIM_MODELS:
@@ -2053,7 +2100,8 @@ def phase_head_dim_parity(batch=2, seq=128):
             bf_loss, bf_grads = step_grads(model_bf, loss_fn, tokens.cuda())
             torch.cuda.synchronize()
             launches = _flash_counts()
-            assert launches == _flash_per(cfg.num_layers, route="wide"), (
+            assert launches == _flash_per(
+                cfg.num_layers, route="wide" if d <= 256 else "xwide"), (
                 launches)
             loss_rel = abs(bf_loss - gpu_loss) / abs(gpu_loss)
             grad_err = {n: _gradient_err(bf_grads[n], g)[1]
@@ -2126,10 +2174,12 @@ def gang_train_loop(config):
                 (flash_attention_bwd, "launches_dq"),
                 (flash_attention_hm_fwd, "launches"),
                 (flash_attention_hm_fwd, "launches_wide"),
+                (flash_attention_hm_fwd, "launches_xwide"),
                 (flash_attention_hm_fwd, "launches_generic"),
                 (flash_attention_hm_bwd, "launches_dkdv"),
                 (flash_attention_hm_bwd, "launches_dq"),
                 (flash_attention_hm_bwd, "launches_wide_dkdv"),
+                (flash_attention_hm_bwd, "launches_wide_dq"),
                 (flash_attention_hm_bwd, "launches_generic_dkdv"),
                 (flash_attention_hm_bwd, "launches_generic_dq"),
                 (fused_rmsnorm, "launches"))
@@ -2138,10 +2188,11 @@ def gang_train_loop(config):
 
     def counts():
         names = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
-                 "flash_hm_fwd", "flash_wide_fwd", "flash_generic_fwd",
-                 "flash_hm_bwd_dkdv", "flash_hm_bwd_dq",
-                 "flash_wide_bwd_dkdv", "flash_generic_bwd_dkdv",
-                 "flash_generic_bwd_dq", "rmsnorm")
+                 "flash_hm_fwd", "flash_wide_fwd", "flash_xwide_fwd",
+                 "flash_generic_fwd", "flash_hm_bwd_dkdv", "flash_hm_bwd_dq",
+                 "flash_wide_bwd_dkdv", "flash_wide_bwd_dq",
+                 "flash_generic_bwd_dkdv", "flash_generic_bwd_dq",
+                 "rmsnorm")
         return {n: getattr(fn, a) for n, (fn, a) in zip(names, counters)}
 
     cfg = GPT2Config.gpt2_small(max_seq_len=config["seq"])
@@ -2556,20 +2607,26 @@ SP_STEPS = 4
 SP_LOSS_RTOL = 1e-3
 SP_RANKS = 4
 # the in-process ring at GPT-2 124M's and XL's head counts (the chunk mode
-# of #1/#3/#4 and #5-#7), at head_dim 256 (flash_wide.cu's forward and
-# dK/dV, flash_generic.cu's dQ) and at 512 (flash_generic.cu)
+# of #1/#3/#4 and #5-#7), at head_dim 256 (flash_wide.cu's forward, dK/dV
+# and dQ), at 512 (flash_xwide.cu's forward, flash_generic.cu's dK/dV and
+# dQ) and at 1024 (flash_generic.cu); SP_RING_KERNELS: a chunk kernel
+# each of those head sizes must launch
 SP_RING_SHAPES = ((1, 32768, 12, 64), (1, 8192, 25, 64), (1, 4096, 4, 256),
-                  (1, 2048, 4, 512))
+                  (1, 2048, 4, 512), (1, 1024, 2, 1024))
+SP_RING_KERNELS = {256: ("flash_wide_fwd_f32out", "flash_wide_bwd_dq_f32out"),
+                   512: ("flash_xwide_fwd_f32out",
+                         "flash_generic_bwd_dq_f32out"),
+                   1024: ("flash_generic_fwd_f32out",)}
 SP_ULYSSES_SHAPE = (1, 32768, 12, 64)
 
 
 def _chunk_counts():
     """The chunk mode's launch counts by kernels-line name."""
     out = {}
-    for kind in ("", "hm", "wide", "generic"):
+    for kind in ("", "hm", "wide", "xwide", "generic"):
         for part in ("fwd", "dkdv", "dq"):
             fn, attr = _chunk_counter(kind, part)
-            if hasattr(fn, attr):  # flash_wide.cu has no dQ
+            if hasattr(fn, attr):  # flash_xwide.cu has no backward
                 out[chunk_name(kind, part if part == "fwd"
                                else "bwd_" + part)] = getattr(fn, attr)
     return out
@@ -2747,6 +2804,8 @@ def _ring_compose(shape, gen):
     # rank r runs the diagonal and its r past chunks, forward and back
     pairs = SP_RANKS * (SP_RANKS + 1) // 2
     kinds = _chunk_kinds(q)
+    for name in SP_RING_KERNELS.get(shape[-1], ()):
+        assert launches[name] == pairs, (shape, name, launches)
     assert launches == {**dict.fromkeys(launches, 0), **{
         chunk_name(kinds[p], n): pairs for p, n in (
             ("fwd", "fwd"), ("dkdv", "bwd_dkdv"), ("dq", "bwd_dq"))}
@@ -2856,7 +2915,9 @@ SYMBOLS = {"flash_fwd": "flash_fwd_bf16_kernel",  # the bf16 kernel's name
            "flash_bwd_dq": "bwd_dq_bf16_kernel",
            "flash_hm_bwd_dq": "bwd_dq_bf16_kernel",
            "flash_wide_fwd": "wide_fwd_kernel",
-           "flash_wide_bwd_dkdv": "wide_dkdv_kernel"}
+           "flash_wide_bwd_dkdv": "wide_dkdv_kernel",
+           "flash_wide_bwd_dq": "wide_dq_kernel",
+           "flash_xwide_fwd": "xwide_fwd_kernel"}
 WIDE_SHAPE = list(HEAD_DIM_SHAPE + (256,))
 SUMMARY = {  # name: (source, TPU kernel it replaces, shape in the table)
     "flash_fwd": ("ray_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -2875,22 +2936,28 @@ SUMMARY = {  # name: (source, TPU kernel it replaces, shape in the table)
                           list(XL_SHAPE)),
     "flash_hm_bwd_dq": ("ray_tpu_torch/ops/csrc/flash_bwd.cu",
                         "ray_tpu/ops/flash_attention.py:268", list(XL_SHAPE)),
-    # the head-major kernels above head_dim 128: bf16 forward and dK/dV up
-    # to 256 on flash_wide.cu, the rest on flash_generic.cu (its bf16
-    # forward and dK/dV above 256)
+    # the head-major kernels above head_dim 128: bf16 forward, dK/dV and
+    # dQ up to 256 on flash_wide.cu, the bf16 forward up to 512 on
+    # flash_xwide.cu, the rest on flash_generic.cu (its bf16 rows: dK/dV
+    # and dQ at 512, the forward at 1024)
     "flash_wide_fwd": ("ray_tpu_torch/ops/csrc/flash_wide.cu",
                        "ray_tpu/ops/flash_attention.py:82", WIDE_SHAPE),
     "flash_wide_bwd_dkdv": ("ray_tpu_torch/ops/csrc/flash_wide.cu",
                             "ray_tpu/ops/flash_attention.py:212", WIDE_SHAPE),
+    "flash_wide_bwd_dq": ("ray_tpu_torch/ops/csrc/flash_wide.cu",
+                          "ray_tpu/ops/flash_attention.py:268", WIDE_SHAPE),
+    "flash_xwide_fwd": ("ray_tpu_torch/ops/csrc/flash_xwide.cu",
+                        "ray_tpu/ops/flash_attention.py:82",
+                        list(ROUTED_WIDE)),
     "flash_generic_fwd": ("ray_tpu_torch/ops/csrc/flash_generic.cu",
                           "ray_tpu/ops/flash_attention.py:82",
-                          list(ROUTED_WIDE)),
+                          list(ROUTED_GENERIC)),
     "flash_generic_bwd_dkdv": ("ray_tpu_torch/ops/csrc/flash_generic.cu",
                                "ray_tpu/ops/flash_attention.py:212",
                                list(ROUTED_WIDE)),
     "flash_generic_bwd_dq": ("ray_tpu_torch/ops/csrc/flash_generic.cu",
                              "ray_tpu/ops/flash_attention.py:268",
-                             WIDE_SHAPE),
+                             list(ROUTED_WIDE)),
 }
 
 
@@ -2908,9 +2975,10 @@ CHUNK_SUMMARY = (  # the chunk mode's rows: kind, part, TPU line, shape
     ("", "bwd_dq", 680, CHUNK_NL), ("hm", "fwd", 82, CHUNK_HM),
     ("hm", "bwd_dkdv", 212, CHUNK_HM), ("hm", "bwd_dq", 268, CHUNK_HM),
     ("wide", "fwd", 82, CHUNK_WIDE), ("wide", "bwd_dkdv", 212, CHUNK_WIDE),
-    ("generic", "bwd_dq", 268, CHUNK_WIDE),
-    ("generic", "fwd", 82, CHUNK_GENERIC),
-    ("generic", "bwd_dkdv", 212, CHUNK_GENERIC))
+    ("wide", "bwd_dq", 268, CHUNK_WIDE), ("xwide", "fwd", 82, CHUNK_XWIDE),
+    ("generic", "bwd_dkdv", 212, CHUNK_XWIDE),
+    ("generic", "bwd_dq", 268, CHUNK_XWIDE),
+    ("generic", "fwd", 82, CHUNK_GENERIC))
 
 
 def chunk_summary(cases, by_path, usage):
@@ -2942,7 +3010,8 @@ def chunk_summary(cases, by_path, usage):
                     if n.get(name)}
         assert launches, f"{name} was not launched on any main path"
         src = {"": "flash_{}.cu", "hm": "flash_{}.cu",
-               "wide": "flash_wide.cu", "generic": "flash_generic.cu"}[kind]
+               "wide": "flash_wide.cu", "xwide": "flash_xwide.cu",
+               "generic": "flash_generic.cu"}[kind]
         row = {"name": name, "route": "cuda",
                "source": "ray_tpu_torch/ops/csrc/" + src.format(part[:3]),
                "replaces": f"ray_tpu/ops/flash_attention.py:{line}",
@@ -2955,7 +3024,8 @@ def chunk_summary(cases, by_path, usage):
                "causal": True,
                "other_shapes": [{"shape": list(shape), "causal": False,
                                  **timing(found[False])}]}
-        sym = SYMBOLS.get(f"flash_{'wide_' if kind == 'wide' else ''}{part}")
+        sym = SYMBOLS.get(
+            f"flash_{kind + '_' if kind in ('wide', 'xwide') else ''}{part}")
         if kind != "generic":
             d = shape[-1]
             row["registers"], static = next(

@@ -57,19 +57,27 @@ SIGNATURES = {
                                    _I, _I, _I, _F, _I, _I, _I, _P],
     "rtt_flash_generic_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _I, _F, _I, _I, _I, _P],
-    # flash_wide.cu, the head-major bf16 forward and dK/dV from head_dim
-    # 129 to 256: as rtt_flash_fwd and rtt_flash_bwd_dkdv
+    # flash_wide.cu, the head-major bf16 forward, dK/dV and dQ from
+    # head_dim 129 to 256: as rtt_flash_fwd, rtt_flash_bwd_dkdv and
+    # rtt_flash_bwd_dq
     "rtt_flash_wide_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                            _I, _I, _P],
     "rtt_flash_wide_bwd_dkdv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _I, _I, _F, _I, _I, _I, _P],
+    "rtt_flash_wide_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _F, _I, _I, _I, _P],
+    # flash_xwide.cu, the head-major bf16 forward from head_dim 257 to
+    # 512: as rtt_flash_fwd
+    "rtt_flash_xwide_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                            _I, _I, _P],
     # the bf16-input kernels' registers and shared bytes as the runtime
     # holds them: head_dim, f32_out, out (int[3]); kernel (0 = dK/dV,
-    # 1 = dQ), head_dim, f32_out, out; kernel (0 = forward, 1 = dK/dV),
-    # head_dim, f32_out, out
+    # 1 = dQ), head_dim, f32_out, out; kernel (0 = forward, 1 = dK/dV,
+    # 2 = dQ), head_dim, f32_out, out; head_dim, f32_out, out
     "rtt_flash_fwd_attrs": [_I, _I, _P],
     "rtt_flash_bwd_attrs": [_I, _I, _I, _P],
     "rtt_flash_wide_attrs": [_I, _I, _I, _P],
+    "rtt_flash_xwide_attrs": [_I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -7,7 +7,10 @@
 // span it whole.  The Hopper kernels of flash_fwd.cu and flash_bwd.cu are
 // built for 32, 64 and 128 (their shared memory and registers are spent
 // at 128), and the wrapper zero-pads a head_dim below 128 that is no
-// multiple of 8 onto them; above 128 it launches these three.  They
+// multiple of 8 onto them; above 128 the bf16 forward, dK/dV and dQ up to
+// 256 run on flash_wide.cu and the bf16 forward up to 512 on
+// flash_xwide.cu.  These three take the rest: f32 inputs above 128, bf16
+// dK/dV and dQ above 256 and the bf16 forward above 512.  They
 // compute what the others compute, with the same contract: the causal
 // mask aligned top-left, f32 LSE and delta, bf16 or f32 in and out (and
 // f32 out from bf16 in, ring attention's chunk mode: the accumulators are

@@ -1,24 +1,28 @@
-// Flash-attention forward and dK/dV for Hopper (sm_90a) at head_dim 129 to
-// 256, bf16 inputs, over [B, T, H, D].
+// Flash-attention forward, dK/dV and dQ for Hopper (sm_90a) at head_dim
+// 129 to 256, bf16 inputs, over [B, T, H, D].
 //
 // Replaces, for head_dim 129-256 and bf16 inputs: ray_tpu/ops/
 // flash_attention.py::_fa_kernel (the head-major forward, launched by
-// _flash_forward) and ::_fa_bwd_dkdv_kernel (dK, dV, launched by
-// _flash_backward).  The Pallas kernels span any head_dim; the Hopper
-// kernels of flash_fwd.cu and flash_bwd.cu are built for 32, 64 and 128,
-// and flash_generic.cu's SIMT kernels take what is left (dQ, f32 inputs,
-// head_dim above 256).  These compute what flash_fwd.cu and flash_bwd.cu
-// compute, under the same contract: the causal mask aligned top-left, f32
-// LSE and delta, P rounded to bf16 before P V and dV, dS before dK; a row
-// with no visible key gives O = 0 and LSE = -1e30; outputs in bf16 or, the
-// chunk mode of ring attention (F32O), in f32 from bf16 inputs.
+// _flash_forward), ::_fa_bwd_dkdv_kernel (dK, dV) and ::_fa_bwd_dq_kernel
+// (dQ, both launched by _flash_backward).  The Pallas kernels span any
+// head_dim; the Hopper kernels of flash_fwd.cu and flash_bwd.cu are built
+// for 32, 64 and 128, flash_xwide.cu's forward for 384 and 512, and
+// flash_generic.cu's SIMT kernels take what is left (f32 inputs, bf16
+// dK/dV and dQ above 256, everything above 512).  These compute what
+// flash_fwd.cu and flash_bwd.cu compute, under the same contract: the
+// causal mask aligned top-left, f32 LSE and delta (the LSE clamped to 0
+// for a row that saw no key), P rounded to bf16 before P V and dV, dS
+// before dK and dQ; a row with no visible key gives O = 0 and LSE = -1e30;
+// outputs in bf16 or, the chunk mode of ring attention (F32O), in f32 from
+// bf16 inputs.
 //
 // Bound: at [8, 1024, 16, 256] causal the forward does 4 * D flops per
 // visible (query, key) pair (69 GFLOP, 70 us at 989 TFLOP/s) against 268
 // MB of q, k, v, o (80 us at 3.35 TB/s); dK/dV does 8 * D flops per pair
-// (138 GFLOP, 139 us) against 403 MB (120 us).  Both sit where the two
-// bounds meet, so, as at 128, the design keeps the tensor cores fed and
-// every [T, T] intermediate out of device memory.
+// (138 GFLOP, 139 us) against 403 MB (120 us); dQ 6 * D (103 GFLOP, 104
+// us) against 336 MB (100 us).  All sit where the two bounds meet, so, as
+// at 128, the design keeps the tensor cores fed and every [T, T]
+// intermediate out of device memory.
 //
 // A file of its own: flash_fwd.cu and flash_bwd.cu spend their shared
 // memory and registers at 128 (the forward takes 230,496 of 232,448
@@ -78,6 +82,34 @@
 // F32O, stored from the registers.  With causal the query loop starts at
 // the block's diagonal tile; rows past tq and keys above the diagonal are
 // masked to P = 0.
+//
+// dQ (wide_dq_kernel): flash_bwd.cu's persistent dQ does not fit at 256.
+// Its items of 128 queries take Q + dO 128 KB, and a 64-key K/V stage is 64
+// KB, so one item buffer and two stages are already 256 KB of the block's
+// 227 KB.  So dQ mirrors dK/dV: a block owns 64 queries of one (batch,
+// head), a head's blocks adjacent (its K/V tiles shared in L2); a producer
+// warpgroup loads Q and dO once (64 KB at 256) and streams 64-key tiles of
+// K and V (64 KB a stage; 2 stages at 256, 3 at 192).  Per key tile, the
+// two consumers:
+//  1. split S = Q K^T and dP = dO V^T (64 queries x 64 keys) by key
+//     halves: m64n32k16, both operands K-major; P = 2^(S scale log2 e -
+//     LSE log2 e), elementwise given the row's LSE, so no reduction
+//     crosses the consumers, and dS = P (dP - delta) scale, each thread
+//     reading its two rows' LSE and delta once;
+//  2. write dS~ (bf16, 8 KB, 128-byte swizzle, queries as rows) into one
+//     of two shared buffers, and meet on a named barrier;
+//  3. dQ += dS~ K with each consumer owning half of the head's boxes
+//     (m64n128k16 at 256; at 192 consumer 0 two boxes, 1 one): A is the
+//     dS~ tile (K-major), B the stage's K read MN-major across its boxes.
+//     A thread holds S 16 + dP 16 + dQ 64 registers.
+// The buffers alternate under the same argument as dK/dV's.  Shared
+// memory at 256: Q 32 + dO 32 + 2 x (K 32 + V 32) + 2 x dS~ 8 KB = 214,056
+// bytes with the mbarriers; at 192: 214,072 (3 stages).  After the last
+// tile's barrier neither consumer reads Q again: dQ is written over Q's
+// boxes in bf16 and stored by TMA (rows past tq are not written), or, with
+// F32O, stored from the registers as float2 pairs.  With causal the key
+// loop stops at the block's diagonal tile; keys past tk and above the
+// diagonal are masked to P = 0.
 //
 // Launches on the caller's stream; allocates nothing.
 
@@ -407,7 +439,9 @@ wide_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
 // ------------------------------------------------------------- dK/dV --
 
 constexpr int kBwdBN = 64, kBwdBM = 64;  // keys per block, queries per tile
-constexpr int kPBar = 1;  // named barrier: both halves of P~^T, dS~^T written
+// named barrier: both halves of P~^T and dS~^T (dK/dV) or of dS~ (dQ)
+// written
+constexpr int kPBar = 1;
 
 // Shared memory: K, V, the Q/dO stages, two P~^T/dS~^T buffers, the
 // stages' LSE/delta, the mbarriers.
@@ -678,6 +712,246 @@ wide_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
     consume(std::integral_constant<int, B1>{}, B0);
 }
 
+// ---------------------------------------------------------------- dQ --
+
+constexpr int kDqBM = 64, kDqBN = 64;  // queries per block, keys per tile
+
+// Shared memory: Q, dO, the K/V stages, two dS~ buffers, the mbarriers.
+template <int D>
+struct WideDqSmem {
+  using L = hp::Swz<D>;
+  static constexpr int kStages = D == 256 ? 2 : 3;
+  static constexpr uint32_t kBox = 64 * L::kRowBytes;  // 64 rows of a box
+  static constexpr uint32_t kT = L::kBoxes * kBox;  // a Q, dO, K or V tile
+  static constexpr uint32_t kStage = 2 * kT;          // K, then V
+  static constexpr uint32_t kStages0 = 2 * kT;        // after Q and dO
+  static constexpr uint32_t kDs = kDqBM * kDqBN * 2;  // one dS~ buffer
+  static constexpr uint32_t kDss = kStages0 + kStages * kStage;
+  static constexpr uint32_t kBars = kDss + 2 * kDs;
+  static constexpr size_t kBytes = 1024 + kBars + 8 * (1 + 2 * kStages);
+  // consumer 0 owns boxes [0, kBoxes0) of dQ, consumer 1 the rest
+  static constexpr int kBoxes0 = (L::kBoxes + 1) / 2;
+  static_assert(kBytes <= 232448, "over the block's shared memory");
+};
+
+// F32O: dQ in f32 through dq32 (dqmap unused).
+template <int D, bool F32O>
+__global__ void __launch_bounds__(kWideThreads, 1)
+wide_dq_kernel(const __grid_constant__ CUtensorMap qmap,
+               const __grid_constant__ CUtensorMap kmap,
+               const __grid_constant__ CUtensorMap vmap,
+               const __grid_constant__ CUtensorMap domap,
+               const __grid_constant__ CUtensorMap dqmap,
+               const float* __restrict__ lse,
+               const float* __restrict__ delta, float* __restrict__ dq32,
+               int heads, int dim, int tq, int tk, float scale,
+               int causal) {
+  using L = hp::Swz<D>;
+  using SM = WideDqSmem<D>;
+  constexpr int BM = kDqBM, BN = kDqBN, NS = SM::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t q_s = (hp::smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t do_s = q_s + SM::kT;
+  const uint32_t stage_s = q_s + SM::kStages0;  // stage i: K, then V
+  const uint32_t ds_s = q_s + SM::kDss;  // buffer i: dS~ of tiles i, i + 2..
+  const uint32_t q_full = q_s + SM::kBars;
+  auto full = [&](int i) { return q_full + 8 * (1 + i); };
+  auto empty = [&](int i) { return q_full + 8 * (1 + NS + i); };
+
+  const int tid = threadIdx.x, wg = tid / kWg, lane = tid % 32;
+  const Work w = work_head_tiles_adjacent();
+  const int b = w.bh / heads, h = w.bh % heads;
+  const int m0 = w.tile * BM;
+  // the key loop stops at the diagonal
+  const int n_tiles = key_tiles(m0, BM, BN, tq, tk, causal);
+
+  if (tid == 0) {
+    hp::mbar_init(q_full, 1);
+    for (int i = 0; i < NS; ++i) {
+      hp::mbar_init(full(i), 1);
+      hp::mbar_init(empty(i), 2 * kWg);
+    }
+    hp::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer: one thread
+    hp::regs_dec<24>();
+    if (tid != 2 * kWg) return;
+    hp::mbar_arrive_tx(q_full, 2 * SM::kT);
+    for (int bx = 0; bx < L::kBoxes; ++bx) {
+      hp::tma_load(q_s + bx * SM::kBox, &qmap, q_full, bx * L::kCols, h, m0,
+                   b);
+      hp::tma_load(do_s + bx * SM::kBox, &domap, q_full, bx * L::kCols, h,
+                   m0, b);
+    }
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % NS;
+      const uint32_t ks = stage_s + st * SM::kStage;
+      hp::mbar_wait(empty(st), ((it / NS) & 1) ^ 1);
+      hp::mbar_arrive_tx(full(st), SM::kStage);
+      for (int bx = 0; bx < L::kBoxes; ++bx) {
+        hp::tma_load(ks + bx * SM::kBox, &kmap, full(st), bx * L::kCols, h,
+                     it * BN, b);
+        hp::tma_load(ks + SM::kT + bx * SM::kBox, &vmap, full(st),
+                     bx * L::kCols, h, it * BN, b);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: keys kh ... kh + 31 of each tile for S and dP,
+  // then dQ columns of boxes [box0, box0 + NB)
+  hp::regs_inc<240>();
+  const int warp = (tid % kWg) / 32;
+  const int g = lane >> 2, t = lane & 3;  // accumulator row / column pair
+  const int row[2] = {m0 + warp * 16 + g, m0 + warp * 16 + g + 8};
+  const float sl2 = scale * kLog2e;  // scores in log2 units
+  const int kh = 32 * wg;
+  // LSE (log2 units, clamped) and delta of this thread's two rows
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool ok = row[i] < tq;
+    const size_t idx = ((size_t)b * heads + h) * tq + row[i];
+    const float l = ok ? lse[idx] : 0.f;
+    lse2[i] = l <= kNegInf / 2 ? 0.f : l * kLog2e;
+    dl[i] = ok ? delta[idx] : 0.f;
+  }
+
+  auto consume = [&](auto n_boxes, int box0) {
+    constexpr int NB = decltype(n_boxes)::value, N = NB * L::kCols;
+    // element 4c + 2i + e: (row[i], column box0 kCols + 8c + 2t + e)
+    float dqa[N / 2];
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) dqa[e] = 0.f;
+
+    hp::mbar_wait(q_full, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % NS, n0 = it * BN;
+      const uint32_t ks = stage_s + st * SM::kStage, vs = ks + SM::kT;
+      const uint32_t dsb = ds_s + (it & 1) * SM::kDs;
+      hp::mbar_wait(full(st), (it / NS) & 1);
+
+      // S = Q K^T, then dP = dO V^T over this consumer's 32 keys; element
+      // 4j + e of each is (row[e >> 1], key n0 + kh + 8j + 2t + (e & 1)).
+      float s[16], dp[16];
+      hp::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int bx = kk / L::kKSteps, kb = (kk % L::kKSteps) * 32;
+        hp::mma_ss<32>(
+            s, hp::desc_k<D>(q_s + bx * SM::kBox + kb),
+            hp::desc_k<D>(ks + bx * SM::kBox + kh * L::kRowBytes + kb),
+            kk > 0);
+      }
+      hp::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int bx = kk / L::kKSteps, kb = (kk % L::kKSteps) * 32;
+        hp::mma_ss<32>(
+            dp, hp::desc_k<D>(do_s + bx * SM::kBox + kb),
+            hp::desc_k<D>(vs + bx * SM::kBox + kh * L::kRowBytes + kb),
+            kk > 0);
+      }
+      hp::wgmma_commit();
+      hp::wgmma_wait<1>();
+      hp::fence_regs(s);
+
+      // P in place of S while dP runs
+      const bool masked = n0 + BN > tk || (causal && n0 + BN - 1 > m0);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          float p = hp::exp2(fmaf(s[4 * j + e], sl2, -lse2[i]));
+          if (masked) {
+            const int kpos = n0 + kh + 8 * j + 2 * t + (e & 1);
+            if (kpos >= tk || (causal && kpos > row[i])) p = 0.f;
+          }
+          s[4 * j + e] = p;
+        }
+      hp::wgmma_wait<0>();
+      hp::fence_regs(dp);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - dl[e >> 1]) * scale;
+
+      // dS~, queries as rows and this consumer's keys as columns, into
+      // the buffer; the other consumer writes the other half
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          hp::st_shared(dsb + hp::swizzled<64>(warp * 16 + g + 8 * i,
+                                               kh + 8 * j + 2 * t),
+                        pack_f32(dp[4 * j + 2 * i], dp[4 * j + 2 * i + 1]));
+      hp::fence_proxy_async();
+      hp::named_sync(kPBar, 2 * kWg);
+
+      // dQ += dS~ K over this consumer's boxes: A the buffer (K-major), B
+      // the stage's K (MN-major)
+      hp::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        hp::mma_ss<N, 1>(dqa, hp::desc_k<64>(dsb + kk * 32),
+                         hp::desc_mn<D>(ks + box0 * SM::kBox +
+                                            kk * 16 * L::kRowBytes,
+                                        SM::kBox),
+                         1);
+      hp::wgmma_commit();
+      hp::wgmma_wait<0>();
+      hp::fence_regs(dqa);
+      hp::mbar_arrive(empty(st));
+    }
+
+    if constexpr (F32O) {
+      const size_t rs = (size_t)heads * dim;
+      const size_t base = slice_base(b, h, heads, tq, dim);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (row[i] >= tq) continue;
+        const size_t at = base + (size_t)row[i] * rs;
+#pragma unroll
+        for (int c = 0; c < N / 8; ++c) {
+          const int col = box0 * L::kCols + 8 * c + 2 * t;
+          if (col >= dim) continue;  // dim is a multiple of 8
+          *reinterpret_cast<float2*>(dq32 + at + col) =
+              make_float2(dqa[4 * c + 2 * i], dqa[4 * c + 2 * i + 1]);
+        }
+      }
+      return;
+    }
+    // dQ in bf16 over this consumer's boxes of Q (both consumers passed
+    // the last tile's barrier after their last S, so neither reads Q
+    // again), then by TMA; rows past tq are not written
+#pragma unroll
+    for (int c = 0; c < N / 8; ++c)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        hp::st_shared(q_s + (box0 + c / 8) * SM::kBox +
+                          hp::swizzled<D>(warp * 16 + g + 8 * i,
+                                          8 * (c % 8) + 2 * t),
+                      pack_f32(dqa[4 * c + 2 * i], dqa[4 * c + 2 * i + 1]));
+    hp::fence_proxy_async();
+    hp::named_sync(2 + wg, kWg);
+    if (tid % kWg == 0) {
+      for (int bx = box0; bx < box0 + NB; ++bx)
+        hp::tma_store(&dqmap, q_s + bx * SM::kBox, bx * L::kCols, h, m0, b);
+      hp::tma_commit();
+      hp::tma_wait_read();
+    }
+  };
+  constexpr int B0 = SM::kBoxes0, B1 = L::kBoxes - SM::kBoxes0;
+  if (wg == 0)
+    consume(std::integral_constant<int, B0>{}, 0);
+  else
+    consume(std::integral_constant<int, B1>{}, B0);
+}
+
 // ------------------------------------------------------------- entries --
 
 bool bad_wide_args(int batch, int tq, int tk, int heads, int dtype,
@@ -751,6 +1025,37 @@ int dkdv(const void* q, const void* k, const void* v, const void* dout,
   });
 }
 
+int dq(const void* q, const void* k, const void* v, const void* dout,
+       const void* lse, const void* delta, void* dq_out, int batch, int tq,
+       int tk, int heads, int head_dim, float scale, int causal, int dtype,
+       int out_dtype, void* stream) {
+  if (bad_wide_args(batch, tq, tk, heads, dtype, out_dtype))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)by_wide_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    const bool f32o = out_dtype == 0;
+    CUtensorMap qm, km, vm, dom, dqm;
+    if (!hp::encode_map<D>(&qm, q, batch, tq, heads, head_dim, kDqBM) ||
+        !hp::encode_map<D>(&km, k, batch, tk, heads, head_dim, kDqBN) ||
+        !hp::encode_map<D>(&vm, v, batch, tk, heads, head_dim, kDqBN) ||
+        !hp::encode_map<D>(&dom, dout, batch, tq, heads, head_dim, kDqBM) ||
+        (!f32o &&
+         !hp::encode_map<D>(&dqm, dq_out, batch, tq, heads, head_dim, kDqBM)))
+      return cudaErrorInvalidValue;
+    if (f32o) dqm = qm;  // unused: f32 dQ leaves from the registers
+    auto go = [&](auto kernel) {
+      return launch_block(
+          kernel, dim3(batch * heads, (tq + kDqBM - 1) / kDqBM),
+          kWideThreads, WideDqSmem<D>::kBytes, s, qm, km, vm, dom, dqm,
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<float*>(dq_out), heads, head_dim, tq, tk, scale,
+          causal);
+    };
+    return f32o ? go(wide_dq_kernel<D, true>) : go(wide_dq_kernel<D, false>);
+  });
+}
+
 }  // namespace
 
 // As rtt_flash_fwd (flash_fwd.cu), for bf16 inputs (dtype 1) and head_dim
@@ -776,16 +1081,32 @@ extern "C" int rtt_flash_wide_bwd_dkdv(const void* q, const void* k,
               head_dim, scale, causal, dtype, out_dtype, stream);
 }
 
-// As rtt_flash_bwd_attrs, for the forward (kernel 0) or dK/dV (kernel 1).
+// As rtt_flash_bwd_dq (flash_bwd.cu), with rtt_flash_wide_fwd's limits.
+extern "C" int rtt_flash_wide_bwd_dq(const void* q, const void* k,
+                                     const void* v, const void* dout,
+                                     const void* lse, const void* delta,
+                                     void* dq_out, int batch, int tq, int tk,
+                                     int heads, int head_dim, float scale,
+                                     int causal, int dtype, int out_dtype,
+                                     void* stream) {
+  return dq(q, k, v, dout, lse, delta, dq_out, batch, tq, tk, heads,
+            head_dim, scale, causal, dtype, out_dtype, stream);
+}
+
+// As rtt_flash_bwd_attrs, for the forward (kernel 0), dK/dV (kernel 1) or
+// dQ (kernel 2).
 extern "C" int rtt_flash_wide_attrs(int kernel, int head_dim, int f32_out,
                                     int* out) {
-  if (kernel != 0 && kernel != 1) return (int)cudaErrorInvalidValue;
+  if (kernel < 0 || kernel > 2) return (int)cudaErrorInvalidValue;
   return (int)by_wide_head_dim(head_dim, [&](auto d) {
     constexpr int D = decltype(d)::value;
     if (kernel == 0)
       return f32_out ? func_attrs(wide_fwd_kernel<D, true>, out)
                      : func_attrs(wide_fwd_kernel<D, false>, out);
-    return f32_out ? func_attrs(wide_dkdv_kernel<D, true>, out)
-                   : func_attrs(wide_dkdv_kernel<D, false>, out);
+    if (kernel == 1)
+      return f32_out ? func_attrs(wide_dkdv_kernel<D, true>, out)
+                     : func_attrs(wide_dkdv_kernel<D, false>, out);
+    return f32_out ? func_attrs(wide_dq_kernel<D, true>, out)
+                   : func_attrs(wide_dq_kernel<D, false>, out);
   });
 }

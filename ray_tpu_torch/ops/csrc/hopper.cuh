@@ -1,14 +1,15 @@
 // Hopper (sm_90a) building blocks in raw PTX, shared by the bf16 flash
-// forward (flash_fwd.cu), dK/dV and dQ (flash_bwd.cu) kernels and the
-// 192/256-column forward and dK/dV (flash_wide.cu): mbarriers, TMA
+// forward (flash_fwd.cu), dK/dV and dQ (flash_bwd.cu) kernels, the
+// 192/256-column forward, dK/dV and dQ (flash_wide.cu) and the
+// 384/512-column forward (flash_xwide.cu): mbarriers, TMA
 // loads and stores of 4-D [B, T, H, D] tiles, wgmma shared-memory
 // descriptors and the few wgmma shapes the kernels issue, register
 // rebalancing between warpgroups, and the host-side tensor-map encoder.
 //
 // Tiles in shared memory.  A tile of `rows` positions x D bf16 is stored
 // as D / C boxes of rows x C columns, C = 64 (128-byte rows, 128-byte
-// swizzle; D = 64, 128, 192, 256: one to four boxes) or, at D = 32, C = 32
-// (64-byte rows, 64-byte swizzle), one box
+// swizzle; D = 64, 128, 192, 256, 384, 512: one to eight boxes) or, at
+// D = 32, C = 32 (64-byte rows, 64-byte swizzle), one box
 // after the other; each box starts on a 1024-byte boundary.  TMA writes a
 // box in that swizzle, and the wgmma descriptors below read it in the same
 // one, so the two must agree on C (Swz<D>).
@@ -24,8 +25,8 @@
 //    dV and dK): a swizzle atom is C output columns x 8 reduction rows;
 //    SBO = the 8 rows' bytes, LBO = the distance between atoms along the
 //    output dimension (one box).  flash_fwd.cu and flash_bwd.cu issue one
-//    wgmma per box; flash_wide.cu's products span two to four boxes in one
-//    instruction, stepping from atom to atom by LBO.
+//    wgmma per box; flash_wide.cu's and flash_xwide.cu's products span one
+//    to four boxes in one instruction, stepping from atom to atom by LBO.
 
 #pragma once
 
@@ -46,8 +47,9 @@ struct Swz {
   static constexpr int kMode = kRowBytes == 128 ? 1 : 2;  // descriptor
   static constexpr int kKSteps = kCols / 16;  // k16 steps inside one row
   static constexpr int kAtomBytes = 8 * kRowBytes;
-  static_assert(D == 32 || D == 64 || D == 128 || D == 192 || D == 256,
-                "head_dim 32, 64, 128, 192 or 256");
+  static_assert(D == 32 || D == 64 || D == 128 || D == 192 || D == 256 ||
+                    D == 384 || D == 512,
+                "head_dim 32, 64, 128, 192, 256, 384 or 512");
 };
 
 // Byte offset of element (row, col) of a box, swizzled as TMA stores it.

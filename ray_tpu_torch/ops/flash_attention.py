@@ -1,6 +1,7 @@
 """Flash attention: the CUDA kernels ``csrc/flash_fwd.cu`` (forward),
 ``csrc/flash_bwd.cu`` (dK/dV and dQ) and, above head_dim 128,
-``csrc/flash_wide.cu`` (the bf16 forward and dK/dV up to 256) and
+``csrc/flash_wide.cu`` (the bf16 forward, dK/dV and dQ up to 256),
+``csrc/flash_xwide.cu`` (the bf16 forward from 257 to 512) and
 ``csrc/flash_generic.cu`` (the rest), behind the JAX package's two kernel
 families, each beside its plain version.
 
@@ -21,9 +22,11 @@ Counterpart of ``ray_tpu/ops/flash_attention.py``:
   kernels' 32/64/128 builds (``csrc/flash_common.cuh``'s
   ``by_head_dim``); another size below 128 on the same kernels, its
   inputs zero-padded to the next multiple of 8; with bf16 inputs up to
-  256 the forward and dK/dV on ``csrc/flash_wide.cu``'s 192/256 builds
-  (padded the same way); the rest (dQ and f32 above 128, everything
-  above 256) on ``csrc/flash_generic.cu``.  The JAX wrappers transpose
+  256 the forward, dK/dV and dQ on ``csrc/flash_wide.cu``'s 192/256
+  builds and from 257 to 512 the forward on ``csrc/flash_xwide.cu``'s
+  384/512 builds (padded the same way); the rest (f32 above 128, bf16
+  dK/dV and dQ above 256, everything above 512) on
+  ``csrc/flash_generic.cu``.  The JAX wrappers transpose
   to ``[B, H, T, D]`` for the TPU's tiles; the CUDA kernels read
   ``[B, T, H, D]`` by strides, so both families launch them on the
   caller's tensors and count their launches apart.
@@ -57,7 +60,8 @@ from ray_tpu_torch.ops import _build
 NEG_INF = -1e30
 NL_HEAD_DIMS = (64, 128)  # the JAX package's _nl_eligible
 HM_BUILT_MAX = 128  # the largest head_dim of flash_fwd.cu / flash_bwd.cu
-WIDE_MAX = 256  # the largest of flash_wide.cu (bf16 forward and dK/dV)
+WIDE_MAX = 256  # the largest of flash_wide.cu (bf16 forward, dK/dV, dQ)
+XWIDE_MAX = 512  # the largest of flash_xwide.cu (bf16 forward)
 PARTS = ("fwd", "dkdv", "dq")
 HM_MAX_HEAD_DIM = 1024  # csrc/flash_generic.cu's kMaxHeadDim
 
@@ -208,32 +212,40 @@ def _hm_route(head_dim: int, dtype=torch.bfloat16,
     ``(kernel selector, width)``.
 
     * ``"hm"``: up to 128, kernels #5-#7 (their 32/64/128 builds);
-    * ``"wide"``: from 129 to 256 with bf16 inputs, the forward and dK/dV
-      of ``csrc/flash_wide.cu`` (192/256 builds);
-    * ``"generic"``: ``csrc/flash_generic.cu``'s SIMT kernels: dQ and f32
-      inputs above 128, everything above 256.
+    * ``"wide"``: from 129 to 256 with bf16 inputs, the forward, dK/dV
+      and dQ of ``csrc/flash_wide.cu`` (192/256 builds);
+    * ``"xwide"``: from 257 to 512 with bf16 inputs, the forward of
+      ``csrc/flash_xwide.cu`` (384/512 builds);
+    * ``"generic"``: ``csrc/flash_generic.cu``'s SIMT kernels: f32 inputs
+      above 128, bf16 dK/dV and dQ above 256, everything above 512.
 
-    The width is ``head_dim`` or, where the part's kernel is a Hopper one
-    and ``head_dim`` no multiple of 8, the next multiple of 8: q, k, v
-    (and dO) zero-padded to it, with the true ``head_dim ** -0.5`` as the
+    The width is ``head_dim`` or, where a Hopper kernel runs a part at
+    that head_dim (up to 128, and up to 512 with bf16 inputs) and
+    ``head_dim`` is no multiple of 8, the next multiple of 8: q, k, v (and
+    dO) zero-padded to it, with the true ``head_dim ** -0.5`` as the
     scale.  Zero columns add nothing to ``Q K^T`` or to ``dO V^T``, the
     outputs' extra columns are sliced off, and a padded bf16 row spans a
     multiple of 16 bytes, the stride TMA takes.  The width does not depend
-    on the part, so the backward pads once for dK/dV and dQ (dQ's generic
-    kernel takes the padded width as it is).  A multiple of 8 runs on the
-    next build at or above it, its columns past ``head_dim`` zeros inside
-    the kernel.
+    on the part, so the backward pads once for dK/dV and dQ (the generic
+    kernels above 256 take the padded width as it is).  A multiple of 8
+    runs on the next build at or above it, its columns past ``head_dim``
+    zeros inside the kernel.
 
     Raises above ``HM_MAX_HEAD_DIM``, as :func:`_check_head_dim` does."""
     _check_head_dim(head_dim, hm=True)
     if part not in PARTS:
         raise ValueError(f"part is one of {PARTS}, got {part!r}")
-    wide = dtype == torch.bfloat16 and head_dim <= WIDE_MAX
+    bf16 = dtype == torch.bfloat16
     width = (head_dim + (-head_dim) % 8
-             if head_dim <= HM_BUILT_MAX or wide else head_dim)
+             if head_dim <= HM_BUILT_MAX or (bf16 and head_dim <= XWIDE_MAX)
+             else head_dim)
     if head_dim <= HM_BUILT_MAX:
         return "hm", width
-    return ("wide" if wide and part != "dq" else "generic"), width
+    if bf16 and head_dim <= WIDE_MAX:
+        return "wide", width
+    if bf16 and head_dim <= XWIDE_MAX and part == "fwd":
+        return "xwide", width
+    return "generic", width
 
 
 def _kernel_for(q, hm, part="fwd") -> Tuple[str, int]:
@@ -285,11 +297,12 @@ def _entry(kind, part):
 
 def _count(kind, part, chunk=False):
     """One launch of ``part`` ("", "_dkdv" or "_dq") on ``kind``: #1/#3/#4
-    on the native-layout wrappers' counters, #5-#7, flash_wide.cu and
-    flash_generic.cu on the head-major ones' (``launches``,
-    ``launches_wide*``, ``launches_generic*``); with ``chunk`` (f32
-    outputs) on :func:`_flash_chunk_fwd`'s and :func:`_flash_chunk_bwd`'s
-    (``launches``, ``launches_hm``, ``launches_wide``,
+    on the native-layout wrappers' counters, #5-#7, flash_wide.cu,
+    flash_xwide.cu and flash_generic.cu on the head-major ones'
+    (``launches``, ``launches_wide*``, ``launches_xwide``,
+    ``launches_generic*``); with ``chunk`` (f32 outputs) on
+    :func:`_flash_chunk_fwd`'s and :func:`_flash_chunk_bwd`'s
+    (``launches``, ``launches_hm``, ``launches_wide``, ``launches_xwide``,
     ``launches_generic``, each with the part)."""
     if chunk:
         fn = (_flash_chunk_fwd, _flash_chunk_bwd)[bool(part)]
@@ -377,14 +390,16 @@ def flash_attention_hm_fwd(q: torch.Tensor, k: torch.Tensor,
     every device; on the card it launches kernel #5 on the caller's
     ``[B,T,H,D]`` tensors (on zero-padded copies for a head_dim that is
     no multiple of 8) or, above 128, ``flash_wide.cu``'s forward (bf16
-    up to 256, counted in ``launches_wide``) or ``flash_generic.cu``'s
-    (counted in ``launches_generic``), as :func:`_hm_route` says, or
-    raises."""
+    up to 256, counted in ``launches_wide``), ``flash_xwide.cu``'s (bf16
+    from 257 to 512, counted in ``launches_xwide``) or
+    ``flash_generic.cu``'s (counted in ``launches_generic``), as
+    :func:`_hm_route` says, or raises."""
     return _forward(q, k, v, causal, scale, hm=True)
 
 
 flash_attention_hm_fwd.launches = 0
 flash_attention_hm_fwd.launches_wide = 0
+flash_attention_hm_fwd.launches_xwide = 0
 flash_attention_hm_fwd.launches_generic = 0
 
 
@@ -490,7 +505,8 @@ def flash_attention_hm_bwd(q: torch.Tensor, k: torch.Tensor,
     """Head-major family (``_flash_backward``): as
     :func:`flash_attention_bwd`, for head_dim 1 to ``HM_MAX_HEAD_DIM``,
     launching kernels #6 (dK/dV) and #7 (dQ), or above 128
-    ``flash_wide.cu``'s dK/dV (counted in ``launches_wide_dkdv``) and
+    ``flash_wide.cu``'s (bf16 up to 256, counted in
+    ``launches_wide_dkdv`` and ``launches_wide_dq``) or
     ``flash_generic.cu``'s (counted in ``launches_generic_dkdv`` and
     ``launches_generic_dq``), each part routed by :func:`_hm_route`, or
     raising."""
@@ -500,6 +516,7 @@ def flash_attention_hm_bwd(q: torch.Tensor, k: torch.Tensor,
 flash_attention_hm_bwd.launches_dkdv = 0
 flash_attention_hm_bwd.launches_dq = 0
 flash_attention_hm_bwd.launches_wide_dkdv = 0
+flash_attention_hm_bwd.launches_wide_dq = 0
 flash_attention_hm_bwd.launches_generic_dkdv = 0
 flash_attention_hm_bwd.launches_generic_dq = 0
 
@@ -586,9 +603,10 @@ def _flash_chunk_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CPU tensors take :func:`attention_reference` with f32 out; CUDA
     tensors launch the forward kernel of the family ``flash_attention``
-    picks (#1, #5, or above head_dim 128 flash_wide.cu up to 256 and
-    flash_generic.cu beyond) with f32 O (from bf16 inputs, counted in
-    ``_flash_chunk_fwd.launches``, ``.launches_hm``, ``.launches_wide``,
+    picks (#1, #5, or above head_dim 128 flash_wide.cu up to 256,
+    flash_xwide.cu up to 512 and flash_generic.cu beyond) with f32 O
+    (from bf16 inputs, counted in ``_flash_chunk_fwd.launches``,
+    ``.launches_hm``, ``.launches_wide``, ``.launches_xwide``,
     ``.launches_generic``), or raise."""
     _validate(q, k, v, causal)
     hm = _chunk_family(q, k, v)
@@ -607,6 +625,7 @@ def _flash_chunk_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 _flash_chunk_fwd.launches = 0
 _flash_chunk_fwd.launches_hm = 0
 _flash_chunk_fwd.launches_wide = 0
+_flash_chunk_fwd.launches_xwide = 0
 _flash_chunk_fwd.launches_generic = 0
 
 
@@ -662,5 +681,6 @@ _flash_chunk_bwd.launches_dq = 0
 _flash_chunk_bwd.launches_hm_dkdv = 0
 _flash_chunk_bwd.launches_hm_dq = 0
 _flash_chunk_bwd.launches_wide_dkdv = 0
+_flash_chunk_bwd.launches_wide_dq = 0
 _flash_chunk_bwd.launches_generic_dkdv = 0
 _flash_chunk_bwd.launches_generic_dq = 0

@@ -28,7 +28,12 @@ Two implementations, as in the JAX package:
   second time: ``delta`` is computed once from the final O, each step
   adds ``_flash_chunk_bwd`` of the chunk it holds (against the global
   LSE and delta) to dQ and to the f32 dK/dV accumulators, which travel
-  with their K/V chunk and arrive home after ``sp`` hops.
+  with their K/V chunk and arrive home after ``sp`` hops.  In both
+  passes a step posts the send of the K/V chunk it holds (and the
+  receive of the next) before its chunk kernel and waits for them after
+  it (:func:`ring_shift_start`, :func:`ring_shift_wait`), so the
+  transfer overlaps the kernel, as the JAX ring's ``ppermute``, which
+  does not depend on the step's chunk, lets XLA overlap it.
 
 Each step's body (:func:`ring_fwd_step`, :func:`ring_bwd_step`) is a
 function of its own, as the JAX ``step`` closures are, so that
@@ -57,23 +62,42 @@ def _size_rank(group) -> Tuple[int, int]:
     return dist.get_world_size(group), dist.get_rank(group)
 
 
+def ring_shift_start(xs, group, shift: int = 1):
+    """Post, in one batch, the sends of the tensors ``xs`` to rank
+    ``+shift`` on the ring of ``group`` and the receives of their
+    counterparts from rank ``-shift``; return ``(receive buffers,
+    requests)`` for :func:`ring_shift_wait`.  Until then ``xs`` must not
+    be written (reading them is fine).  Without a group the buffers are
+    ``xs`` themselves and there is nothing to wait for."""
+    n, me = _size_rank(group)
+    if n == 1:
+        return list(xs), []
+    xs = [x.contiguous() for x in xs]
+    got = [torch.empty_like(x) for x in xs]
+    dst = dist.get_global_rank(group, (me + shift) % n)
+    src = dist.get_global_rank(group, (me - shift) % n)
+    ops = []
+    for x, y in zip(xs, got):
+        ops += [dist.P2POp(dist.isend, x, dst, group),
+                dist.P2POp(dist.irecv, y, src, group)]
+    return got, dist.batch_isend_irecv(ops)
+
+
+def ring_shift_wait(pending) -> List[torch.Tensor]:
+    """Wait for a :func:`ring_shift_start`'s transfers; return the
+    received tensors."""
+    got, reqs = pending
+    for req in reqs:
+        req.wait()
+    return got
+
+
 def ring_shift(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
     """The tensor of the rank ``shift`` places before this one on the
     ring of ``group``: each rank sends ``x`` to rank ``+shift`` and
     receives from rank ``-shift`` (``lax.ppermute`` with the permutation
     ``i -> i + shift``).  The identity without a group."""
-    n, me = _size_rank(group)
-    if n == 1:
-        return x
-    x = x.contiguous()
-    got = torch.empty_like(x)
-    dst = dist.get_global_rank(group, (me + shift) % n)
-    src = dist.get_global_rank(group, (me - shift) % n)
-    for req in dist.batch_isend_irecv([
-            dist.P2POp(dist.isend, x, dst, group),
-            dist.P2POp(dist.irecv, got, src, group)]):
-        req.wait()
-    return got
+    return ring_shift_wait(ring_shift_start((x,), group, shift))[0]
 
 
 class _Shift(torch.autograd.Function):
@@ -200,10 +224,14 @@ def _ring_flash_fwd_pass(q, k, v, group, causal, scale):
     lse = torch.full((batch, tq, heads), NEG_INF, device=q.device)
     k_cur, v_cur = k, v
     for s in range(n):
+        # the next chunk travels while this one's kernel runs; the send
+        # only reads k_cur and v_cur
+        pending = (ring_shift_start((k_cur, v_cur), group) if s < n - 1
+                   else None)
         out, lse = ring_fwd_step(q, k_cur, v_cur, out, lse, me,
                                  (me - s) % n, causal, scale)
-        if s < n - 1:
-            k_cur, v_cur = ring_shift(k_cur, group), ring_shift(v_cur, group)
+        if pending is not None:
+            k_cur, v_cur = ring_shift_wait(pending)
     # f32 across the ring; one rounding to the input dtype at the end
     return out.to(q.dtype), lse
 
@@ -222,13 +250,16 @@ def _ring_flash_bwd_pass(q, k, v, out, lse, g, group, causal, scale):
     dv = torch.zeros(v.shape, device=v.device)
     k_cur, v_cur = k, v
     for s in range(n):
+        pending = (ring_shift_start((k_cur, v_cur), group) if s < n - 1
+                   else None)
         ring_bwd_step(q, k_cur, v_cur, out, lse, g, delta, dq, dk, dv, me,
                       (me - s) % n, causal, scale)
-        if s < n - 1:
-            k_cur, v_cur = ring_shift(k_cur, group), ring_shift(v_cur, group)
-        # the accumulators travel WITH their chunk; after n hops the
-        # packet is home with every rank's contribution on board
-        dk, dv = ring_shift(dk, group), ring_shift(dv, group)
+        if pending is not None:
+            k_cur, v_cur = ring_shift_wait(pending)
+        # the accumulators travel WITH their chunk, after this step's
+        # share is on board; after n hops the packet is home with every
+        # rank's contribution
+        dk, dv = ring_shift_wait(ring_shift_start((dk, dv), group))
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

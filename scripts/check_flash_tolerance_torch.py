@@ -16,7 +16,12 @@ build/ray_tpu_torch/planted/ (the sources themselves are never touched):
   (64 queries) of the last key tile (128 keys);
 * ``wide_fwd_drop_diag``, ``wide_dkdv_drop_last``: the same faults in
   flash_wide.cu's forward (its diagonal tile is 64 keys) and dK/dV (64
-  keys a block, 64 queries a tile), shown at head_dim 256 and 160.
+  keys a block, 64 queries a tile), shown at head_dim 256 and 160;
+* ``wide_dq_drop_diag``: flash_wide.cu's dQ skips the diagonal key tile
+  (64 keys) of its last 64-query block, shown at head_dim 256 and 160;
+* ``xwide_fwd_drop_diag``: flash_xwide.cu's forward skips the diagonal
+  key tile (32 keys) of its last 64-query tile, shown at head_dim 512
+  and 384.
 
 Each fault touches the last 64 or 128 positions only, where causal rows
 are smallest: the kind of fault a limit scaled to the tensor's max
@@ -26,7 +31,8 @@ Both kernel families (native layout and head-major) launch the same
 kernels, so each fault in flash_fwd.cu and flash_bwd.cu is shown through
 both: the native family at the GPT-2 124M and Llama shapes, the
 head-major one at GPT-2 XL's; flash_wide.cu's at [8, 1024, 16, 256] and
-[8, 1024, 16, 160].
+[8, 1024, 16, 160]; flash_xwide.cu's at [8, 1024, 16, 512] and
+[8, 1024, 16, 384].
 
 Each build runs in a process of its own (the library loads once per
 process).  For each case, one JSON line: the error of O (and LSE), dQ,
@@ -62,12 +68,19 @@ KEY_TILES = "return key_tiles(m0, BM, BN, tq, tk, causal);"
 DROP_DIAG = KEY_TILES.replace("causal);", "causal) - (m0 + BM >= tq);")
 DKDV_END = "const int m_end = (tq + BM - 1) / BM;"
 DKDV_DROP_LAST = DKDV_END.replace("/ BM;", "/ BM - (n0 + BN >= tk);")
+# the key-tile count of the one-block-per-query-tile kernels (flash_wide.cu's
+# dQ, flash_xwide.cu's forward)
+N_TILES = "const int n_tiles = key_tiles(m0, BM, BN, tq, tk, causal);"
+N_TILES_DROP_DIAG = N_TILES.replace("causal);", "causal) - (m0 + BM >= tq);")
 # (shape, head-major): the bf16 causal training shapes of each family
 TRAIN_SHAPES = ((chip_smoke.GPT2_SHAPE, False), ((4, 1024, 32, 128), False),
                 (chip_smoke.XL_SHAPE, True))
 # flash_wide.cu's two builds (256, and 192 at head_dim 160)
 WIDE_SHAPES = tuple((chip_smoke.HEAD_DIM_SHAPE + (d,), True)
                     for d in (256, 160))
+# flash_xwide.cu's two builds (512, and 384)
+XWIDE_SHAPES = tuple((chip_smoke.HEAD_DIM_SHAPE + (d,), True)
+                     for d in (512, 384))
 # name: (source, first occurrence (the bf16 kernel's), replacement, the
 # tensors the faulty kernel writes, the shapes it is shown at)
 PLANTED = {
@@ -81,6 +94,10 @@ PLANTED = {
                            WIDE_SHAPES),
     "wide_dkdv_drop_last": ("flash_wide.cu", DKDV_END, DKDV_DROP_LAST,
                             ("dk", "dv"), WIDE_SHAPES),
+    "wide_dq_drop_diag": ("flash_wide.cu", N_TILES, N_TILES_DROP_DIAG,
+                          ("dq",), WIDE_SHAPES),
+    "xwide_fwd_drop_diag": ("flash_xwide.cu", N_TILES, N_TILES_DROP_DIAG,
+                            ("O",), XWIDE_SHAPES),
 }
 
 
@@ -135,7 +152,7 @@ def run_build(name: str) -> None:
     if name != "sound":
         use_planted(name)
     gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
-    shapes = (TRAIN_SHAPES + WIDE_SHAPES if name == "sound"
+    shapes = (TRAIN_SHAPES + WIDE_SHAPES + XWIDE_SHAPES if name == "sound"
               else PLANTED[name][4])
     cases = [(s, hm, torch.bfloat16, True) for s, hm in shapes]
     if name == "sound":

@@ -327,26 +327,69 @@ _BF16, _F32 = torch.bfloat16, torch.float32
     (4, _BF16, "fwd", ("hm", 8)), (8, _BF16, "fwd", ("hm", 8)),
     (20, _BF16, "fwd", ("hm", 24)), (44, _F32, "dkdv", ("hm", 48)),
     (64, _F32, "dq", ("hm", 64)), (128, _BF16, "dq", ("hm", 128)),
-    # bf16 forward and dK/dV from 129 to 256: flash_wide.cu (160 on its
-    # 192 build as it is, 200 and 256 on the 256 one, 150 padded to 152)
+    # bf16 forward, dK/dV and dQ from 129 to 256: flash_wide.cu (160 on
+    # its 192 build as it is, 200 and 256 on the 256 one, 150 padded to
+    # 152)
     (160, _BF16, "fwd", ("wide", 160)), (160, _BF16, "dkdv", ("wide", 160)),
     (200, _BF16, "fwd", ("wide", 200)), (256, _BF16, "fwd", ("wide", 256)),
     (256, _BF16, "dkdv", ("wide", 256)), (150, _BF16, "fwd", ("wide", 152)),
     (150, _BF16, "dkdv", ("wide", 152)),
-    # dQ above 128: flash_generic.cu, at the width dK/dV pads to
-    (150, _BF16, "dq", ("generic", 152)), (160, _BF16, "dq", ("generic", 160)),
-    (256, _BF16, "dq", ("generic", 256)), (512, _BF16, "dq", ("generic", 512)),
-    # above 256, and f32 above 128: flash_generic.cu as it is
-    (264, _BF16, "fwd", ("generic", 264)), (512, _BF16, "dkdv", ("generic", 512)),
+    (150, _BF16, "dq", ("wide", 152)), (160, _BF16, "dq", ("wide", 160)),
+    (256, _BF16, "dq", ("wide", 256)),
+    # the bf16 forward from 257 to 512: flash_xwide.cu (264 on its 384
+    # build, 300 padded to 304); dK/dV and dQ there on flash_generic.cu,
+    # at the width the forward pads to
+    (264, _BF16, "fwd", ("xwide", 264)), (300, _BF16, "fwd", ("xwide", 304)),
+    (300, _BF16, "dkdv", ("generic", 304)),
+    (300, _BF16, "dq", ("generic", 304)), (512, _BF16, "fwd", ("xwide", 512)),
+    (512, _BF16, "dkdv", ("generic", 512)),
+    (512, _BF16, "dq", ("generic", 512)),
+    # above 512, and f32 above 128: flash_generic.cu as it is
+    (520, _BF16, "fwd", ("generic", 520)),
     (160, _F32, "fwd", ("generic", 160)), (256, _F32, "dkdv", ("generic", 256)),
-    (150, _F32, "fwd", ("generic", 150))])
+    (150, _F32, "fwd", ("generic", 150)), (384, _F32, "fwd", ("generic", 384))])
 def test_hm_route(dim, dtype, part, route):
     """Where the head-major family runs each head_dim's part on the card,
     by input dtype: up to 128 on kernels #5-#7 (a size that is no
     multiple of 8 padded to the next one); from 129 to 256 the bf16
-    forward and dK/dV on flash_wide.cu (padded the same way); dQ above
-    128, f32 above 128 and everything above 256 on flash_generic.cu."""
+    forward, dK/dV and dQ on flash_wide.cu and from 257 to 512 the bf16
+    forward on flash_xwide.cu (padded the same way); f32 above 128, bf16
+    dK/dV and dQ above 256 and everything above 512 on
+    flash_generic.cu."""
     assert torch_fa._hm_route(dim, dtype, part) == route
+
+
+@pytest.mark.parametrize("chunk", [False, True], ids=["bf16out", "f32out"])
+def test_every_route_counts_its_launches(chunk, monkeypatch):
+    """Each kernel a route can pick has its own launch counter, on the
+    head-major wrappers and (the chunk mode, f32 outputs) on the chunk
+    functions: one launch of a part moves that counter alone, by one."""
+    fns = (torch_fa.flash_attention_hm_fwd, torch_fa.flash_attention_hm_bwd,
+           torch_fa._flash_chunk_fwd, torch_fa._flash_chunk_bwd)
+
+    def counts():
+        return {(fn.__name__, a): getattr(fn, a) for fn in fns
+                for a in vars(fn) if a.startswith("launches")}
+
+    for (name, attr), n in counts().items():  # restored at teardown
+        monkeypatch.setattr(getattr(torch_fa, name), attr, n)
+    seen = set()
+    for dim in (20, 64, 150, 256, 300, 512, 520):
+        for dtype in (_F32, _BF16):
+            for part, sfx in zip(torch_fa.PARTS, ("", "_dkdv", "_dq")):
+                kind = torch_fa._hm_route(dim, dtype, part)[0]
+                before = counts()
+                torch_fa._count(kind, sfx, chunk=chunk)
+                moved = {k: v - before[k] for k, v in counts().items()
+                         if v != before[k]}
+                assert list(moved.values()) == [1], (dim, dtype, part, moved)
+                seen |= set(moved)
+    # every head-major counter was moved (the chunk functions' plain
+    # "launches*" count the native-layout kernels, which no route picks)
+    native = ("launches", "launches_dkdv", "launches_dq") if chunk else ()
+    assert seen == {(fn.__name__, a) for fn in fns[2 * chunk:2 * chunk + 2]
+                    for a in vars(fn)
+                    if a.startswith("launches") and a not in native}
 
 
 def test_hm_route_takes_three_parts():
@@ -388,15 +431,16 @@ def _plain_kernels(monkeypatch, seen):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("dim", [20, 44, 150, 160, 256])
+@pytest.mark.parametrize("dim", [20, 44, 150, 160, 256, 300, 512])
 def test_routes_pad_and_slice_exactly(dim, causal, monkeypatch):
     """The routes as the wrappers run them on the card, in f32 and bf16,
     with the plain versions in place of the launches: q, k, v and dO
     padded with zero columns to the next multiple of 8 where the route
-    pads (20 and 44; 150 in bf16, whose forward and dK/dV run on
-    flash_wide.cu and whose dQ runs on flash_generic.cu at the same
-    width) and run with the true scale, O, dQ, dK, dV sliced back; 160
-    and 256 unpadded (bf16: the wide kernels and the generic dQ; f32: the
+    pads (20 and 44; 150 in bf16, whose three parts run on flash_wide.cu;
+    300 in bf16, whose forward runs on flash_xwide.cu and whose dK/dV and
+    dQ run on flash_generic.cu at the same width) and run with the true
+    scale, O, dQ, dK, dV sliced back; 160, 256 and 512 unpadded (bf16: the
+    wide kernels, or the xwide forward and the generic backward; f32: the
     generic kernels).  Zero columns add nothing to Q K^T or dO V^T, so the
     routed results equal the unpadded plain versions but for summation
     order (f32: to 1e-6; bf16: the outputs' rounding, 1e-2)."""
@@ -430,10 +474,11 @@ def test_routes_pad_and_slice_exactly(dim, causal, monkeypatch):
 
 
 # head sizes no 32/64/128 build takes as they are: 20 (padded onto the 24
-# build on the card), 160 and 256 (in f32 flash_generic.cu, in bf16 the
-# forward and dK/dV on flash_wide.cu); the Pallas kernels take all three as
-# they are
-_ROUTED_HM_SHAPES = [(1, 128, 2, 20), (2, 128, 2, 160), (1, 128, 2, 256)]
+# build on the card), 160 and 256 (in f32 flash_generic.cu, in bf16
+# flash_wide.cu), 384 (in f32 flash_generic.cu, in bf16 the forward on
+# flash_xwide.cu); the Pallas kernels take all four as they are
+_ROUTED_HM_SHAPES = [(1, 128, 2, 20), (2, 128, 2, 160), (1, 128, 2, 256),
+                     (1, 64, 2, 384)]
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -441,7 +486,7 @@ _ROUTED_HM_SHAPES = [(1, 128, 2, 20), (2, 128, 2, 160), (1, 128, 2, 256)]
                          ids=lambda s: f"d{s[-1]}")
 def test_flash_hm_routed_head_dims_match_pallas_f32(shape, causal):
     """Forward (O, LSE) and the vjp of the head-major family at head_dim
-    20, 160 and 256 against the head-major Pallas kernels (interpret mode,
+    20, 160, 256 and 384 against the head-major Pallas kernels (interpret mode,
     ``native=False``), at the head-major tests' tolerances."""
     q, k, v, do = _qkv(shape, seed=shape[-1] + 5) + _qkv(shape, seed=6)[:1]
     ref_out, ref_lse = _jax_flash_hm(q, k, v, causal, jnp.float32)

@@ -50,8 +50,11 @@ SP = 4
 OUT_TOL = dict(atol=2e-5, rtol=2e-5)
 GRAD_TOL = dict(atol=2e-4, rtol=2e-4)
 # the chunk functions: both families, as the JAX chunk functions
-# dispatch them (2 heads of 64: native layout; 3 heads: head-major)
-CHUNK_SHAPES = {"nl": (1, 256, 2, 64), "hm": (1, 256, 3, 64)}
+# dispatch them (2 heads of 64: native layout; 3 heads: head-major; 2
+# heads of 384: head-major, on the card flash_xwide.cu's forward and
+# flash_generic.cu's backward)
+CHUNK_SHAPES = {"nl": (1, 256, 2, 64), "hm": (1, 256, 3, 64),
+                "hm384": (1, 64, 2, 384)}
 # the attention cases both sides run at sp = 4: name -> (shape, seed,
 # ring impl or "ulysses", causal).  tests/test_parallel.py's shapes: the
 # plain ring's and Ulysses' small ones, and 256 positions of 64-wide
@@ -128,6 +131,71 @@ def test_chunk_bwd_matches_jax(family, causal, given_delta):
         assert a.dtype == torch.float32, name
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **GRAD_TOL,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_kernel_ring_posts_shifts_before_each_chunk(direction, monkeypatch):
+    """The kernel ring's order at every step of both passes, as the JAX
+    ring's dependence graph allows: the K/V chunk a rank holds is posted
+    (its send and the next chunk's receive, one batch) before the step's
+    chunk kernel and waited for after it, and the next step runs on what
+    the wait returned; in the backward the dK/dV accumulators leave after
+    the step's share is added.  Stand-ins record the shifts and the
+    steps on a ring of SP ranks whose shifts hand back copies."""
+    ra = importlib.import_module("ray_tpu_torch.parallel.ring_attention")
+    me, events, keep = 1, [], []
+
+    def start(xs, group, shift=1):
+        assert shift == 1
+        events.append(("start", [id(x) for x in xs]))
+        return list(xs)
+
+    def wait(sent):
+        got = [x.clone() for x in sent]
+        keep.extend(got)  # no id is reused while the test runs
+        events.append(("wait", [id(x) for x in sent], [id(x) for x in got]))
+        return got
+
+    def fwd_step(q, k_cur, v_cur, out, lse, my_idx, k_idx, causal, scale):
+        events.append(("chunk", [id(k_cur), id(v_cur)], k_idx, None))
+        return out, lse
+
+    def bwd_step(q, k_cur, v_cur, out, lse, g, delta, dq, dk, dv, my_idx,
+                 k_idx, causal, scale):
+        events.append(("chunk", [id(k_cur), id(v_cur)], k_idx,
+                       [id(dk), id(dv)]))
+
+    monkeypatch.setattr(ra, "_size_rank", lambda group: (SP, me))
+    monkeypatch.setattr(ra, "ring_shift_start", start)
+    monkeypatch.setattr(ra, "ring_shift_wait", wait)
+    monkeypatch.setattr(ra, "ring_fwd_step", fwd_step)
+    monkeypatch.setattr(ra, "ring_bwd_step", bwd_step)
+    q, k, v, g = _t(*_arrays((1, 8, 2, 16), seed=3))
+    bwd = direction == "bwd"
+    if bwd:
+        ra._ring_flash_bwd_pass(q, k, v, q, torch.zeros(1, 8, 2), g,
+                                "group", True, 0.25)
+    else:
+        ra._ring_flash_fwd_pass(q, k, v, "group", True, 0.25)
+    dkdv = ["start", "wait"] if bwd else []
+    assert [e[0] for e in events] == (
+        (["start", "chunk", "wait"] + dkdv) * (SP - 1) + ["chunk"] + dkdv)
+    kv = [id(k), id(v)]
+    steps = iter(events)
+    for s in range(SP):
+        if s < SP - 1:
+            _, posted = next(steps)
+        _, used, k_idx, acc = next(steps)
+        assert used == kv and k_idx == (me - s) % SP
+        if s < SP - 1:
+            # the chunk the step ran on was the one in flight; the next
+            # step runs on what arrived
+            _, sent, kv = next(steps)
+            assert posted == sent == used
+        if bwd:
+            _, sent_acc = next(steps)
+            _, sent, _ = next(steps)
+            assert sent_acc == sent == acc
 
 
 def test_merge_partials_matches_jax():
