@@ -56,11 +56,12 @@ no network.  Phases, one JSON line each:
     of 16, 2 KV heads), f32: logits and every gradient on the card (the
     head-major kernels at head_dim 16) against the CPU; then bf16,
     finite.
-16. ``head_dims``: GPT-2 of 2 layers at head_dim 160, 256 and 512 (f32:
-    csrc/flash_generic.cu) and 20 (the head-major kernels on zero-padded
-    inputs), f32: one step's loss and every gradient on the card against
-    the CPU, with each route's launches; then at 160, 256 and 512 in bf16
-    (csrc/flash_wide.cu's forward, dK/dV and dQ; at 512
+16. ``head_dims``: GPT-2 of 2 layers at head_dim 160, 256, 512 and 1024
+    (f32: csrc/flash_fma.cu's forward, csrc/flash_generic.cu's dK/dV and
+    dQ) and 20 (the head-major kernels on zero-padded inputs), f32: one
+    step's loss and every gradient on the card against the CPU, with each
+    route's launches; then at 160, 256, 512 and 1024 in bf16
+    (csrc/flash_wide.cu's forward, dK/dV and dQ; at 512 and 1024
     csrc/flash_xwide.cu's forward and flash_generic.cu's dK/dV and dQ)
     against the f32 step.
 17. ``runtime``: the port's own cluster, ``init(num_cpus=4,
@@ -96,8 +97,8 @@ no network.  Phases, one JSON line each:
     then ring attention over 4 ranks driven in one process
     (``simulate_ring``) at [1, 32768, 12, 64], [1, 8192, 25, 64],
     [1, 4096, 4, 256] (flash_wide.cu's chunk kernels), [1, 2048, 4, 512]
-    (flash_xwide.cu's forward) and [1, 1024, 2, 1024] (flash_generic.cu),
-    and Ulysses
+    and [1, 1024, 2, 1024] (flash_xwide.cu's forward, flash_generic.cu's
+    dK/dV and dQ), and Ulysses
     (``simulate_ulysses``) at
     [1, 32768, 12, 64], against ``flash_attention`` on the whole
     sequence, row by row.
@@ -106,10 +107,11 @@ The ``kernels`` phase also holds the backward kernels (dK/dV and dQ) and
 both kernel families (native layout and head-major; head-major at every
 head_dim it takes a build for, 32, 64 and 128, and at 16, 48, 80 and 96,
 at 20 and 44 on zero-padded inputs, at 136 to 256 on csrc/flash_wide.cu
-(bf16 forward, dK/dV and dQ), at 264 to 512 on csrc/flash_xwide.cu (the
-bf16 forward) and at 160 to 1024 on csrc/flash_generic.cu, odd head
-counts, ragged lengths, ViT's non-causal 197, more than 65535 heads in
-all) against their plain versions, RMSNorm with a bf16 weight
+(bf16 forward, dK/dV and dQ), at 264 to 1024 on csrc/flash_xwide.cu (the
+bf16 forward), at 136 to 1024 on csrc/flash_fma.cu (the f32 forward) and
+csrc/flash_generic.cu (dK/dV and dQ in f32, and in bf16 above 256), odd
+head counts, ragged lengths, ViT's non-causal 197, more than 65535 heads
+in all) against their plain versions, RMSNorm with a bf16 weight
 too, and times them at the training shapes (GPT-2 124M and XL, ViT-B/16,
 the MoE) beside SDPA; and the chunk mode of ring attention
 (``_flash_chunk_fwd`` / ``_flash_chunk_bwd``: bf16 in, f32 out, the
@@ -171,24 +173,32 @@ HEAD_DIM_SHAPE = (8, 1024, 16)
 # (flash_attention._hm_route): 20 and 44 run on the 24 and 48 builds'
 # kernels on zero-padded copies; 160 and 256 in bf16 on csrc/flash_wide.cu
 # (the forward, dK/dV and dQ; its 192 and 256 builds), in f32 on
-# flash_generic.cu (its blocks own 64 rows up to 256, 32 up to 512, 16 up
-# to 1024); 512 (ROUTED_WIDE, and HEAD_DIM_SHAPE at 512 and 384, forward
-# only) in bf16 on csrc/flash_xwide.cu (the forward; its 384 and 512
-# builds) and flash_generic.cu (dK/dV, dQ); 1024 (ROUTED_GENERIC, forward
-# only) on flash_generic.cu; each held and timed at HEAD_DIM_SHAPE's
-# batch, length and heads, causal and full, and in f32 at ROUTED_F32, then
-# held at ragged lengths (ROUTED_RAGGED_DIMS: the wide kernels' 136-256,
-# flash_xwide.cu's 264-512, the generic kernels' limit)
+# csrc/flash_fma.cu (the forward) and flash_generic.cu (dK/dV, dQ: its
+# blocks own 64 rows up to 256, 32 up to 512, 16 up to 1024); 512
+# (ROUTED_WIDE, and HEAD_DIM_SHAPE at 512 and 384, forward only) in bf16
+# on csrc/flash_xwide.cu (the forward; its 384 and 512 builds) and
+# flash_generic.cu (dK/dV, dQ); 1024 (ROUTED_XXWIDE, and HEAD_DIM_SHAPE at
+# 1024 and 768, forward only) on flash_xwide.cu's 768 and 1024 builds; each
+# held and timed at HEAD_DIM_SHAPE's batch, length and heads, causal and
+# full, and in f32 at ROUTED_F32 (the f32 forward at ROUTED_F32_DIMS),
+# then held at ragged lengths (ROUTED_RAGGED_DIMS: the wide kernels'
+# 136-256, flash_xwide.cu's 264-1024, in f32 flash_fma.cu's 136-1024)
 ROUTED_HEAD_DIMS = (20, 44, 160, 256)
 ROUTED_WIDE = (2, 512, 4, 512)
 ROUTED_XWIDE_DIMS = (384, 512)
-ROUTED_GENERIC = (2, 512, 4, 1024)
+ROUTED_XXWIDE = (2, 512, 4, 1024)
+ROUTED_XXWIDE_DIMS = (768, 1024)
 ROUTED_F32 = (2, 256, 4)
+ROUTED_F32_DIMS = ROUTED_HEAD_DIMS + (512, 1024)
 ROUTED_RAGGED = ((2, 100, 3), (1, 1, 2), (2, 257, 3))
 WIDE_HELD_DIMS = (136, 150, 160, 200, 256)
 XWIDE_HELD_DIMS = (264, 300, 384, 400, 512)
-ROUTED_RAGGED_DIMS = (20, 44) + WIDE_HELD_DIMS + XWIDE_HELD_DIMS + (1000,
-                                                                    1024)
+# 520 and 776-1000 leave boxes wholly past head_dim (768 and 1024 builds),
+# 600 and 1000 a box partly past it, 601 takes the pad route (608 in
+# bf16, 604 in f32)
+XXWIDE_HELD_DIMS = (520, 600, 601, 768, 1000, 1024)
+ROUTED_RAGGED_DIMS = (20, 44) + WIDE_HELD_DIMS + XWIDE_HELD_DIMS \
+    + XXWIDE_HELD_DIMS
 # RMSNorm cases held but not timed: widths (1000 is no multiple of a
 # 16-byte vector of bf16, so it takes the one-element path; 1024 takes
 # few warps a row; 5120 and 8192 four or eight) at an odd row count, and
@@ -390,6 +400,19 @@ def runtime_attrs(symbol, d, f32_out=False):
     return tuple(out)
 
 
+def fma_attrs(shape):
+    """(registers, static shared bytes, dynamic shared bytes, group width,
+    clusters the card holds at once, clusters of the launch) of the f32
+    forward (flash_fma.cu) as a launch at ``shape`` takes it."""
+    import ctypes
+    from ray_tpu_torch.ops import _build
+    out = (ctypes.c_int * 6)()
+    b, t, h, d = shape
+    _build.check(_build.load_library().rtt_flash_fma_attrs(b, t, h, d, out),
+                 "attributes of fma_fwd_kernel")
+    return tuple(out)
+
+
 def _family(hm):
     """The native-layout or head-major wrappers: (forward, backward)."""
     from ray_tpu_torch.ops.flash_attention import (
@@ -407,7 +430,7 @@ def _heads_first(*xs):
 def _route_kinds(hm, d, dtype):
     """The kernel selector of each part ("fwd", "dkdv", "dq") of a call
     of one family at head_dim d with inputs of dtype: "nl", or
-    _hm_route's "hm", "wide" or "generic"."""
+    _hm_route's "hm", "wide", "xwide", "xxwide", "fma" or "generic"."""
     from ray_tpu_torch.ops.flash_attention import PARTS, _hm_route
     return {p: _hm_route(d, dtype, p)[0] if hm else "nl" for p in PARTS}
 
@@ -415,7 +438,7 @@ def _route_kinds(hm, d, dtype):
 def _case_kernel(hm, d, dtype, part):
     """A case's kernel name for ``part`` ("fwd", "bwd_dkdv", "bwd_dq"):
     the native-layout family's (flash_fwd), or the head-major kernel
-    _hm_route picks (flash_hm_fwd, flash_wide_fwd, flash_generic_fwd)."""
+    _hm_route picks (flash_hm_fwd, flash_wide_fwd, flash_fma_fwd, ...)."""
     kind = _route_kinds(hm, d, dtype)[part.split("_")[-1]]
     return f"flash_{'' if kind == 'nl' else kind + '_'}{part}"
 
@@ -561,7 +584,7 @@ def bwd_case(timer, gen, shape, dtype, causal, timed, hm=False, tk=None):
     assert [getattr(*c) for c in counters] == [n + 1 for n in before]
     ref = attention_backward_reference(q, k, v, out, lse, do, causal, scale)
     tol = ROW_TOL[dtype]
-    # one name for the pair, and each part's kernel: at head_dim 257-512
+    # one name for the pair, and each part's kernel: above head_dim 256
     # in bf16 the forward runs on flash_xwide.cu, dK/dV and dQ on
     # flash_generic.cu
     res = {"kernel": _case_kernel(hm, d, dtype, "bwd_dkdv")[:-len("_dkdv")],
@@ -637,16 +660,16 @@ def bwd_case(timer, gen, shape, dtype, causal, timed, hm=False, tk=None):
 # shapes: a 4-way ring over 32768 tokens of GPT-2 124M (12 heads of 64,
 # native layout) and of GPT-2 XL's head count (25, head-major), causal
 # (the diagonal chunk) and not (a past one); head_dim 256 (flash_wide.cu),
-# 512 (flash_xwide.cu's forward, flash_generic.cu's dK/dV and dQ) and
-# 1024 (flash_generic.cu); then the tiles' edges of every route untimed,
-# with the ring's chunk at head_dim 256 (SP_RING_SHAPES) on the diagonal
-# and a past one, and the new kernels' ragged ends at every head_dim
-# chip_smoke holds them at (WIDE_HELD_DIMS, XWIDE_HELD_DIMS).
+# 512 and 1024 (flash_xwide.cu's forward, flash_generic.cu's dK/dV and
+# dQ); then the tiles' edges of every route untimed, with the ring's chunk
+# at head_dim 256 (SP_RING_SHAPES) on the diagonal and a past one, and the
+# wide kernels' ragged ends at every head_dim chip_smoke holds them at
+# (WIDE_HELD_DIMS, XWIDE_HELD_DIMS, XXWIDE_HELD_DIMS).
 CHUNK_NL = (1, 8192, 12, 64)
 CHUNK_HM = (1, 8192, 25, 64)
 CHUNK_WIDE = HEAD_DIM_SHAPE + (256,)
 CHUNK_XWIDE = ROUTED_WIDE
-CHUNK_GENERIC = ROUTED_GENERIC
+CHUNK_XXWIDE = ROUTED_XXWIDE
 CHUNK_EDGES = (((2, 200, 2, 64), True, None), ((2, 1000, 2, 128), True, None),
                ((2, 65, 2, 64), True, None), ((2, 130, 2, 64), False, 257),
                ((2, 200, 3, 32), True, None), ((2, 63, 3, 128), True, None),
@@ -671,7 +694,8 @@ def _by_heads(fn, *xs, heads=PLAIN_HEADS):
 def _chunk_kinds(q):
     """The chunk call's kernel of each part ("fwd", "dkdv", "dq"), as
     _flash_chunk_fwd / _flash_chunk_bwd dispatch it: "" (native layout),
-    "hm", "wide" or "generic", its counters' suffix."""
+    "hm", "wide", "xwide", "xxwide" or "generic", its counters'
+    suffix."""
     from ray_tpu_torch.ops.flash_attention import _chunk_family
     kinds = _route_kinds(_chunk_family(q, q, q), q.shape[-1], q.dtype)
     return {p: "" if k == "nl" else k for p, k in kinds.items()}
@@ -802,17 +826,17 @@ def chunk_case(timer, gen, shape, causal, timed, tk=None):
 
 def chunk_cases(timer, gen, add):
     """The chunk mode's cases: timed at CHUNK_NL, CHUNK_HM, CHUNK_WIDE,
-    CHUNK_XWIDE and CHUNK_GENERIC, causal and not, then held at
+    CHUNK_XWIDE and CHUNK_XXWIDE, causal and not, then held at
     CHUNK_EDGES and at the ragged ends of flash_wide.cu's and
     flash_xwide.cu's head sizes."""
     for shape in (CHUNK_NL, CHUNK_HM, CHUNK_WIDE, CHUNK_XWIDE,
-                  CHUNK_GENERIC):
+                  CHUNK_XXWIDE):
         for causal in (True, False):
             add(chunk_case(timer, gen, shape, causal, timed=True))
             _free()
     for shape, causal, tk in CHUNK_EDGES:
         add(chunk_case(timer, gen, shape, causal, timed=False, tk=tk))
-    for d in WIDE_HELD_DIMS + XWIDE_HELD_DIMS:
+    for d in WIDE_HELD_DIMS + XWIDE_HELD_DIMS + XXWIDE_HELD_DIMS:
         for shape in ROUTED_RAGGED:
             add(chunk_case(timer, gen, shape + (d,), True, timed=False))
         add(chunk_case(timer, gen, (2, 130, 3, d), False, timed=False,
@@ -944,10 +968,10 @@ def phase_kernels():
 
 def routed_head_dim_cases(timer, gen, add, cases):
     """The head-major family at the head sizes _hm_route pads (20, 44)
-    or sends to flash_wide.cu, flash_xwide.cu or flash_generic.cu (136
-    and up), against the plain versions at ROW_TOL, forward and backward;
-    then the pad route's cost beside its build's (d 20 against 24, 44
-    against 48), as one line."""
+    or sends to flash_wide.cu, flash_xwide.cu, flash_fma.cu or
+    flash_generic.cu (136 and up), against the plain versions at ROW_TOL,
+    forward and backward; then the pad route's cost beside its build's (d
+    20 against 24, 44 against 48), as one line."""
     for d in ROUTED_HEAD_DIMS:
         for causal in (False, True):
             add(flash_case(timer, gen, HEAD_DIM_SHAPE + (d,), torch.bfloat16,
@@ -959,23 +983,25 @@ def routed_head_dim_cases(timer, gen, add, cases):
                        timed=True, hm=True))
         add(bwd_case(timer, gen, ROUTED_WIDE, torch.bfloat16, causal,
                      timed=True, hm=True))
-        for d in ROUTED_XWIDE_DIMS:
+        for d in ROUTED_XWIDE_DIMS + ROUTED_XXWIDE_DIMS:
             add(flash_case(timer, gen, HEAD_DIM_SHAPE + (d,), torch.bfloat16,
                            causal, timed=True, hm=True))
-        add(flash_case(timer, gen, ROUTED_GENERIC, torch.bfloat16, causal,
+            _free()
+        add(flash_case(timer, gen, ROUTED_XXWIDE, torch.bfloat16, causal,
                        timed=True, hm=True))
-        _free()
-    for d in ROUTED_HEAD_DIMS + (ROUTED_WIDE[-1],):
+    # f32: the forward on flash_fma.cu, dK/dV and dQ on flash_generic.cu
+    for d in ROUTED_F32_DIMS:
         for causal in (False, True):
             add(flash_case(timer, gen, ROUTED_F32 + (d,), torch.float32,
                            causal, timed=True, hm=True))
             add(bwd_case(timer, gen, ROUTED_F32 + (d,), torch.float32,
                          causal, timed=True, hm=True))
-    # ragged ends of every route's tiles, one position, Tq != Tk (150 and
-    # 300: the wide kernels and the xwide forward on inputs padded to 152
-    # and 304; 136, 200, 264 and 400: a build's last box partly past
-    # head_dim, and at 264 and 400 a box wholly past it), and the generic
-    # kernels' widest head (16-row blocks)
+    # ragged ends of every route's tiles, one position, Tq != Tk (150,
+    # 300 and 601: the wide kernels and the xwide forward on inputs padded
+    # to 152, 304 and 608, in f32 the fma forward on 152, 300 and 604; 136,
+    # 200, 264, 400, 520, 600 and 1000: a build's last box partly past
+    # head_dim, and at 264, 400 and 520 a box wholly past it), and the
+    # generic kernels' widest head (16-row blocks)
     for d in ROUTED_RAGGED_DIMS:
         for dtype in (torch.float32, torch.bfloat16):
             for shape in ROUTED_RAGGED:
@@ -1137,15 +1163,17 @@ def phase_serve(batch=4, prompt=1024, new_tokens=64):
 
 FLASH_NL = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
 FLASH_HM = ("flash_hm_fwd", "flash_hm_bwd_dkdv", "flash_hm_bwd_dq")
-FLASH_GENERIC = ("flash_generic_fwd", "flash_generic_bwd_dkdv",
-                 "flash_generic_bwd_dq")
+FLASH_GENERIC = ("flash_generic_bwd_dkdv", "flash_generic_bwd_dq")
 # head_dim 129-256 in bf16: flash_wide.cu's forward, dK/dV and dQ
 FLASH_WIDE = ("flash_wide_fwd", "flash_wide_bwd_dkdv", "flash_wide_bwd_dq")
-# head_dim 257-512 in bf16: flash_xwide.cu's forward, and
-# flash_generic.cu's dK/dV and dQ
-FLASH_XWIDE = ("flash_xwide_fwd", "flash_generic_bwd_dkdv",
-               "flash_generic_bwd_dq")
-FLASH_ALL = FLASH_NL + FLASH_HM + FLASH_WIDE + FLASH_XWIDE[:1] + FLASH_GENERIC
+# head_dim 257-512 and 513-1024 in bf16: flash_xwide.cu's forward, and
+# flash_generic.cu's dK/dV and dQ; f32 above 128: flash_fma.cu's forward,
+# and flash_generic.cu's dK/dV and dQ
+FLASH_XWIDE = ("flash_xwide_fwd",) + FLASH_GENERIC
+FLASH_XXWIDE = ("flash_xxwide_fwd",) + FLASH_GENERIC
+FLASH_FMA = ("flash_fma_fwd",) + FLASH_GENERIC
+FLASH_ALL = (FLASH_NL + FLASH_HM + FLASH_WIDE + FLASH_XWIDE[:1]
+             + FLASH_XXWIDE[:1] + FLASH_FMA)
 
 
 def _flash_counts():
@@ -1156,20 +1184,20 @@ def _flash_counts():
         hm_fwd.launches, hm_bwd.launches_dkdv, hm_bwd.launches_dq,
         hm_fwd.launches_wide, hm_bwd.launches_wide_dkdv,
         hm_bwd.launches_wide_dq, hm_fwd.launches_xwide,
-        hm_fwd.launches_generic, hm_bwd.launches_generic_dkdv,
-        hm_bwd.launches_generic_dq)))
+        hm_fwd.launches_xxwide, hm_fwd.launches_fma,
+        hm_bwd.launches_generic_dkdv, hm_bwd.launches_generic_dq)))
 
 
 def _flash_per(fwd, hm=False, bwd=None, route=None):
     """Launches of one family's kernels (or, with ``route`` "wide",
-    "xwide" or "generic", of the kernels a head-major call on that
-    forward route launches: FLASH_WIDE, FLASH_XWIDE or FLASH_GENERIC):
-    ``fwd`` forwards and ``bwd`` of each backward kernel (default
-    ``fwd``); none of the others."""
+    "xwide", "xxwide" or "fma", of the kernels a head-major call on that
+    forward route launches: FLASH_WIDE, FLASH_XWIDE, FLASH_XXWIDE or
+    FLASH_FMA): ``fwd`` forwards and ``bwd`` of each backward kernel
+    (default ``fwd``); none of the others."""
     bwd = fwd if bwd is None else bwd
     counts = dict.fromkeys(FLASH_ALL, 0)
     names = {"wide": FLASH_WIDE, "xwide": FLASH_XWIDE,
-             "generic": FLASH_GENERIC}.get(
+             "xxwide": FLASH_XXWIDE, "fma": FLASH_FMA}.get(
         route, FLASH_HM if hm else FLASH_NL)
     counts.update(zip(names, (fwd, bwd, bwd)))
     return counts
@@ -1182,7 +1210,7 @@ def _zero_counts():
     hm_fwd, hm_bwd = _family(True)
     hm_fwd.launches_wide = hm_bwd.launches_wide_dkdv = 0
     hm_bwd.launches_wide_dq = hm_fwd.launches_xwide = 0
-    hm_fwd.launches_generic = 0
+    hm_fwd.launches_xxwide = hm_fwd.launches_fma = 0
     hm_bwd.launches_generic_dkdv = hm_bwd.launches_generic_dq = 0
     fused_rmsnorm.launches = 0
 
@@ -2029,14 +2057,15 @@ def phase_runtime():
 
 
 # head_dims: GPT-2 of 2 layers (GPT2Config.tiny's vocabulary and length)
-# at head sizes only the routes take: (heads, width) for head_dim 160, 256
-# and 512 (f32: flash_generic.cu) and 20 (zero-padded onto the 24 build's
-# kernels)
+# at head sizes only the routes take: (heads, width) for head_dim 160, 256,
+# 512 and 1024 (f32: flash_fma.cu's forward, flash_generic.cu's dK/dV and
+# dQ; 1024 as 2 heads, the 512 model's width) and 20 (zero-padded onto
+# the 24 build's kernels)
 HEAD_DIM_MODELS = ((4, 640), (4, 80), (4, 1024),
-                   (4, 2048))  # head_dim 160, 20, 256, 512
+                   (4, 2048), (2, 2048))  # head_dim 160, 20, 256, 512, 1024
 # head_dims in bf16 (head_dim 160 and 256: flash_wide.cu's forward, dK/dV
-# and dQ; 512: flash_xwide.cu's forward, flash_generic.cu's dK/dV and dQ)
-# against the same weights' f32 step on the
+# and dQ; 512 and 1024: flash_xwide.cu's forward, flash_generic.cu's dK/dV
+# and dQ) against the same weights' f32 step on the
 # card: the loss within HEAD_DIM_BF16_LOSS_RTOL, each gradient within
 # HEAD_DIM_BF16_GRAD_TOL of its tensor's largest element: bf16 rounding of
 # every product.  Measured on an H100: 0.7-1.2e-5 (loss) and 0.0106-0.0108
@@ -2050,11 +2079,12 @@ def phase_head_dim_parity(batch=2, seq=128):
     """The model path through the routed head-major kernels: one
     training step's loss and every gradient of each HEAD_DIM_MODELS
     GPT-2, f32, TF32 off, on the card against the CPU, with its launches
-    (2 of each flash_generic.cu kernel for head_dim 160, 256 and 512; 2
-    of #5, #6, #7 for head_dim 20); then, above 128, the same weights in
-    bf16 on the card (2 of each flash_wide.cu kernel at 160 and 256; 2 of
-    flash_xwide.cu's forward and of flash_generic.cu's dK/dV and dQ at
-    512) against the f32 step.  Returns the launch counts of all runs."""
+    (2 of flash_fma.cu's forward and of each flash_generic.cu kernel for
+    head_dim 160, 256, 512 and 1024; 2 of #5, #6, #7 for head_dim 20);
+    then, above 128, the same weights in bf16 on the card (2 of each
+    flash_wide.cu kernel at 160 and 256; 2 of flash_xwide.cu's forward and
+    of flash_generic.cu's dK/dV and dQ at 512 and 1024) against the f32
+    step.  Returns the launch counts of all runs."""
     from ray_tpu_torch.models.gpt2 import GPT2, GPT2Config, loss_fn
     rows, total = [], dict.fromkeys(FLASH_ALL, 0)
     for heads, width in HEAD_DIM_MODELS:
@@ -2101,8 +2131,8 @@ def phase_head_dim_parity(batch=2, seq=128):
             torch.cuda.synchronize()
             launches = _flash_counts()
             assert launches == _flash_per(
-                cfg.num_layers, route="wide" if d <= 256 else "xwide"), (
-                launches)
+                cfg.num_layers,
+                route=_route_kinds(True, d, torch.bfloat16)["fwd"]), launches
             loss_rel = abs(bf_loss - gpu_loss) / abs(gpu_loss)
             grad_err = {n: _gradient_err(bf_grads[n], g)[1]
                         for n, g in f32_grads.items()}
@@ -2175,7 +2205,8 @@ def gang_train_loop(config):
                 (flash_attention_hm_fwd, "launches"),
                 (flash_attention_hm_fwd, "launches_wide"),
                 (flash_attention_hm_fwd, "launches_xwide"),
-                (flash_attention_hm_fwd, "launches_generic"),
+                (flash_attention_hm_fwd, "launches_xxwide"),
+                (flash_attention_hm_fwd, "launches_fma"),
                 (flash_attention_hm_bwd, "launches_dkdv"),
                 (flash_attention_hm_bwd, "launches_dq"),
                 (flash_attention_hm_bwd, "launches_wide_dkdv"),
@@ -2189,7 +2220,8 @@ def gang_train_loop(config):
     def counts():
         names = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
                  "flash_hm_fwd", "flash_wide_fwd", "flash_xwide_fwd",
-                 "flash_generic_fwd", "flash_hm_bwd_dkdv", "flash_hm_bwd_dq",
+                 "flash_xxwide_fwd", "flash_fma_fwd", "flash_hm_bwd_dkdv",
+                 "flash_hm_bwd_dq",
                  "flash_wide_bwd_dkdv", "flash_wide_bwd_dq",
                  "flash_generic_bwd_dkdv", "flash_generic_bwd_dq",
                  "rmsnorm")
@@ -2608,25 +2640,27 @@ SP_LOSS_RTOL = 1e-3
 SP_RANKS = 4
 # the in-process ring at GPT-2 124M's and XL's head counts (the chunk mode
 # of #1/#3/#4 and #5-#7), at head_dim 256 (flash_wide.cu's forward, dK/dV
-# and dQ), at 512 (flash_xwide.cu's forward, flash_generic.cu's dK/dV and
-# dQ) and at 1024 (flash_generic.cu); SP_RING_KERNELS: a chunk kernel
-# each of those head sizes must launch
+# and dQ), at 512 and 1024 (flash_xwide.cu's forward, flash_generic.cu's
+# dK/dV and dQ); SP_RING_KERNELS: a chunk kernel each of those head sizes
+# must launch
 SP_RING_SHAPES = ((1, 32768, 12, 64), (1, 8192, 25, 64), (1, 4096, 4, 256),
                   (1, 2048, 4, 512), (1, 1024, 2, 1024))
 SP_RING_KERNELS = {256: ("flash_wide_fwd_f32out", "flash_wide_bwd_dq_f32out"),
                    512: ("flash_xwide_fwd_f32out",
                          "flash_generic_bwd_dq_f32out"),
-                   1024: ("flash_generic_fwd_f32out",)}
+                   1024: ("flash_xxwide_fwd_f32out",
+                          "flash_generic_bwd_dq_f32out")}
 SP_ULYSSES_SHAPE = (1, 32768, 12, 64)
 
 
 def _chunk_counts():
     """The chunk mode's launch counts by kernels-line name."""
     out = {}
-    for kind in ("", "hm", "wide", "xwide", "generic"):
+    for kind in ("", "hm", "wide", "xwide", "xxwide", "generic"):
         for part in ("fwd", "dkdv", "dq"):
             fn, attr = _chunk_counter(kind, part)
-            if hasattr(fn, attr):  # flash_xwide.cu has no backward
+            if hasattr(fn, attr):  # flash_xwide.cu has no backward,
+                # flash_generic.cu no forward
                 out[chunk_name(kind, part if part == "fwd"
                                else "bwd_" + part)] = getattr(fn, attr)
     return out
@@ -2917,7 +2951,9 @@ SYMBOLS = {"flash_fwd": "flash_fwd_bf16_kernel",  # the bf16 kernel's name
            "flash_wide_fwd": "wide_fwd_kernel",
            "flash_wide_bwd_dkdv": "wide_dkdv_kernel",
            "flash_wide_bwd_dq": "wide_dq_kernel",
-           "flash_xwide_fwd": "xwide_fwd_kernel"}
+           "flash_xwide_fwd": "xwide_fwd_kernel",
+           "flash_xxwide_fwd": "xwide_fwd_kernel",
+           "flash_fma_fwd": "fma_fwd_kernel"}
 WIDE_SHAPE = list(HEAD_DIM_SHAPE + (256,))
 SUMMARY = {  # name: (source, TPU kernel it replaces, shape in the table)
     "flash_fwd": ("ray_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -2937,9 +2973,9 @@ SUMMARY = {  # name: (source, TPU kernel it replaces, shape in the table)
     "flash_hm_bwd_dq": ("ray_tpu_torch/ops/csrc/flash_bwd.cu",
                         "ray_tpu/ops/flash_attention.py:268", list(XL_SHAPE)),
     # the head-major kernels above head_dim 128: bf16 forward, dK/dV and
-    # dQ up to 256 on flash_wide.cu, the bf16 forward up to 512 on
-    # flash_xwide.cu, the rest on flash_generic.cu (its bf16 rows: dK/dV
-    # and dQ at 512, the forward at 1024)
+    # dQ up to 256 on flash_wide.cu, the bf16 forward up to 1024 on
+    # flash_xwide.cu, the f32 forward on flash_fma.cu (its row in f32),
+    # dK/dV and dQ beyond on flash_generic.cu (its rows: bf16 at 512)
     "flash_wide_fwd": ("ray_tpu_torch/ops/csrc/flash_wide.cu",
                        "ray_tpu/ops/flash_attention.py:82", WIDE_SHAPE),
     "flash_wide_bwd_dkdv": ("ray_tpu_torch/ops/csrc/flash_wide.cu",
@@ -2949,9 +2985,12 @@ SUMMARY = {  # name: (source, TPU kernel it replaces, shape in the table)
     "flash_xwide_fwd": ("ray_tpu_torch/ops/csrc/flash_xwide.cu",
                         "ray_tpu/ops/flash_attention.py:82",
                         list(ROUTED_WIDE)),
-    "flash_generic_fwd": ("ray_tpu_torch/ops/csrc/flash_generic.cu",
-                          "ray_tpu/ops/flash_attention.py:82",
-                          list(ROUTED_GENERIC)),
+    "flash_xxwide_fwd": ("ray_tpu_torch/ops/csrc/flash_xwide.cu",
+                         "ray_tpu/ops/flash_attention.py:82",
+                         list(ROUTED_XXWIDE)),
+    "flash_fma_fwd": ("ray_tpu_torch/ops/csrc/flash_fma.cu",
+                      "ray_tpu/ops/flash_attention.py:82",
+                      list(ROUTED_F32 + (256,))),
     "flash_generic_bwd_dkdv": ("ray_tpu_torch/ops/csrc/flash_generic.cu",
                                "ray_tpu/ops/flash_attention.py:212",
                                list(ROUTED_WIDE)),
@@ -2978,7 +3017,7 @@ CHUNK_SUMMARY = (  # the chunk mode's rows: kind, part, TPU line, shape
     ("wide", "bwd_dq", 268, CHUNK_WIDE), ("xwide", "fwd", 82, CHUNK_XWIDE),
     ("generic", "bwd_dkdv", 212, CHUNK_XWIDE),
     ("generic", "bwd_dq", 268, CHUNK_XWIDE),
-    ("generic", "fwd", 82, CHUNK_GENERIC))
+    ("xxwide", "fwd", 82, CHUNK_XXWIDE))
 
 
 def chunk_summary(cases, by_path, usage):
@@ -3011,7 +3050,7 @@ def chunk_summary(cases, by_path, usage):
         assert launches, f"{name} was not launched on any main path"
         src = {"": "flash_{}.cu", "hm": "flash_{}.cu",
                "wide": "flash_wide.cu", "xwide": "flash_xwide.cu",
-               "generic": "flash_generic.cu"}[kind]
+               "xxwide": "flash_xwide.cu", "generic": "flash_generic.cu"}[kind]
         row = {"name": name, "route": "cuda",
                "source": "ray_tpu_torch/ops/csrc/" + src.format(part[:3]),
                "replaces": f"ray_tpu/ops/flash_attention.py:{line}",
@@ -3025,7 +3064,8 @@ def chunk_summary(cases, by_path, usage):
                "other_shapes": [{"shape": list(shape), "causal": False,
                                  **timing(found[False])}]}
         sym = SYMBOLS.get(
-            f"flash_{kind + '_' if kind in ('wide', 'xwide') else ''}{part}")
+            f"flash_{kind + '_' if kind in ('wide', 'xwide', 'xxwide') else ''}"
+            f"{part}")
         if kind != "generic":
             d = shape[-1]
             row["registers"], static = next(
@@ -3033,6 +3073,28 @@ def chunk_summary(cases, by_path, usage):
             row["smem_bytes"] = static + runtime_attrs(sym, d, True)[2]
         rows.append(row)
     return rows
+
+
+NEW_FORWARDS = ("flash_xxwide_fwd", "flash_fma_fwd")
+
+
+def new_forward_attrs(name, shape, usage):
+    """Registers and shared bytes of the instantiation a forward of
+    NEW_FORWARDS takes at ``shape``: flash_xwide.cu's 768 or 1024 build, or
+    flash_fma.cu's group width (``group_cols``, picked by the shape), with
+    its launch's clusters and how many of them the card holds at once."""
+    if name == "flash_fma_fwd":
+        _, _, dynamic, gc, resident, clusters = fma_attrs(shape)
+        regs, static = next(v for k, v in usage.items()
+                            if f"fma_fwd_kernelILi{gc}E" in k)
+        return {"registers": regs, "smem_bytes": static + dynamic,
+                "group_cols": gc, "clusters": clusters,
+                "clusters_at_once": resident}
+    d = 768 if shape[-1] <= 768 else 1024
+    regs, static = next(v for k, v in usage.items()
+                        if f"xwide_fwd_kernelILi{d}ELb0E" in k)
+    return {"registers": regs,
+            "smem_bytes": static + runtime_attrs("xwide_fwd_kernel", d)[2]}
 
 
 def kernel_summary(cases, by_path, usage):
@@ -3044,13 +3106,16 @@ def kernel_summary(cases, by_path, usage):
     (the launch bound's share; the warp-specialised kernels' consumers
     raise theirs to 240 with setmaxnreg) and the shared memory a block
     takes: ptxas's static bytes and the dynamic bytes the runtime holds
-    for the kernel's last launch.  The RMSNorm row adds its times at a
-    decode step's shape (``decode``)."""
+    for the kernel's last launch; the rows of NEW_FORWARDS carry them at
+    every shape (the f32 forward's row, in f32, with the group width each
+    shape takes).  The RMSNorm row adds its times at a decode step's shape
+    (``decode``)."""
     rows = []
     for name, (src, replaces, shape) in SUMMARY.items():
         part = name.rsplit("_", 1)[1] if "_bwd_" in name else None
+        dtype = "float32" if name == "flash_fma_fwd" else "bfloat16"
         c = next(c for c in cases if _case_is(c, name)
-                 and c["shape"] == shape and c["dtype"] == "bfloat16"
+                 and c["shape"] == shape and c["dtype"] == dtype
                  and c.get("causal", True) and "plain_ms" in c
                  and c.get("mode") != "f32out")
         launches = {path: n[name] for path, n in by_path.items()
@@ -3066,7 +3131,7 @@ def kernel_summary(cases, by_path, usage):
                "bound_ms": c[f"bound_ms_{part}"] if part else c["bound_ms"],
                "bound_by": c[f"bound_by_{part}"] if part else c["bound_by"],
                "library_ms": c["library_ms"], "shape": shape,
-               "dtype": "bfloat16"}
+               "dtype": dtype}
         if part:  # which SDPA backend ran the backward
             row["library_backend"] = c["library_backend"]
         if part or name.endswith("fwd"):  # the other timed model shapes
@@ -3080,14 +3145,18 @@ def kernel_summary(cases, by_path, usage):
                     else {})}
                 for o in cases if _case_is(o, name) and "plain_ms" in o
                 and o.get("mode") != "f32out"
-                and o["dtype"] == "bfloat16" and o["shape"] != shape]
+                and o["dtype"] == dtype and o["shape"] != shape]
         if name == "rmsnorm":  # and at the decode step's shape
             c = next(c for c in cases if c["kernel"] == name
                      and c["shape"] == list(RMSNORM_DECODE)
                      and c["dtype"] == "bfloat16" and "plain_ms" in c)
             row["decode"] = {k: c[k] for k in (
                 "shape", "kernel_ms", "library_ms", "bound_ms", "bound_by")}
-        if name in SYMBOLS:
+        if name in NEW_FORWARDS:  # and at each other shape, as they vary
+            row.update(new_forward_attrs(name, shape, usage))
+            for o in row["other_shapes"]:
+                o.update(new_forward_attrs(name, o["shape"], usage))
+        elif name in SYMBOLS:
             sym, d = SYMBOLS[name], shape[-1]
             regs, static = next(v for k, v in usage.items()
                                 if f"{sym}ILi{d}ELb0E" in k)

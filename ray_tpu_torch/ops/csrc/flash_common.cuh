@@ -52,13 +52,30 @@ __device__ __forceinline__ Work work_longest_first() {
   return {(int)blockIdx.x, (int)(gridDim.y - 1 - blockIdx.y)};
 }
 
-// dK/dV and the f32 forward: one head's tiles adjacent, so a head's
-// blocks run together and share in L2 the tiles they all walk (Q and dO
-// in dK/dV).  32-bit: a block covers at least 16 positions of one head,
-// so 2^32 blocks would need inputs far beyond the card's memory.
-__device__ __forceinline__ Work work_head_tiles_adjacent() {
+// The forwards that split O's columns into groups across the grid
+// (flash_xwide.cu, flash_fma.cu): grid (batch * heads * groups, query
+// tiles), a block one (head, tile, group).  A query tile's groups are
+// adjacent, then a head's tiles: the groups of a tile read the same Q and
+// K tiles, a head's tiles the same K and V, so they meet in L2.  32-bit: a
+// block covers at least 16 positions of one head, so 2^32 blocks would
+// need inputs far beyond the card's memory.
+struct GroupWork {
+  int bh, tile, group;
+};
+
+__device__ __forceinline__ GroupWork work_group_tiles_adjacent(int groups) {
   const unsigned lin = blockIdx.y * gridDim.x + blockIdx.x;
-  return {(int)(lin / gridDim.y), (int)(lin % gridDim.y)};
+  const unsigned item = lin / groups;
+  return {(int)(item / gridDim.y), (int)(item % gridDim.y),
+          (int)(lin % groups)};
+}
+
+// dK/dV and the f32 forward up to 128: the same order with one group, so
+// a head's blocks run together and share in L2 the tiles they all walk
+// (Q and dO in dK/dV).
+__device__ __forceinline__ Work work_head_tiles_adjacent() {
+  const GroupWork w = work_group_tiles_adjacent(1);
+  return {w.bh, w.tile};
 }
 
 // The persistent bf16 forward and dQ walk items by a linear index `lin` over

@@ -1,49 +1,48 @@
-// Flash attention for head sizes above 128 (sm_90a), over [B, T, H, D].
+// Flash-attention backward for head sizes above 128 (sm_90a), over
+// [B, T, H, D].
 //
 // Replaces, for head_dim above 128: ray_tpu/ops/flash_attention.py::
-// _fa_kernel (the head-major forward, launched by _flash_forward),
-// ::_fa_bwd_dkdv_kernel and ::_fa_bwd_dq_kernel (launched by
+// _fa_bwd_dkdv_kernel and ::_fa_bwd_dq_kernel (launched by
 // _flash_backward).  The Pallas kernels take any head_dim: their blocks
-// span it whole.  The Hopper kernels of flash_fwd.cu and flash_bwd.cu are
-// built for 32, 64 and 128 (their shared memory and registers are spent
-// at 128), and the wrapper zero-pads a head_dim below 128 that is no
-// multiple of 8 onto them; above 128 the bf16 forward, dK/dV and dQ up to
-// 256 run on flash_wide.cu and the bf16 forward up to 512 on
-// flash_xwide.cu.  These three take the rest: f32 inputs above 128, bf16
-// dK/dV and dQ above 256 and the bf16 forward above 512.  They
-// compute what the others compute, with the same contract: the causal
-// mask aligned top-left, f32 LSE and delta, bf16 or f32 in and out (and
-// f32 out from bf16 in, ring attention's chunk mode: the accumulators are
-// f32 already, so only the output type O differs from the input type T),
-// P rounded to the input dtype before P V and dV, dS before dK and dQ;
-// a row with no visible key gives O = 0 and LSE = -1e30.
+// span it whole.  The Hopper kernels of flash_bwd.cu are built for 32, 64
+// and 128 (their shared memory and registers are spent at 128), and the
+// wrapper zero-pads a head_dim below 128 that is no multiple of 8 onto
+// them; above 128 the bf16 dK/dV and dQ up to 256 run on flash_wide.cu.
+// These two take the rest: f32 inputs above 128 and bf16 above 256 (every
+// forward above 128 runs on flash_wide.cu, flash_xwide.cu or, in f32,
+// flash_fma.cu).  They compute what the others compute, with the same
+// contract: the causal mask aligned top-left, f32 LSE and delta, bf16 or
+// f32 in and out (and f32 out from bf16 in, ring attention's chunk mode:
+// the accumulators are f32 already, so only the output type O differs
+// from the input type T), P rounded to the input dtype before dV, dS
+// before dK and dQ.
 //
-// Bound: at [8, 1024, 16, 256] bf16 causal the forward does 4 * D flops
-// per visible (query, key) pair (69 GFLOP, 70 us on the tensor cores)
-// against 268 MB of q/k/v/o (80 us); these kernels run on the FMA units
-// (67 TFLOP/s in f32), about 1 ms at best.  They are written to be right
-// and simple first (a later PR makes them fast): a SIMT design with no
-// tensor cores, no TMA and no asynchronous copies.
+// Bound: at [8, 1024, 16, 256] bf16 causal dK/dV and dQ do 14 * D flops
+// per visible (query, key) pair (240 GFLOP, 243 us on the tensor cores);
+// these kernels run on the FMA units (67 TFLOP/s in f32), several ms at
+// best.  They are written to be right and simple first (a later PR makes
+// them fast): a SIMT design with no tensor cores, no TMA and no
+// asynchronous copies.
 //
-// Design.  A block owns R rows (queries in the forward and dQ, keys in
-// dK/dV) of one (batch, head) and loops over the other side's tiles of R
-// rows, as the Pallas kernels' sequential grid axis does.  R is chosen by
-// head_dim (64 up to 256, 32 up to 512, 16 up to 1024) so that the
-// block's f32 accumulators, R x head_dim each (O; dQ; dK and dV), fit in
-// shared memory.  A score tile S = A B^T (R x R) is summed in registers
-// over the head dim in chunks of 32 columns, each chunk of A's and B's
-// rows staged in shared memory, transposed and padded so that neither
-// the staging stores nor the reads conflict; each of the 256 threads
-// holds (R / 16)^2 scores.  The softmax or gradient of the tile passes
-// through shared memory, and the accumulators are updated chunk by chunk
-// with the third operand's chunk staged the same way.  Causal blocks skip
-// the tiles wholly above the diagonal.  The loads read 32 consecutive
-// elements of a row, so no alignment is needed: any head_dim, any
-// stride.  The launch bound asks for one resident block (its shared
-// memory allows no more at 256 columns): with the thread count alone,
-// ptxas held some instantiations to 32-64 registers and spilled.  Upper limit: head_dim 1024 (kMaxHeadDim; above it the wrapper
-// raises on any device).  Launches on the caller's stream; allocates
-// nothing.
+// Design.  A block owns R rows (keys in dK/dV, queries in dQ) of one
+// (batch, head) and loops over the other side's tiles of R rows, as the
+// Pallas kernels' sequential grid axis does.  R is chosen by head_dim (64
+// up to 256, 32 up to 512, 16 up to 1024) so that the block's f32
+// accumulators, R x head_dim each (dQ; dK and dV), fit in shared memory.
+// A score tile S = A B^T (R x R) is summed in registers over the head dim
+// in chunks of 32 columns, each chunk of A's and B's rows staged in shared
+// memory, transposed and padded so that neither the staging stores nor
+// the reads conflict; each of the 256 threads holds (R / 16)^2 scores.
+// The gradient of the tile passes through shared memory, and the
+// accumulators are updated chunk by chunk with the third operand's chunk
+// staged the same way.  Causal blocks skip the tiles wholly above the
+// diagonal.  The loads read 32 consecutive elements of a row, so no
+// alignment is needed: any head_dim, any stride.  The launch bound asks
+// for one resident block (its shared memory allows no more at 256
+// columns): with the thread count alone, ptxas held some instantiations to
+// 32-64 registers and spilled.  Upper limit: head_dim 1024 (kMaxHeadDim;
+// above it the wrapper raises on any device).  Launches on the caller's
+// stream; allocates nothing.
 
 #include "flash_common.cuh"
 
@@ -146,130 +145,6 @@ constexpr size_t tiles_bytes(int n_acc, int n_sq, int n_rows, int dp) {
   return ((size_t)n_acc * R * dp + 2 * kChunk * (R + 1) +
           (size_t)n_sq * R * (R + 1) + (size_t)n_rows * R) *
          sizeof(float);
-}
-
-// ------------------------------------------------------------- forward --
-
-template <typename T, typename O, int R>
-__global__ void __launch_bounds__(kGThreads, 1)
-fwd_generic_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, O* __restrict__ o,
-                   float* __restrict__ lse, int heads, int dim, int tq,
-                   int tk, float scale, int causal) {
-  constexpr int P = R / 16, RPW = R / 8;
-  const int dp = padded_dim(dim);
-  extern __shared__ __align__(16) float sm[];
-  float* acc = sm;                    // [R][dp]: O, unnormalised
-  float* as = acc + R * dp;           // [kChunk][R + 1]
-  float* bs = as + kChunk * (R + 1);  // [kChunk][R + 1]; V's chunk
-  float* ps = bs + kChunk * (R + 1);  // [R][R + 1]: scores, then P~
-  float* m_s = ps + R * (R + 1);      // [R] running max
-  float* l_s = m_s + R;               // [R] running sum
-  float* c_s = l_s + R;               // [R] this tile's correction
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int tx = tid % 16, ty = tid / 16;
-  const Work w = work_head_tiles_adjacent();
-  const int b = w.bh / heads, h = w.bh % heads;
-  const int m0 = w.tile * R;
-  const size_t rs = (size_t)heads * dim;
-  const size_t qoff = slice_base(b, h, heads, tq, dim);
-  const T* kb = k + slice_base(b, h, heads, tk, dim);
-  const T* vb = v + slice_base(b, h, heads, tk, dim);
-
-  for (int e = tid; e < R * dp; e += kGThreads) acc[e] = 0.f;
-  if (tid < R) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
-  }
-
-  const int n_tiles = key_tiles(m0, R, R, tq, tk, causal);
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int n0 = kt * R;
-    float s[P][P];
-#pragma unroll
-    for (int i = 0; i < P; ++i)
-#pragma unroll
-      for (int j = 0; j < P; ++j) s[i][j] = 0.f;
-    rows_product<T, R>(q + qoff, m0, tq, kb, n0, tk, dim, rs, as, bs, s);
-#pragma unroll
-    for (int i = 0; i < P; ++i)
-#pragma unroll
-      for (int j = 0; j < P; ++j) {
-        const int row = ty + 16 * i, col = tx + 16 * j;
-        const int kpos = n0 + col;
-        const bool masked = kpos >= tk || (causal && kpos > m0 + row);
-        ps[row * (R + 1) + col] = masked ? kNegInf : s[i][j] * scale;
-      }
-    __syncthreads();
-
-    // online softmax, a warp per row: the statistics from P, P~ for P V
-    for (int row = warp; row < R; row += kGThreads / 32) {
-      float x[R / 32 > 0 ? R / 32 : 1];
-      float tmax = kNegInf;
-#pragma unroll
-      for (int u = 0; u * 32 < R; ++u) {
-        const int col = lane + 32 * u;
-        x[u] = col < R ? ps[row * (R + 1) + col] : kNegInf;
-        tmax = fmaxf(tmax, x[u]);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-      const float m_old = m_s[row];
-      const float m_new = fmaxf(m_old, tmax);
-      const float safe = m_new <= kNegInf / 2 ? 0.f : m_new;
-      float psum = 0.f;
-#pragma unroll
-      for (int u = 0; u * 32 < R; ++u) {
-        const int col = lane + 32 * u;
-        const float p = expf(x[u] - safe);  // masked: exactly 0
-        psum += p;
-        if (col < R) ps[row * (R + 1) + col] = round_to<T>(p);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        psum += __shfl_xor_sync(0xffffffffu, psum, off);
-      if (lane == 0) {
-        const float corr = m_old <= kNegInf / 2 ? 0.f : expf(m_old - safe);
-        l_s[row] = l_s[row] * corr + psum;
-        m_s[row] = m_new;
-        c_s[row] = corr;
-      }
-    }
-
-    // O = O corr + P~ V, a chunk of columns at a time: lane owns column
-    // c0 + lane of rows warp, warp + 8, ...
-    for (int c0 = 0; c0 < dp; c0 += kChunk) {
-      __syncthreads();
-      stage_chunk<T, R>(bs, vb, n0, tk, c0, dim, rs);
-      __syncthreads();
-#pragma unroll 1
-      for (int i = 0; i < RPW; ++i) {
-        const int row = warp + 8 * i;
-        float a = 0.f;
-#pragma unroll 4
-        for (int n = 0; n < R; ++n)
-          a = fmaf(ps[row * (R + 1) + n], bs[n * kChunk + lane], a);
-        float* dst = acc + row * dp + c0 + lane;
-        *dst = *dst * c_s[row] + a;
-      }
-    }
-    __syncthreads();
-  }
-
-  for (int e = tid; e < R * dp; e += kGThreads) {
-    const int row = e / dp, c = e % dp;
-    if (m0 + row >= tq || c >= dim) continue;
-    const float l = l_s[row];
-    o[qoff + (size_t)(m0 + row) * rs + c] =
-        from_f<O>(acc[e] / (l == 0.f ? 1.f : l));
-  }
-  if (tid < R && m0 + tid < tq) {
-    const float l = l_s[tid], m = m_s[tid];
-    lse[((size_t)b * heads + h) * tq + m0 + tid] =
-        m <= kNegInf / 2 ? kNegInf : m + logf(l == 0.f ? 1.f : l);
-  }
 }
 
 // --------------------------------------------------------------- dK/dV --
@@ -478,27 +353,6 @@ cudaError_t by_rows(int head_dim, int dtype, int out_dtype, Fn&& fn) {
   return typed(Rows<16>{});
 }
 
-int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-        int batch, int tq, int tk, int heads, int head_dim, float scale,
-        int causal, int dtype, int out_dtype, void* stream) {
-  if (bad_args(batch, tq, tk, heads, dtype, out_dtype))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)by_rows(head_dim, dtype, out_dtype,
-                      [&](auto rows, auto t, auto out_t) {
-    constexpr int R = decltype(rows)::value;
-    using T = decltype(t);
-    using O = decltype(out_t);
-    return launch_block(fwd_generic_kernel<T, O, R>,
-                        dim3(batch * heads, (tq + R - 1) / R), kGThreads,
-                        tiles_bytes<R>(1, 1, 3, padded_dim(head_dim)), s,
-                        static_cast<const T*>(q), static_cast<const T*>(k),
-                        static_cast<const T*>(v), static_cast<O*>(o),
-                        static_cast<float*>(lse), heads, head_dim, tq, tk,
-                        scale, causal);
-  });
-}
-
 int dkdv(const void* q, const void* k, const void* v, const void* dout,
          const void* lse, const void* delta, void* dk, void* dv, int batch,
          int tq, int tk, int heads, int head_dim, float scale, int causal,
@@ -550,17 +404,6 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
 }
 
 }  // namespace
-
-// As rtt_flash_fwd (flash_fwd.cu), for head_dim 1 to 1024 (the wrapper
-// sends those above 128 here).  Returns the launch's cudaError_t.
-extern "C" int rtt_flash_generic_fwd(const void* q, const void* k,
-                                     const void* v, void* o, void* lse,
-                                     int batch, int tq, int tk, int heads,
-                                     int head_dim, float scale, int causal,
-                                     int dtype, int out_dtype, void* stream) {
-  return fwd(q, k, v, o, lse, batch, tq, tk, heads, head_dim, scale, causal,
-             dtype, out_dtype, stream);
-}
 
 // As rtt_flash_bwd_dkdv (flash_bwd.cu), for head_dim 1 to 1024.
 extern "C" int rtt_flash_generic_bwd_dkdv(const void* q, const void* k,

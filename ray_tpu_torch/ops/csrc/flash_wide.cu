@@ -6,15 +6,15 @@
 // _flash_forward), ::_fa_bwd_dkdv_kernel (dK, dV) and ::_fa_bwd_dq_kernel
 // (dQ, both launched by _flash_backward).  The Pallas kernels span any
 // head_dim; the Hopper kernels of flash_fwd.cu and flash_bwd.cu are built
-// for 32, 64 and 128, flash_xwide.cu's forward for 384 and 512, and
-// flash_generic.cu's SIMT kernels take what is left (f32 inputs, bf16
-// dK/dV and dQ above 256, everything above 512).  These compute what
-// flash_fwd.cu and flash_bwd.cu compute, under the same contract: the
-// causal mask aligned top-left, f32 LSE and delta (the LSE clamped to 0
-// for a row that saw no key), P rounded to bf16 before P V and dV, dS
-// before dK and dQ; a row with no visible key gives O = 0 and LSE = -1e30;
-// outputs in bf16 or, the chunk mode of ring attention (F32O), in f32 from
-// bf16 inputs.
+// for 32, 64 and 128, flash_xwide.cu's forward for 384 to 1024,
+// flash_fma.cu takes the f32 forward above 128 and flash_generic.cu's
+// SIMT dK/dV and dQ what is left (f32 inputs, bf16 above 256).  These
+// compute what flash_fwd.cu and flash_bwd.cu compute, under the same
+// contract: the causal mask aligned top-left, f32 LSE and delta (the LSE
+// clamped to 0 for a row that saw no key), P rounded to bf16 before P V
+// and dV, dS before dK and dQ; a row with no visible key gives O = 0 and
+// LSE = -1e30; outputs in bf16 or, the chunk mode of ring attention
+// (F32O), in f32 from bf16 inputs.
 //
 // Bound: at [8, 1024, 16, 256] causal the forward does 4 * D flops per
 // visible (query, key) pair (69 GFLOP, 70 us at 989 TFLOP/s) against 268

@@ -1,15 +1,15 @@
 // Hopper (sm_90a) building blocks in raw PTX, shared by the bf16 flash
 // forward (flash_fwd.cu), dK/dV and dQ (flash_bwd.cu) kernels, the
 // 192/256-column forward, dK/dV and dQ (flash_wide.cu) and the
-// 384/512-column forward (flash_xwide.cu): mbarriers, TMA
+// 384/512/768/1024-column forward (flash_xwide.cu): mbarriers, TMA
 // loads and stores of 4-D [B, T, H, D] tiles, wgmma shared-memory
 // descriptors and the few wgmma shapes the kernels issue, register
 // rebalancing between warpgroups, and the host-side tensor-map encoder.
 //
 // Tiles in shared memory.  A tile of `rows` positions x D bf16 is stored
 // as D / C boxes of rows x C columns, C = 64 (128-byte rows, 128-byte
-// swizzle; D = 64, 128, 192, 256, 384, 512: one to eight boxes) or, at
-// D = 32, C = 32 (64-byte rows, 64-byte swizzle), one box
+// swizzle; D = 64, 128, 192, 256, 384, 512, 768, 1024: one to sixteen
+// boxes) or, at D = 32, C = 32 (64-byte rows, 64-byte swizzle), one box
 // after the other; each box starts on a 1024-byte boundary.  TMA writes a
 // box in that swizzle, and the wgmma descriptors below read it in the same
 // one, so the two must agree on C (Swz<D>).
@@ -48,8 +48,8 @@ struct Swz {
   static constexpr int kKSteps = kCols / 16;  // k16 steps inside one row
   static constexpr int kAtomBytes = 8 * kRowBytes;
   static_assert(D == 32 || D == 64 || D == 128 || D == 192 || D == 256 ||
-                    D == 384 || D == 512,
-                "head_dim 32, 64, 128, 192, 256, 384 or 512");
+                    D == 384 || D == 512 || D == 768 || D == 1024,
+                "head_dim 32, 64, 128, 192, 256, 384, 512, 768 or 1024");
 };
 
 // Byte offset of element (row, col) of a box, swizzled as TMA stores it.

@@ -1,9 +1,10 @@
 """Flash attention: the CUDA kernels ``csrc/flash_fwd.cu`` (forward),
 ``csrc/flash_bwd.cu`` (dK/dV and dQ) and, above head_dim 128,
 ``csrc/flash_wide.cu`` (the bf16 forward, dK/dV and dQ up to 256),
-``csrc/flash_xwide.cu`` (the bf16 forward from 257 to 512) and
-``csrc/flash_generic.cu`` (the rest), behind the JAX package's two kernel
-families, each beside its plain version.
+``csrc/flash_xwide.cu`` (the bf16 forward from 257 to 1024),
+``csrc/flash_fma.cu`` (the f32 forward) and ``csrc/flash_generic.cu``
+(the rest of dK/dV and dQ), behind the JAX package's two kernel families,
+each beside its plain version.
 
 Counterpart of ``ray_tpu/ops/flash_attention.py``:
 
@@ -23,10 +24,13 @@ Counterpart of ``ray_tpu/ops/flash_attention.py``:
   ``by_head_dim``); another size below 128 on the same kernels, its
   inputs zero-padded to the next multiple of 8; with bf16 inputs up to
   256 the forward, dK/dV and dQ on ``csrc/flash_wide.cu``'s 192/256
-  builds and from 257 to 512 the forward on ``csrc/flash_xwide.cu``'s
-  384/512 builds (padded the same way); the rest (f32 above 128, bf16
-  dK/dV and dQ above 256, everything above 512) on
-  ``csrc/flash_generic.cu``.  The JAX wrappers transpose
+  builds, from 257 to 512 the forward on ``csrc/flash_xwide.cu``'s
+  384/512 builds and from 513 to 1024 on its 768/1024 builds (O's columns
+  in two groups across the grid; padded the same way); with f32 inputs
+  above 128 the forward on ``csrc/flash_fma.cu`` (the FMA units; a size
+  that is no multiple of 4 padded to the next); the rest (dK/dV and dQ in
+  f32 above 128 and in bf16 above 256) on ``csrc/flash_generic.cu``.  The
+  JAX wrappers transpose
   to ``[B, H, T, D]`` for the TPU's tiles; the CUDA kernels read
   ``[B, T, H, D]`` by strides, so both families launch them on the
   caller's tensors and count their launches apart.
@@ -61,9 +65,11 @@ NEG_INF = -1e30
 NL_HEAD_DIMS = (64, 128)  # the JAX package's _nl_eligible
 HM_BUILT_MAX = 128  # the largest head_dim of flash_fwd.cu / flash_bwd.cu
 WIDE_MAX = 256  # the largest of flash_wide.cu (bf16 forward, dK/dV, dQ)
-XWIDE_MAX = 512  # the largest of flash_xwide.cu (bf16 forward)
+XWIDE_MAX = 512  # the largest of flash_xwide.cu's 384/512 builds
 PARTS = ("fwd", "dkdv", "dq")
-HM_MAX_HEAD_DIM = 1024  # csrc/flash_generic.cu's kMaxHeadDim
+# the widest head of the head-major family on the card: flash_xwide.cu's
+# 1024 build, flash_fma.cu's kFMaxDim and flash_generic.cu's kMaxHeadDim
+HM_MAX_HEAD_DIM = 1024
 
 
 def _check_causal(q, k, causal):
@@ -216,36 +222,44 @@ def _hm_route(head_dim: int, dtype=torch.bfloat16,
       and dQ of ``csrc/flash_wide.cu`` (192/256 builds);
     * ``"xwide"``: from 257 to 512 with bf16 inputs, the forward of
       ``csrc/flash_xwide.cu`` (384/512 builds);
-    * ``"generic"``: ``csrc/flash_generic.cu``'s SIMT kernels: f32 inputs
-      above 128, bf16 dK/dV and dQ above 256, everything above 512.
+    * ``"xxwide"``: from 513 to 1024 with bf16 inputs, the forward of
+      ``csrc/flash_xwide.cu`` (768/1024 builds, O's columns in two groups
+      across the grid);
+    * ``"fma"``: above 128 with f32 inputs, the forward of
+      ``csrc/flash_fma.cu`` (the FMA units);
+    * ``"generic"``: ``csrc/flash_generic.cu``'s SIMT dK/dV and dQ: f32
+      inputs above 128, bf16 above 256.
 
-    The width is ``head_dim`` or, where a Hopper kernel runs a part at
-    that head_dim (up to 128, and up to 512 with bf16 inputs) and
-    ``head_dim`` is no multiple of 8, the next multiple of 8: q, k, v (and
-    dO) zero-padded to it, with the true ``head_dim ** -0.5`` as the
-    scale.  Zero columns add nothing to ``Q K^T`` or to ``dO V^T``, the
-    outputs' extra columns are sliced off, and a padded bf16 row spans a
-    multiple of 16 bytes, the stride TMA takes.  The width does not depend
-    on the part, so the backward pads once for dK/dV and dQ (the generic
-    kernels above 256 take the padded width as it is).  A multiple of 8
-    runs on the next build at or above it, its columns past ``head_dim``
-    zeros inside the kernel.
+    The width is ``head_dim`` padded with zero columns to the next
+    multiple of 8 up to 128 and, with bf16 inputs, up to 1024 (a padded
+    bf16 row then spans a multiple of 16 bytes, the stride TMA takes), or
+    to the next multiple of 4 above 128 with f32 inputs (a padded f32 row
+    then spans whole 16-byte granules, which ``flash_fma.cu``'s cp.async
+    copies; the alternative, 4-byte copies, would quarter its loads): q,
+    k, v (and dO) zero-padded to it, with the true ``head_dim ** -0.5`` as
+    the scale.  Zero columns add nothing to ``Q K^T`` or to ``dO V^T``,
+    and the outputs' extra columns are sliced off.  The width does not
+    depend on the part, so the backward pads once for dK/dV and dQ (the
+    generic kernels take the padded width as it is).  A width runs on the
+    next build at or above it, its columns past ``head_dim`` zeros inside
+    the kernel.
 
     Raises above ``HM_MAX_HEAD_DIM``, as :func:`_check_head_dim` does."""
     _check_head_dim(head_dim, hm=True)
     if part not in PARTS:
         raise ValueError(f"part is one of {PARTS}, got {part!r}")
     bf16 = dtype == torch.bfloat16
-    width = (head_dim + (-head_dim) % 8
-             if head_dim <= HM_BUILT_MAX or (bf16 and head_dim <= XWIDE_MAX)
-             else head_dim)
+    align = 8 if bf16 or head_dim <= HM_BUILT_MAX else 4
+    width = head_dim + (-head_dim) % align
     if head_dim <= HM_BUILT_MAX:
         return "hm", width
     if bf16 and head_dim <= WIDE_MAX:
         return "wide", width
-    if bf16 and head_dim <= XWIDE_MAX and part == "fwd":
-        return "xwide", width
-    return "generic", width
+    if part != "fwd":
+        return "generic", width
+    if not bf16:
+        return "fma", width
+    return ("xwide" if head_dim <= XWIDE_MAX else "xxwide"), width
 
 
 def _kernel_for(q, hm, part="fwd") -> Tuple[str, int]:
@@ -290,20 +304,24 @@ def _check_kernel_inputs(hm, *tensors):
 
 def _entry(kind, part):
     """Kernel ``part`` (``fwd``, ``bwd_dkdv`` or ``bwd_dq``) of ``kind``:
-    its library entry and the name its errors carry."""
+    its library entry and the name its errors carry ("xxwide" is
+    flash_xwide.cu's forward above 512, on the same entry as "xwide")."""
     name = f"flash_{'' if kind in ('nl', 'hm') else kind + '_'}{part}"
-    return getattr(_build.load_library(), f"rtt_{name}"), f"{name} kernel"
+    entry = name.replace("xxwide", "xwide")
+    return getattr(_build.load_library(), f"rtt_{entry}"), f"{name} kernel"
 
 
 def _count(kind, part, chunk=False):
     """One launch of ``part`` ("", "_dkdv" or "_dq") on ``kind``: #1/#3/#4
     on the native-layout wrappers' counters, #5-#7, flash_wide.cu,
-    flash_xwide.cu and flash_generic.cu on the head-major ones'
-    (``launches``, ``launches_wide*``, ``launches_xwide``,
-    ``launches_generic*``); with ``chunk`` (f32 outputs) on
-    :func:`_flash_chunk_fwd`'s and :func:`_flash_chunk_bwd`'s
-    (``launches``, ``launches_hm``, ``launches_wide``, ``launches_xwide``,
-    ``launches_generic``, each with the part)."""
+    flash_xwide.cu, flash_fma.cu and flash_generic.cu on the head-major
+    ones' (``launches``, ``launches_wide*``, ``launches_xwide``,
+    ``launches_xxwide``, ``launches_fma``, ``launches_generic_*``); with
+    ``chunk`` (f32 outputs from bf16 inputs) on :func:`_flash_chunk_fwd`'s
+    and :func:`_flash_chunk_bwd`'s (``launches``, ``launches_hm``,
+    ``launches_wide``, ``launches_xwide``, ``launches_xxwide``,
+    ``launches_generic``, each with the part; flash_fma.cu takes f32
+    inputs, so it has no chunk counter)."""
     if chunk:
         fn = (_flash_chunk_fwd, _flash_chunk_bwd)[bool(part)]
         attr = "launches" + ("" if kind == "nl" else "_" + kind) + part
@@ -391,16 +409,17 @@ def flash_attention_hm_fwd(q: torch.Tensor, k: torch.Tensor,
     ``[B,T,H,D]`` tensors (on zero-padded copies for a head_dim that is
     no multiple of 8) or, above 128, ``flash_wide.cu``'s forward (bf16
     up to 256, counted in ``launches_wide``), ``flash_xwide.cu``'s (bf16
-    from 257 to 512, counted in ``launches_xwide``) or
-    ``flash_generic.cu``'s (counted in ``launches_generic``), as
-    :func:`_hm_route` says, or raises."""
+    from 257 to 512, counted in ``launches_xwide``, and from 513 to 1024,
+    counted in ``launches_xxwide``) or ``flash_fma.cu``'s (f32, counted in
+    ``launches_fma``), as :func:`_hm_route` says, or raises."""
     return _forward(q, k, v, causal, scale, hm=True)
 
 
 flash_attention_hm_fwd.launches = 0
 flash_attention_hm_fwd.launches_wide = 0
 flash_attention_hm_fwd.launches_xwide = 0
-flash_attention_hm_fwd.launches_generic = 0
+flash_attention_hm_fwd.launches_xxwide = 0
+flash_attention_hm_fwd.launches_fma = 0
 
 
 def _bwd_inputs(q, k, v, do, lse, delta, causal, scale, hm=False):
@@ -603,11 +622,11 @@ def _flash_chunk_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CPU tensors take :func:`attention_reference` with f32 out; CUDA
     tensors launch the forward kernel of the family ``flash_attention``
-    picks (#1, #5, or above head_dim 128 flash_wide.cu up to 256,
-    flash_xwide.cu up to 512 and flash_generic.cu beyond) with f32 O
-    (from bf16 inputs, counted in ``_flash_chunk_fwd.launches``,
-    ``.launches_hm``, ``.launches_wide``, ``.launches_xwide``,
-    ``.launches_generic``), or raise."""
+    picks (#1, #5, or above head_dim 128 flash_wide.cu up to 256 and
+    flash_xwide.cu beyond) with f32 O (from bf16 inputs, counted in
+    ``_flash_chunk_fwd.launches``, ``.launches_hm``, ``.launches_wide``,
+    ``.launches_xwide``, ``.launches_xxwide``), or raise; f32 inputs take
+    the f32 kernels, counted as the head-major wrappers count them."""
     _validate(q, k, v, causal)
     hm = _chunk_family(q, k, v)
     if q.device.type == "cpu":
@@ -626,7 +645,7 @@ _flash_chunk_fwd.launches = 0
 _flash_chunk_fwd.launches_hm = 0
 _flash_chunk_fwd.launches_wide = 0
 _flash_chunk_fwd.launches_xwide = 0
-_flash_chunk_fwd.launches_generic = 0
+_flash_chunk_fwd.launches_xxwide = 0
 
 
 def _flash_chunk_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -21,7 +21,13 @@ build/ray_tpu_torch/planted/ (the sources themselves are never touched):
   (64 keys) of its last 64-query block, shown at head_dim 256 and 160;
 * ``xwide_fwd_drop_diag``: flash_xwide.cu's forward skips the diagonal
   key tile (32 keys) of its last 64-query tile, shown at head_dim 512
-  and 384.
+  and 384;
+* ``xxwide_fwd_drop_diag``: the same fault in the same source, shown on
+  its 1024 and 768 builds (one stage of 32-key tiles, O's columns in
+  two groups);
+* ``fma_fwd_drop_diag``: flash_fma.cu's f32 forward skips the diagonal
+  key tile (64 keys) of its last 64-query tile, shown at head_dim 256 and
+  1024 in f32.
 
 Each fault touches the last 64 or 128 positions only, where causal rows
 are smallest: the kind of fault a limit scaled to the tensor's max
@@ -32,7 +38,8 @@ kernels, so each fault in flash_fwd.cu and flash_bwd.cu is shown through
 both: the native family at the GPT-2 124M and Llama shapes, the
 head-major one at GPT-2 XL's; flash_wide.cu's at [8, 1024, 16, 256] and
 [8, 1024, 16, 160]; flash_xwide.cu's at [8, 1024, 16, 512] and
-[8, 1024, 16, 384].
+[8, 1024, 16, 384], and at [2, 512, 4, 1024] and [2, 512, 4, 768];
+flash_fma.cu's at [2, 256, 4, 256] and [2, 256, 4, 1024].
 
 Each build runs in a process of its own (the library loads once per
 process).  For each case, one JSON line: the error of O (and LSE), dQ,
@@ -40,8 +47,8 @@ dK and dV against the plain version by two measures, max |diff| over
 the tensor's max |reference| (``over_max``) and ``row_scaled_err``, the
 one chip_smoke.py holds the kernels to (``row``).  The sound build runs
 the shapes and dtypes of chip_smoke.py's kernels phase (its grid-limit
-cases aside) and the wide shapes; the faulty ones run the bf16 causal
-shapes of their kernel.
+cases aside) and the wide shapes; the faulty ones run the causal shapes
+of their kernel (bf16, and f32 for flash_fma.cu).
 Exits nonzero unless the sound
 build meets chip_smoke.ROW_TOL everywhere and every planted fault
 exceeds it in the tensor its kernel writes.  Then the card's name and
@@ -69,18 +76,26 @@ DROP_DIAG = KEY_TILES.replace("causal);", "causal) - (m0 + BM >= tq);")
 DKDV_END = "const int m_end = (tq + BM - 1) / BM;"
 DKDV_DROP_LAST = DKDV_END.replace("/ BM;", "/ BM - (n0 + BN >= tk);")
 # the key-tile count of the one-block-per-query-tile kernels (flash_wide.cu's
-# dQ, flash_xwide.cu's forward)
+# dQ, flash_xwide.cu's and flash_fma.cu's forwards)
 N_TILES = "const int n_tiles = key_tiles(m0, BM, BN, tq, tk, causal);"
 N_TILES_DROP_DIAG = N_TILES.replace("causal);", "causal) - (m0 + BM >= tq);")
-# (shape, head-major): the bf16 causal training shapes of each family
-TRAIN_SHAPES = ((chip_smoke.GPT2_SHAPE, False), ((4, 1024, 32, 128), False),
-                (chip_smoke.XL_SHAPE, True))
+BF16, F32 = torch.bfloat16, torch.float32
+# (shape, head-major, dtype): the bf16 causal training shapes of each
+# family
+TRAIN_SHAPES = ((chip_smoke.GPT2_SHAPE, False, BF16),
+                ((4, 1024, 32, 128), False, BF16),
+                (chip_smoke.XL_SHAPE, True, BF16))
 # flash_wide.cu's two builds (256, and 192 at head_dim 160)
-WIDE_SHAPES = tuple((chip_smoke.HEAD_DIM_SHAPE + (d,), True)
+WIDE_SHAPES = tuple((chip_smoke.HEAD_DIM_SHAPE + (d,), True, BF16)
                     for d in (256, 160))
-# flash_xwide.cu's two builds (512, and 384)
-XWIDE_SHAPES = tuple((chip_smoke.HEAD_DIM_SHAPE + (d,), True)
+# flash_xwide.cu's builds: 512 and 384, then 1024 and 768
+XWIDE_SHAPES = tuple((chip_smoke.HEAD_DIM_SHAPE + (d,), True, BF16)
                      for d in (512, 384))
+XXWIDE_SHAPES = tuple((chip_smoke.ROUTED_XXWIDE[:3] + (d,), True, BF16)
+                      for d in (1024, 768))
+# flash_fma.cu in f32: 256 takes its 64-column groups, 1024 its 256 ones
+FMA_SHAPES = tuple((chip_smoke.ROUTED_F32 + (d,), True, F32)
+                   for d in (256, 1024))
 # name: (source, first occurrence (the bf16 kernel's), replacement, the
 # tensors the faulty kernel writes, the shapes it is shown at)
 PLANTED = {
@@ -98,6 +113,10 @@ PLANTED = {
                           ("dq",), WIDE_SHAPES),
     "xwide_fwd_drop_diag": ("flash_xwide.cu", N_TILES, N_TILES_DROP_DIAG,
                             ("O",), XWIDE_SHAPES),
+    "xxwide_fwd_drop_diag": ("flash_xwide.cu", N_TILES, N_TILES_DROP_DIAG,
+                             ("O",), XXWIDE_SHAPES),
+    "fma_fwd_drop_diag": ("flash_fma.cu", N_TILES, N_TILES_DROP_DIAG,
+                          ("O",), FMA_SHAPES),
 }
 
 
@@ -152,9 +171,9 @@ def run_build(name: str) -> None:
     if name != "sound":
         use_planted(name)
     gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
-    shapes = (TRAIN_SHAPES + WIDE_SHAPES + XWIDE_SHAPES if name == "sound"
-              else PLANTED[name][4])
-    cases = [(s, hm, torch.bfloat16, True) for s, hm in shapes]
+    shapes = (TRAIN_SHAPES + WIDE_SHAPES + XWIDE_SHAPES + XXWIDE_SHAPES
+              + FMA_SHAPES if name == "sound" else PLANTED[name][4])
+    cases = [(s, hm, dtype, True) for s, hm, dtype in shapes]
     if name == "sound":
         for dtype in (torch.float32, torch.bfloat16):
             cases += [((1, 512, 4, 64), False, dtype, c)

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time the bf16 dQ, dK/dV and RMSNorm kernels of several checkouts in
+"""Time the bf16 dQ, dK/dV and RMSNorm kernels and the head-major
+forward above head_dim 512 (bf16) and 128 (f32) of several checkouts in
 turns, within one call on one card.
 
     python3 scripts/compare_kernels_torch.py OTHER [OTHER ...]   # one GPU
@@ -19,8 +20,12 @@ shapes: dQ and dK/dV at GPT-2 124M's [32,1024,12,64], Llama width
 [4,1024,32,128] (native layout) and GPT-2 XL's [8,1024,25,64]
 (head-major), bf16 causal, with SDPA's backward beside them; RMSNorm at
 [4096,4096] and [4,4096] bf16 with F.rms_norm and a plain copy of the
-same tensor (the card's floor for moving those bytes under this timer).
-One JSON line per run and case, then per case the median of each
+same tensor (the card's floor for moving those bytes under this timer);
+the head-major forward as its wrapper runs it (``_launch_fwd``, on
+whichever kernel the checkout routes it to) at [2,512,4,1024] and
+[8,1024,16,1024] bf16 and [2,256,4,d] for d = 160, 256, 512 and 1024
+and [8,1024,16,256] f32, causal, with SDPA beside it.  One JSON line per run
+and case, then per case the median of each
 checkout's runs and its ratio to this one's, then the card's name and
 power limit.
 """
@@ -40,6 +45,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BWD_SHAPES = (((32, 1024, 12, 64), False), ((4, 1024, 32, 128), False),
               ((8, 1024, 25, 64), True))
 RMSNORM_SHAPES = ((4096, 4096), (4, 4096))
+FWD_SHAPES = (((2, 512, 4, 1024), torch.bfloat16),
+              ((8, 1024, 16, 1024), torch.bfloat16),
+              ((2, 256, 4, 160), torch.float32),
+              ((2, 256, 4, 256), torch.float32),
+              ((2, 256, 4, 512), torch.float32),
+              ((2, 256, 4, 1024), torch.float32),
+              ((8, 1024, 16, 256), torch.float32))
 
 
 def _chip_smoke():
@@ -57,7 +69,7 @@ def measure(tree: str) -> None:
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from ray_tpu_torch.ops.flash_attention import (
-        _bwd_inputs, _kernel_dkdv, _kernel_dq, attention_delta,
+        _bwd_inputs, _kernel_dkdv, _kernel_dq, _launch_fwd, attention_delta,
         flash_attention_fwd, flash_attention_hm_fwd)
     from ray_tpu_torch.ops.fused import fused_rmsnorm
     assert os.path.samefile(
@@ -105,6 +117,19 @@ def measure(tree: str) -> None:
                 ("copy", lambda: y.copy_(x))):
             print(json.dumps({"kernel": name, "shape": list(shape),
                               "ms": timer(fn)}), flush=True)
+    for shape, dtype in FWD_SHAPES:
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                   .to(dtype) for _ in range(3))
+        qt, kt, vt = cs._heads_first(q, k, v)
+        dt = str(dtype).replace("torch.", "")
+        for name, fn in (
+                ("hm_fwd", lambda: _launch_fwd(q, k, v, True,
+                                               shape[-1] ** -0.5, hm=True)),
+                ("sdpa_fwd", lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True))):
+            print(json.dumps({"kernel": f"{name}_{dt}", "shape": list(shape),
+                              "ms": timer(fn)}), flush=True)
+        del q, k, v, qt, kt, vt
 
 
 def main() -> int:

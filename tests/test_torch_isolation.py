@@ -151,7 +151,8 @@ def test_cpu_tensors_never_touch_the_library(monkeypatch):
     monkeypatch.setattr(flash_attention_hm_bwd, "launches_wide_dkdv", 0)
     monkeypatch.setattr(flash_attention_hm_bwd, "launches_wide_dq", 0)
     monkeypatch.setattr(flash_attention_hm_fwd, "launches_xwide", 0)
-    monkeypatch.setattr(flash_attention_hm_fwd, "launches_generic", 0)
+    monkeypatch.setattr(flash_attention_hm_fwd, "launches_xxwide", 0)
+    monkeypatch.setattr(flash_attention_hm_fwd, "launches_fma", 0)
     monkeypatch.setattr(flash_attention_hm_bwd, "launches_generic_dkdv", 0)
     monkeypatch.setattr(flash_attention_hm_bwd, "launches_generic_dq", 0)
     q = torch.randn(1, 16, 2, 64, requires_grad=True)
@@ -161,11 +162,12 @@ def test_cpu_tensors_never_touch_the_library(monkeypatch):
     out, lse = flash_attention_hm_fwd(q_hm, q_hm, q_hm)
     flash_attention_hm_bwd(q_hm, q_hm, q_hm, out, lse, out, causal=True,
                            scale=1.0)
-    # the pad route's size, and flash_generic.cu's (f32), flash_wide.cu's
-    # and flash_xwide.cu's (bf16) sizes
+    # the pad route's size, and flash_fma.cu's and flash_generic.cu's
+    # (f32), flash_wide.cu's and flash_xwide.cu's (bf16) sizes
     for dim, dtype in ((20, torch.float32), (160, torch.float32),
-                       (160, torch.bfloat16), (150, torch.bfloat16),
-                       (300, torch.bfloat16)):
+                       (150, torch.float32), (160, torch.bfloat16),
+                       (150, torch.bfloat16), (300, torch.bfloat16),
+                       (601, torch.bfloat16)):
         x = torch.randn(1, 16, 3, dim, dtype=dtype, requires_grad=True)
         flash_attention(x, x, x).sum().backward()
         assert x.grad is not None
@@ -183,7 +185,8 @@ def test_cpu_tensors_never_touch_the_library(monkeypatch):
     assert flash_attention_hm_bwd.launches_wide_dkdv == 0
     assert flash_attention_hm_bwd.launches_wide_dq == 0
     assert flash_attention_hm_fwd.launches_xwide == 0
-    assert flash_attention_hm_fwd.launches_generic == 0
+    assert flash_attention_hm_fwd.launches_xxwide == 0
+    assert flash_attention_hm_fwd.launches_fma == 0
     assert flash_attention_hm_bwd.launches_generic_dkdv == 0
     assert flash_attention_hm_bwd.launches_generic_dq == 0
     assert fused_rmsnorm.launches == 0
@@ -194,14 +197,15 @@ def test_library_name_hashes_sources():
     assert path.parent == ROOT / "build" / "ray_tpu_torch"
     assert path.name.startswith("libray_tpu_torch_") and path.suffix == ".so"
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
-        "flash_bwd.cu", "flash_fwd.cu", "flash_generic.cu", "flash_wide.cu",
-        "flash_xwide.cu", "rmsnorm.cu"}
+        "flash_bwd.cu", "flash_fma.cu", "flash_fwd.cu", "flash_generic.cu",
+        "flash_wide.cu", "flash_xwide.cu", "rmsnorm.cu"}
     assert {p.name for p in _build.CSRC.glob("*.cuh")} == {
         "flash_common.cuh", "hopper.cuh"}
     # both kernel families launch the same three flash entry points,
     # and the head-major family above head_dim 128 flash_wide.cu's three,
-    # flash_xwide.cu's one and flash_generic.cu's three; four more report
-    # the bf16 flash kernels' registers and shared bytes
+    # flash_xwide.cu's forward (to 1024), flash_fma.cu's one
+    # and flash_generic.cu's two; five more report the flash kernels'
+    # registers and shared bytes
     assert set(_build.SIGNATURES) == {"rtt_rmsnorm_fwd", "rtt_flash_fwd",
                                       "rtt_flash_bwd_dkdv",
                                       "rtt_flash_bwd_dq",
@@ -209,13 +213,14 @@ def test_library_name_hashes_sources():
                                       "rtt_flash_wide_bwd_dkdv",
                                       "rtt_flash_wide_bwd_dq",
                                       "rtt_flash_xwide_fwd",
-                                      "rtt_flash_generic_fwd",
+                                      "rtt_flash_fma_fwd",
                                       "rtt_flash_generic_bwd_dkdv",
                                       "rtt_flash_generic_bwd_dq",
                                       "rtt_flash_fwd_attrs",
                                       "rtt_flash_bwd_attrs",
                                       "rtt_flash_wide_attrs",
-                                      "rtt_flash_xwide_attrs"}
+                                      "rtt_flash_xwide_attrs",
+                                      "rtt_flash_fma_attrs"}
     for flag in ("arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"):
         assert flag in _build.NVCC_FLAGS
 

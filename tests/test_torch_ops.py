@@ -308,7 +308,7 @@ def test_kernel_head_dims_take_every_multiple_of_8(dim):
 @pytest.mark.parametrize("dim", [0, 1025, 1032, 1536, 2048, 4096])
 def test_kernel_head_dims_still_refused(dim):
     """The head-major family takes head_dim 1 to 1024 (every size on the
-    card since the pad route and csrc/flash_generic.cu); a size outside
+    card since the pad route and the kernels above 128); a size outside
     raises before any launch, on CPU tensors as on the card."""
     with pytest.raises(ValueError, match="head_dim 1 to 1024"):
         torch_fa._check_head_dim(dim, hm=True)
@@ -344,18 +344,28 @@ _BF16, _F32 = torch.bfloat16, torch.float32
     (300, _BF16, "dq", ("generic", 304)), (512, _BF16, "fwd", ("xwide", 512)),
     (512, _BF16, "dkdv", ("generic", 512)),
     (512, _BF16, "dq", ("generic", 512)),
-    # above 512, and f32 above 128: flash_generic.cu as it is
-    (520, _BF16, "fwd", ("generic", 520)),
-    (160, _F32, "fwd", ("generic", 160)), (256, _F32, "dkdv", ("generic", 256)),
-    (150, _F32, "fwd", ("generic", 150)), (384, _F32, "fwd", ("generic", 384))])
+    # the bf16 forward from 513 to 1024: flash_xwide.cu's 768/1024 builds
+    # (601 padded to 608); dK/dV and dQ on flash_generic.cu
+    (520, _BF16, "fwd", ("xxwide", 520)), (600, _BF16, "fwd", ("xxwide", 600)),
+    (601, _BF16, "fwd", ("xxwide", 608)),
+    (1000, _BF16, "fwd", ("xxwide", 1000)),
+    (1024, _BF16, "fwd", ("xxwide", 1024)),
+    (601, _BF16, "dkdv", ("generic", 608)),
+    (1000, _BF16, "dq", ("generic", 1000)),
+    # f32 above 128: the forward on flash_fma.cu (150 padded to 152), dK/dV
+    # and dQ on flash_generic.cu at the same width
+    (160, _F32, "fwd", ("fma", 160)), (256, _F32, "dkdv", ("generic", 256)),
+    (150, _F32, "fwd", ("fma", 152)), (150, _F32, "dq", ("generic", 152)),
+    (384, _F32, "fwd", ("fma", 384)), (1024, _F32, "fwd", ("fma", 1024)),
+    (1024, _F32, "dkdv", ("generic", 1024))])
 def test_hm_route(dim, dtype, part, route):
     """Where the head-major family runs each head_dim's part on the card,
     by input dtype: up to 128 on kernels #5-#7 (a size that is no
     multiple of 8 padded to the next one); from 129 to 256 the bf16
-    forward, dK/dV and dQ on flash_wide.cu and from 257 to 512 the bf16
-    forward on flash_xwide.cu (padded the same way); f32 above 128, bf16
-    dK/dV and dQ above 256 and everything above 512 on
-    flash_generic.cu."""
+    forward, dK/dV and dQ on flash_wide.cu and from 257 to 1024 the bf16
+    forward on flash_xwide.cu (padded the same way); the f32 forward above
+    128 on flash_fma.cu (padded to a multiple of 4); f32 dK/dV and dQ
+    above 128 and bf16 above 256 on flash_generic.cu."""
     assert torch_fa._hm_route(dim, dtype, part) == route
 
 
@@ -374,10 +384,16 @@ def test_every_route_counts_its_launches(chunk, monkeypatch):
     for (name, attr), n in counts().items():  # restored at teardown
         monkeypatch.setattr(getattr(torch_fa, name), attr, n)
     seen = set()
-    for dim in (20, 64, 150, 256, 300, 512, 520):
+    for dim in (20, 64, 150, 256, 300, 512, 520, 601, 1024):
         for dtype in (_F32, _BF16):
             for part, sfx in zip(torch_fa.PARTS, ("", "_dkdv", "_dq")):
                 kind = torch_fa._hm_route(dim, dtype, part)[0]
+                if chunk and kind == "fma":
+                    # f32 inputs give f32 outputs: flash_fma.cu has no
+                    # chunk mode, so no chunk counter
+                    assert not hasattr(torch_fa._flash_chunk_fwd,
+                                       "launches_fma")
+                    continue
                 before = counts()
                 torch_fa._count(kind, sfx, chunk=chunk)
                 moved = {k: v - before[k] for k, v in counts().items()
@@ -431,20 +447,27 @@ def _plain_kernels(monkeypatch, seen):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("dim", [20, 44, 150, 160, 256, 300, 512])
+@pytest.mark.parametrize("dim", [20, 44, 150, 160, 256, 300, 512, 601, 1000])
 def test_routes_pad_and_slice_exactly(dim, causal, monkeypatch):
     """The routes as the wrappers run them on the card, in f32 and bf16,
     with the plain versions in place of the launches: q, k, v and dO
-    padded with zero columns to the next multiple of 8 where the route
-    pads (20 and 44; 150 in bf16, whose three parts run on flash_wide.cu;
-    300 in bf16, whose forward runs on flash_xwide.cu and whose dK/dV and
-    dQ run on flash_generic.cu at the same width) and run with the true
-    scale, O, dQ, dK, dV sliced back; 160, 256 and 512 unpadded (bf16: the
-    wide kernels, or the xwide forward and the generic backward; f32: the
-    generic kernels).  Zero columns add nothing to Q K^T or dO V^T, so the
-    routed results equal the unpadded plain versions but for summation
-    order (f32: to 1e-6; bf16: the outputs' rounding, 1e-2)."""
+    padded with zero columns where the route pads (20 and 44 to the next
+    multiple of 8; 150 in bf16, whose three parts run on flash_wide.cu;
+    300 and 601 in bf16, whose forward runs on flash_xwide.cu and whose
+    dK/dV and dQ run on flash_generic.cu at the same width; 150 in f32 to
+    the next multiple of 4, the forward on flash_fma.cu, dK/dV and dQ on
+    flash_generic.cu) and run with the true scale, O, dQ, dK, dV sliced
+    back; 160, 256, 512 and 1000 unpadded (bf16: the wide kernels, or the
+    xwide forward and the generic backward; f32: the fma forward and the
+    generic backward).  Zero columns add nothing to Q K^T or dO V^T, so
+    the routed results equal the unpadded plain versions but for summation
+    order (f32: to 1e-6; bf16: the outputs' rounding, 1e-2).  Above 512
+    (601, 1000) in bf16 only: 150 holds the f32 pad, and an f32 sum over
+    604 columns in another order than over 601 moves dQ by more than
+    1e-6."""
     for dtype in (_F32, _BF16):
+        if dtype == _F32 and dim > 512:
+            continue
         seen = []
         _plain_kernels(monkeypatch, seen)
         q, k, v, do = (x.to(dtype) for x in map(
@@ -474,11 +497,13 @@ def test_routes_pad_and_slice_exactly(dim, causal, monkeypatch):
 
 
 # head sizes no 32/64/128 build takes as they are: 20 (padded onto the 24
-# build on the card), 160 and 256 (in f32 flash_generic.cu, in bf16
-# flash_wide.cu), 384 (in f32 flash_generic.cu, in bf16 the forward on
-# flash_xwide.cu); the Pallas kernels take all four as they are
+# build on the card), 160 and 256 (in f32 the forward on flash_fma.cu and
+# dK/dV, dQ on flash_generic.cu, in bf16 flash_wide.cu), 384, 640 and 1024
+# (in f32 as 160, in bf16 the forward on flash_xwide.cu); the Pallas
+# kernels take them all as they are
+_WIDEST_HM_SHAPES = [(1, 64, 2, 640), (1, 64, 2, 1024)]
 _ROUTED_HM_SHAPES = [(1, 128, 2, 20), (2, 128, 2, 160), (1, 128, 2, 256),
-                     (1, 64, 2, 384)]
+                     (1, 64, 2, 384)] + _WIDEST_HM_SHAPES
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -486,8 +511,9 @@ _ROUTED_HM_SHAPES = [(1, 128, 2, 20), (2, 128, 2, 160), (1, 128, 2, 256),
                          ids=lambda s: f"d{s[-1]}")
 def test_flash_hm_routed_head_dims_match_pallas_f32(shape, causal):
     """Forward (O, LSE) and the vjp of the head-major family at head_dim
-    20, 160, 256 and 384 against the head-major Pallas kernels (interpret mode,
-    ``native=False``), at the head-major tests' tolerances."""
+    20, 160, 256, 384, 640 and 1024 against the head-major Pallas kernels
+    (interpret mode, ``native=False``), at the head-major tests'
+    tolerances."""
     q, k, v, do = _qkv(shape, seed=shape[-1] + 5) + _qkv(shape, seed=6)[:1]
     ref_out, ref_lse = _jax_flash_hm(q, k, v, causal, jnp.float32)
     out, lse = flash_attention_hm_fwd(*map(torch.from_numpy, (q, k, v)),
@@ -515,6 +541,26 @@ def test_flash_hm_bf16_keeps_dtype():
     q, k, v, do = _qkv(shape, seed=15) + _qkv(shape, seed=16)[:1]
     ref = _jax_flash_grads(q, k, v, do, True, jnp.bfloat16, native=False)
     got = _torch_flash_grads(q, k, v, do, True, torch.bfloat16)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, ref):
+        np.testing.assert_allclose(a, b, atol=1e-2 * np.abs(b).max(),
+                                   rtol=0, err_msg=name)
+        rms = np.sqrt(np.square(b).mean(-1))
+        rms = np.maximum(rms, 1e-2 * np.sqrt(np.square(b).mean()))
+        assert (np.abs(a - b).max(-1) / rms).max() <= 0.1, name
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", _WIDEST_HM_SHAPES,
+                         ids=lambda s: f"d{s[-1]}")
+def test_flash_hm_widest_head_dims_match_pallas_bf16(shape, causal):
+    """bf16 through the head-major family at head_dim 640 and 1024 (on the
+    card flash_xwide.cu's 768/1024 builds and flash_generic.cu's dK/dV and
+    dQ) against the head-major Pallas kernels (interpret mode,
+    ``native=False``), held as test_flash_hm_bf16_keeps_dtype holds head_dim
+    64: 1% of the largest value, 0.1 row-scaled."""
+    q, k, v, do = _qkv(shape, seed=shape[-1] + 7) + _qkv(shape, seed=3)[:1]
+    ref = _jax_flash_grads(q, k, v, do, causal, jnp.bfloat16, native=False)
+    got = _torch_flash_grads(q, k, v, do, causal, torch.bfloat16, hm=True)
     for name, a, b in zip(("out", "dq", "dk", "dv"), got, ref):
         np.testing.assert_allclose(a, b, atol=1e-2 * np.abs(b).max(),
                                    rtol=0, err_msg=name)
