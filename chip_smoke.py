@@ -62,8 +62,8 @@ no network.  Phases, one JSON line each:
     step's loss and every gradient on the card against the CPU, with each
     route's launches; then at 160, 256, 512 and 1024 in bf16
     (csrc/flash_wide.cu's forward, dK/dV and dQ; at 512 and 1024
-    csrc/flash_xwide.cu's forward and flash_generic.cu's dK/dV and dQ)
-    against the f32 step.
+    csrc/flash_xwide.cu's forward and csrc/flash_xwide_bwd.cu's dK/dV and
+    dQ) against the f32 step.
 17. ``runtime``: the port's own cluster, ``init(num_cpus=4,
     num_gpus=1)`` with the object store in /dev/shm: a GPU task returns
     a seeded bf16 [8192, 8192] CUDA tensor (128 MiB) equal to the
@@ -97,7 +97,7 @@ no network.  Phases, one JSON line each:
     then ring attention over 4 ranks driven in one process
     (``simulate_ring``) at [1, 32768, 12, 64], [1, 8192, 25, 64],
     [1, 4096, 4, 256] (flash_wide.cu's chunk kernels), [1, 2048, 4, 512]
-    and [1, 1024, 2, 1024] (flash_xwide.cu's forward, flash_generic.cu's
+    and [1, 1024, 2, 1024] (flash_xwide.cu's forward, flash_xwide_bwd.cu's
     dK/dV and dQ), and Ulysses
     (``simulate_ulysses``) at
     [1, 32768, 12, 64], against ``flash_attention`` on the whole
@@ -108,10 +108,12 @@ both kernel families (native layout and head-major; head-major at every
 head_dim it takes a build for, 32, 64 and 128, and at 16, 48, 80 and 96,
 at 20 and 44 on zero-padded inputs, at 136 to 256 on csrc/flash_wide.cu
 (bf16 forward, dK/dV and dQ), at 264 to 1024 on csrc/flash_xwide.cu (the
-bf16 forward), at 136 to 1024 on csrc/flash_fma.cu (the f32 forward) and
-csrc/flash_generic.cu (dK/dV and dQ in f32, and in bf16 above 256), odd
-head counts, ragged lengths, ViT's non-causal 197, more than 65535 heads
-in all) against their plain versions, RMSNorm with a bf16 weight
+bf16 forward) and csrc/flash_xwide_bwd.cu (bf16 dK/dV and dQ, timed
+beside SDPA's backward at six shapes and held at its tiles' edges), at
+136 to 1024 on csrc/flash_fma.cu (the f32 forward) and
+csrc/flash_generic.cu (dK/dV and dQ in f32), odd head counts, ragged
+lengths, ViT's non-causal 197, more than 65535 heads in all) against
+their plain versions, RMSNorm with a bf16 weight
 too, and times them at the training shapes (GPT-2 124M and XL, ViT-B/16,
 the MoE) beside SDPA; and the chunk mode of ring attention
 (``_flash_chunk_fwd`` / ``_flash_chunk_bwd``: bf16 in, f32 out, the
@@ -175,19 +177,31 @@ HEAD_DIM_SHAPE = (8, 1024, 16)
 # (the forward, dK/dV and dQ; its 192 and 256 builds), in f32 on
 # csrc/flash_fma.cu (the forward) and flash_generic.cu (dK/dV, dQ: its
 # blocks own 64 rows up to 256, 32 up to 512, 16 up to 1024); 512
-# (ROUTED_WIDE, and HEAD_DIM_SHAPE at 512 and 384, forward only) in bf16
-# on csrc/flash_xwide.cu (the forward; its 384 and 512 builds) and
-# flash_generic.cu (dK/dV, dQ); 1024 (ROUTED_XXWIDE, and HEAD_DIM_SHAPE at
-# 1024 and 768, forward only) on flash_xwide.cu's 768 and 1024 builds; each
-# held and timed at HEAD_DIM_SHAPE's batch, length and heads, causal and
-# full, and in f32 at ROUTED_F32 (the f32 forward at ROUTED_F32_DIMS),
-# then held at ragged lengths (ROUTED_RAGGED_DIMS: the wide kernels'
-# 136-256, flash_xwide.cu's 264-1024, in f32 flash_fma.cu's 136-1024)
+# (ROUTED_WIDE, and HEAD_DIM_SHAPE at 512 and 384) in bf16 on
+# csrc/flash_xwide.cu (the forward; its 384 and 512 builds) and
+# csrc/flash_xwide_bwd.cu (dK/dV, dQ; its 384 and 512 builds); 1024
+# (ROUTED_XXWIDE and [2, 512, 4, 768], and HEAD_DIM_SHAPE at 1024 and 768)
+# on flash_xwide.cu's and flash_xwide_bwd.cu's 768 and 1024 builds (the
+# backward at HEAD_DIM_SHAPE at 1024, not 768); each held and timed at
+# HEAD_DIM_SHAPE's batch, length and heads, causal and full, and in f32 at
+# ROUTED_F32 (the f32 forward at ROUTED_F32_DIMS), then held at ragged
+# lengths (ROUTED_RAGGED_DIMS: the wide kernels' 136-256, flash_xwide.cu's
+# and flash_xwide_bwd.cu's 264-1024, in f32 flash_fma.cu's 136-1024) and
+# flash_xwide_bwd.cu at its tiles' edges (XBWD_EDGE_DIMS)
 ROUTED_HEAD_DIMS = (20, 44, 160, 256)
 ROUTED_WIDE = (2, 512, 4, 512)
 ROUTED_XWIDE_DIMS = (384, 512)
 ROUTED_XXWIDE = (2, 512, 4, 1024)
 ROUTED_XXWIDE_DIMS = (768, 1024)
+# flash_xwide_bwd.cu's dK/dV and dQ timed beside ROUTED_WIDE and
+# ROUTED_XXWIDE (whose backward is timed with their forward)
+XBWD_TIMED = (HEAD_DIM_SHAPE + (384,), HEAD_DIM_SHAPE + (512,),
+              ROUTED_XXWIDE[:3] + (768,), HEAD_DIM_SHAPE + (1024,))
+# and held at the backward's tile edges (causal lengths, and (Tq, Tk) not
+# causal) on each of its builds
+XBWD_EDGE_DIMS = (384, 512, 768, 1024)
+XBWD_EDGE_LENGTHS = (1, 63, 64, 65, 127, 128, 129, 200, 1000)
+XBWD_CROSS_LENGTHS = ((130, 257), (65, 191))
 ROUTED_F32 = (2, 256, 4)
 ROUTED_F32_DIMS = ROUTED_HEAD_DIMS + (512, 1024)
 ROUTED_RAGGED = ((2, 100, 3), (1, 1, 2), (2, 257, 3))
@@ -413,6 +427,22 @@ def fma_attrs(shape):
     return tuple(out)
 
 
+def xbwd_attrs(part, shape, f32_out=False):
+    """(registers, static shared bytes, dynamic shared bytes, group width,
+    clusters the card holds at once, clusters of the launch) of
+    flash_xwide_bwd.cu's dK/dV (``part`` "dkdv") or dQ ("dq") as a launch
+    at ``shape`` (Tq = Tk) with bf16 or (``f32_out``) f32 outputs takes
+    it."""
+    import ctypes
+    from ray_tpu_torch.ops import _build
+    out = (ctypes.c_int * 6)()
+    b, t, h, d = shape
+    _build.check(_build.load_library().rtt_flash_xwide_bwd_attrs(
+        {"dkdv": 0, "dq": 1}[part], b, t, t, h, d, int(f32_out), out),
+        f"attributes of xbwd_{part}_kernel")
+    return tuple(out)
+
+
 def _family(hm):
     """The native-layout or head-major wrappers: (forward, backward)."""
     from ray_tpu_torch.ops.flash_attention import (
@@ -584,9 +614,9 @@ def bwd_case(timer, gen, shape, dtype, causal, timed, hm=False, tk=None):
     assert [getattr(*c) for c in counters] == [n + 1 for n in before]
     ref = attention_backward_reference(q, k, v, out, lse, do, causal, scale)
     tol = ROW_TOL[dtype]
-    # one name for the pair, and each part's kernel: above head_dim 256
-    # in bf16 the forward runs on flash_xwide.cu, dK/dV and dQ on
-    # flash_generic.cu
+    # one name for the pair, and each part's kernel: above head_dim 512
+    # in bf16 the forward runs on flash_xwide.cu's "xxwide" builds, dK/dV
+    # and dQ on flash_xwide_bwd.cu ("xwide")
     res = {"kernel": _case_kernel(hm, d, dtype, "bwd_dkdv")[:-len("_dkdv")],
            "kernel_dkdv": _case_kernel(hm, d, dtype, "bwd_dkdv"),
            "kernel_dq": _case_kernel(hm, d, dtype, "bwd_dq"),
@@ -660,7 +690,7 @@ def bwd_case(timer, gen, shape, dtype, causal, timed, hm=False, tk=None):
 # shapes: a 4-way ring over 32768 tokens of GPT-2 124M (12 heads of 64,
 # native layout) and of GPT-2 XL's head count (25, head-major), causal
 # (the diagonal chunk) and not (a past one); head_dim 256 (flash_wide.cu),
-# 512 and 1024 (flash_xwide.cu's forward, flash_generic.cu's dK/dV and
+# 512 and 1024 (flash_xwide.cu's forward, flash_xwide_bwd.cu's dK/dV and
 # dQ); then the tiles' edges of every route untimed, with the ring's chunk
 # at head_dim 256 (SP_RING_SHAPES) on the diagonal and a past one, and the
 # wide kernels' ragged ends at every head_dim chip_smoke holds them at
@@ -694,8 +724,8 @@ def _by_heads(fn, *xs, heads=PLAIN_HEADS):
 def _chunk_kinds(q):
     """The chunk call's kernel of each part ("fwd", "dkdv", "dq"), as
     _flash_chunk_fwd / _flash_chunk_bwd dispatch it: "" (native layout),
-    "hm", "wide", "xwide", "xxwide" or "generic", its counters'
-    suffix."""
+    "hm", "wide", "xwide" or "xxwide" (the backward of both "xwide"),
+    its counters' suffix."""
     from ray_tpu_torch.ops.flash_attention import _chunk_family
     kinds = _route_kinds(_chunk_family(q, q, q), q.shape[-1], q.dtype)
     return {p: "" if k == "nl" else k for p, k in kinds.items()}
@@ -968,10 +998,10 @@ def phase_kernels():
 
 def routed_head_dim_cases(timer, gen, add, cases):
     """The head-major family at the head sizes _hm_route pads (20, 44)
-    or sends to flash_wide.cu, flash_xwide.cu, flash_fma.cu or
-    flash_generic.cu (136 and up), against the plain versions at ROW_TOL,
-    forward and backward; then the pad route's cost beside its build's (d
-    20 against 24, 44 against 48), as one line."""
+    or sends to flash_wide.cu, flash_xwide.cu, flash_xwide_bwd.cu,
+    flash_fma.cu or flash_generic.cu (136 and up), against the plain
+    versions at ROW_TOL, forward and backward; then the pad route's cost
+    beside its build's (d 20 against 24, 44 against 48), as one line."""
     for d in ROUTED_HEAD_DIMS:
         for causal in (False, True):
             add(flash_case(timer, gen, HEAD_DIM_SHAPE + (d,), torch.bfloat16,
@@ -989,6 +1019,13 @@ def routed_head_dim_cases(timer, gen, add, cases):
             _free()
         add(flash_case(timer, gen, ROUTED_XXWIDE, torch.bfloat16, causal,
                        timed=True, hm=True))
+        add(bwd_case(timer, gen, ROUTED_XXWIDE, torch.bfloat16, causal,
+                     timed=True, hm=True))
+        # flash_xwide_bwd.cu's dK/dV and dQ on each build
+        for shape in XBWD_TIMED:
+            add(bwd_case(timer, gen, shape, torch.bfloat16, causal,
+                         timed=True, hm=True))
+            _free()
     # f32: the forward on flash_fma.cu, dK/dV and dQ on flash_generic.cu
     for d in ROUTED_F32_DIMS:
         for causal in (False, True):
@@ -997,11 +1034,11 @@ def routed_head_dim_cases(timer, gen, add, cases):
             add(bwd_case(timer, gen, ROUTED_F32 + (d,), torch.float32,
                          causal, timed=True, hm=True))
     # ragged ends of every route's tiles, one position, Tq != Tk (150,
-    # 300 and 601: the wide kernels and the xwide forward on inputs padded
-    # to 152, 304 and 608, in f32 the fma forward on 152, 300 and 604; 136,
-    # 200, 264, 400, 520, 600 and 1000: a build's last box partly past
-    # head_dim, and at 264, 400 and 520 a box wholly past it), and the
-    # generic kernels' widest head (16-row blocks)
+    # 300 and 601: the wide kernels and the xwide forward and backward on
+    # inputs padded to 152, 304 and 608, in f32 the fma forward on 152, 300
+    # and 604; 136, 200, 264, 400, 520, 600 and 1000: a build's last box
+    # partly past head_dim, and at 264, 400 and 520 a box wholly past it),
+    # and the generic kernels' widest head (16-row blocks)
     for d in ROUTED_RAGGED_DIMS:
         for dtype in (torch.float32, torch.bfloat16):
             for shape in ROUTED_RAGGED:
@@ -1013,6 +1050,15 @@ def routed_head_dim_cases(timer, gen, add, cases):
                            timed=False, hm=True, tk=257))
             add(bwd_case(timer, gen, (2, 130, 3, d), dtype, False,
                          timed=False, hm=True, tk=257))
+    # flash_xwide_bwd.cu at its tiles' edges (64 keys or queries a block,
+    # 32-row tiles), on each build, two batches
+    for d in XBWD_EDGE_DIMS:
+        for t in XBWD_EDGE_LENGTHS:
+            add(bwd_case(timer, gen, (2, t, 3, d), torch.bfloat16, True,
+                         timed=False, hm=True))
+        for tq, tk in XBWD_CROSS_LENGTHS:
+            add(bwd_case(timer, gen, (2, tq, 3, d), torch.bfloat16, False,
+                         timed=False, hm=True, tk=tk))
 
     def timed(kind, d):
         return next(c for c in cases if c["kernel"].endswith(kind)
@@ -1167,12 +1213,13 @@ FLASH_GENERIC = ("flash_generic_bwd_dkdv", "flash_generic_bwd_dq")
 # head_dim 129-256 in bf16: flash_wide.cu's forward, dK/dV and dQ
 FLASH_WIDE = ("flash_wide_fwd", "flash_wide_bwd_dkdv", "flash_wide_bwd_dq")
 # head_dim 257-512 and 513-1024 in bf16: flash_xwide.cu's forward, and
-# flash_generic.cu's dK/dV and dQ; f32 above 128: flash_fma.cu's forward,
-# and flash_generic.cu's dK/dV and dQ
-FLASH_XWIDE = ("flash_xwide_fwd",) + FLASH_GENERIC
-FLASH_XXWIDE = ("flash_xxwide_fwd",) + FLASH_GENERIC
+# flash_xwide_bwd.cu's dK/dV and dQ; f32 above 128: flash_fma.cu's
+# forward, and flash_generic.cu's dK/dV and dQ
+FLASH_XWIDE_BWD = ("flash_xwide_bwd_dkdv", "flash_xwide_bwd_dq")
+FLASH_XWIDE = ("flash_xwide_fwd",) + FLASH_XWIDE_BWD
+FLASH_XXWIDE = ("flash_xxwide_fwd",) + FLASH_XWIDE_BWD
 FLASH_FMA = ("flash_fma_fwd",) + FLASH_GENERIC
-FLASH_ALL = (FLASH_NL + FLASH_HM + FLASH_WIDE + FLASH_XWIDE[:1]
+FLASH_ALL = (FLASH_NL + FLASH_HM + FLASH_WIDE + FLASH_XWIDE
              + FLASH_XXWIDE[:1] + FLASH_FMA)
 
 
@@ -1184,6 +1231,7 @@ def _flash_counts():
         hm_fwd.launches, hm_bwd.launches_dkdv, hm_bwd.launches_dq,
         hm_fwd.launches_wide, hm_bwd.launches_wide_dkdv,
         hm_bwd.launches_wide_dq, hm_fwd.launches_xwide,
+        hm_bwd.launches_xwide_dkdv, hm_bwd.launches_xwide_dq,
         hm_fwd.launches_xxwide, hm_fwd.launches_fma,
         hm_bwd.launches_generic_dkdv, hm_bwd.launches_generic_dq)))
 
@@ -1211,6 +1259,7 @@ def _zero_counts():
     hm_fwd.launches_wide = hm_bwd.launches_wide_dkdv = 0
     hm_bwd.launches_wide_dq = hm_fwd.launches_xwide = 0
     hm_fwd.launches_xxwide = hm_fwd.launches_fma = 0
+    hm_bwd.launches_xwide_dkdv = hm_bwd.launches_xwide_dq = 0
     hm_bwd.launches_generic_dkdv = hm_bwd.launches_generic_dq = 0
     fused_rmsnorm.launches = 0
 
@@ -2064,8 +2113,8 @@ def phase_runtime():
 HEAD_DIM_MODELS = ((4, 640), (4, 80), (4, 1024),
                    (4, 2048), (2, 2048))  # head_dim 160, 20, 256, 512, 1024
 # head_dims in bf16 (head_dim 160 and 256: flash_wide.cu's forward, dK/dV
-# and dQ; 512 and 1024: flash_xwide.cu's forward, flash_generic.cu's dK/dV
-# and dQ) against the same weights' f32 step on the
+# and dQ; 512 and 1024: flash_xwide.cu's forward, flash_xwide_bwd.cu's
+# dK/dV and dQ) against the same weights' f32 step on the
 # card: the loss within HEAD_DIM_BF16_LOSS_RTOL, each gradient within
 # HEAD_DIM_BF16_GRAD_TOL of its tensor's largest element: bf16 rounding of
 # every product.  Measured on an H100: 0.7-1.2e-5 (loss) and 0.0106-0.0108
@@ -2083,7 +2132,7 @@ def phase_head_dim_parity(batch=2, seq=128):
     head_dim 160, 256, 512 and 1024; 2 of #5, #6, #7 for head_dim 20);
     then, above 128, the same weights in bf16 on the card (2 of each
     flash_wide.cu kernel at 160 and 256; 2 of flash_xwide.cu's forward and
-    of flash_generic.cu's dK/dV and dQ at 512 and 1024) against the f32
+    of flash_xwide_bwd.cu's dK/dV and dQ at 512 and 1024) against the f32
     step.  Returns the launch counts of all runs."""
     from ray_tpu_torch.models.gpt2 import GPT2, GPT2Config, loss_fn
     rows, total = [], dict.fromkeys(FLASH_ALL, 0)
@@ -2211,6 +2260,8 @@ def gang_train_loop(config):
                 (flash_attention_hm_bwd, "launches_dq"),
                 (flash_attention_hm_bwd, "launches_wide_dkdv"),
                 (flash_attention_hm_bwd, "launches_wide_dq"),
+                (flash_attention_hm_bwd, "launches_xwide_dkdv"),
+                (flash_attention_hm_bwd, "launches_xwide_dq"),
                 (flash_attention_hm_bwd, "launches_generic_dkdv"),
                 (flash_attention_hm_bwd, "launches_generic_dq"),
                 (fused_rmsnorm, "launches"))
@@ -2223,6 +2274,7 @@ def gang_train_loop(config):
                  "flash_xxwide_fwd", "flash_fma_fwd", "flash_hm_bwd_dkdv",
                  "flash_hm_bwd_dq",
                  "flash_wide_bwd_dkdv", "flash_wide_bwd_dq",
+                 "flash_xwide_bwd_dkdv", "flash_xwide_bwd_dq",
                  "flash_generic_bwd_dkdv", "flash_generic_bwd_dq",
                  "rmsnorm")
         return {n: getattr(fn, a) for n, (fn, a) in zip(names, counters)}
@@ -2640,27 +2692,29 @@ SP_LOSS_RTOL = 1e-3
 SP_RANKS = 4
 # the in-process ring at GPT-2 124M's and XL's head counts (the chunk mode
 # of #1/#3/#4 and #5-#7), at head_dim 256 (flash_wide.cu's forward, dK/dV
-# and dQ), at 512 and 1024 (flash_xwide.cu's forward, flash_generic.cu's
-# dK/dV and dQ); SP_RING_KERNELS: a chunk kernel each of those head sizes
-# must launch
+# and dQ), at 512 and 1024 (flash_xwide.cu's forward, flash_xwide_bwd.cu's
+# dK/dV and dQ); SP_RING_KERNELS: the chunk kernels each of those head
+# sizes must launch
 SP_RING_SHAPES = ((1, 32768, 12, 64), (1, 8192, 25, 64), (1, 4096, 4, 256),
                   (1, 2048, 4, 512), (1, 1024, 2, 1024))
 SP_RING_KERNELS = {256: ("flash_wide_fwd_f32out", "flash_wide_bwd_dq_f32out"),
                    512: ("flash_xwide_fwd_f32out",
-                         "flash_generic_bwd_dq_f32out"),
+                         "flash_xwide_bwd_dkdv_f32out",
+                         "flash_xwide_bwd_dq_f32out"),
                    1024: ("flash_xxwide_fwd_f32out",
-                          "flash_generic_bwd_dq_f32out")}
+                          "flash_xwide_bwd_dkdv_f32out",
+                          "flash_xwide_bwd_dq_f32out")}
 SP_ULYSSES_SHAPE = (1, 32768, 12, 64)
 
 
 def _chunk_counts():
     """The chunk mode's launch counts by kernels-line name."""
     out = {}
-    for kind in ("", "hm", "wide", "xwide", "xxwide", "generic"):
+    for kind in ("", "hm", "wide", "xwide", "xxwide"):
         for part in ("fwd", "dkdv", "dq"):
             fn, attr = _chunk_counter(kind, part)
-            if hasattr(fn, attr):  # flash_xwide.cu has no backward,
-                # flash_generic.cu no forward
+            if hasattr(fn, attr):  # "xxwide" has no backward: its
+                # backward is "xwide"
                 out[chunk_name(kind, part if part == "fwd"
                                else "bwd_" + part)] = getattr(fn, attr)
     return out
@@ -2953,6 +3007,8 @@ SYMBOLS = {"flash_fwd": "flash_fwd_bf16_kernel",  # the bf16 kernel's name
            "flash_wide_bwd_dq": "wide_dq_kernel",
            "flash_xwide_fwd": "xwide_fwd_kernel",
            "flash_xxwide_fwd": "xwide_fwd_kernel",
+           "flash_xwide_bwd_dkdv": "xbwd_dkdv_kernel",
+           "flash_xwide_bwd_dq": "xbwd_dq_kernel",
            "flash_fma_fwd": "fma_fwd_kernel"}
 WIDE_SHAPE = list(HEAD_DIM_SHAPE + (256,))
 SUMMARY = {  # name: (source, TPU kernel it replaces, shape in the table)
@@ -2974,8 +3030,9 @@ SUMMARY = {  # name: (source, TPU kernel it replaces, shape in the table)
                         "ray_tpu/ops/flash_attention.py:268", list(XL_SHAPE)),
     # the head-major kernels above head_dim 128: bf16 forward, dK/dV and
     # dQ up to 256 on flash_wide.cu, the bf16 forward up to 1024 on
-    # flash_xwide.cu, the f32 forward on flash_fma.cu (its row in f32),
-    # dK/dV and dQ beyond on flash_generic.cu (its rows: bf16 at 512)
+    # flash_xwide.cu, dK/dV and dQ on flash_xwide_bwd.cu, the f32 forward
+    # on flash_fma.cu and dK/dV and dQ on flash_generic.cu (their rows in
+    # f32)
     "flash_wide_fwd": ("ray_tpu_torch/ops/csrc/flash_wide.cu",
                        "ray_tpu/ops/flash_attention.py:82", WIDE_SHAPE),
     "flash_wide_bwd_dkdv": ("ray_tpu_torch/ops/csrc/flash_wide.cu",
@@ -2988,16 +3045,24 @@ SUMMARY = {  # name: (source, TPU kernel it replaces, shape in the table)
     "flash_xxwide_fwd": ("ray_tpu_torch/ops/csrc/flash_xwide.cu",
                          "ray_tpu/ops/flash_attention.py:82",
                          list(ROUTED_XXWIDE)),
+    "flash_xwide_bwd_dkdv": ("ray_tpu_torch/ops/csrc/flash_xwide_bwd.cu",
+                             "ray_tpu/ops/flash_attention.py:212",
+                             list(ROUTED_WIDE)),
+    "flash_xwide_bwd_dq": ("ray_tpu_torch/ops/csrc/flash_xwide_bwd.cu",
+                           "ray_tpu/ops/flash_attention.py:268",
+                           list(ROUTED_WIDE)),
     "flash_fma_fwd": ("ray_tpu_torch/ops/csrc/flash_fma.cu",
                       "ray_tpu/ops/flash_attention.py:82",
                       list(ROUTED_F32 + (256,))),
     "flash_generic_bwd_dkdv": ("ray_tpu_torch/ops/csrc/flash_generic.cu",
                                "ray_tpu/ops/flash_attention.py:212",
-                               list(ROUTED_WIDE)),
+                               list(ROUTED_F32 + (256,))),
     "flash_generic_bwd_dq": ("ray_tpu_torch/ops/csrc/flash_generic.cu",
                              "ray_tpu/ops/flash_attention.py:268",
-                             list(ROUTED_WIDE)),
+                             list(ROUTED_F32 + (256,))),
 }
+# the rows timed in f32
+F32_ROWS = ("flash_fma_fwd",) + FLASH_GENERIC
 
 
 def _case_is(c, name):
@@ -3015,24 +3080,24 @@ CHUNK_SUMMARY = (  # the chunk mode's rows: kind, part, TPU line, shape
     ("hm", "bwd_dkdv", 212, CHUNK_HM), ("hm", "bwd_dq", 268, CHUNK_HM),
     ("wide", "fwd", 82, CHUNK_WIDE), ("wide", "bwd_dkdv", 212, CHUNK_WIDE),
     ("wide", "bwd_dq", 268, CHUNK_WIDE), ("xwide", "fwd", 82, CHUNK_XWIDE),
-    ("generic", "bwd_dkdv", 212, CHUNK_XWIDE),
-    ("generic", "bwd_dq", 268, CHUNK_XWIDE),
+    ("xwide", "bwd_dkdv", 212, CHUNK_XWIDE),
+    ("xwide", "bwd_dq", 268, CHUNK_XWIDE),
     ("xxwide", "fwd", 82, CHUNK_XXWIDE))
 
 
 def chunk_summary(cases, by_path, usage):
     """The kernels line's rows of the chunk mode (bf16 in, f32 out, the
     backward from a given LSE and delta): the diagonal (causal) case at
-    its shape, the past (not causal) one in ``other_shapes``, each with
-    the same kernels' time with bf16 outputs beside it.  No library call
-    returns f32 O from bf16 inputs, so ``library_ms`` is null;
-    ``plain_ms`` of a backward row is the whole plain backward."""
+    its shape, the past (not causal) one and the kernel's other timed
+    shapes in ``other_shapes``, each with the same kernels' time with
+    bf16 outputs beside it.  No library call returns f32 O from bf16
+    inputs, so ``library_ms`` is null; ``plain_ms`` of a backward row is
+    the whole plain backward."""
     rows = []
     for kind, part, line, shape in CHUNK_SUMMARY:
         name = chunk_name(kind, part)
-        found = {c["causal"]: c for c in cases
-                 if c.get("mode") == "f32out" and "kernel_ms" in c
-                 and _case_is(c, name) and c["shape"] == list(shape)}
+        timed = [c for c in cases if c.get("mode") == "f32out"
+                 and "kernel_ms" in c and _case_is(c, name)]
         sfx = "" if part == "fwd" else part[3:]  # "", "_dkdv", "_dq"
 
         def timing(c):
@@ -3044,13 +3109,15 @@ def chunk_summary(cases, by_path, usage):
                                   else "plain_ms_bwd"],
                     "library_ms": None}
 
-        c = found[True]
+        c = next(c for c in timed
+                 if c["shape"] == list(shape) and c["causal"])
         launches = {path: n[name] for path, n in by_path.items()
                     if n.get(name)}
         assert launches, f"{name} was not launched on any main path"
         src = {"": "flash_{}.cu", "hm": "flash_{}.cu",
-               "wide": "flash_wide.cu", "xwide": "flash_xwide.cu",
-               "xxwide": "flash_xwide.cu", "generic": "flash_generic.cu"}[kind]
+               "wide": "flash_wide.cu",
+               "xwide": "flash_xwide.cu" if part == "fwd"
+               else "flash_xwide_bwd.cu", "xxwide": "flash_xwide.cu"}[kind]
         row = {"name": name, "route": "cuda",
                "source": "ray_tpu_torch/ops/csrc/" + src.format(part[:3]),
                "replaces": f"ray_tpu/ops/flash_attention.py:{line}",
@@ -3061,18 +3128,34 @@ def chunk_summary(cases, by_path, usage):
                "from bf16 inputs", "shape": list(shape),
                "dtype": "bfloat16", "out_dtype": "float32",
                "causal": True,
-               "other_shapes": [{"shape": list(shape), "causal": False,
-                                 **timing(found[False])}]}
-        sym = SYMBOLS.get(
-            f"flash_{kind + '_' if kind in ('wide', 'xwide', 'xxwide') else ''}"
-            f"{part}")
-        if kind != "generic":
+               "other_shapes": [{"shape": o["shape"], "causal": o["causal"],
+                                 **timing(o)} for o in timed if o is not c]}
+        if kind == "xwide" and part != "fwd":
+            row.update(xbwd_row_attrs(part[4:], shape, usage, True))
+            for o in row["other_shapes"]:
+                o.update(xbwd_row_attrs(part[4:], o["shape"], usage, True))
+        else:
+            wide = kind in ("wide", "xwide", "xxwide")
+            sym = SYMBOLS[f"flash_{kind + '_' if wide else ''}{part}"]
             d = shape[-1]
             row["registers"], static = next(
                 v for k, v in usage.items() if f"{sym}ILi{d}ELb1E" in k)
             row["smem_bytes"] = static + runtime_attrs(sym, d, True)[2]
         rows.append(row)
     return rows
+
+
+def xbwd_row_attrs(part, shape, usage, f32_out=False):
+    """Registers and shared bytes of the flash_xwide_bwd.cu kernel
+    (``part`` "dkdv" or "dq") a launch at ``shape`` takes, its group width
+    (``group_cols``), its launch's clusters and how many of them the card
+    holds at once."""
+    _, _, dynamic, gc, resident, clusters = xbwd_attrs(part, shape, f32_out)
+    regs, static = next(v for k, v in usage.items()
+                        if f"xbwd_{part}_kernelILi{gc}ELb{int(f32_out)}E" in k)
+    return {"registers": regs, "smem_bytes": static + dynamic,
+            "group_cols": gc, "clusters": clusters,
+            "clusters_at_once": resident}
 
 
 NEW_FORWARDS = ("flash_xxwide_fwd", "flash_fma_fwd")
@@ -3113,7 +3196,7 @@ def kernel_summary(cases, by_path, usage):
     rows = []
     for name, (src, replaces, shape) in SUMMARY.items():
         part = name.rsplit("_", 1)[1] if "_bwd_" in name else None
-        dtype = "float32" if name == "flash_fma_fwd" else "bfloat16"
+        dtype = "float32" if name in F32_ROWS else "bfloat16"
         c = next(c for c in cases if _case_is(c, name)
                  and c["shape"] == shape and c["dtype"] == dtype
                  and c.get("causal", True) and "plain_ms" in c
@@ -3144,8 +3227,8 @@ def kernel_summary(cases, by_path, usage):
                  **({"library_backend": o["library_backend"]} if part
                     else {})}
                 for o in cases if _case_is(o, name) and "plain_ms" in o
-                and o.get("mode") != "f32out"
-                and o["dtype"] == dtype and o["shape"] != shape]
+                and o.get("mode") != "f32out" and o["dtype"] == dtype
+                and o is not c]
         if name == "rmsnorm":  # and at the decode step's shape
             c = next(c for c in cases if c["kernel"] == name
                      and c["shape"] == list(RMSNORM_DECODE)
@@ -3156,6 +3239,10 @@ def kernel_summary(cases, by_path, usage):
             row.update(new_forward_attrs(name, shape, usage))
             for o in row["other_shapes"]:
                 o.update(new_forward_attrs(name, o["shape"], usage))
+        elif name in FLASH_XWIDE_BWD:  # and at each other shape
+            row.update(xbwd_row_attrs(part, shape, usage))
+            for o in row["other_shapes"]:
+                o.update(xbwd_row_attrs(part, o["shape"], usage))
         elif name in SYMBOLS:
             sym, d = SYMBOLS[name], shape[-1]
             regs, static = next(v for k, v in usage.items()

@@ -49,8 +49,8 @@ SIGNATURES = {
     # scale, causal, dtype, out_dtype, stream
     "rtt_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                          _I, _I, _I, _P],
-    # flash_generic.cu, the head-major dK/dV and dQ above head_dim 128
-    # (f32) and 256 (bf16): as rtt_flash_bwd_dkdv and rtt_flash_bwd_dq
+    # flash_generic.cu, the head-major f32 dK/dV and dQ above head_dim
+    # 128: as rtt_flash_bwd_dkdv and rtt_flash_bwd_dq
     "rtt_flash_generic_bwd_dkdv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                    _I, _I, _I, _F, _I, _I, _I, _P],
     "rtt_flash_generic_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -71,18 +71,27 @@ SIGNATURES = {
                             _I, _I, _P],
     "rtt_flash_fma_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                           _I, _I, _P],
+    # flash_xwide_bwd.cu, the head-major bf16 dK/dV and dQ from head_dim
+    # 257 to 1024: as rtt_flash_bwd_dkdv and rtt_flash_bwd_dq
+    "rtt_flash_xwide_bwd_dkdv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 _I, _I, _F, _I, _I, _I, _P],
+    "rtt_flash_xwide_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _F, _I, _I, _I, _P],
     # the bf16-input kernels' registers and shared bytes as the runtime
     # holds them: head_dim, f32_out, out (int[3]); kernel (0 = dK/dV,
     # 1 = dQ), head_dim, f32_out, out; kernel (0 = forward, 1 = dK/dV,
     # 2 = dQ), head_dim, f32_out, out; head_dim, f32_out, out; and the
     # f32 forward's at a launch's batch, seq_q, heads, head_dim: out
     # (int[6]: then the group width, the clusters the card holds at once
-    # and the launch's clusters)
+    # and the launch's clusters); flash_xwide_bwd.cu's kernel (0 = dK/dV,
+    # 1 = dQ) at a launch's batch, seq_q, seq_k, heads, head_dim, f32_out:
+    # out (int[6], the same)
     "rtt_flash_fwd_attrs": [_I, _I, _P],
     "rtt_flash_bwd_attrs": [_I, _I, _I, _P],
     "rtt_flash_wide_attrs": [_I, _I, _I, _P],
     "rtt_flash_xwide_attrs": [_I, _I, _P],
     "rtt_flash_fma_attrs": [_I, _I, _I, _I, _P],
+    "rtt_flash_xwide_bwd_attrs": [_I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

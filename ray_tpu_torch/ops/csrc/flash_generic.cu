@@ -1,28 +1,26 @@
-// Flash-attention backward for head sizes above 128 (sm_90a), over
-// [B, T, H, D].
+// Flash-attention backward for f32 inputs at head sizes above 128
+// (sm_90a), over [B, T, H, D].
 //
-// Replaces, for head_dim above 128: ray_tpu/ops/flash_attention.py::
-// _fa_bwd_dkdv_kernel and ::_fa_bwd_dq_kernel (launched by
-// _flash_backward).  The Pallas kernels take any head_dim: their blocks
-// span it whole.  The Hopper kernels of flash_bwd.cu are built for 32, 64
-// and 128 (their shared memory and registers are spent at 128), and the
-// wrapper zero-pads a head_dim below 128 that is no multiple of 8 onto
-// them; above 128 the bf16 dK/dV and dQ up to 256 run on flash_wide.cu.
-// These two take the rest: f32 inputs above 128 and bf16 above 256 (every
-// forward above 128 runs on flash_wide.cu, flash_xwide.cu or, in f32,
-// flash_fma.cu).  They compute what the others compute, with the same
-// contract: the causal mask aligned top-left, f32 LSE and delta, bf16 or
-// f32 in and out (and f32 out from bf16 in, ring attention's chunk mode:
-// the accumulators are f32 already, so only the output type O differs
-// from the input type T), P rounded to the input dtype before dV, dS
-// before dK and dQ.
+// Replaces, for head_dim above 128 and f32 inputs: ray_tpu/ops/
+// flash_attention.py::_fa_bwd_dkdv_kernel and ::_fa_bwd_dq_kernel
+// (launched by _flash_backward).  The Pallas kernels take any head_dim:
+// their blocks span it whole.  The Hopper kernels of flash_bwd.cu are
+// built for 32, 64 and 128 (their shared memory and registers are spent at
+// 128), and the wrapper zero-pads a head_dim below 128 that is no multiple
+// of 8 onto them; above 128 the bf16 dK/dV and dQ run on flash_wide.cu (up
+// to 256) and flash_xwide_bwd.cu (257 to 1024).  These two take the rest,
+// f32 inputs above 128 (every forward above 128 runs on flash_wide.cu,
+// flash_xwide.cu or, in f32, flash_fma.cu), in and out in f32: the chunk
+// mode of ring attention takes bf16 inputs, so no f32-out variant.  They
+// compute what the others compute, with the same contract: the causal mask
+// aligned top-left, f32 LSE and delta; P and dS stay f32, as the Pallas
+// kernels' casts to the f32 input dtype are no-ops.
 //
-// Bound: at [8, 1024, 16, 256] bf16 causal dK/dV and dQ do 14 * D flops
-// per visible (query, key) pair (240 GFLOP, 243 us on the tensor cores);
-// these kernels run on the FMA units (67 TFLOP/s in f32), several ms at
-// best.  They are written to be right and simple first (a later PR makes
-// them fast): a SIMT design with no tensor cores, no TMA and no
-// asynchronous copies.
+// Bound: at [2, 256, 4, 256] f32 causal dK/dV and dQ do 14 * D flops per
+// visible (query, key) pair (0.94 GFLOP, 14 us at 67 TFLOP/s on the FMA
+// units).  They are written to be right and simple first (a later PR makes
+// them fast): a SIMT design with no tensor cores and no asynchronous
+// copies.
 //
 // Design.  A block owns R rows (keys in dK/dV, queries in dQ) of one
 // (batch, head) and loops over the other side's tiles of R rows, as the
@@ -49,31 +47,10 @@
 namespace {
 
 using namespace flash;
-using bf16 = __nv_bfloat16;
 
 constexpr int kGThreads = 256;
 constexpr int kChunk = 32;  // head-dim columns per pass
 constexpr int kMaxHeadDim = 1024;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// x rounded to T's precision (P~, dS~), kept as f32 for the sum.
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
 
 __device__ __forceinline__ float clamp_lse(float x) {
   return x <= kNegInf / 2 ? 0.f : x;
@@ -88,9 +65,9 @@ __host__ __device__ constexpr int padded_dim(int dim) {
 // past a_lim / b_lim read as 0.  as and bs are [kChunk][R + 1].  Begins
 // and ends each chunk with a barrier, so the caller's shared tiles are
 // free to be rewritten once it returns.
-template <typename T, int R>
+template <int R>
 __device__ __forceinline__ void rows_product(
-    const T* __restrict__ a, int a0, int a_lim, const T* __restrict__ b,
+    const float* __restrict__ a, int a0, int a_lim, const float* __restrict__ b,
     int b0, int b_lim, int dim, size_t rs, float* as, float* bs,
     float (&acc)[R / 16][R / 16]) {
   constexpr int P = R / 16;
@@ -101,12 +78,10 @@ __device__ __forceinline__ void rows_product(
     for (int e = tid; e < R * kChunk; e += kGThreads) {
       const int r = e / kChunk, c = e % kChunk;
       const bool col = c0 + c < dim;
-      as[c * (R + 1) + r] = col && a0 + r < a_lim
-                                ? to_f(a[(size_t)(a0 + r) * rs + c0 + c])
-                                : 0.f;
-      bs[c * (R + 1) + r] = col && b0 + r < b_lim
-                                ? to_f(b[(size_t)(b0 + r) * rs + c0 + c])
-                                : 0.f;
+      as[c * (R + 1) + r] =
+          col && a0 + r < a_lim ? a[(size_t)(a0 + r) * rs + c0 + c] : 0.f;
+      bs[c * (R + 1) + r] =
+          col && b0 + r < b_lim ? b[(size_t)(b0 + r) * rs + c0 + c] : 0.f;
     }
     __syncthreads();
 #pragma unroll 4
@@ -127,15 +102,16 @@ __device__ __forceinline__ void rows_product(
 
 // Stage rows [r0, r0 + R) x columns [c0, c0 + kChunk) of one head into
 // dst [R][kChunk], zero past row `limit` and column `dim`.
-template <typename T, int R>
-__device__ __forceinline__ void stage_chunk(float* dst, const T* __restrict__ src,
+template <int R>
+__device__ __forceinline__ void stage_chunk(float* dst,
+                                            const float* __restrict__ src,
                                             int r0, int limit, int c0,
                                             int dim, size_t rs) {
 #pragma unroll 2
   for (int e = threadIdx.x; e < R * kChunk; e += kGThreads) {
     const int r = e / kChunk, c = e % kChunk;
     dst[e] = r0 + r < limit && c0 + c < dim
-                 ? to_f(src[(size_t)(r0 + r) * rs + c0 + c])
+                 ? src[(size_t)(r0 + r) * rs + c0 + c]
                  : 0.f;
   }
 }
@@ -149,14 +125,15 @@ constexpr size_t tiles_bytes(int n_acc, int n_sq, int n_rows, int dp) {
 
 // --------------------------------------------------------------- dK/dV --
 
-template <typename T, typename O, int R>
+template <int R>
 __global__ void __launch_bounds__(kGThreads, 1)
-dkdv_generic_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+dkdv_generic_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, O* __restrict__ dk,
-                    O* __restrict__ dv, int heads, int dim, int tq, int tk,
-                    float scale, int causal) {
+                    const float* __restrict__ delta, float* __restrict__ dk,
+                    float* __restrict__ dv, int heads, int dim, int tq,
+                    int tk, float scale, int causal) {
   constexpr int P = R / 16, RPW = R / 8;
   const int dp = padded_dim(dim);
   extern __shared__ __align__(16) float sm[];
@@ -164,8 +141,8 @@ dkdv_generic_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* dva = dka + R * dp;           // [R][dp]
   float* as = dva + R * dp;            // [kChunk][R + 1]; dO's chunk
   float* bs = as + kChunk * (R + 1);   // [kChunk][R + 1]; Q's chunk
-  float* pt = bs + kChunk * (R + 1);   // [R][R + 1]: P~^T (key rows)
-  float* dst = pt + R * (R + 1);       // [R][R + 1]: dS~^T
+  float* pt = bs + kChunk * (R + 1);   // [R][R + 1]: P^T (key rows)
+  float* dst = pt + R * (R + 1);       // [R][R + 1]: dS^T
   float* lse_s = dst + R * (R + 1);    // [R]
   float* delta_s = lse_s + R;          // [R]
 
@@ -177,8 +154,8 @@ dkdv_generic_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t rs = (size_t)heads * dim;
   const size_t qoff = slice_base(b, h, heads, tq, dim);
   const size_t koff = slice_base(b, h, heads, tk, dim);
-  const T* qb = q + qoff;
-  const T* dob = dout + qoff;
+  const float* qb = q + qoff;
+  const float* dob = dout + qoff;
   const float* lse_b = lse + ((size_t)b * heads + h) * tq;
   const float* delta_b = delta + ((size_t)b * heads + h) * tq;
 
@@ -199,8 +176,8 @@ dkdv_generic_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < P; ++i)
 #pragma unroll
       for (int j = 0; j < P; ++j) st[i][j] = dpt[i][j] = 0.f;
-    rows_product<T, R>(k + koff, n0, tk, qb, m0, tq, dim, rs, as, bs, st);
-    rows_product<T, R>(v + koff, n0, tk, dob, m0, tq, dim, rs, as, bs, dpt);
+    rows_product<R>(k + koff, n0, tk, qb, m0, tq, dim, rs, as, bs, st);
+    rows_product<R>(v + koff, n0, tk, dob, m0, tq, dim, rs, as, bs, dpt);
 #pragma unroll
     for (int i = 0; i < P; ++i)
 #pragma unroll
@@ -209,16 +186,15 @@ dkdv_generic_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int kpos = n0 + row, qpos = m0 + col;
         float p = expf(st[i][j] * scale - lse_s[col]);
         if (qpos >= tq || kpos >= tk || (causal && kpos > qpos)) p = 0.f;
-        pt[row * (R + 1) + col] = round_to<T>(p);
-        dst[row * (R + 1) + col] =
-            round_to<T>(p * (dpt[i][j] - delta_s[col]) * scale);
+        pt[row * (R + 1) + col] = p;
+        dst[row * (R + 1) + col] = p * (dpt[i][j] - delta_s[col]) * scale;
       }
 
-    // dV += P~^T dO, dK += dS~^T Q, a chunk of columns at a time
+    // dV += P^T dO, dK += dS^T Q, a chunk of columns at a time
     for (int c0 = 0; c0 < dp; c0 += kChunk) {
       __syncthreads();
-      stage_chunk<T, R>(as, dob, m0, tq, c0, dim, rs);
-      stage_chunk<T, R>(bs, qb, m0, tq, c0, dim, rs);
+      stage_chunk<R>(as, dob, m0, tq, c0, dim, rs);
+      stage_chunk<R>(bs, qb, m0, tq, c0, dim, rs);
       __syncthreads();
 #pragma unroll 1
       for (int i = 0; i < RPW; ++i) {
@@ -240,19 +216,20 @@ dkdv_generic_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = e / dp, c = e % dp;
     if (n0 + row >= tk || c >= dim) continue;
     const size_t at = koff + (size_t)(n0 + row) * rs + c;
-    dk[at] = from_f<O>(dka[e]);
-    dv[at] = from_f<O>(dva[e]);
+    dk[at] = dka[e];
+    dv[at] = dva[e];
   }
 }
 
 // ------------------------------------------------------------------ dQ --
 
-template <typename T, typename O, int R>
+template <int R>
 __global__ void __launch_bounds__(kGThreads, 1)
-dq_generic_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const T* __restrict__ dout,
+dq_generic_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v,
+                  const float* __restrict__ dout,
                   const float* __restrict__ lse,
-                  const float* __restrict__ delta, O* __restrict__ dq,
+                  const float* __restrict__ delta, float* __restrict__ dq,
                   int heads, int dim, int tq, int tk, float scale,
                   int causal) {
   constexpr int P = R / 16, RPW = R / 8;
@@ -261,7 +238,7 @@ dq_generic_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* acc = sm;                     // [R][dp]
   float* as = acc + R * dp;            // [kChunk][R + 1]; K's chunk
   float* bs = as + kChunk * (R + 1);   // [kChunk][R + 1]
-  float* dss = bs + kChunk * (R + 1);  // [R][R + 1]: dS~ (query rows)
+  float* dss = bs + kChunk * (R + 1);  // [R][R + 1]: dS (query rows)
   float* lse_s = dss + R * (R + 1);    // [R]
   float* delta_s = lse_s + R;          // [R]
 
@@ -272,8 +249,8 @@ dq_generic_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int m0 = w.tile * R;
   const size_t rs = (size_t)heads * dim;
   const size_t qoff = slice_base(b, h, heads, tq, dim);
-  const T* kb = k + slice_base(b, h, heads, tk, dim);
-  const T* vb = v + slice_base(b, h, heads, tk, dim);
+  const float* kb = k + slice_base(b, h, heads, tk, dim);
+  const float* vb = v + slice_base(b, h, heads, tk, dim);
 
   for (int e = tid; e < R * dp; e += kGThreads) acc[e] = 0.f;
   if (tid < R) {
@@ -291,9 +268,8 @@ dq_generic_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < P; ++i)
 #pragma unroll
       for (int j = 0; j < P; ++j) s[i][j] = dpv[i][j] = 0.f;
-    rows_product<T, R>(q + qoff, m0, tq, kb, n0, tk, dim, rs, as, bs, s);
-    rows_product<T, R>(dout + qoff, m0, tq, vb, n0, tk, dim, rs, as, bs,
-                       dpv);
+    rows_product<R>(q + qoff, m0, tq, kb, n0, tk, dim, rs, as, bs, s);
+    rows_product<R>(dout + qoff, m0, tq, vb, n0, tk, dim, rs, as, bs, dpv);
 #pragma unroll
     for (int i = 0; i < P; ++i)
 #pragma unroll
@@ -302,14 +278,13 @@ dq_generic_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int qpos = m0 + row, kpos = n0 + col;
         float p = expf(s[i][j] * scale - lse_s[row]);
         if (qpos >= tq || kpos >= tk || (causal && kpos > qpos)) p = 0.f;
-        dss[row * (R + 1) + col] =
-            round_to<T>(p * (dpv[i][j] - delta_s[row]) * scale);
+        dss[row * (R + 1) + col] = p * (dpv[i][j] - delta_s[row]) * scale;
       }
 
-    // dQ += dS~ K, a chunk of columns at a time
+    // dQ += dS K, a chunk of columns at a time
     for (int c0 = 0; c0 < dp; c0 += kChunk) {
       __syncthreads();
-      stage_chunk<T, R>(as, kb, n0, tk, c0, dim, rs);
+      stage_chunk<R>(as, kb, n0, tk, c0, dim, rs);
       __syncthreads();
 #pragma unroll 1
       for (int i = 0; i < RPW; ++i) {
@@ -327,7 +302,7 @@ dq_generic_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int e = tid; e < R * dp; e += kGThreads) {
     const int row = e / dp, c = e % dp;
     if (m0 + row >= tq || c >= dim) continue;
-    dq[qoff + (size_t)(m0 + row) * rs + c] = from_f<O>(acc[e]);
+    dq[qoff + (size_t)(m0 + row) * rs + c] = acc[e];
   }
 }
 
@@ -336,21 +311,16 @@ dq_generic_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <int R>
 using Rows = std::integral_constant<int, R>;
 
-// fn(Rows<R>{}, T{}, O{}) for the block's rows at head_dim, the input
-// type T and the output type O (dtype, out_dtype: 0 = float32,
-// 1 = bfloat16; bad_args holds the pair); any head_dim from 1 to
-// kMaxHeadDim.
+// fn(Rows<R>{}) for the block's rows at head_dim, for f32 inputs and
+// outputs (dtype 0; bad_args holds out_dtype to it) and any head_dim from
+// 1 to kMaxHeadDim; anything else is cudaErrorInvalidValue.
 template <typename Fn>
-cudaError_t by_rows(int head_dim, int dtype, int out_dtype, Fn&& fn) {
-  if (head_dim <= 0 || head_dim > kMaxHeadDim) return cudaErrorInvalidValue;
-  auto typed = [&](auto rows) {
-    if (dtype == 0) return fn(rows, float{}, float{});
-    return out_dtype == 0 ? fn(rows, bf16{}, float{})
-                          : fn(rows, bf16{}, bf16{});
-  };
-  if (head_dim <= 256) return typed(Rows<64>{});
-  if (head_dim <= 512) return typed(Rows<32>{});
-  return typed(Rows<16>{});
+cudaError_t by_rows(int head_dim, int dtype, Fn&& fn) {
+  if (dtype != 0 || head_dim <= 0 || head_dim > kMaxHeadDim)
+    return cudaErrorInvalidValue;
+  if (head_dim <= 256) return fn(Rows<64>{});
+  if (head_dim <= 512) return fn(Rows<32>{});
+  return fn(Rows<16>{});
 }
 
 int dkdv(const void* q, const void* k, const void* v, const void* dout,
@@ -360,21 +330,19 @@ int dkdv(const void* q, const void* k, const void* v, const void* dout,
   if (bad_args(batch, tq, tk, heads, dtype, out_dtype))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)by_rows(head_dim, dtype, out_dtype,
-                      [&](auto rows, auto t, auto out_t) {
+  return (int)by_rows(head_dim, dtype, [&](auto rows) {
     constexpr int R = decltype(rows)::value;
-    using T = decltype(t);
-    using O = decltype(out_t);
-    return launch_block(dkdv_generic_kernel<T, O, R>,
+    return launch_block(dkdv_generic_kernel<R>,
                         dim3(batch * heads, (tk + R - 1) / R), kGThreads,
                         tiles_bytes<R>(2, 2, 2, padded_dim(head_dim)), s,
-                        static_cast<const T*>(q), static_cast<const T*>(k),
-                        static_cast<const T*>(v),
-                        static_cast<const T*>(dout),
+                        static_cast<const float*>(q),
+                        static_cast<const float*>(k),
+                        static_cast<const float*>(v),
+                        static_cast<const float*>(dout),
                         static_cast<const float*>(lse),
                         static_cast<const float*>(delta),
-                        static_cast<O*>(dk), static_cast<O*>(dv), heads,
-                        head_dim, tq, tk, scale, causal);
+                        static_cast<float*>(dk), static_cast<float*>(dv),
+                        heads, head_dim, tq, tk, scale, causal);
   });
 }
 
@@ -385,27 +353,27 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
   if (bad_args(batch, tq, tk, heads, dtype, out_dtype))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)by_rows(head_dim, dtype, out_dtype,
-                      [&](auto rows, auto t, auto out_t) {
+  return (int)by_rows(head_dim, dtype, [&](auto rows) {
     constexpr int R = decltype(rows)::value;
-    using T = decltype(t);
-    using O = decltype(out_t);
-    return launch_block(dq_generic_kernel<T, O, R>,
+    return launch_block(dq_generic_kernel<R>,
                         dim3(batch * heads, (tq + R - 1) / R), kGThreads,
                         tiles_bytes<R>(1, 1, 2, padded_dim(head_dim)), s,
-                        static_cast<const T*>(q), static_cast<const T*>(k),
-                        static_cast<const T*>(v),
-                        static_cast<const T*>(dout),
+                        static_cast<const float*>(q),
+                        static_cast<const float*>(k),
+                        static_cast<const float*>(v),
+                        static_cast<const float*>(dout),
                         static_cast<const float*>(lse),
                         static_cast<const float*>(delta),
-                        static_cast<O*>(dq_out), heads, head_dim, tq, tk,
+                        static_cast<float*>(dq_out), heads, head_dim, tq, tk,
                         scale, causal);
   });
 }
 
 }  // namespace
 
-// As rtt_flash_bwd_dkdv (flash_bwd.cu), for head_dim 1 to 1024.
+// As rtt_flash_bwd_dkdv (flash_bwd.cu), for f32 inputs and outputs (dtype
+// and out_dtype 0) and head_dim 1 to 1024; anything else is
+// cudaErrorInvalidValue.
 extern "C" int rtt_flash_generic_bwd_dkdv(const void* q, const void* k,
                                           const void* v, const void* dout,
                                           const void* lse, const void* delta,
@@ -418,7 +386,8 @@ extern "C" int rtt_flash_generic_bwd_dkdv(const void* q, const void* k,
               head_dim, scale, causal, dtype, out_dtype, stream);
 }
 
-// As rtt_flash_bwd_dq (flash_bwd.cu), for head_dim 1 to 1024.
+// As rtt_flash_bwd_dq (flash_bwd.cu), with rtt_flash_generic_bwd_dkdv's
+// limits.
 extern "C" int rtt_flash_generic_bwd_dq(const void* q, const void* k,
                                         const void* v, const void* dout,
                                         const void* lse, const void* delta,

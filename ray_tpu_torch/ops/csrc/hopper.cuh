@@ -1,10 +1,12 @@
 // Hopper (sm_90a) building blocks in raw PTX, shared by the bf16 flash
 // forward (flash_fwd.cu), dK/dV and dQ (flash_bwd.cu) kernels, the
-// 192/256-column forward, dK/dV and dQ (flash_wide.cu) and the
-// 384/512/768/1024-column forward (flash_xwide.cu): mbarriers, TMA
-// loads and stores of 4-D [B, T, H, D] tiles, wgmma shared-memory
-// descriptors and the few wgmma shapes the kernels issue, register
-// rebalancing between warpgroups, and the host-side tensor-map encoder.
+// 192/256-column forward, dK/dV and dQ (flash_wide.cu), the
+// 384/512/768/1024-column forward (flash_xwide.cu) and dK/dV and dQ
+// (flash_xwide_bwd.cu): mbarriers, the cluster barrier and distributed
+// shared memory, TMA loads and stores of 4-D [B, T, H, D] tiles, wgmma
+// shared-memory descriptors and the few wgmma shapes the kernels issue,
+// register rebalancing between warpgroups, and the host-side tensor-map
+// encoder.
 //
 // Tiles in shared memory.  A tile of `rows` positions x D bf16 is stored
 // as D / C boxes of rows x C columns, C = 64 (128-byte rows, 128-byte
@@ -128,9 +130,53 @@ __device__ __forceinline__ float2 ld_shared_f2(uint32_t addr) {
   return v;
 }
 
+__device__ __forceinline__ void st_shared_f4(uint32_t addr, float a, float b,
+                                             float c, float d) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "f"(a), "f"(b), "f"(c), "f"(d)
+               : "memory");
+}
+
 // Generic-proxy writes to shared memory made visible to TMA and wgmma.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------- clusters --
+
+// The cluster barrier in two halves, each thread on its own: arrive
+// (release: this thread's writes before it, shared memory included, are
+// visible to every thread of the cluster after its wait), then wait
+// (acquire) until every thread of every block of the cluster arrived.  A
+// thread waits before it arrives again.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// The address of this block's shared `addr` in block `rank` of the cluster
+// (distributed shared memory).
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // --------------------------------------------------------------- TMA --

@@ -2,8 +2,9 @@
 ``csrc/flash_bwd.cu`` (dK/dV and dQ) and, above head_dim 128,
 ``csrc/flash_wide.cu`` (the bf16 forward, dK/dV and dQ up to 256),
 ``csrc/flash_xwide.cu`` (the bf16 forward from 257 to 1024),
+``csrc/flash_xwide_bwd.cu`` (the bf16 dK/dV and dQ from 257 to 1024),
 ``csrc/flash_fma.cu`` (the f32 forward) and ``csrc/flash_generic.cu``
-(the rest of dK/dV and dQ), behind the JAX package's two kernel families,
+(the f32 dK/dV and dQ), behind the JAX package's two kernel families,
 each beside its plain version.
 
 Counterpart of ``ray_tpu/ops/flash_attention.py``:
@@ -26,10 +27,11 @@ Counterpart of ``ray_tpu/ops/flash_attention.py``:
   256 the forward, dK/dV and dQ on ``csrc/flash_wide.cu``'s 192/256
   builds, from 257 to 512 the forward on ``csrc/flash_xwide.cu``'s
   384/512 builds and from 513 to 1024 on its 768/1024 builds (O's columns
-  in two groups across the grid; padded the same way); with f32 inputs
-  above 128 the forward on ``csrc/flash_fma.cu`` (the FMA units; a size
-  that is no multiple of 4 padded to the next); the rest (dK/dV and dQ in
-  f32 above 128 and in bf16 above 256) on ``csrc/flash_generic.cu``.  The
+  in two groups across the grid; padded the same way), dK/dV and dQ from
+  257 to 1024 on ``csrc/flash_xwide_bwd.cu`` (the outputs' column groups
+  as a thread block cluster); with f32 inputs above 128 the forward on
+  ``csrc/flash_fma.cu`` (the FMA units; a size that is no multiple of 4
+  padded to the next) and dK/dV and dQ on ``csrc/flash_generic.cu``.  The
   JAX wrappers transpose
   to ``[B, H, T, D]`` for the TPU's tiles; the CUDA kernels read
   ``[B, T, H, D]`` by strides, so both families launch them on the
@@ -68,7 +70,8 @@ WIDE_MAX = 256  # the largest of flash_wide.cu (bf16 forward, dK/dV, dQ)
 XWIDE_MAX = 512  # the largest of flash_xwide.cu's 384/512 builds
 PARTS = ("fwd", "dkdv", "dq")
 # the widest head of the head-major family on the card: flash_xwide.cu's
-# 1024 build, flash_fma.cu's kFMaxDim and flash_generic.cu's kMaxHeadDim
+# and flash_xwide_bwd.cu's 1024 builds, flash_fma.cu's kFMaxDim and
+# flash_generic.cu's kMaxHeadDim
 HM_MAX_HEAD_DIM = 1024
 
 
@@ -221,14 +224,17 @@ def _hm_route(head_dim: int, dtype=torch.bfloat16,
     * ``"wide"``: from 129 to 256 with bf16 inputs, the forward, dK/dV
       and dQ of ``csrc/flash_wide.cu`` (192/256 builds);
     * ``"xwide"``: from 257 to 512 with bf16 inputs, the forward of
-      ``csrc/flash_xwide.cu`` (384/512 builds);
+      ``csrc/flash_xwide.cu`` (384/512 builds); from 257 to 1024 with bf16
+      inputs, dK/dV and dQ of ``csrc/flash_xwide_bwd.cu`` (384, 512, 768
+      and 1024 builds, the outputs' columns in 192- or 256-wide groups, a
+      thread block cluster);
     * ``"xxwide"``: from 513 to 1024 with bf16 inputs, the forward of
       ``csrc/flash_xwide.cu`` (768/1024 builds, O's columns in two groups
       across the grid);
     * ``"fma"``: above 128 with f32 inputs, the forward of
       ``csrc/flash_fma.cu`` (the FMA units);
-    * ``"generic"``: ``csrc/flash_generic.cu``'s SIMT dK/dV and dQ: f32
-      inputs above 128, bf16 above 256.
+    * ``"generic"``: above 128 with f32 inputs, ``csrc/flash_generic.cu``'s
+      SIMT dK/dV and dQ.
 
     The width is ``head_dim`` padded with zero columns to the next
     multiple of 8 up to 128 and, with bf16 inputs, up to 1024 (a padded
@@ -239,8 +245,7 @@ def _hm_route(head_dim: int, dtype=torch.bfloat16,
     k, v (and dO) zero-padded to it, with the true ``head_dim ** -0.5`` as
     the scale.  Zero columns add nothing to ``Q K^T`` or to ``dO V^T``,
     and the outputs' extra columns are sliced off.  The width does not
-    depend on the part, so the backward pads once for dK/dV and dQ (the
-    generic kernels take the padded width as it is).  A width runs on the
+    depend on the part, so the backward pads once for dK/dV and dQ.  A width runs on the
     next build at or above it, its columns past ``head_dim`` zeros inside
     the kernel.
 
@@ -255,11 +260,11 @@ def _hm_route(head_dim: int, dtype=torch.bfloat16,
         return "hm", width
     if bf16 and head_dim <= WIDE_MAX:
         return "wide", width
-    if part != "fwd":
-        return "generic", width
     if not bf16:
-        return "fma", width
-    return ("xwide" if head_dim <= XWIDE_MAX else "xxwide"), width
+        return ("fma" if part == "fwd" else "generic"), width
+    if part != "fwd" or head_dim <= XWIDE_MAX:
+        return "xwide", width
+    return "xxwide", width
 
 
 def _kernel_for(q, hm, part="fwd") -> Tuple[str, int]:
@@ -305,7 +310,8 @@ def _check_kernel_inputs(hm, *tensors):
 def _entry(kind, part):
     """Kernel ``part`` (``fwd``, ``bwd_dkdv`` or ``bwd_dq``) of ``kind``:
     its library entry and the name its errors carry ("xxwide" is
-    flash_xwide.cu's forward above 512, on the same entry as "xwide")."""
+    flash_xwide.cu's forward above 512, on the same entry as "xwide";
+    "xwide"'s backward parts are flash_xwide_bwd.cu's)."""
     name = f"flash_{'' if kind in ('nl', 'hm') else kind + '_'}{part}"
     entry = name.replace("xxwide", "xwide")
     return getattr(_build.load_library(), f"rtt_{entry}"), f"{name} kernel"
@@ -314,14 +320,15 @@ def _entry(kind, part):
 def _count(kind, part, chunk=False):
     """One launch of ``part`` ("", "_dkdv" or "_dq") on ``kind``: #1/#3/#4
     on the native-layout wrappers' counters, #5-#7, flash_wide.cu,
-    flash_xwide.cu, flash_fma.cu and flash_generic.cu on the head-major
-    ones' (``launches``, ``launches_wide*``, ``launches_xwide``,
-    ``launches_xxwide``, ``launches_fma``, ``launches_generic_*``); with
-    ``chunk`` (f32 outputs from bf16 inputs) on :func:`_flash_chunk_fwd`'s
-    and :func:`_flash_chunk_bwd`'s (``launches``, ``launches_hm``,
-    ``launches_wide``, ``launches_xwide``, ``launches_xxwide``,
-    ``launches_generic``, each with the part; flash_fma.cu takes f32
-    inputs, so it has no chunk counter)."""
+    flash_xwide.cu, flash_xwide_bwd.cu, flash_fma.cu and flash_generic.cu
+    on the head-major ones' (``launches``, ``launches_wide*``,
+    ``launches_xwide``, ``launches_xwide_*``, ``launches_xxwide``,
+    ``launches_fma``, ``launches_generic_*``); with ``chunk`` (f32 outputs
+    from bf16 inputs) on :func:`_flash_chunk_fwd`'s and
+    :func:`_flash_chunk_bwd`'s (``launches``, ``launches_hm``,
+    ``launches_wide``, ``launches_xwide``, ``launches_xxwide``, each with
+    the part; flash_fma.cu and flash_generic.cu take f32 inputs, so they
+    have no chunk counter)."""
     if chunk:
         fn = (_flash_chunk_fwd, _flash_chunk_bwd)[bool(part)]
         attr = "launches" + ("" if kind == "nl" else "_" + kind) + part
@@ -525,8 +532,10 @@ def flash_attention_hm_bwd(q: torch.Tensor, k: torch.Tensor,
     :func:`flash_attention_bwd`, for head_dim 1 to ``HM_MAX_HEAD_DIM``,
     launching kernels #6 (dK/dV) and #7 (dQ), or above 128
     ``flash_wide.cu``'s (bf16 up to 256, counted in
-    ``launches_wide_dkdv`` and ``launches_wide_dq``) or
-    ``flash_generic.cu``'s (counted in ``launches_generic_dkdv`` and
+    ``launches_wide_dkdv`` and ``launches_wide_dq``),
+    ``flash_xwide_bwd.cu``'s (bf16 from 257 to 1024, counted in
+    ``launches_xwide_dkdv`` and ``launches_xwide_dq``) or
+    ``flash_generic.cu``'s (f32, counted in ``launches_generic_dkdv`` and
     ``launches_generic_dq``), each part routed by :func:`_hm_route`, or
     raising."""
     return _backward(q, k, v, out, lse, do, causal, scale, hm=True)
@@ -536,6 +545,8 @@ flash_attention_hm_bwd.launches_dkdv = 0
 flash_attention_hm_bwd.launches_dq = 0
 flash_attention_hm_bwd.launches_wide_dkdv = 0
 flash_attention_hm_bwd.launches_wide_dq = 0
+flash_attention_hm_bwd.launches_xwide_dkdv = 0
+flash_attention_hm_bwd.launches_xwide_dq = 0
 flash_attention_hm_bwd.launches_generic_dkdv = 0
 flash_attention_hm_bwd.launches_generic_dq = 0
 
@@ -666,7 +677,7 @@ def _flash_chunk_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     family :func:`_flash_chunk_fwd` picks with f32 outputs, each part
     routed by :func:`_hm_route` (counted in
     ``_flash_chunk_bwd.launches_dkdv``, ``.launches_dq`` and their
-    ``_hm``, ``_wide`` and ``_generic`` forms), or raise."""
+    ``_hm``, ``_wide`` and ``_xwide`` forms), or raise."""
     _validate(q, k, v, causal)
     hm = _chunk_family(q, k, v)
     rows = (q.shape[0], q.shape[1], q.shape[2])
@@ -701,5 +712,5 @@ _flash_chunk_bwd.launches_hm_dkdv = 0
 _flash_chunk_bwd.launches_hm_dq = 0
 _flash_chunk_bwd.launches_wide_dkdv = 0
 _flash_chunk_bwd.launches_wide_dq = 0
-_flash_chunk_bwd.launches_generic_dkdv = 0
-_flash_chunk_bwd.launches_generic_dq = 0
+_flash_chunk_bwd.launches_xwide_dkdv = 0
+_flash_chunk_bwd.launches_xwide_dq = 0

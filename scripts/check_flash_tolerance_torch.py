@@ -25,6 +25,11 @@ build/ray_tpu_torch/planted/ (the sources themselves are never touched):
 * ``xxwide_fwd_drop_diag``: the same fault in the same source, shown on
   its 1024 and 768 builds (one stage of 32-key tiles, O's columns in
   two groups);
+* ``xwide_dkdv_drop_last``: flash_xwide_bwd.cu's dK/dV skips, in the
+  last key block (64 keys), the last query tile (32 queries), in every
+  block of its cluster; shown at head_dim 512, 384, 1024 and 768;
+* ``xwide_dq_drop_diag``: flash_xwide_bwd.cu's dQ skips the diagonal key
+  tile (32 keys) of its last 64-query block; shown at the same shapes;
 * ``fma_fwd_drop_diag``: flash_fma.cu's f32 forward skips the diagonal
   key tile (64 keys) of its last 64-query tile, shown at head_dim 256 and
   1024 in f32.
@@ -37,8 +42,9 @@ Both kernel families (native layout and head-major) launch the same
 kernels, so each fault in flash_fwd.cu and flash_bwd.cu is shown through
 both: the native family at the GPT-2 124M and Llama shapes, the
 head-major one at GPT-2 XL's; flash_wide.cu's at [8, 1024, 16, 256] and
-[8, 1024, 16, 160]; flash_xwide.cu's at [8, 1024, 16, 512] and
-[8, 1024, 16, 384], and at [2, 512, 4, 1024] and [2, 512, 4, 768];
+[8, 1024, 16, 160]; flash_xwide.cu's and flash_xwide_bwd.cu's at
+[8, 1024, 16, 512] and [8, 1024, 16, 384], and at [2, 512, 4, 1024] and
+[2, 512, 4, 768];
 flash_fma.cu's at [2, 256, 4, 256] and [2, 256, 4, 1024].
 
 Each build runs in a process of its own (the library loads once per
@@ -73,10 +79,13 @@ import chip_smoke  # noqa: E402
 # first in flash_bwd.cu)
 KEY_TILES = "return key_tiles(m0, BM, BN, tq, tk, causal);"
 DROP_DIAG = KEY_TILES.replace("causal);", "causal) - (m0 + BM >= tq);")
+# the dK/dV kernels' query-tile count (flash_bwd.cu, flash_wide.cu,
+# flash_xwide_bwd.cu)
 DKDV_END = "const int m_end = (tq + BM - 1) / BM;"
 DKDV_DROP_LAST = DKDV_END.replace("/ BM;", "/ BM - (n0 + BN >= tk);")
 # the key-tile count of the one-block-per-query-tile kernels (flash_wide.cu's
-# dQ, flash_xwide.cu's and flash_fma.cu's forwards)
+# and flash_xwide_bwd.cu's dQ, flash_xwide.cu's and flash_fma.cu's
+# forwards)
 N_TILES = "const int n_tiles = key_tiles(m0, BM, BN, tq, tk, causal);"
 N_TILES_DROP_DIAG = N_TILES.replace("causal);", "causal) - (m0 + BM >= tq);")
 BF16, F32 = torch.bfloat16, torch.float32
@@ -117,6 +126,10 @@ PLANTED = {
                              ("O",), XXWIDE_SHAPES),
     "fma_fwd_drop_diag": ("flash_fma.cu", N_TILES, N_TILES_DROP_DIAG,
                           ("O",), FMA_SHAPES),
+    "xwide_dkdv_drop_last": ("flash_xwide_bwd.cu", DKDV_END, DKDV_DROP_LAST,
+                             ("dk", "dv"), XWIDE_SHAPES + XXWIDE_SHAPES),
+    "xwide_dq_drop_diag": ("flash_xwide_bwd.cu", N_TILES, N_TILES_DROP_DIAG,
+                           ("dq",), XWIDE_SHAPES + XXWIDE_SHAPES),
 }
 
 

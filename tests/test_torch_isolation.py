@@ -153,6 +153,8 @@ def test_cpu_tensors_never_touch_the_library(monkeypatch):
     monkeypatch.setattr(flash_attention_hm_fwd, "launches_xwide", 0)
     monkeypatch.setattr(flash_attention_hm_fwd, "launches_xxwide", 0)
     monkeypatch.setattr(flash_attention_hm_fwd, "launches_fma", 0)
+    monkeypatch.setattr(flash_attention_hm_bwd, "launches_xwide_dkdv", 0)
+    monkeypatch.setattr(flash_attention_hm_bwd, "launches_xwide_dq", 0)
     monkeypatch.setattr(flash_attention_hm_bwd, "launches_generic_dkdv", 0)
     monkeypatch.setattr(flash_attention_hm_bwd, "launches_generic_dq", 0)
     q = torch.randn(1, 16, 2, 64, requires_grad=True)
@@ -163,7 +165,8 @@ def test_cpu_tensors_never_touch_the_library(monkeypatch):
     flash_attention_hm_bwd(q_hm, q_hm, q_hm, out, lse, out, causal=True,
                            scale=1.0)
     # the pad route's size, and flash_fma.cu's and flash_generic.cu's
-    # (f32), flash_wide.cu's and flash_xwide.cu's (bf16) sizes
+    # (f32), flash_wide.cu's, flash_xwide.cu's and flash_xwide_bwd.cu's
+    # (bf16) sizes
     for dim, dtype in ((20, torch.float32), (160, torch.float32),
                        (150, torch.float32), (160, torch.bfloat16),
                        (150, torch.bfloat16), (300, torch.bfloat16),
@@ -187,6 +190,8 @@ def test_cpu_tensors_never_touch_the_library(monkeypatch):
     assert flash_attention_hm_fwd.launches_xwide == 0
     assert flash_attention_hm_fwd.launches_xxwide == 0
     assert flash_attention_hm_fwd.launches_fma == 0
+    assert flash_attention_hm_bwd.launches_xwide_dkdv == 0
+    assert flash_attention_hm_bwd.launches_xwide_dq == 0
     assert flash_attention_hm_bwd.launches_generic_dkdv == 0
     assert flash_attention_hm_bwd.launches_generic_dq == 0
     assert fused_rmsnorm.launches == 0
@@ -198,14 +203,15 @@ def test_library_name_hashes_sources():
     assert path.name.startswith("libray_tpu_torch_") and path.suffix == ".so"
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
         "flash_bwd.cu", "flash_fma.cu", "flash_fwd.cu", "flash_generic.cu",
-        "flash_wide.cu", "flash_xwide.cu", "rmsnorm.cu"}
+        "flash_wide.cu", "flash_xwide.cu", "flash_xwide_bwd.cu",
+        "rmsnorm.cu"}
     assert {p.name for p in _build.CSRC.glob("*.cuh")} == {
         "flash_common.cuh", "hopper.cuh"}
     # both kernel families launch the same three flash entry points,
     # and the head-major family above head_dim 128 flash_wide.cu's three,
-    # flash_xwide.cu's forward (to 1024), flash_fma.cu's one
-    # and flash_generic.cu's two; five more report the flash kernels'
-    # registers and shared bytes
+    # flash_xwide.cu's forward (to 1024), flash_xwide_bwd.cu's two,
+    # flash_fma.cu's one and flash_generic.cu's two; six more report the
+    # flash kernels' registers and shared bytes
     assert set(_build.SIGNATURES) == {"rtt_rmsnorm_fwd", "rtt_flash_fwd",
                                       "rtt_flash_bwd_dkdv",
                                       "rtt_flash_bwd_dq",
@@ -214,13 +220,16 @@ def test_library_name_hashes_sources():
                                       "rtt_flash_wide_bwd_dq",
                                       "rtt_flash_xwide_fwd",
                                       "rtt_flash_fma_fwd",
+                                      "rtt_flash_xwide_bwd_dkdv",
+                                      "rtt_flash_xwide_bwd_dq",
                                       "rtt_flash_generic_bwd_dkdv",
                                       "rtt_flash_generic_bwd_dq",
                                       "rtt_flash_fwd_attrs",
                                       "rtt_flash_bwd_attrs",
                                       "rtt_flash_wide_attrs",
                                       "rtt_flash_xwide_attrs",
-                                      "rtt_flash_fma_attrs"}
+                                      "rtt_flash_fma_attrs",
+                                      "rtt_flash_xwide_bwd_attrs"}
     for flag in ("arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"):
         assert flag in _build.NVCC_FLAGS
 

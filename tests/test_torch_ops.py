@@ -17,7 +17,8 @@ import torch
 
 from ray_tpu.ops import fused_rmsnorm as jax_rmsnorm
 from ray_tpu.ops import fused as jax_fused
-from ray_tpu.ops.flash_attention import _flash_forward, _flash_nl_forward
+from ray_tpu.ops.flash_attention import (_flash_backward, _flash_forward,
+                                         _flash_nl_forward)
 from ray_tpu.ops.flash_attention import fit_block as jax_fit_block
 from ray_tpu.ops.flash_attention import flash_attention as jax_flash
 from ray_tpu.ops.flash_attention import kernel_block_for as jax_kbf
@@ -337,21 +338,22 @@ _BF16, _F32 = torch.bfloat16, torch.float32
     (150, _BF16, "dq", ("wide", 152)), (160, _BF16, "dq", ("wide", 160)),
     (256, _BF16, "dq", ("wide", 256)),
     # the bf16 forward from 257 to 512: flash_xwide.cu (264 on its 384
-    # build, 300 padded to 304); dK/dV and dQ there on flash_generic.cu,
-    # at the width the forward pads to
+    # build, 300 padded to 304); dK/dV and dQ from 257 to 1024 on
+    # flash_xwide_bwd.cu, at the width the forward pads to
     (264, _BF16, "fwd", ("xwide", 264)), (300, _BF16, "fwd", ("xwide", 304)),
-    (300, _BF16, "dkdv", ("generic", 304)),
-    (300, _BF16, "dq", ("generic", 304)), (512, _BF16, "fwd", ("xwide", 512)),
-    (512, _BF16, "dkdv", ("generic", 512)),
-    (512, _BF16, "dq", ("generic", 512)),
+    (300, _BF16, "dkdv", ("xwide", 304)),
+    (300, _BF16, "dq", ("xwide", 304)), (512, _BF16, "fwd", ("xwide", 512)),
+    (512, _BF16, "dkdv", ("xwide", 512)),
+    (512, _BF16, "dq", ("xwide", 512)), (264, _BF16, "dq", ("xwide", 264)),
     # the bf16 forward from 513 to 1024: flash_xwide.cu's 768/1024 builds
-    # (601 padded to 608); dK/dV and dQ on flash_generic.cu
+    # (601 padded to 608); dK/dV and dQ on flash_xwide_bwd.cu
     (520, _BF16, "fwd", ("xxwide", 520)), (600, _BF16, "fwd", ("xxwide", 600)),
     (601, _BF16, "fwd", ("xxwide", 608)),
     (1000, _BF16, "fwd", ("xxwide", 1000)),
     (1024, _BF16, "fwd", ("xxwide", 1024)),
-    (601, _BF16, "dkdv", ("generic", 608)),
-    (1000, _BF16, "dq", ("generic", 1000)),
+    (601, _BF16, "dkdv", ("xwide", 608)),
+    (1000, _BF16, "dq", ("xwide", 1000)),
+    (1024, _BF16, "dkdv", ("xwide", 1024)),
     # f32 above 128: the forward on flash_fma.cu (150 padded to 152), dK/dV
     # and dQ on flash_generic.cu at the same width
     (160, _F32, "fwd", ("fma", 160)), (256, _F32, "dkdv", ("generic", 256)),
@@ -363,9 +365,10 @@ def test_hm_route(dim, dtype, part, route):
     by input dtype: up to 128 on kernels #5-#7 (a size that is no
     multiple of 8 padded to the next one); from 129 to 256 the bf16
     forward, dK/dV and dQ on flash_wide.cu and from 257 to 1024 the bf16
-    forward on flash_xwide.cu (padded the same way); the f32 forward above
-    128 on flash_fma.cu (padded to a multiple of 4); f32 dK/dV and dQ
-    above 128 and bf16 above 256 on flash_generic.cu."""
+    forward on flash_xwide.cu and dK/dV and dQ on flash_xwide_bwd.cu
+    (padded the same way); the f32 forward above 128 on flash_fma.cu
+    (padded to a multiple of 4); f32 dK/dV and dQ above 128 on
+    flash_generic.cu."""
     assert torch_fa._hm_route(dim, dtype, part) == route
 
 
@@ -388,11 +391,14 @@ def test_every_route_counts_its_launches(chunk, monkeypatch):
         for dtype in (_F32, _BF16):
             for part, sfx in zip(torch_fa.PARTS, ("", "_dkdv", "_dq")):
                 kind = torch_fa._hm_route(dim, dtype, part)[0]
-                if chunk and kind == "fma":
-                    # f32 inputs give f32 outputs: flash_fma.cu has no
-                    # chunk mode, so no chunk counter
-                    assert not hasattr(torch_fa._flash_chunk_fwd,
-                                       "launches_fma")
+                if chunk and kind in ("fma", "generic"):
+                    # f32 inputs give f32 outputs: flash_fma.cu and
+                    # flash_generic.cu have no chunk mode, so no chunk
+                    # counter
+                    assert not hasattr(
+                        (torch_fa._flash_chunk_fwd,
+                         torch_fa._flash_chunk_bwd)[part != "fwd"],
+                        "launches_" + kind + sfx)
                     continue
                 before = counts()
                 torch_fa._count(kind, sfx, chunk=chunk)
@@ -454,12 +460,12 @@ def test_routes_pad_and_slice_exactly(dim, causal, monkeypatch):
     padded with zero columns where the route pads (20 and 44 to the next
     multiple of 8; 150 in bf16, whose three parts run on flash_wide.cu;
     300 and 601 in bf16, whose forward runs on flash_xwide.cu and whose
-    dK/dV and dQ run on flash_generic.cu at the same width; 150 in f32 to
-    the next multiple of 4, the forward on flash_fma.cu, dK/dV and dQ on
-    flash_generic.cu) and run with the true scale, O, dQ, dK, dV sliced
+    dK/dV and dQ run on flash_xwide_bwd.cu at the same width; 150 in f32
+    to the next multiple of 4, the forward on flash_fma.cu, dK/dV and dQ
+    on flash_generic.cu) and run with the true scale, O, dQ, dK, dV sliced
     back; 160, 256, 512 and 1000 unpadded (bf16: the wide kernels, or the
-    xwide forward and the generic backward; f32: the fma forward and the
-    generic backward).  Zero columns add nothing to Q K^T or dO V^T, so
+    xwide forward and backward; f32: the fma forward and the generic
+    backward).  Zero columns add nothing to Q K^T or dO V^T, so
     the routed results equal the unpadded plain versions but for summation
     order (f32: to 1e-6; bf16: the outputs' rounding, 1e-2).  Above 512
     (601, 1000) in bf16 only: 150 holds the f32 pad, and an f32 sum over
@@ -499,9 +505,12 @@ def test_routes_pad_and_slice_exactly(dim, causal, monkeypatch):
 # head sizes no 32/64/128 build takes as they are: 20 (padded onto the 24
 # build on the card), 160 and 256 (in f32 the forward on flash_fma.cu and
 # dK/dV, dQ on flash_generic.cu, in bf16 flash_wide.cu), 384, 640 and 1024
-# (in f32 as 160, in bf16 the forward on flash_xwide.cu); the Pallas
-# kernels take them all as they are
+# (in f32 as 160, in bf16 the forward on flash_xwide.cu and dK/dV, dQ on
+# flash_xwide_bwd.cu); the Pallas kernels take them all as they are
 _WIDEST_HM_SHAPES = [(1, 64, 2, 640), (1, 64, 2, 1024)]
+# in bf16 also 264 and 512: flash_xwide_bwd.cu's 384 build (a box wholly
+# past head_dim) and 512 build
+_XWIDE_BF16_HM_SHAPES = [(1, 64, 2, 264), (1, 64, 2, 512)]
 _ROUTED_HM_SHAPES = [(1, 128, 2, 20), (2, 128, 2, 160), (1, 128, 2, 256),
                      (1, 64, 2, 384)] + _WIDEST_HM_SHAPES
 
@@ -549,13 +558,61 @@ def test_flash_hm_bf16_keeps_dtype():
         assert (np.abs(a - b).max(-1) / rms).max() <= 0.1, name
 
 
+def _bf16_close(a, b, name):
+    """bf16 outputs held as test_flash_hm_bf16_keeps_dtype holds them: 1%
+    of the largest value, 0.1 row-scaled."""
+    np.testing.assert_allclose(a, b, atol=1e-2 * np.abs(b).max(), rtol=0,
+                               err_msg=name)
+    rms = np.sqrt(np.square(b).mean(-1))
+    rms = np.maximum(rms, 1e-2 * np.sqrt(np.square(b).mean()))
+    assert (np.abs(a - b).max(-1) / rms).max() <= 0.1, name
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", _XWIDE_BF16_HM_SHAPES,
+                         ids=lambda s: f"d{s[-1]}")
+def test_flash_hm_xwide_bwd_matches_pallas_bf16(shape, causal):
+    """bf16 at head_dim 264 and 512 (on the card flash_xwide.cu's forward
+    and flash_xwide_bwd.cu's dK/dV and dQ): the head-major forward against
+    _flash_forward, then the head-major backward on the Pallas forward's O
+    and LSE against _flash_backward (both interpret mode), each held as
+    test_flash_hm_bf16_keeps_dtype holds head_dim 64.  The backward takes
+    the Pallas O: the plain forward keeps P in f32 where the Pallas kernel
+    rounds it to bf16, and the delta = rowsum(dO * O) taken from the other
+    O moves causal dQ at position 1, whose two keys' dS cancel (the whole
+    vjp at [1, 64, 2, 512] causal reads 0.48 row-scaled there)."""
+    q, k, v, do = _qkv(shape, seed=shape[-1] + 7) + _qkv(shape, seed=3)[:1]
+    scale = shape[-1] ** -0.5
+    jq, jk, jv, jdo = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, do))
+    j_out, j_lse = _flash_forward(jq, jk, jv, causal, scale, 128, 128, True)
+    ref = _flash_backward(jq, jk, jv, j_out, j_lse, jdo, causal, scale, 128,
+                          128, True)
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(torch.bfloat16)
+                       for x in (q, k, v, do))
+    out, lse = flash_attention_hm_fwd(tq, tk, tv, causal=causal)
+    assert out.dtype == torch.bfloat16
+    _bf16_close(out.float().numpy(), np.asarray(j_out.astype(jnp.float32)),
+                "out")
+    np.testing.assert_allclose(lse.numpy(), np.asarray(j_lse)[..., 0],
+                               atol=1e-4, rtol=1e-5)
+    got = torch_fa.flash_attention_hm_bwd(
+        tq, tk, tv, torch.tensor(np.asarray(
+            j_out.astype(jnp.float32))).to(torch.bfloat16),
+        torch.tensor(np.asarray(j_lse)[..., 0]), tdo, causal=causal,
+        scale=scale)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == torch.bfloat16, name
+        _bf16_close(a.float().numpy(), np.asarray(b.astype(jnp.float32)),
+                    name)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("shape", _WIDEST_HM_SHAPES,
                          ids=lambda s: f"d{s[-1]}")
 def test_flash_hm_widest_head_dims_match_pallas_bf16(shape, causal):
     """bf16 through the head-major family at head_dim 640 and 1024 (on the
-    card flash_xwide.cu's 768/1024 builds and flash_generic.cu's dK/dV and
-    dQ) against the head-major Pallas kernels (interpret mode,
+    card flash_xwide.cu's forward and flash_xwide_bwd.cu's dK/dV and dQ)
+    against the head-major Pallas kernels (interpret mode,
     ``native=False``), held as test_flash_hm_bf16_keeps_dtype holds head_dim
     64: 1% of the largest value, 0.1 row-scaled."""
     q, k, v, do = _qkv(shape, seed=shape[-1] + 7) + _qkv(shape, seed=3)[:1]

@@ -52,7 +52,7 @@ GRAD_TOL = dict(atol=2e-4, rtol=2e-4)
 # the chunk functions: both families, as the JAX chunk functions
 # dispatch them (2 heads of 64: native layout; 3 heads: head-major; 2
 # heads of 384: head-major, on the card flash_xwide.cu's forward and
-# flash_generic.cu's backward)
+# flash_xwide_bwd.cu's backward)
 CHUNK_SHAPES = {"nl": (1, 256, 2, 64), "hm": (1, 256, 3, 64),
                 "hm384": (1, 64, 2, 384)}
 # the attention cases both sides run at sp = 4: name -> (shape, seed,
