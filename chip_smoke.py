@@ -57,7 +57,7 @@ no network.  Phases, one JSON line each:
     head-major kernels at head_dim 16) against the CPU; then bf16,
     finite.
 16. ``head_dims``: GPT-2 of 2 layers at head_dim 160, 256, 512 and 1024
-    (f32: csrc/flash_fma.cu's forward, csrc/flash_generic.cu's dK/dV and
+    (f32: csrc/flash_fma.cu's forward, csrc/flash_fma_bwd.cu's dK/dV and
     dQ) and 20 (the head-major kernels on zero-padded inputs), f32: one
     step's loss and every gradient on the card against the CPU, with each
     route's launches; then at 160, 256, 512 and 1024 in bf16
@@ -111,7 +111,9 @@ at 20 and 44 on zero-padded inputs, at 136 to 256 on csrc/flash_wide.cu
 bf16 forward) and csrc/flash_xwide_bwd.cu (bf16 dK/dV and dQ, timed
 beside SDPA's backward at six shapes and held at its tiles' edges), at
 136 to 1024 on csrc/flash_fma.cu (the f32 forward) and
-csrc/flash_generic.cu (dK/dV and dQ in f32), odd head counts, ragged
+csrc/flash_fma_bwd.cu (dK/dV and dQ in f32, timed beside SDPA's f32
+backward, read three times, and held at its tiles' edges), odd head
+counts, ragged
 lengths, ViT's non-causal 197, more than 65535 heads in all) against
 their plain versions, RMSNorm with a bf16 weight
 too, and times them at the training shapes (GPT-2 124M and XL, ViT-B/16,
@@ -175,8 +177,7 @@ HEAD_DIM_SHAPE = (8, 1024, 16)
 # (flash_attention._hm_route): 20 and 44 run on the 24 and 48 builds'
 # kernels on zero-padded copies; 160 and 256 in bf16 on csrc/flash_wide.cu
 # (the forward, dK/dV and dQ; its 192 and 256 builds), in f32 on
-# csrc/flash_fma.cu (the forward) and flash_generic.cu (dK/dV, dQ: its
-# blocks own 64 rows up to 256, 32 up to 512, 16 up to 1024); 512
+# csrc/flash_fma.cu (the forward) and flash_fma_bwd.cu (dK/dV, dQ); 512
 # (ROUTED_WIDE, and HEAD_DIM_SHAPE at 512 and 384) in bf16 on
 # csrc/flash_xwide.cu (the forward; its 384 and 512 builds) and
 # csrc/flash_xwide_bwd.cu (dK/dV, dQ; its 384 and 512 builds); 1024
@@ -184,10 +185,12 @@ HEAD_DIM_SHAPE = (8, 1024, 16)
 # on flash_xwide.cu's and flash_xwide_bwd.cu's 768 and 1024 builds (the
 # backward at HEAD_DIM_SHAPE at 1024, not 768); each held and timed at
 # HEAD_DIM_SHAPE's batch, length and heads, causal and full, and in f32 at
-# ROUTED_F32 (the f32 forward at ROUTED_F32_DIMS), then held at ragged
-# lengths (ROUTED_RAGGED_DIMS: the wide kernels' 136-256, flash_xwide.cu's
-# and flash_xwide_bwd.cu's 264-1024, in f32 flash_fma.cu's 136-1024) and
-# flash_xwide_bwd.cu at its tiles' edges (XBWD_EDGE_DIMS)
+# ROUTED_F32 (the f32 forward and backward at ROUTED_F32_DIMS, the f32
+# backward also at HEAD_DIM_SHAPE at 256), then held at ragged lengths
+# (ROUTED_RAGGED_DIMS: the wide kernels' 136-256, flash_xwide.cu's and
+# flash_xwide_bwd.cu's 264-1024, in f32 flash_fma.cu's and
+# flash_fma_bwd.cu's 136-1024) and flash_xwide_bwd.cu and flash_fma_bwd.cu
+# at their tiles' edges (XBWD_EDGE_DIMS, FMA_BWD_EDGE_DIMS)
 ROUTED_HEAD_DIMS = (20, 44, 160, 256)
 ROUTED_WIDE = (2, 512, 4, 512)
 ROUTED_XWIDE_DIMS = (384, 512)
@@ -202,8 +205,22 @@ XBWD_TIMED = (HEAD_DIM_SHAPE + (384,), HEAD_DIM_SHAPE + (512,),
 XBWD_EDGE_DIMS = (384, 512, 768, 1024)
 XBWD_EDGE_LENGTHS = (1, 63, 64, 65, 127, 128, 129, 200, 1000)
 XBWD_CROSS_LENGTHS = ((130, 257), (65, 191))
+# flash_fma_bwd.cu in f32 at the same edges (64 keys or queries a block,
+# 64-row tiles, 32-row accumulation chunks), at head sizes that reach each
+# group width and 2 to 8 groups a cluster: 136 (dK/dV and dQ 3 groups of
+# 64; 2 of 128 and 1 of 256 at T = 1000), 256 (4 of 64), 384 (6), 520 (5
+# of 128, the last 8 wide), 800 (7), 1000 (8 of 128, the last 104 wide;
+# dQ 4 of 256 at T = 1000), 1024
+FMA_BWD_EDGE_DIMS = (136, 256, 384, 520, 800, 1000, 1024)
 ROUTED_F32 = (2, 256, 4)
 ROUTED_F32_DIMS = ROUTED_HEAD_DIMS + (512, 1024)
+# the f32 backward's case big enough that launch latency does not hide the
+# design: 2048 clusters of dK/dV, 2048 blocks of dQ
+F32_BWD_TIMED = HEAD_DIM_SHAPE + (256,)
+# SDPA's f32 backward read 0.1990 to 0.5339 ms at [2, 256, 4, 256] causal
+# from one call to another (H100): each f32 backward case reads it this
+# many times in a row and takes the median as its library_ms
+SDPA_F32_READINGS = 3
 ROUTED_RAGGED = ((2, 100, 3), (1, 1, 2), (2, 257, 3))
 WIDE_HELD_DIMS = (136, 150, 160, 200, 256)
 XWIDE_HELD_DIMS = (264, 300, 384, 400, 512)
@@ -414,33 +431,39 @@ def runtime_attrs(symbol, d, f32_out=False):
     return tuple(out)
 
 
-def fma_attrs(shape):
+def group_attrs(entry, *args):
     """(registers, static shared bytes, dynamic shared bytes, group width,
-    clusters the card holds at once, clusters of the launch) of the f32
-    forward (flash_fma.cu) as a launch at ``shape`` takes it."""
+    clusters the card holds at once, clusters of the launch) that the
+    attributes entry ``entry`` of a column-group kernel reports for a
+    launch at ``args``."""
     import ctypes
     from ray_tpu_torch.ops import _build
     out = (ctypes.c_int * 6)()
-    b, t, h, d = shape
-    _build.check(_build.load_library().rtt_flash_fma_attrs(b, t, h, d, out),
-                 "attributes of fma_fwd_kernel")
+    _build.check(getattr(_build.load_library(), entry)(*args, out),
+                 f"{entry}{args}")
     return tuple(out)
+
+
+def fma_attrs(shape):
+    """group_attrs of the f32 forward (flash_fma.cu) at ``shape``."""
+    return group_attrs("rtt_flash_fma_attrs", *shape)
 
 
 def xbwd_attrs(part, shape, f32_out=False):
-    """(registers, static shared bytes, dynamic shared bytes, group width,
-    clusters the card holds at once, clusters of the launch) of
-    flash_xwide_bwd.cu's dK/dV (``part`` "dkdv") or dQ ("dq") as a launch
-    at ``shape`` (Tq = Tk) with bf16 or (``f32_out``) f32 outputs takes
-    it."""
-    import ctypes
-    from ray_tpu_torch.ops import _build
-    out = (ctypes.c_int * 6)()
+    """group_attrs of flash_xwide_bwd.cu's dK/dV (``part`` "dkdv") or dQ
+    ("dq") at ``shape`` (Tq = Tk) with bf16 or (``f32_out``) f32
+    outputs."""
     b, t, h, d = shape
-    _build.check(_build.load_library().rtt_flash_xwide_bwd_attrs(
-        {"dkdv": 0, "dq": 1}[part], b, t, t, h, d, int(f32_out), out),
-        f"attributes of xbwd_{part}_kernel")
-    return tuple(out)
+    return group_attrs("rtt_flash_xwide_bwd_attrs", {"dkdv": 0, "dq": 1}[part],
+                       b, t, t, h, d, int(f32_out))
+
+
+def fma_bwd_attrs(part, shape):
+    """group_attrs of flash_fma_bwd.cu's dK/dV (``part`` "dkdv") or dQ
+    ("dq") at ``shape`` (Tq = Tk)."""
+    b, t, h, d = shape
+    return group_attrs("rtt_flash_fma_bwd_attrs", {"dkdv": 0, "dq": 1}[part],
+                       b, t, t, h, d)
 
 
 def _family(hm):
@@ -460,7 +483,7 @@ def _heads_first(*xs):
 def _route_kinds(hm, d, dtype):
     """The kernel selector of each part ("fwd", "dkdv", "dq") of a call
     of one family at head_dim d with inputs of dtype: "nl", or
-    _hm_route's "hm", "wide", "xwide", "xxwide", "fma" or "generic"."""
+    _hm_route's "hm", "wide", "xwide", "xxwide" or "fma"."""
     from ray_tpu_torch.ops.flash_attention import PARTS, _hm_route
     return {p: _hm_route(d, dtype, p)[0] if hm else "nl" for p in PARTS}
 
@@ -662,7 +685,9 @@ def bwd_case(timer, gen, shape, dtype, causal, timed, hm=False, tk=None):
 
         # bf16: SDPA's flash backend where it takes the shape; where it
         # refuses (head_dim above 256) and for f32, which it does not
-        # take, PyTorch's own pick, as the forward's case times
+        # take, PyTorch's own pick, as the forward's case times; f32 read
+        # SDPA_F32_READINGS times (its readings vary from call to call),
+        # library_ms their median
         res["library_backend"] = "default"
         if dtype == torch.bfloat16:
             try:
@@ -673,7 +698,12 @@ def bwd_case(timer, gen, shape, dtype, causal, timed, hm=False, tk=None):
                 if "No available kernel" not in str(e):
                     raise
         if res["library_backend"] == "default":
-            fwd_ms, both_ms = sdpa_ms()
+            n = SDPA_F32_READINGS if dtype == torch.float32 else 1
+            readings = sorted((sdpa_ms() for _ in range(n)),
+                              key=lambda r: r[1] - r[0])
+            if n > 1:
+                res["library_ms_readings"] = [b - f for f, b in readings]
+            fwd_ms, both_ms = readings[n // 2]  # the median backward
         res["library_ms"] = both_ms - fwd_ms
         res["library_fwd_bwd_ms"] = both_ms
         res["bound_ms_dkdv"], res["bound_by_dkdv"] = bound(
@@ -999,7 +1029,7 @@ def phase_kernels():
 def routed_head_dim_cases(timer, gen, add, cases):
     """The head-major family at the head sizes _hm_route pads (20, 44)
     or sends to flash_wide.cu, flash_xwide.cu, flash_xwide_bwd.cu,
-    flash_fma.cu or flash_generic.cu (136 and up), against the plain
+    flash_fma.cu or flash_fma_bwd.cu (136 and up), against the plain
     versions at ROW_TOL, forward and backward; then the pad route's cost
     beside its build's (d 20 against 24, 44 against 48), as one line."""
     for d in ROUTED_HEAD_DIMS:
@@ -1026,19 +1056,22 @@ def routed_head_dim_cases(timer, gen, add, cases):
             add(bwd_case(timer, gen, shape, torch.bfloat16, causal,
                          timed=True, hm=True))
             _free()
-    # f32: the forward on flash_fma.cu, dK/dV and dQ on flash_generic.cu
+    # f32: the forward on flash_fma.cu, dK/dV and dQ on flash_fma_bwd.cu
     for d in ROUTED_F32_DIMS:
         for causal in (False, True):
             add(flash_case(timer, gen, ROUTED_F32 + (d,), torch.float32,
                            causal, timed=True, hm=True))
             add(bwd_case(timer, gen, ROUTED_F32 + (d,), torch.float32,
                          causal, timed=True, hm=True))
+    add(bwd_case(timer, gen, F32_BWD_TIMED, torch.float32, True, timed=True,
+                 hm=True))
+    _free()
     # ragged ends of every route's tiles, one position, Tq != Tk (150,
     # 300 and 601: the wide kernels and the xwide forward and backward on
     # inputs padded to 152, 304 and 608, in f32 the fma forward on 152, 300
     # and 604; 136, 200, 264, 400, 520, 600 and 1000: a build's last box
-    # partly past head_dim, and at 264, 400 and 520 a box wholly past it),
-    # and the generic kernels' widest head (16-row blocks)
+    # partly past head_dim, and at 264, 400 and 520 a box wholly past it;
+    # in f32 the fma backward's last group partly past it)
     for d in ROUTED_RAGGED_DIMS:
         for dtype in (torch.float32, torch.bfloat16):
             for shape in ROUTED_RAGGED:
@@ -1058,6 +1091,14 @@ def routed_head_dim_cases(timer, gen, add, cases):
                          timed=False, hm=True))
         for tq, tk in XBWD_CROSS_LENGTHS:
             add(bwd_case(timer, gen, (2, tq, 3, d), torch.bfloat16, False,
+                         timed=False, hm=True, tk=tk))
+    # flash_fma_bwd.cu at the same edges in f32
+    for d in FMA_BWD_EDGE_DIMS:
+        for t in XBWD_EDGE_LENGTHS:
+            add(bwd_case(timer, gen, (2, t, 3, d), torch.float32, True,
+                         timed=False, hm=True))
+        for tq, tk in XBWD_CROSS_LENGTHS:
+            add(bwd_case(timer, gen, (2, tq, 3, d), torch.float32, False,
                          timed=False, hm=True, tk=tk))
 
     def timed(kind, d):
@@ -1209,16 +1250,16 @@ def phase_serve(batch=4, prompt=1024, new_tokens=64):
 
 FLASH_NL = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
 FLASH_HM = ("flash_hm_fwd", "flash_hm_bwd_dkdv", "flash_hm_bwd_dq")
-FLASH_GENERIC = ("flash_generic_bwd_dkdv", "flash_generic_bwd_dq")
 # head_dim 129-256 in bf16: flash_wide.cu's forward, dK/dV and dQ
 FLASH_WIDE = ("flash_wide_fwd", "flash_wide_bwd_dkdv", "flash_wide_bwd_dq")
 # head_dim 257-512 and 513-1024 in bf16: flash_xwide.cu's forward, and
 # flash_xwide_bwd.cu's dK/dV and dQ; f32 above 128: flash_fma.cu's
-# forward, and flash_generic.cu's dK/dV and dQ
+# forward, and flash_fma_bwd.cu's dK/dV and dQ
 FLASH_XWIDE_BWD = ("flash_xwide_bwd_dkdv", "flash_xwide_bwd_dq")
 FLASH_XWIDE = ("flash_xwide_fwd",) + FLASH_XWIDE_BWD
 FLASH_XXWIDE = ("flash_xxwide_fwd",) + FLASH_XWIDE_BWD
-FLASH_FMA = ("flash_fma_fwd",) + FLASH_GENERIC
+FLASH_FMA_BWD = ("flash_fma_bwd_dkdv", "flash_fma_bwd_dq")
+FLASH_FMA = ("flash_fma_fwd",) + FLASH_FMA_BWD
 FLASH_ALL = (FLASH_NL + FLASH_HM + FLASH_WIDE + FLASH_XWIDE
              + FLASH_XXWIDE[:1] + FLASH_FMA)
 
@@ -1233,7 +1274,7 @@ def _flash_counts():
         hm_bwd.launches_wide_dq, hm_fwd.launches_xwide,
         hm_bwd.launches_xwide_dkdv, hm_bwd.launches_xwide_dq,
         hm_fwd.launches_xxwide, hm_fwd.launches_fma,
-        hm_bwd.launches_generic_dkdv, hm_bwd.launches_generic_dq)))
+        hm_bwd.launches_fma_dkdv, hm_bwd.launches_fma_dq)))
 
 
 def _flash_per(fwd, hm=False, bwd=None, route=None):
@@ -1260,7 +1301,7 @@ def _zero_counts():
     hm_bwd.launches_wide_dq = hm_fwd.launches_xwide = 0
     hm_fwd.launches_xxwide = hm_fwd.launches_fma = 0
     hm_bwd.launches_xwide_dkdv = hm_bwd.launches_xwide_dq = 0
-    hm_bwd.launches_generic_dkdv = hm_bwd.launches_generic_dq = 0
+    hm_bwd.launches_fma_dkdv = hm_bwd.launches_fma_dq = 0
     fused_rmsnorm.launches = 0
 
 
@@ -2107,7 +2148,7 @@ def phase_runtime():
 
 # head_dims: GPT-2 of 2 layers (GPT2Config.tiny's vocabulary and length)
 # at head sizes only the routes take: (heads, width) for head_dim 160, 256,
-# 512 and 1024 (f32: flash_fma.cu's forward, flash_generic.cu's dK/dV and
+# 512 and 1024 (f32: flash_fma.cu's forward, flash_fma_bwd.cu's dK/dV and
 # dQ; 1024 as 2 heads, the 512 model's width) and 20 (zero-padded onto
 # the 24 build's kernels)
 HEAD_DIM_MODELS = ((4, 640), (4, 80), (4, 1024),
@@ -2128,7 +2169,7 @@ def phase_head_dim_parity(batch=2, seq=128):
     """The model path through the routed head-major kernels: one
     training step's loss and every gradient of each HEAD_DIM_MODELS
     GPT-2, f32, TF32 off, on the card against the CPU, with its launches
-    (2 of flash_fma.cu's forward and of each flash_generic.cu kernel for
+    (2 of flash_fma.cu's forward and of each flash_fma_bwd.cu kernel for
     head_dim 160, 256, 512 and 1024; 2 of #5, #6, #7 for head_dim 20);
     then, above 128, the same weights in bf16 on the card (2 of each
     flash_wide.cu kernel at 160 and 256; 2 of flash_xwide.cu's forward and
@@ -2262,8 +2303,8 @@ def gang_train_loop(config):
                 (flash_attention_hm_bwd, "launches_wide_dq"),
                 (flash_attention_hm_bwd, "launches_xwide_dkdv"),
                 (flash_attention_hm_bwd, "launches_xwide_dq"),
-                (flash_attention_hm_bwd, "launches_generic_dkdv"),
-                (flash_attention_hm_bwd, "launches_generic_dq"),
+                (flash_attention_hm_bwd, "launches_fma_dkdv"),
+                (flash_attention_hm_bwd, "launches_fma_dq"),
                 (fused_rmsnorm, "launches"))
     for fn, attr in counters:
         setattr(fn, attr, 0)
@@ -2275,7 +2316,7 @@ def gang_train_loop(config):
                  "flash_hm_bwd_dq",
                  "flash_wide_bwd_dkdv", "flash_wide_bwd_dq",
                  "flash_xwide_bwd_dkdv", "flash_xwide_bwd_dq",
-                 "flash_generic_bwd_dkdv", "flash_generic_bwd_dq",
+                 "flash_fma_bwd_dkdv", "flash_fma_bwd_dq",
                  "rmsnorm")
         return {n: getattr(fn, a) for n, (fn, a) in zip(names, counters)}
 
@@ -3031,7 +3072,7 @@ SUMMARY = {  # name: (source, TPU kernel it replaces, shape in the table)
     # the head-major kernels above head_dim 128: bf16 forward, dK/dV and
     # dQ up to 256 on flash_wide.cu, the bf16 forward up to 1024 on
     # flash_xwide.cu, dK/dV and dQ on flash_xwide_bwd.cu, the f32 forward
-    # on flash_fma.cu and dK/dV and dQ on flash_generic.cu (their rows in
+    # on flash_fma.cu and dK/dV and dQ on flash_fma_bwd.cu (their rows in
     # f32)
     "flash_wide_fwd": ("ray_tpu_torch/ops/csrc/flash_wide.cu",
                        "ray_tpu/ops/flash_attention.py:82", WIDE_SHAPE),
@@ -3054,15 +3095,15 @@ SUMMARY = {  # name: (source, TPU kernel it replaces, shape in the table)
     "flash_fma_fwd": ("ray_tpu_torch/ops/csrc/flash_fma.cu",
                       "ray_tpu/ops/flash_attention.py:82",
                       list(ROUTED_F32 + (256,))),
-    "flash_generic_bwd_dkdv": ("ray_tpu_torch/ops/csrc/flash_generic.cu",
-                               "ray_tpu/ops/flash_attention.py:212",
-                               list(ROUTED_F32 + (256,))),
-    "flash_generic_bwd_dq": ("ray_tpu_torch/ops/csrc/flash_generic.cu",
-                             "ray_tpu/ops/flash_attention.py:268",
-                             list(ROUTED_F32 + (256,))),
+    "flash_fma_bwd_dkdv": ("ray_tpu_torch/ops/csrc/flash_fma_bwd.cu",
+                           "ray_tpu/ops/flash_attention.py:212",
+                           list(ROUTED_F32 + (256,))),
+    "flash_fma_bwd_dq": ("ray_tpu_torch/ops/csrc/flash_fma_bwd.cu",
+                         "ray_tpu/ops/flash_attention.py:268",
+                         list(ROUTED_F32 + (256,))),
 }
 # the rows timed in f32
-F32_ROWS = ("flash_fma_fwd",) + FLASH_GENERIC
+F32_ROWS = FLASH_FMA
 
 
 def _case_is(c, name):
@@ -3145,17 +3186,27 @@ def chunk_summary(cases, by_path, usage):
     return rows
 
 
-def xbwd_row_attrs(part, shape, usage, f32_out=False):
-    """Registers and shared bytes of the flash_xwide_bwd.cu kernel
-    (``part`` "dkdv" or "dq") a launch at ``shape`` takes, its group width
-    (``group_cols``), its launch's clusters and how many of them the card
-    holds at once."""
-    _, _, dynamic, gc, resident, clusters = xbwd_attrs(part, shape, f32_out)
+def group_row_attrs(attrs, symbol, usage):
+    """A row's registers and shared bytes for the instantiation of a
+    kernel that cuts the head_dim into column groups: ``attrs`` as its
+    attributes entry reports them for the launch (fma_attrs, xbwd_attrs,
+    fma_bwd_attrs), ptxas's counts (``usage``) for ``symbol`` formatted
+    with the group width, with the width (``group_cols``), the launch's
+    clusters and how many of them the card holds at once."""
+    _, _, dynamic, gc, resident, clusters = attrs
     regs, static = next(v for k, v in usage.items()
-                        if f"xbwd_{part}_kernelILi{gc}ELb{int(f32_out)}E" in k)
+                        if symbol.format(gc) in k)
     return {"registers": regs, "smem_bytes": static + dynamic,
             "group_cols": gc, "clusters": clusters,
             "clusters_at_once": resident}
+
+
+def xbwd_row_attrs(part, shape, usage, f32_out=False):
+    """group_row_attrs of the flash_xwide_bwd.cu kernel (``part`` "dkdv"
+    or "dq") a launch at ``shape`` takes."""
+    return group_row_attrs(
+        xbwd_attrs(part, shape, f32_out),
+        f"xbwd_{part}_kernelILi{{}}ELb{int(f32_out)}E", usage)
 
 
 NEW_FORWARDS = ("flash_xxwide_fwd", "flash_fma_fwd")
@@ -3167,12 +3218,8 @@ def new_forward_attrs(name, shape, usage):
     flash_fma.cu's group width (``group_cols``, picked by the shape), with
     its launch's clusters and how many of them the card holds at once."""
     if name == "flash_fma_fwd":
-        _, _, dynamic, gc, resident, clusters = fma_attrs(shape)
-        regs, static = next(v for k, v in usage.items()
-                            if f"fma_fwd_kernelILi{gc}E" in k)
-        return {"registers": regs, "smem_bytes": static + dynamic,
-                "group_cols": gc, "clusters": clusters,
-                "clusters_at_once": resident}
+        return group_row_attrs(fma_attrs(shape), "fma_fwd_kernelILi{}E",
+                               usage)
     d = 768 if shape[-1] <= 768 else 1024
     regs, static = next(v for k, v in usage.items()
                         if f"xwide_fwd_kernelILi{d}ELb0E" in k)
@@ -3189,10 +3236,12 @@ def kernel_summary(cases, by_path, usage):
     (the launch bound's share; the warp-specialised kernels' consumers
     raise theirs to 240 with setmaxnreg) and the shared memory a block
     takes: ptxas's static bytes and the dynamic bytes the runtime holds
-    for the kernel's last launch; the rows of NEW_FORWARDS carry them at
-    every shape (the f32 forward's row, in f32, with the group width each
-    shape takes).  The RMSNorm row adds its times at a decode step's shape
-    (``decode``)."""
+    for the kernel's last launch; the rows of NEW_FORWARDS,
+    flash_xwide_bwd.cu and flash_fma_bwd.cu carry them at every shape (the
+    f32 rows, in f32, with the group width each shape takes).  The f32
+    backward rows carry SDPA's SDPA_F32_READINGS readings beside their
+    median (``library_ms_readings``).  The RMSNorm row adds its times at a
+    decode step's shape (``decode``)."""
     rows = []
     for name, (src, replaces, shape) in SUMMARY.items():
         part = name.rsplit("_", 1)[1] if "_bwd_" in name else None
@@ -3215,8 +3264,10 @@ def kernel_summary(cases, by_path, usage):
                "bound_by": c[f"bound_by_{part}"] if part else c["bound_by"],
                "library_ms": c["library_ms"], "shape": shape,
                "dtype": dtype}
-        if part:  # which SDPA backend ran the backward
+        if part:  # which SDPA backend ran the backward, each f32 reading
             row["library_backend"] = c["library_backend"]
+            if "library_ms_readings" in c:
+                row["library_ms_readings"] = c["library_ms_readings"]
         if part or name.endswith("fwd"):  # the other timed model shapes
             row["other_shapes"] = [
                 {"shape": o["shape"], "causal": o["causal"],
@@ -3224,8 +3275,9 @@ def kernel_summary(cases, by_path, usage):
                  "bound_ms": o[f"bound_ms_{part}"] if part
                  else o["bound_ms"], "plain_ms": o["plain_ms"],
                  "library_ms": o["library_ms"],
-                 **({"library_backend": o["library_backend"]} if part
-                    else {})}
+                 **({k: o[k] for k in ("library_backend",
+                                       "library_ms_readings") if k in o}
+                    if part else {})}
                 for o in cases if _case_is(o, name) and "plain_ms" in o
                 and o.get("mode") != "f32out" and o["dtype"] == dtype
                 and o is not c]
@@ -3243,6 +3295,13 @@ def kernel_summary(cases, by_path, usage):
             row.update(xbwd_row_attrs(part, shape, usage))
             for o in row["other_shapes"]:
                 o.update(xbwd_row_attrs(part, o["shape"], usage))
+        elif name in FLASH_FMA_BWD:  # and at each other shape
+            sym = f"fma_{part}_kernelILi{{}}E"
+            row.update(group_row_attrs(fma_bwd_attrs(part, shape), sym,
+                                       usage))
+            for o in row["other_shapes"]:
+                o.update(group_row_attrs(fma_bwd_attrs(part, o["shape"]),
+                                         sym, usage))
         elif name in SYMBOLS:
             sym, d = SYMBOLS[name], shape[-1]
             regs, static = next(v for k, v in usage.items()

@@ -49,12 +49,12 @@ SIGNATURES = {
     # scale, causal, dtype, out_dtype, stream
     "rtt_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                          _I, _I, _I, _P],
-    # flash_generic.cu, the head-major f32 dK/dV and dQ above head_dim
-    # 128: as rtt_flash_bwd_dkdv and rtt_flash_bwd_dq
-    "rtt_flash_generic_bwd_dkdv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                   _I, _I, _I, _F, _I, _I, _I, _P],
-    "rtt_flash_generic_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                 _I, _F, _I, _I, _I, _P],
+    # flash_fma_bwd.cu, the head-major f32 dK/dV and dQ from head_dim
+    # 129 to 1024: as rtt_flash_bwd_dkdv and rtt_flash_bwd_dq
+    "rtt_flash_fma_bwd_dkdv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _F, _I, _I, _I, _P],
+    "rtt_flash_fma_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _F, _I, _I, _I, _P],
     # flash_wide.cu, the head-major bf16 forward, dK/dV and dQ from
     # head_dim 129 to 256: as rtt_flash_fwd, rtt_flash_bwd_dkdv and
     # rtt_flash_bwd_dq
@@ -85,13 +85,16 @@ SIGNATURES = {
     # (int[6]: then the group width, the clusters the card holds at once
     # and the launch's clusters); flash_xwide_bwd.cu's kernel (0 = dK/dV,
     # 1 = dQ) at a launch's batch, seq_q, seq_k, heads, head_dim, f32_out:
-    # out (int[6], the same)
+    # out (int[6], the same); flash_fma_bwd.cu's kernel (0 = dK/dV, 1 =
+    # dQ) at a launch's batch, seq_q, seq_k, heads, head_dim: out (int[6],
+    # the same)
     "rtt_flash_fwd_attrs": [_I, _I, _P],
     "rtt_flash_bwd_attrs": [_I, _I, _I, _P],
     "rtt_flash_wide_attrs": [_I, _I, _I, _P],
     "rtt_flash_xwide_attrs": [_I, _I, _P],
     "rtt_flash_fma_attrs": [_I, _I, _I, _I, _P],
     "rtt_flash_xwide_bwd_attrs": [_I, _I, _I, _I, _I, _I, _I, _P],
+    "rtt_flash_fma_bwd_attrs": [_I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -52,11 +52,12 @@ __device__ __forceinline__ Work work_longest_first() {
   return {(int)blockIdx.x, (int)(gridDim.y - 1 - blockIdx.y)};
 }
 
-// The forwards that split O's columns into groups across the grid
-// (flash_xwide.cu, flash_fma.cu): grid (batch * heads * groups, query
-// tiles), a block one (head, tile, group).  A query tile's groups are
-// adjacent, then a head's tiles: the groups of a tile read the same Q and
-// K tiles, a head's tiles the same K and V, so they meet in L2.  32-bit: a
+// The kernels that split the outputs' columns into groups across the grid
+// (flash_xwide.cu's and flash_fma.cu's forwards, flash_xwide_bwd.cu's and
+// flash_fma_bwd.cu's dK/dV and dQ): grid (batch * heads * groups, tiles),
+// a block one (head, tile, group).  A tile's groups are adjacent, then a
+// head's tiles: the groups of a tile read the same rows, a head's tiles
+// the same streamed ones, so they meet in L2.  32-bit: a
 // block covers at least 16 positions of one head, so 2^32 blocks would
 // need inputs far beyond the card's memory.
 struct GroupWork {

@@ -12,7 +12,7 @@
 // operand).  Contract as the other forwards: the causal mask aligned
 // top-left, f32 LSE, a row with no visible key giving O = 0 and LSE =
 // -1e30.  No f32-out variant: the chunk mode takes bf16 inputs (f32 in is
-// f32 out already).  dK/dV and dQ stay on flash_generic.cu.
+// f32 out already).  dK/dV and dQ are flash_fma_bwd.cu's.
 //
 // Bound: 4 * D flops per visible (query, key) pair at 67 TFLOP/s (f32 FMA):
 // at [2, 256, 4, 256] causal 0.27 GFLOP, 4.0 us, against 4.2 MB of q, k,
@@ -43,13 +43,11 @@
 // (a pair costs 4 D flops, the work's own), and the group count trades
 // only parallelism against the exchange: the launcher takes the most
 // groups (at most 8, a portable cluster) whose blocks fit in one wave of
-// the SMs, or the fewest if none does (fma_group_cols): at [2, 256, 4,
-// 256] there are only 8 heads x 4 query tiles, which 4 groups of 64
-// columns spread over 128 SMs.
+// the SMs, or the fewest if none does (fma_group_cols, flash_fma.cuh): at
+// [2, 256, 4, 256] there are only 8 heads x 4 query tiles, which 4 groups
+// of 64 columns spread over 128 SMs.
 //
-// Widths: any head_dim from 129 to 1024 that is a multiple of 4 (the
-// wrapper zero-pads another to the next multiple of 4): a row of f32 then
-// spans whole 16-byte granules, which cp.async copies; granules past
+// Widths: those bad_fma_dim (flash_fma.cuh) accepts; granules past
 // head_dim, rows past the sequence and columns past the group are zero-
 // filled (src-size 0), so they add nothing to S and give no O.
 //
@@ -57,9 +55,7 @@
 
 #include <cooperative_groups.h>
 
-#include <initializer_list>
-
-#include "flash_common.cuh"
+#include "flash_fma.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -68,14 +64,13 @@ using namespace flash;
 namespace cg = cooperative_groups;
 
 constexpr int kFThreads = 256;
-constexpr int kFBM = 64, kFBN = 64;  // queries a block, keys a tile
+// queries a block, keys a tile
+constexpr int kFBM = kFmaRows, kFBN = kFmaRows;
 constexpr int kFDK = 32;   // head-dim columns of Q and K a chunk
 constexpr int kFStages = 4;           // ring slots
 constexpr int kFQKPitch = kFDK + 4;   // floats a staged Q / K row
 constexpr int kFPPitch = kFBM + 4;    // floats a P^T row (one key)
 constexpr int kFPart = 16 * kFThreads;  // floats of one partial S
-constexpr int kFMaxGroups = 8;  // a portable cluster
-constexpr int kFMinDim = 129, kFMaxDim = 1024;
 
 template <int GC>
 struct FmaSmem {
@@ -89,28 +84,6 @@ struct FmaSmem {
       (size_t)(kFStages * kSlot + kP + 2 * kFPart) * 4;
   static_assert(kBytes <= 232448, "over the block's shared memory");
 };
-
-// 16 bytes from src to shared dst, or 16 zero bytes if !valid (src is then
-// not read).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ float4 lds4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
 
 // x maximised or summed across the 16 threads tx = 0..15 of a half-warp
 // (the threads of one row).
@@ -364,80 +337,21 @@ fma_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (groups > 1) cg::this_cluster().sync();
 }
 
-template <int GC>
-using GroupCols = std::integral_constant<int, GC>;
-
-// O's group width for a launch over `items` (batch * heads * query tiles)
-// at head_dim `dim` on `sms` SMs: of 64, 128 and 256 wide (at most
-// kFMaxGroups groups), the one with the most groups whose blocks (items x
-// groups) fit in one wave, or the one with the fewest if none fits.  Held
-// against each fixed width on an H100 (scripts/compare_kernels_torch.py
-// on copies with the width fixed): it picked the fastest at f32 [2, 256,
-// 4, d] for d = 160, 256 (64; its 128 blocks are 8 more than the card
-// holds at once, yet 1.2x ahead of 128), 512 (128) and 1024 (256), and at
-// [8, 1024, 16, 256] (256), so each width wins somewhere.
-inline int fma_group_cols(long items, int dim, int sms) {
-  int best = 0, fewest = 0;
-  for (int gc : {256, 128, 64}) {
-    const long groups = (dim + gc - 1) / gc;
-    if (groups > kFMaxGroups) continue;
-    if (fewest == 0) fewest = gc;
-    if (items * groups <= sms) best = gc;
-  }
-  return best ? best : fewest;
-}
-
-// fn(GroupCols<GC>{}) for the group width a launch at this shape takes.
+// fn(GroupCols<GC>{}) for the group width a launch of the forward at
+// this shape takes (items: its query tiles).
 template <typename Fn>
-cudaError_t by_group_cols(int batch, int tq, int heads, int head_dim,
-                          Fn&& fn) {
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  const long items = (long)batch * heads * ((tq + kFBM - 1) / kFBM);
-  switch (fma_group_cols(items, head_dim, sms)) {
-    case 256:
-      return fn(GroupCols<256>{});
-    case 128:
-      return fn(GroupCols<128>{});
-    default:
-      return fn(GroupCols<64>{});
-  }
+cudaError_t by_fwd_group_cols(int batch, int tq, int heads, int head_dim,
+                              Fn&& fn) {
+  return by_group_cols<256>((long)batch * heads * ((tq + kFBM - 1) / kFBM),
+                            head_dim, fn);
 }
 
-bool bad_dim(int head_dim) {
-  return head_dim < kFMinDim || head_dim > kFMaxDim || head_dim % 4 != 0;
+template <int GC>
+cudaError_t init_fwd(ClusterLaunch& l, int batch, int tq, int heads,
+                     int head_dim, cudaStream_t s) {
+  return l.init(fma_fwd_kernel<GC>, GC, batch * heads, (tq + kFBM - 1) / kFBM,
+                head_dim, FmaSmem<GC>::kBytes, s);
 }
-
-// A launch of fma_fwd_kernel<GC> at this shape: its grid, one cluster a
-// query tile's groups, and the kernel's dynamic shared memory (its limit
-// set first, as it must be above 48 KB).
-struct FmaLaunch {
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute cluster[1];
-  int groups;
-
-  template <int GC>
-  cudaError_t init(int batch, int tq, int heads, int head_dim,
-                   cudaStream_t s) {
-    groups = (head_dim + GC - 1) / GC;
-    cfg.gridDim = dim3(batch * heads * groups, (tq + kFBM - 1) / kFBM);
-    cfg.blockDim = dim3(kFThreads);
-    cfg.dynamicSmemBytes = FmaSmem<GC>::kBytes;
-    cfg.stream = s;
-    cluster[0].id = cudaLaunchAttributeClusterDimension;
-    cluster[0].val.clusterDim.x = groups;
-    cluster[0].val.clusterDim.y = 1;
-    cluster[0].val.clusterDim.z = 1;
-    cfg.attrs = cluster;
-    cfg.numAttrs = 1;
-    return cudaFuncSetAttribute(fma_fwd_kernel<GC>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)FmaSmem<GC>::kBytes);
-  }
-};
 
 }  // namespace
 
@@ -450,13 +364,13 @@ extern "C" int rtt_flash_fma_fwd(const void* q, const void* k, const void* v,
                                  int causal, int dtype, int out_dtype,
                                  void* stream) {
   if (bad_args(batch, tq, tk, heads, dtype, out_dtype) || dtype != 0 ||
-      bad_dim(head_dim))
+      bad_fma_dim(head_dim))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)by_group_cols(batch, tq, heads, head_dim, [&](auto gc) {
+  return (int)by_fwd_group_cols(batch, tq, heads, head_dim, [&](auto gc) {
     constexpr int GC = decltype(gc)::value;
-    FmaLaunch l;
-    cudaError_t e = l.init<GC>(batch, tq, heads, head_dim, s);
+    ClusterLaunch l;
+    cudaError_t e = init_fwd<GC>(l, batch, tq, heads, head_dim, s);
     if (e != cudaSuccess) return e;
     e = cudaLaunchKernelEx(&l.cfg, fma_fwd_kernel<GC>,
                            static_cast<const float*>(q),
@@ -476,17 +390,17 @@ extern "C" int rtt_flash_fma_fwd(const void* q, const void* k, const void* v,
 // launch has (one a query tile).
 extern "C" int rtt_flash_fma_attrs(int batch, int tq, int heads,
                                    int head_dim, int* out) {
-  if (batch <= 0 || tq <= 0 || heads <= 0 || bad_dim(head_dim))
+  if (batch <= 0 || tq <= 0 || heads <= 0 || bad_fma_dim(head_dim))
     return (int)cudaErrorInvalidValue;
-  return (int)by_group_cols(batch, tq, heads, head_dim, [&](auto gc) {
+  return (int)by_fwd_group_cols(batch, tq, heads, head_dim, [&](auto gc) {
     constexpr int GC = decltype(gc)::value;
-    FmaLaunch l;
-    cudaError_t e = l.init<GC>(batch, tq, heads, head_dim, nullptr);
+    ClusterLaunch l;
+    cudaError_t e = init_fwd<GC>(l, batch, tq, heads, head_dim, nullptr);
     if (e == cudaSuccess) e = func_attrs(fma_fwd_kernel<GC>, out);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveClusters(&out[4], fma_fwd_kernel<GC>, &l.cfg);
     out[3] = GC;
-    out[5] = (int)(l.cfg.gridDim.x / l.groups * l.cfg.gridDim.y);
+    out[5] = l.clusters();
     return e;
   });
 }

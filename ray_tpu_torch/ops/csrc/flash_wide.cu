@@ -8,7 +8,7 @@
 // head_dim; the Hopper kernels of flash_fwd.cu and flash_bwd.cu are built
 // for 32, 64 and 128, flash_xwide.cu's forward and flash_xwide_bwd.cu's
 // dK/dV and dQ for 384 to 1024, flash_fma.cu takes the f32 forward above
-// 128 and flash_generic.cu's SIMT dK/dV and dQ the f32 backward.  These
+// 128 and flash_fma_bwd.cu the f32 dK/dV and dQ.  These
 // compute what flash_fwd.cu and flash_bwd.cu compute, under the same
 // contract: the causal mask aligned top-left, f32 LSE and delta (the LSE
 // clamped to 0 for a row that saw no key), P rounded to bf16 before P V

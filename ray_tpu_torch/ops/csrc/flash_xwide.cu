@@ -9,7 +9,7 @@
 // row with no visible key giving O = 0 and LSE = -1e30; O in bf16 or, the
 // chunk mode of ring attention (F32O), in f32 from bf16 inputs.  dK/dV and
 // dQ above 256 run on flash_xwide_bwd.cu; f32 inputs above 128 on
-// flash_fma.cu (the forward) and flash_generic.cu.
+// flash_fma.cu (the forward) and flash_fma_bwd.cu.
 //
 // Bound: at [8, 1024, 16, 512] causal the forward does 4 * D flops per
 // visible (query, key) pair (138 GFLOP, 139 us at 989 TFLOP/s) against 537

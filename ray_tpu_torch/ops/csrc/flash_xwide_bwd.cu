@@ -9,7 +9,7 @@
 // clamped to 0 for a row that saw no key), P rounded to bf16 before dV, dS
 // before dK and dQ, Tq and Tk free when not causal; outputs in bf16 or, the
 // chunk mode of ring attention (F32O), in f32 from bf16 inputs.  f32
-// inputs above 128 stay on flash_generic.cu.
+// inputs above 128 run on flash_fma_bwd.cu.
 //
 // Bound: at [8, 1024, 16, 512] causal dK/dV does 8 * D flops per visible
 // (query, key) pair (275 GFLOP, 278 us at 989 TFLOP/s) against 805 MB (240

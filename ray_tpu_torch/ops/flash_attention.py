@@ -3,7 +3,7 @@
 ``csrc/flash_wide.cu`` (the bf16 forward, dK/dV and dQ up to 256),
 ``csrc/flash_xwide.cu`` (the bf16 forward from 257 to 1024),
 ``csrc/flash_xwide_bwd.cu`` (the bf16 dK/dV and dQ from 257 to 1024),
-``csrc/flash_fma.cu`` (the f32 forward) and ``csrc/flash_generic.cu``
+``csrc/flash_fma.cu`` (the f32 forward) and ``csrc/flash_fma_bwd.cu``
 (the f32 dK/dV and dQ), behind the JAX package's two kernel families,
 each beside its plain version.
 
@@ -30,9 +30,9 @@ Counterpart of ``ray_tpu/ops/flash_attention.py``:
   in two groups across the grid; padded the same way), dK/dV and dQ from
   257 to 1024 on ``csrc/flash_xwide_bwd.cu`` (the outputs' column groups
   as a thread block cluster); with f32 inputs above 128 the forward on
-  ``csrc/flash_fma.cu`` (the FMA units; a size that is no multiple of 4
-  padded to the next) and dK/dV and dQ on ``csrc/flash_generic.cu``.  The
-  JAX wrappers transpose
+  ``csrc/flash_fma.cu`` and dK/dV and dQ on ``csrc/flash_fma_bwd.cu`` (the
+  FMA units, the column groups a cluster; a size that is no multiple of 4
+  padded to the next).  The JAX wrappers transpose
   to ``[B, H, T, D]`` for the TPU's tiles; the CUDA kernels read
   ``[B, T, H, D]`` by strides, so both families launch them on the
   caller's tensors and count their launches apart.
@@ -70,8 +70,7 @@ WIDE_MAX = 256  # the largest of flash_wide.cu (bf16 forward, dK/dV, dQ)
 XWIDE_MAX = 512  # the largest of flash_xwide.cu's 384/512 builds
 PARTS = ("fwd", "dkdv", "dq")
 # the widest head of the head-major family on the card: flash_xwide.cu's
-# and flash_xwide_bwd.cu's 1024 builds, flash_fma.cu's kFMaxDim and
-# flash_generic.cu's kMaxHeadDim
+# and flash_xwide_bwd.cu's 1024 builds, flash_fma.cuh's kFmaMaxDim
 HM_MAX_HEAD_DIM = 1024
 
 
@@ -232,22 +231,23 @@ def _hm_route(head_dim: int, dtype=torch.bfloat16,
       ``csrc/flash_xwide.cu`` (768/1024 builds, O's columns in two groups
       across the grid);
     * ``"fma"``: above 128 with f32 inputs, the forward of
-      ``csrc/flash_fma.cu`` (the FMA units);
-    * ``"generic"``: above 128 with f32 inputs, ``csrc/flash_generic.cu``'s
-      SIMT dK/dV and dQ.
+      ``csrc/flash_fma.cu`` and dK/dV and dQ of ``csrc/flash_fma_bwd.cu``
+      (the FMA units, the outputs' columns in 64-, 128- or 256-wide
+      groups, a thread block cluster).
 
     The width is ``head_dim`` padded with zero columns to the next
     multiple of 8 up to 128 and, with bf16 inputs, up to 1024 (a padded
     bf16 row then spans a multiple of 16 bytes, the stride TMA takes), or
     to the next multiple of 4 above 128 with f32 inputs (a padded f32 row
-    then spans whole 16-byte granules, which ``flash_fma.cu``'s cp.async
-    copies; the alternative, 4-byte copies, would quarter its loads): q,
-    k, v (and dO) zero-padded to it, with the true ``head_dim ** -0.5`` as
-    the scale.  Zero columns add nothing to ``Q K^T`` or to ``dO V^T``,
-    and the outputs' extra columns are sliced off.  The width does not
-    depend on the part, so the backward pads once for dK/dV and dQ.  A width runs on the
-    next build at or above it, its columns past ``head_dim`` zeros inside
-    the kernel.
+    then spans whole 16-byte granules, which the cp.async copies of
+    ``flash_fma.cu`` and ``flash_fma_bwd.cu`` take; the alternative,
+    4-byte copies, would quarter their loads): q, k, v (and dO)
+    zero-padded to it, with the true ``head_dim ** -0.5`` as the scale.
+    Zero columns add nothing to ``Q K^T`` or to ``dO V^T``, and the
+    outputs' extra columns are sliced off.  The width does not depend on
+    the part, so the backward pads once for dK/dV and dQ.  A width runs on
+    the next build at or above it, its columns past ``head_dim`` zeros
+    inside the kernel.
 
     Raises above ``HM_MAX_HEAD_DIM``, as :func:`_check_head_dim` does."""
     _check_head_dim(head_dim, hm=True)
@@ -261,7 +261,7 @@ def _hm_route(head_dim: int, dtype=torch.bfloat16,
     if bf16 and head_dim <= WIDE_MAX:
         return "wide", width
     if not bf16:
-        return ("fma" if part == "fwd" else "generic"), width
+        return "fma", width
     if part != "fwd" or head_dim <= XWIDE_MAX:
         return "xwide", width
     return "xxwide", width
@@ -320,14 +320,14 @@ def _entry(kind, part):
 def _count(kind, part, chunk=False):
     """One launch of ``part`` ("", "_dkdv" or "_dq") on ``kind``: #1/#3/#4
     on the native-layout wrappers' counters, #5-#7, flash_wide.cu,
-    flash_xwide.cu, flash_xwide_bwd.cu, flash_fma.cu and flash_generic.cu
+    flash_xwide.cu, flash_xwide_bwd.cu, flash_fma.cu and flash_fma_bwd.cu
     on the head-major ones' (``launches``, ``launches_wide*``,
     ``launches_xwide``, ``launches_xwide_*``, ``launches_xxwide``,
-    ``launches_fma``, ``launches_generic_*``); with ``chunk`` (f32 outputs
+    ``launches_fma``, ``launches_fma_*``); with ``chunk`` (f32 outputs
     from bf16 inputs) on :func:`_flash_chunk_fwd`'s and
     :func:`_flash_chunk_bwd`'s (``launches``, ``launches_hm``,
     ``launches_wide``, ``launches_xwide``, ``launches_xxwide``, each with
-    the part; flash_fma.cu and flash_generic.cu take f32 inputs, so they
+    the part; flash_fma.cu and flash_fma_bwd.cu take f32 inputs, so they
     have no chunk counter)."""
     if chunk:
         fn = (_flash_chunk_fwd, _flash_chunk_bwd)[bool(part)]
@@ -535,8 +535,8 @@ def flash_attention_hm_bwd(q: torch.Tensor, k: torch.Tensor,
     ``launches_wide_dkdv`` and ``launches_wide_dq``),
     ``flash_xwide_bwd.cu``'s (bf16 from 257 to 1024, counted in
     ``launches_xwide_dkdv`` and ``launches_xwide_dq``) or
-    ``flash_generic.cu``'s (f32, counted in ``launches_generic_dkdv`` and
-    ``launches_generic_dq``), each part routed by :func:`_hm_route`, or
+    ``flash_fma_bwd.cu``'s (f32, counted in ``launches_fma_dkdv`` and
+    ``launches_fma_dq``), each part routed by :func:`_hm_route`, or
     raising."""
     return _backward(q, k, v, out, lse, do, causal, scale, hm=True)
 
@@ -547,8 +547,8 @@ flash_attention_hm_bwd.launches_wide_dkdv = 0
 flash_attention_hm_bwd.launches_wide_dq = 0
 flash_attention_hm_bwd.launches_xwide_dkdv = 0
 flash_attention_hm_bwd.launches_xwide_dq = 0
-flash_attention_hm_bwd.launches_generic_dkdv = 0
-flash_attention_hm_bwd.launches_generic_dq = 0
+flash_attention_hm_bwd.launches_fma_dkdv = 0
+flash_attention_hm_bwd.launches_fma_dq = 0
 
 
 class _FlashAttention(torch.autograd.Function):

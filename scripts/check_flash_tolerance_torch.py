@@ -2,7 +2,7 @@
 """Do chip_smoke.py's limits on the flash kernels catch a kernel that
 loses part of a late row?
 
-    python3 scripts/check_flash_tolerance_torch.py     # one CUDA GPU, nvcc
+    python3 scripts/check_flash_tolerance_torch.py [FAULT ...]  # one GPU, nvcc
 
 Builds the kernel library from the repository's sources as they are
 (``sound``) and from copies with one planted fault each, written under
@@ -32,7 +32,12 @@ build/ray_tpu_torch/planted/ (the sources themselves are never touched):
   tile (32 keys) of its last 64-query block; shown at the same shapes;
 * ``fma_fwd_drop_diag``: flash_fma.cu's f32 forward skips the diagonal
   key tile (64 keys) of its last 64-query tile, shown at head_dim 256 and
-  1024 in f32.
+  1024 in f32;
+* ``fma_dkdv_drop_last``: flash_fma_bwd.cu's f32 dK/dV skips, in the last
+  key block (64 keys), the last query tile (64 queries), in every block of
+  its cluster; shown at the same shapes;
+* ``fma_dq_drop_diag``: flash_fma_bwd.cu's f32 dQ skips the diagonal key
+  tile (64 keys) of its last 64-query block; shown at the same shapes.
 
 Each fault touches the last 64 or 128 positions only, where causal rows
 are smallest: the kind of fault a limit scaled to the tensor's max
@@ -45,7 +50,8 @@ head-major one at GPT-2 XL's; flash_wide.cu's at [8, 1024, 16, 256] and
 [8, 1024, 16, 160]; flash_xwide.cu's and flash_xwide_bwd.cu's at
 [8, 1024, 16, 512] and [8, 1024, 16, 384], and at [2, 512, 4, 1024] and
 [2, 512, 4, 768];
-flash_fma.cu's at [2, 256, 4, 256] and [2, 256, 4, 1024].
+flash_fma.cu's and flash_fma_bwd.cu's at [2, 256, 4, 256] and
+[2, 256, 4, 1024].
 
 Each build runs in a process of its own (the library loads once per
 process).  For each case, one JSON line: the error of O (and LSE), dQ,
@@ -54,11 +60,11 @@ the tensor's max |reference| (``over_max``) and ``row_scaled_err``, the
 one chip_smoke.py holds the kernels to (``row``).  The sound build runs
 the shapes and dtypes of chip_smoke.py's kernels phase (its grid-limit
 cases aside) and the wide shapes; the faulty ones run the causal shapes
-of their kernel (bf16, and f32 for flash_fma.cu).
-Exits nonzero unless the sound
-build meets chip_smoke.ROW_TOL everywhere and every planted fault
-exceeds it in the tensor its kernel writes.  Then the card's name and
-power limit.
+of their kernel (bf16, and f32 for flash_fma.cu and flash_fma_bwd.cu).
+Named faults (FAULT ...) run only those, beside the sound build.  Exits
+nonzero unless the sound build meets chip_smoke.ROW_TOL everywhere and
+every planted fault exceeds it in the tensor its kernel writes.  Then the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -80,12 +86,12 @@ import chip_smoke  # noqa: E402
 KEY_TILES = "return key_tiles(m0, BM, BN, tq, tk, causal);"
 DROP_DIAG = KEY_TILES.replace("causal);", "causal) - (m0 + BM >= tq);")
 # the dK/dV kernels' query-tile count (flash_bwd.cu, flash_wide.cu,
-# flash_xwide_bwd.cu)
+# flash_xwide_bwd.cu, flash_fma_bwd.cu)
 DKDV_END = "const int m_end = (tq + BM - 1) / BM;"
 DKDV_DROP_LAST = DKDV_END.replace("/ BM;", "/ BM - (n0 + BN >= tk);")
-# the key-tile count of the one-block-per-query-tile kernels (flash_wide.cu's
-# and flash_xwide_bwd.cu's dQ, flash_xwide.cu's and flash_fma.cu's
-# forwards)
+# the key-tile count of the one-block-per-query-tile kernels (flash_wide.cu's,
+# flash_xwide_bwd.cu's and flash_fma_bwd.cu's dQ, flash_xwide.cu's and
+# flash_fma.cu's forwards)
 N_TILES = "const int n_tiles = key_tiles(m0, BM, BN, tq, tk, causal);"
 N_TILES_DROP_DIAG = N_TILES.replace("causal);", "causal) - (m0 + BM >= tq);")
 BF16, F32 = torch.bfloat16, torch.float32
@@ -102,7 +108,8 @@ XWIDE_SHAPES = tuple((chip_smoke.HEAD_DIM_SHAPE + (d,), True, BF16)
                      for d in (512, 384))
 XXWIDE_SHAPES = tuple((chip_smoke.ROUTED_XXWIDE[:3] + (d,), True, BF16)
                       for d in (1024, 768))
-# flash_fma.cu in f32: 256 takes its 64-column groups, 1024 its 256 ones
+# flash_fma.cu and flash_fma_bwd.cu in f32: 256 takes 64-column groups,
+# 1024 256-column ones (dK/dV 128)
 FMA_SHAPES = tuple((chip_smoke.ROUTED_F32 + (d,), True, F32)
                    for d in (256, 1024))
 # name: (source, first occurrence (the bf16 kernel's), replacement, the
@@ -126,6 +133,10 @@ PLANTED = {
                              ("O",), XXWIDE_SHAPES),
     "fma_fwd_drop_diag": ("flash_fma.cu", N_TILES, N_TILES_DROP_DIAG,
                           ("O",), FMA_SHAPES),
+    "fma_dkdv_drop_last": ("flash_fma_bwd.cu", DKDV_END, DKDV_DROP_LAST,
+                           ("dk", "dv"), FMA_SHAPES),
+    "fma_dq_drop_diag": ("flash_fma_bwd.cu", N_TILES, N_TILES_DROP_DIAG,
+                         ("dq",), FMA_SHAPES),
     "xwide_dkdv_drop_last": ("flash_xwide_bwd.cu", DKDV_END, DKDV_DROP_LAST,
                              ("dk", "dv"), XWIDE_SHAPES + XXWIDE_SHAPES),
     "xwide_dq_drop_diag": ("flash_xwide_bwd.cu", N_TILES, N_TILES_DROP_DIAG,
@@ -220,8 +231,14 @@ def main() -> int:
         print("check_flash_tolerance_torch: needs a CUDA device",
               file=sys.stderr)
         return 2
+    named = sys.argv[1:]
+    unknown = [n for n in named if n not in PLANTED]
+    if unknown:
+        print(f"unknown faults {unknown}; known: {list(PLANTED)}",
+              file=sys.stderr)
+        return 2
     rows, ok = [], True
-    for name in ("sound", *PLANTED):
+    for name in ("sound", *(named or PLANTED)):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
                                "--build", name], capture_output=True,
                               text=True, cwd=ROOT)

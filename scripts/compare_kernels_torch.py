@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Time the bf16 dQ, dK/dV and RMSNorm kernels and the head-major
-forward above head_dim 512 (bf16) and 128 (f32) of several checkouts in
-turns, within one call on one card.
+"""Time the bf16 dQ, dK/dV and RMSNorm kernels, the head-major forward
+above head_dim 512 (bf16) and 128 (f32) and the head-major f32 dK/dV and
+dQ above 128 of several checkouts in turns, within one call on one card.
 
-    python3 scripts/compare_kernels_torch.py OTHER [OTHER ...]   # one GPU
+    python3 scripts/compare_kernels_torch.py [--only PARTS] OTHER [OTHER ...]
+    python3 scripts/compare_kernels_torch.py [--only PARTS] \
+        --fixed-group-cols 64 128 256                          # one GPU
 
 Each OTHER is the root of another checkout of the repository: the parent
 commit, unpacked with ``git archive`` into a directory that .gitignore
@@ -27,10 +29,17 @@ same tensor (the card's floor for moving those bytes under this timer);
 the head-major forward as its wrapper runs it (``_launch_fwd``, on
 whichever kernel the checkout routes it to) at [2,512,4,1024] and
 [8,1024,16,1024] bf16 and [2,256,4,d] for d = 160, 256, 512 and 1024
-and [8,1024,16,256] f32, causal, with SDPA beside it.  One JSON line per run
-and case, then per case the median of each
-checkout's runs and its ratio to this one's, then the card's name and
-power limit.
+and [8,1024,16,256] f32, causal, with SDPA beside it; and the head-major
+f32 dK/dV and dQ at the same f32 shapes, causal, with SDPA's f32 backward
+(PyTorch's own pick) beside them.  ``--only`` takes a comma-separated
+subset of PARTS (bwd, rmsnorm, fwd and f32_bwd).  ``--fixed-group-cols GC ...``
+compares, in place of other checkouts, copies of this one under
+build/group_cols_<GC>/ whose group-width rule (flash_fma.cuh's
+fma_group_cols, which the f32 forward, dK/dV and dQ share) takes GC
+wherever it may (at most 8 groups, and no wider than the kernel's widest:
+dK/dV's 128) and the fewest groups elsewhere.  One JSON line per run and
+case, then per case the median of each checkout's runs and its ratio to
+this one's, then the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -56,6 +66,10 @@ FWD_SHAPES = (((2, 512, 4, 1024), torch.bfloat16),
               ((2, 256, 4, 512), torch.float32),
               ((2, 256, 4, 1024), torch.float32),
               ((8, 1024, 16, 256), torch.float32))
+F32_BWD_SHAPES = tuple(s for s, dt in FWD_SHAPES if dt == torch.float32)
+PARTS = ("bwd", "rmsnorm", "fwd", "f32_bwd")
+# flash_fma.cuh's width rule, and what a fixed-width copy puts in its place
+GROUP_RULE = "if (items * groups <= sms) best = gc;"
 
 
 def _chip_smoke():
@@ -67,8 +81,9 @@ def _chip_smoke():
     return mod
 
 
-def measure(tree: str) -> None:
-    """Time ``tree``'s kernels (its ray_tpu_torch first on the path)."""
+def measure(tree: str, parts=PARTS) -> None:
+    """Time ``tree``'s kernels (its ray_tpu_torch first on the path), those
+    of ``parts`` only."""
     sys.path.insert(0, tree)
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -82,7 +97,7 @@ def measure(tree: str) -> None:
     cs = _chip_smoke()
     timer = cs.Timer()
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
-    for shape, hm in BWD_SHAPES:
+    for shape, hm in BWD_SHAPES if "bwd" in parts else ():
         q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
                        .bfloat16() for _ in range(4))
         scale = shape[-1] ** -0.5
@@ -118,7 +133,7 @@ def measure(tree: str) -> None:
         print(json.dumps({"kernel": "sdpa_bwd", "shape": list(shape),
                           "ms": both_ms - fwd_ms}), flush=True)
         del q, k, v, do, out, lse, ins, qt, kt, vt, dot
-    for shape in RMSNORM_SHAPES:
+    for shape in RMSNORM_SHAPES if "rmsnorm" in parts else ():
         x = torch.randn(shape, generator=gen, device="cuda").bfloat16()
         w = 1 + 0.1 * torch.randn(shape[1], generator=gen, device="cuda")
         w_lib, y = w.bfloat16(), torch.empty_like(x)
@@ -129,7 +144,7 @@ def measure(tree: str) -> None:
                 ("copy", lambda: y.copy_(x))):
             print(json.dumps({"kernel": name, "shape": list(shape),
                               "ms": timer(fn)}), flush=True)
-    for shape, dtype in FWD_SHAPES:
+    for shape, dtype in FWD_SHAPES if "fwd" in parts else ():
         q, k, v = (torch.randn(shape, generator=gen, device="cuda")
                    .to(dtype) for _ in range(3))
         qt, kt, vt = cs._heads_first(q, k, v)
@@ -142,25 +157,76 @@ def measure(tree: str) -> None:
             print(json.dumps({"kernel": f"{name}_{dt}", "shape": list(shape),
                               "ms": timer(fn)}), flush=True)
         del q, k, v, qt, kt, vt
+    for shape in F32_BWD_SHAPES if "f32_bwd" in parts else ():
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                       for _ in range(4))
+        scale = shape[-1] ** -0.5
+        out, lse = flash_attention_hm_fwd(q, k, v, causal=True)
+        ins = _bwd_inputs(q, k, v, do, lse, attention_delta(out, do), True,
+                          scale, True)
+        qt, kt, vt, dot = cs._heads_first(q, k, v, do)
+        qt, kt, vt = (x.requires_grad_() for x in (qt, kt, vt))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+        for name, fn, args in (("dq_f32", _kernel_dq, ins[1]),
+                               ("dkdv_f32", _kernel_dkdv, ins[0])):
+            print(json.dumps({"kernel": name, "shape": list(shape),
+                              "ms": timer(lambda: fn(*args))}), flush=True)
+        both_ms = timer(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt),
+                                                    dot))
+        print(json.dumps({"kernel": "sdpa_bwd_f32", "shape": list(shape),
+                          "ms": both_ms - timer(sdpa)}), flush=True)
+        del q, k, v, do, out, lse, ins, qt, kt, vt, dot
+
+
+def fixed_group_cols(widths) -> list:
+    """Copies of this checkout's ray_tpu_torch under build/group_cols_<GC>/,
+    the group-width rule fixed at each GC of ``widths`` (see the module
+    docstring); returns their roots."""
+    trees = []
+    for gc in widths:
+        tree = os.path.join(ROOT, "build", f"group_cols_{gc}")
+        shutil.rmtree(tree, ignore_errors=True)
+        shutil.copytree(os.path.join(ROOT, "ray_tpu_torch"),
+                        os.path.join(tree, "ray_tpu_torch"),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        header = os.path.join(tree, "ray_tpu_torch", "ops", "csrc",
+                              "flash_fma.cuh")
+        with open(header) as f:
+            text = f.read()
+        assert GROUP_RULE in text, header
+        with open(header, "w") as f:
+            f.write(text.replace(GROUP_RULE, GROUP_RULE.replace(
+                "items * groups <= sms", f"gc == {int(gc)}")))
+        trees.append(tree)
+    return trees
 
 
 def main() -> int:
     args = sys.argv[1:]
+    parts = PARTS
+    if len(args) >= 2 and args[0] == "--only":
+        parts = tuple(args[1].split(","))
+        args = args[2:]
     if len(args) == 2 and args[0] == "--measure":
-        measure(os.path.abspath(args[1]))
+        measure(os.path.abspath(args[1]), parts)
         return 0
-    if not args or args[0].startswith("-"):
+    if not args or set(parts) - set(PARTS) or (
+            args[0].startswith("-") and args[0] != "--fixed-group-cols"):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("compare_kernels_torch: needs a CUDA device", file=sys.stderr)
         return 2
-    others = [os.path.abspath(a) for a in args]
+    others = (fixed_group_cols(args[1:]) if args[0] == "--fixed-group-cols"
+              else [os.path.abspath(a) for a in args])
     order = others + [ROOT, ROOT] + others[::-1]
     rows = []
     for run, tree in enumerate(order):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--measure", tree],
+                               "--only", ",".join(parts), "--measure", tree],
                               capture_output=True, text=True, cwd=tree)
         if proc.returncode != 0:
             print(proc.stderr, file=sys.stderr)

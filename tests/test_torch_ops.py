@@ -355,20 +355,19 @@ _BF16, _F32 = torch.bfloat16, torch.float32
     (1000, _BF16, "dq", ("xwide", 1000)),
     (1024, _BF16, "dkdv", ("xwide", 1024)),
     # f32 above 128: the forward on flash_fma.cu (150 padded to 152), dK/dV
-    # and dQ on flash_generic.cu at the same width
-    (160, _F32, "fwd", ("fma", 160)), (256, _F32, "dkdv", ("generic", 256)),
-    (150, _F32, "fwd", ("fma", 152)), (150, _F32, "dq", ("generic", 152)),
+    # and dQ on flash_fma_bwd.cu at the same width
+    (160, _F32, "fwd", ("fma", 160)), (256, _F32, "dkdv", ("fma", 256)),
+    (150, _F32, "fwd", ("fma", 152)), (150, _F32, "dq", ("fma", 152)),
     (384, _F32, "fwd", ("fma", 384)), (1024, _F32, "fwd", ("fma", 1024)),
-    (1024, _F32, "dkdv", ("generic", 1024))])
+    (1024, _F32, "dkdv", ("fma", 1024))])
 def test_hm_route(dim, dtype, part, route):
     """Where the head-major family runs each head_dim's part on the card,
     by input dtype: up to 128 on kernels #5-#7 (a size that is no
     multiple of 8 padded to the next one); from 129 to 256 the bf16
     forward, dK/dV and dQ on flash_wide.cu and from 257 to 1024 the bf16
     forward on flash_xwide.cu and dK/dV and dQ on flash_xwide_bwd.cu
-    (padded the same way); the f32 forward above 128 on flash_fma.cu
-    (padded to a multiple of 4); f32 dK/dV and dQ above 128 on
-    flash_generic.cu."""
+    (padded the same way); the f32 forward, dK/dV and dQ above 128 on
+    flash_fma.cu and flash_fma_bwd.cu (padded to a multiple of 4)."""
     assert torch_fa._hm_route(dim, dtype, part) == route
 
 
@@ -391,9 +390,9 @@ def test_every_route_counts_its_launches(chunk, monkeypatch):
         for dtype in (_F32, _BF16):
             for part, sfx in zip(torch_fa.PARTS, ("", "_dkdv", "_dq")):
                 kind = torch_fa._hm_route(dim, dtype, part)[0]
-                if chunk and kind in ("fma", "generic"):
+                if chunk and kind == "fma":
                     # f32 inputs give f32 outputs: flash_fma.cu and
-                    # flash_generic.cu have no chunk mode, so no chunk
+                    # flash_fma_bwd.cu have no chunk mode, so no chunk
                     # counter
                     assert not hasattr(
                         (torch_fa._flash_chunk_fwd,
@@ -462,12 +461,12 @@ def test_routes_pad_and_slice_exactly(dim, causal, monkeypatch):
     300 and 601 in bf16, whose forward runs on flash_xwide.cu and whose
     dK/dV and dQ run on flash_xwide_bwd.cu at the same width; 150 in f32
     to the next multiple of 4, the forward on flash_fma.cu, dK/dV and dQ
-    on flash_generic.cu) and run with the true scale, O, dQ, dK, dV sliced
+    on flash_fma_bwd.cu) and run with the true scale, O, dQ, dK, dV sliced
     back; 160, 256, 512 and 1000 unpadded (bf16: the wide kernels, or the
-    xwide forward and backward; f32: the fma forward and the generic
-    backward).  Zero columns add nothing to Q K^T or dO V^T, so
-    the routed results equal the unpadded plain versions but for summation
-    order (f32: to 1e-6; bf16: the outputs' rounding, 1e-2).  Above 512
+    xwide forward and backward; f32: the fma forward and backward).  Zero
+    columns add nothing to Q K^T or dO V^T, so the routed results equal
+    the unpadded plain versions but for summation order (f32: to 1e-6;
+    bf16: the outputs' rounding, 1e-2).  Above 512
     (601, 1000) in bf16 only: 150 holds the f32 pad, and an f32 sum over
     604 columns in another order than over 601 moves dQ by more than
     1e-6."""
@@ -504,7 +503,7 @@ def test_routes_pad_and_slice_exactly(dim, causal, monkeypatch):
 
 # head sizes no 32/64/128 build takes as they are: 20 (padded onto the 24
 # build on the card), 160 and 256 (in f32 the forward on flash_fma.cu and
-# dK/dV, dQ on flash_generic.cu, in bf16 flash_wide.cu), 384, 640 and 1024
+# dK/dV, dQ on flash_fma_bwd.cu, in bf16 flash_wide.cu), 384, 640 and 1024
 # (in f32 as 160, in bf16 the forward on flash_xwide.cu and dK/dV, dQ on
 # flash_xwide_bwd.cu); the Pallas kernels take them all as they are
 _WIDEST_HM_SHAPES = [(1, 64, 2, 640), (1, 64, 2, 1024)]
@@ -534,6 +533,50 @@ def test_flash_hm_routed_head_dims_match_pallas_f32(shape, causal):
     for name, a, b in zip(("out", "dq", "dk", "dv"), got, ref):
         tol = 2e-5 if name == "out" else 2e-4
         np.testing.assert_allclose(a, b, atol=tol, rtol=tol, err_msg=name)
+
+
+# flash_fma_bwd.cu's edges in f32 (on the card 3 column groups of 64 at
+# head_dim 136, 5 of 128 at 520, the last 8 wide; 64 keys or queries a
+# block, 64-row tiles, 32-row accumulation chunks): causal lengths on
+# either side of a tile, and a ragged cross shape not causal.  The Pallas
+# kernels take each length as one block.
+_FMA_BWD_EDGES = [(1, 1, True), (65, 65, True), (129, 129, True),
+                  (65, 191, False)]
+
+
+@pytest.mark.parametrize("tq,tk,causal", _FMA_BWD_EDGES,
+                         ids=lambda e: str(e))
+@pytest.mark.parametrize("dim", [136, 520], ids=lambda d: f"d{d}")
+def test_flash_hm_fma_bwd_edges_match_pallas_f32(dim, tq, tk, causal):
+    """The head-major f32 forward against _flash_forward, then dQ, dK and
+    dV on the Pallas forward's O and LSE against _flash_backward (both
+    interpret mode), at the f32 tolerance test_flash_bwd_matches_pallas_f32
+    holds the backward to (2e-5): the contract the card holds
+    flash_fma_bwd.cu to.  Elementwise, not row by row: causal dQ at query
+    0 is exactly 0, where row_scaled_err divides by its floor (1% of the
+    tensor's RMS), and there the Pallas kernels' own rounding of dP -
+    delta reads 3.2e-4 against float64 at head_dim 136, T = 65 (the plain
+    version 1e-6)."""
+    q, do = _qkv((2, tq, 3, dim), seed=dim + tq)[:2]
+    k, v = _qkv((2, tk, 3, dim), seed=dim + tk + 1)[:2]
+    scale = dim ** -0.5
+    jq, jk, jv, jdo = (jnp.asarray(x) for x in (q, k, v, do))
+    j_out, j_lse = _flash_forward(jq, jk, jv, causal, scale, 1024, 1024,
+                                  True)
+    ref = _flash_backward(jq, jk, jv, j_out, j_lse, jdo, causal, scale,
+                          1024, 1024, True)
+    j_out, j_lse = np.array(j_out), np.array(j_lse)[..., 0]
+    tq_, tk_, tv_, tdo = map(torch.from_numpy, (q, k, v, do))
+    out, lse = flash_attention_hm_fwd(tq_, tk_, tv_, causal=causal)
+    np.testing.assert_allclose(out.numpy(), j_out, atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), j_lse, atol=2e-5, rtol=2e-5)
+    got = torch_fa.flash_attention_hm_bwd(
+        tq_, tk_, tv_, torch.from_numpy(j_out), torch.from_numpy(j_lse),
+        tdo, causal=causal, scale=scale)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=2e-5,
+                                   rtol=2e-5, err_msg=name)
 
 
 def test_flash_hm_bf16_keeps_dtype():
