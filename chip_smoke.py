@@ -102,6 +102,17 @@ no network.  Phases, one JSON line each:
     (``simulate_ulysses``) at
     [1, 32768, 12, 64], against ``flash_attention`` on the whole
     sequence, row by row.
+22. ``sharded``: the sharding presets on DTensor, on a world-size-1 NCCL
+    mesh with every axis of one rank: GPT-2 124M at 32 x 1024 placed
+    under TP_RULES and FSDP_RULES and the MoE (``MoEConfig()``, 8 x 1024)
+    under EP_RULES, a warm-up and 3 AdamW steps each, against the direct
+    steps on the same weights and batches (losses, step ms, the host's
+    time to issue a step, the device-traced idle share, #1/#3/#4 once a
+    layer a step); ``simulate_pipeline`` over GPT-2 124M's 12 blocks as 4
+    stages of 3 with 8 microbatches of 4 x 1024 against the blocks run in
+    sequence (output and gradients); ResNet-18 at 256 images with
+    ``axis_name="dp"`` against ``axis_name=None`` (logits, running
+    statistics, gradients).
 
 The ``kernels`` phase also holds the backward kernels (dK/dV and dQ) and
 both kernel families (native layout and head-major; head-major at every
@@ -124,7 +135,8 @@ ring's chunk of 32768 tokens of GPT-2 124M and of XL's head count, and
 at head_dim 256, 512 and 1024, and held at the new kernels' ragged ends.  Each main path (``serve``, ``train``,
 ``train_xl``, ``vit``, ``moe``, ``resnet``, ``head_dims``, ``runtime``,
 ``train_gang``, whose worker counts its own, ``serve_batching``,
-``long_context`` and each run of ``seq_parallel``) is
+``long_context``, each run of ``seq_parallel`` and each placed run and
+the pipeline of ``sharded``) is
 driven with the kernels' launch counts set to 0 just before it and read
 just after; the native-layout paths launch no
 head-major kernel, GPT-2 XL no native-layout one, and ResNet, the
@@ -139,6 +151,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -3037,6 +3050,268 @@ def phase_seq_parallel():
     return total
 
 
+# the sharded phase: GPT-2 124M and the MoE trained on DTensor parameters
+# placed by the presets, on a world-size-1 mesh (every axis of one rank,
+# so each DTensor is whole on the card), against the direct steps
+SHARDED_BATCH, SHARDED_SEQ = 32, 1024
+SHARDED_MOE_BATCH = 8
+SHARDED_STEPS = 3
+# the losses of the placed steps against the direct ones on the same
+# weights and batches: the same kernels on the same values (nothing is
+# split at one rank; the LM head's softmax and the lookup take the port's
+# per-rank code, whose sums over one rank add nothing), so they differ at
+# most where an op sums in another order (the placed MoE's combine is one
+# product over (expert, slot), the direct one torch's einsum); 1e-3 is
+# train_gang's limit for a bf16 step taken twice
+SHARDED_LOSS_RTOL = 1e-3
+# the pipeline: GPT-2 124M's 12 blocks as 4 stages of 3, 8 microbatches
+# of 4 x 1024, bf16 activations; the same block calls on the same values
+# as the blocks run in sequence, the parameters' f32 gradients summed over
+# the microbatches in another order: each held at 1e-5 of its largest
+# element
+PIPE_STAGES, PIPE_MICRO, PIPE_MB = 4, 8, 4
+PIPE_REL_TOL = 1e-5
+# ResNet-18 with axis_name="dp" at one rank against axis_name=None: the
+# all-reduce of one rank and the division by 1 are exact, so the two
+# agree to the bit under deterministic cuDNN algorithms (held at 1e-6 of
+# each tensor's largest element)
+SHARDED_RESNET_BATCH = 256
+SHARDED_RESNET_REL_TOL = 1e-6
+
+
+def _rel_err(got, ref) -> float:
+    """max |got - ref| over max |ref|, in f32."""
+    got, ref = got.float(), ref.float()
+    return ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30)
+            ).item()
+
+
+def _sharded_run(build, loss_fn, tokens, per_step, rules=None, mesh=None):
+    """A warm-up and SHARDED_STEPS AdamW(3e-4, 0.01) steps of
+    ``loss_fn(model, tokens)`` on ``build()``, with the parameters and
+    the batch placed under ``rules`` on ``mesh`` where given (each step
+    then gives the gradients their parameters' placements), each step
+    launching ``per_step`` flash kernels; then the host's time to issue
+    one step and one device-traced step.  Returns (the line's fields,
+    the launches of the warm-up and timed steps)."""
+    from ray_tpu_torch.models.gpt2 import adamw
+    from ray_tpu_torch.parallel import sharding
+    model = build()
+    if rules is not None:
+        sharding.place_module_params(model, rules, mesh)
+        tokens = sharding.shard_tensor(tokens, rules, mesh, "batch", None)
+    opt = adamw(model.parameters(), lr=3e-4, weight_decay=0.01)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(model, tokens)
+        loss.backward()
+        sharding.place_gradients(model)
+        opt.step()
+        return loss.detach()
+
+    _zero_all_counts()
+    losses, warm_s, elapsed = train_loop(step, SHARDED_STEPS, per_step)
+    launches = _all_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    line = {"losses": losses, "warmup_s": warm_s,
+            "step_ms": elapsed / SHARDED_STEPS * 1e3,
+            "host_issue_ms": host_ms,
+            "device_traced_step": device_traced_step(step)}
+    if rules is not None:
+        line["placements"] = sorted({str(tuple(p.placements))
+                                     for p in model.parameters()})
+    del model, opt
+    _free()
+    return line, launches
+
+
+def _sharded_train(phase_part, config, build, loss_fn, tokens, per_step,
+                   presets, mesh, total):
+    """The direct steps, then the same steps under each preset; every
+    placed run's losses within SHARDED_LOSS_RTOL of the direct ones."""
+    from ray_tpu_torch.parallel.sharding import PRESETS
+    direct, _ = _sharded_run(build, loss_fn, tokens, per_step)
+    runs = {}
+    for name in presets:
+        run, launches = _sharded_run(build, loss_fn, tokens, per_step,
+                                     PRESETS[name], mesh)
+        for k_, v_ in launches.items():
+            total[k_] += v_
+        run["launches"] = {k_: v_ for k_, v_ in launches.items() if v_}
+        run["loss_max_rel_diff_vs_direct"] = rel = max(
+            abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                                direct["losses"]))
+        assert rel <= SHARDED_LOSS_RTOL, (phase_part, name, rel, run,
+                                          direct)
+        runs[f"{name}_rules"] = run
+    emit({"phase": "sharded", "part": phase_part, "config": config,
+          "steps": SHARDED_STEPS, "warmup_steps": 1,
+          "loss_rtol": SHARDED_LOSS_RTOL, "direct": direct, **runs,
+          "card": card_line()})
+
+
+def _sharded_pipeline(total):
+    """simulate_pipeline over GPT-2 124M's 12 blocks as PIPE_STAGES
+    stages against the blocks run in sequence: the output, the
+    microbatches' gradient and every block parameter's."""
+    from torch.func import functional_call
+    from ray_tpu_torch.models.gpt2 import GPT2, GPT2Config
+    from ray_tpu_torch.parallel.pipeline import (simulate_pipeline,
+                                                 stack_block_params)
+    cfg = GPT2Config.gpt2_small()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    model = GPT2(cfg, device="cuda", generator=gen)
+    per = cfg.num_layers // PIPE_STAGES
+    stages = [torch.nn.Sequential(*model.h[i * per:(i + 1) * per])
+              for i in range(PIPE_STAGES)]
+    stacked = stack_block_params([dict(s.named_parameters())
+                                  for s in stages])
+    shape = (PIPE_MICRO, PIPE_MB, SHARDED_SEQ, cfg.embed_dim)
+    x, g = (torch.randn(shape, generator=gen, device="cuda").to(
+        cfg.dtype) for _ in range(2))
+    params = list(model.h.parameters())
+    xr = x.clone().requires_grad_()
+    _zero_all_counts()
+    out, elapsed = _sync_time(lambda: simulate_pipeline(
+        lambda p, a: functional_call(stages[0], p, (a,)), stacked, xr))
+    grads, bwd_s = _sync_time(lambda: torch.autograd.grad(
+        out, [xr, *params], g))
+    launches = _all_counts()
+    n = cfg.num_layers * PIPE_MICRO
+    assert launches == {**dict.fromkeys(launches, 0),
+                        **_flash_per(n)}, launches
+    for k_, v_ in launches.items():
+        total[k_] += v_
+    del stacked
+    xs = x.clone().requires_grad_()
+    ref = torch.stack([functools.reduce(lambda a, b: b(a), model.h, xs[m])
+                       for m in range(PIPE_MICRO)])
+    ref_grads = torch.autograd.grad(ref, [xs, *params], g)
+    errs = {"out": _rel_err(out, ref), "dx": _rel_err(grads[0],
+                                                      ref_grads[0]),
+            "params_max": max(_rel_err(a, b) for a, b in
+                              zip(grads[1:], ref_grads[1:]))}
+    assert all(e <= PIPE_REL_TOL for e in errs.values()), errs
+    emit({"phase": "sharded", "part": "pipeline",
+          "config": f"gpt2_small blocks ({cfg.num_layers}) as {PIPE_STAGES}"
+          f" stages of {per}, {PIPE_MICRO} microbatches of {PIPE_MB} x "
+          f"{SHARDED_SEQ}, bf16 activations", "forward_s": elapsed,
+          "backward_s": bwd_s, "rel_tol": PIPE_REL_TOL,
+          "rel_errs_vs_sequence": errs,
+          "launches": {k_: v_ for k_, v_ in launches.items() if v_}})
+    del model, out, grads, ref, ref_grads
+    _free()
+
+
+def _sharded_resnet(mesh):
+    """ResNet-18 with axis_name="dp" on the one-rank mesh against
+    axis_name=None: one training-mode forward and backward on the same
+    weights and images; the logits, every BatchNorm's updated running
+    statistics and every gradient."""
+    from ray_tpu_torch.models.resnet import ResNet, ResNetConfig
+    from ray_tpu_torch.parallel import use_mesh
+    cfg = ResNetConfig.resnet18()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    images = torch.randn(SHARDED_RESNET_BATCH, 32, 32, 3, generator=gen,
+                         device="cuda")
+    labels = torch.randint(0, cfg.num_classes, (SHARDED_RESNET_BATCH,),
+                           generator=gen, device="cuda")
+    runs = {}
+    before = (torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        for axis in (None, "dp"):
+            model = ResNet(cfg, device="cuda", axis_name=axis,
+                           generator=torch.Generator(
+                               device="cuda").manual_seed(SEED))
+            _zero_all_counts()
+            with use_mesh(mesh):
+                loss, ms = _sync_time(lambda: _resnet_loss(model, images,
+                                                           labels))
+                with torch.no_grad():  # through the updated statistics
+                    logits = model(images, train=False)
+                grads = torch.autograd.grad(loss, list(model.parameters()))
+            assert not any(_all_counts().values())
+            runs[axis] = (logits, [b.clone() for b in model.buffers()],
+                          grads, ms)
+            del model
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = before
+    (l0, b0, g0, _), (l1, b1, g1, ms) = runs[None], runs["dp"]
+    errs = {"eval_logits": _rel_err(l1, l0),
+            "running_stats_max": max(_rel_err(a, b)
+                                     for a, b in zip(b1, b0)),
+            "grads_max": max(_rel_err(a, b) for a, b in zip(g1, g0))}
+    assert all(e <= SHARDED_RESNET_REL_TOL for e in errs.values()), errs
+    emit({"phase": "sharded", "part": "resnet_cross_replica_bn",
+          "config": "ResNetConfig.resnet18(), bf16 convolutions, f32 "
+          f"BatchNorm, {SHARDED_RESNET_BATCH} images, axis_name='dp' on a "
+          "one-rank NCCL group", "rel_tol": SHARDED_RESNET_REL_TOL,
+          "rel_errs_vs_no_axis": errs, "train_forward_s": ms})
+    del runs
+    _free()
+
+
+def phase_sharded():
+    """The sharding presets, the pipeline and cross-replica BatchNorm on
+    the card, on a world-size-1 NCCL mesh (MeshConfig(): every axis of
+    one rank): GPT-2 124M at SHARDED_BATCH x SHARDED_SEQ placed under
+    TP_RULES and FSDP_RULES and the MoE at SHARDED_MOE_BATCH x
+    SHARDED_SEQ under EP_RULES, each against the direct steps (#1, #3 and
+    #4 once a layer a step); simulate_pipeline over GPT-2's blocks; and
+    ResNet-18 with axis_name="dp".  Returns the launches of the placed
+    runs and the pipeline, summed."""
+    import torch.distributed as dist
+    from ray_tpu_torch.models import gpt2, moe
+    from ray_tpu_torch.parallel import MeshConfig, build_mesh
+    _nccl_world_of_one()
+    total = dict.fromkeys(_all_counts(), 0)
+    try:
+        mesh = build_mesh(MeshConfig())
+        cfg = gpt2.GPT2Config.gpt2_small(max_seq_len=SHARDED_SEQ)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        tokens = torch.randint(0, cfg.vocab_size,
+                               (SHARDED_BATCH, SHARDED_SEQ), generator=gen,
+                               device="cuda")
+        _sharded_train(
+            "gpt2_124m", f"gpt2_small (12 layers, 768 wide, 12 heads, "
+            f"bf16 compute, f32 masters), {SHARDED_BATCH} x {SHARDED_SEQ} "
+            "tokens, bf16 LM-head logits",
+            lambda: gpt2.GPT2(cfg, device="cuda", generator=torch.Generator(
+                device="cuda").manual_seed(SEED)),
+            lambda m, t: gpt2.loss_fn(m, t,
+                                      head_logits_dtype=torch.bfloat16),
+            tokens, _flash_per(cfg.num_layers), ("tp", "fsdp"), mesh,
+            total)
+        mcfg = moe.MoEConfig()
+        tokens = torch.randint(0, mcfg.vocab_size,
+                               (SHARDED_MOE_BATCH, SHARDED_SEQ),
+                               generator=gen, device="cuda")
+        _sharded_train(
+            "moe", f"MoEConfig() (8 layers, 512 wide, 8 heads of 64, 8 "
+            f"experts top-2), {SHARDED_MOE_BATCH} x {SHARDED_SEQ} tokens, "
+            "bf16 compute, f32 masters",
+            lambda: moe.MoETransformer(mcfg, device="cuda",
+                                       generator=torch.Generator(
+                                           device="cuda").manual_seed(SEED)),
+            moe.loss_fn, tokens, _flash_per(mcfg.num_layers), ("ep",),
+            mesh, total)
+        _sharded_pipeline(total)
+        _sharded_resnet(mesh)
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "sharded", "ok": True})
+    return total
+
+
 SYMBOLS = {"flash_fwd": "flash_fwd_bf16_kernel",  # the bf16 kernel's name
            "flash_hm_fwd": "flash_fwd_bf16_kernel",
            "flash_bwd_dkdv": "bwd_dkdv_bf16_kernel",
@@ -3362,6 +3637,8 @@ def main() -> int:
     long_context = phase_long_context()
     _free()
     seq_parallel = phase_seq_parallel()
+    _free()
+    sharded = phase_sharded()
     # the runtime and the toy decoder launch no kernel of the port
     assert not any(runtime.values()), runtime
     assert not any(serve_batching.values()), serve_batching
@@ -3371,7 +3648,8 @@ def main() -> int:
                                 "head_dims": head_dims,
                                 "train_gang": train_gang,
                                 "long_context": long_context,
-                                "seq_parallel": seq_parallel}, usage))
+                                "seq_parallel": seq_parallel,
+                                "sharded": sharded}, usage))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

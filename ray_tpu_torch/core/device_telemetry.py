@@ -48,21 +48,22 @@ Three instruments, one per failure mode:
     ``straggler`` tag (which the GangStraggler alert's group_by
     surfaces) and in ``gang``-category trace spans.
 
-The module must stay import-cheap (no torch import at module load:
-torch is looked up in ``sys.modules``): the worker imports it on every
-task execution to attribute device seconds into the ``task_exec`` span
+The module must stay import-cheap (no torch import at module load: torch
+is the one the process has loaded, ``serialization.loaded_torch``): the
+worker imports it on every task execution to attribute device seconds
+into the ``task_exec`` span
 (`ray-tpu analyze`'s exec_host/exec_device split).
 """
 
 from __future__ import annotations
 
-import sys
 import threading
 import time
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from ray_tpu_torch.core import telemetry as _tm
+from ray_tpu_torch.core.serialization import loaded_torch
 
 __all__ = ["instrument_step", "is_instrumented", "compile_count",
            "compile_stats", "StepMonitor", "RankSkewWindow",
@@ -81,7 +82,7 @@ def peak_flops_per_chip() -> float:
     without CUDA, and processes that never imported torch, get the
     H100's 989e12, as the JAX package gives CPU hosts its v5e figure,
     so CPU-smoke MFU numbers stay comparable across runs."""
-    torch = sys.modules.get("torch")
+    torch = loaded_torch()
     kind = ""
     if torch is not None and torch.cuda.is_available():
         kind = torch.cuda.get_device_name().lower()
@@ -95,7 +96,7 @@ def _sync_devices(out: Any) -> None:
     """Wait for the work that produced ``out``: synchronise each CUDA
     device that a tensor in it (or in a list, tuple or dict of them)
     lies on.  Host values are already done."""
-    torch = sys.modules.get("torch")
+    torch = loaded_torch()
     if torch is None:
         return
     devices = set()

@@ -240,7 +240,7 @@ def _serialize_buffer_fast(value: Any) -> Optional["SerializedObject"]:
         meta = pickle.dumps(value, protocol=5,
                             buffer_callback=buffers.append)
         return SerializedObject(meta, buffers, [])
-    torch_mod = sys.modules.get("torch")
+    torch_mod = loaded_torch()
     if torch_mod is not None and isinstance(value, torch_mod.Tensor):
         if value.numel() * value.element_size() < _INBAND_LIMIT:
             return None  # small tensors take the cloudpickle path
@@ -251,6 +251,20 @@ def _serialize_buffer_fast(value: Any) -> Optional["SerializedObject"]:
                             buffer_callback=buffers.append)
         return SerializedObject(meta, buffers, [])
     return None
+
+
+def loaded_torch():
+    """torch, where this process has imported it; None where it has not,
+    or where another thread is still importing it.  An actor's methods
+    run beside its other threads: a train loop's ``import torch`` takes
+    seconds, and a result serialized meanwhile met a partial module
+    without ``torch.Tensor`` (an AttributeError that killed the actor's
+    executor).  No tensor exists before torch's import completes."""
+    mod = sys.modules.get("torch")
+    if mod is None or getattr(getattr(mod, "__spec__", None),
+                              "_initializing", False):
+        return None
+    return mod
 
 
 def serialize(value: Any) -> SerializedObject:

@@ -47,7 +47,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -57,6 +57,7 @@ from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch.ops._build import is_dtensor
 from ray_tpu_torch.ops.flash_attention import (attention_reference,
                                                flash_attention)
 from ray_tpu_torch.ops.fused import chunked_lm_loss
@@ -128,6 +129,20 @@ class GPT2Config:
         return 6.0 * self.num_params() + attn
 
 
+def dense_axes(name: str, kernel_axes: Tuple[Optional[str], Optional[str]]
+               ) -> Dict[str, Tuple[Optional[str], ...]]:
+    """The logical axes of a Dense ``name`` whose flax kernel ``[in,
+    out]`` carries ``kernel_axes``: its ``weight [out, in]`` takes them
+    swapped, its bias the output's."""
+    return {f"{name}.weight": tuple(reversed(kernel_axes)),
+            f"{name}.bias": (kernel_axes[-1],)}
+
+
+def norm_axes(name: str, axes=("embed",)) -> Dict[str, Tuple]:
+    """A LayerNorm's scale (``weight``) and bias."""
+    return {f"{name}.weight": axes, f"{name}.bias": axes}
+
+
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm``: f32 statistics, eps 1e-6, f32 scale and
     bias; the caller names the output dtype."""
@@ -187,14 +202,25 @@ class Block(nn.Module):
         # jnp.split gives views; the flash kernels take contiguous q, k, v
         q, k, v = (t.reshape(batch, seq, cfg.num_heads, head_dim)
                    .contiguous() for t in qkv.split(cfg.embed_dim, dim=-1))
-        if cfg.attn_impl == "ring":
+        sharded = is_dtensor(q)
+        if sharded:  # on each rank's heads where the weight splits them
+            from ray_tpu_torch.parallel._dtensor import (heads_like,
+                                                         on_sequence_chunks)
+            q, k, v = (heads_like(t, self.attn_qkv.weight)
+                       for t in (q, k, v))
+        if cfg.attn_impl in ("ring", "ulysses"):
             # this rank's chunk of the sequence, over the global mesh's
             # sp axis (the whole sequence without one)
-            attn = ring_attention(q, k, v, axis_name=cfg.sp_axis,
-                                  causal=True, mesh=get_global_mesh())
-        elif cfg.attn_impl == "ulysses":
-            attn = ulysses_attention(q, k, v, axis_name=cfg.sp_axis,
-                                     causal=True, mesh=get_global_mesh())
+            fn = ring_attention if cfg.attn_impl == "ring" \
+                else ulysses_attention
+            mesh = q.device_mesh if sharded else get_global_mesh()
+
+            def attend(q_, k_, v_):
+                return fn(q_, k_, v_, axis_name=cfg.sp_axis, causal=True,
+                          mesh=mesh)
+
+            attn = (on_sequence_chunks(attend, q, k, v, cfg.sp_axis)
+                    if sharded else attend(q, k, v))
         elif cfg.attn_impl == "reference":
             attn = attention_reference(q, k, v, True, head_dim ** -0.5)[0]
         else:
@@ -258,6 +284,22 @@ class GPT2(nn.Module):
         self.ln_f.weight.fill_(1.0)
         self.ln_f.bias.zero_()
 
+    def logical_axes(self) -> Dict[str, Tuple[Optional[str], ...]]:
+        """Every parameter's logical axes, by name, in the port's layout:
+        the flax model's ``nn.with_partitioning`` names with each Dense's
+        two swapped (``parallel.sharding`` maps them to the mesh)."""
+        axes = {"wte": ("vocab", "embed"), "wpe": (None, "embed"),
+                **norm_axes("ln_f")}
+        for i in range(self.config.num_layers):
+            for name, kernel in (("attn_qkv", ("embed", "heads")),
+                                 ("attn_proj", ("heads", "embed")),
+                                 ("mlp_up", ("embed", "mlp")),
+                                 ("mlp_down", ("mlp", "embed"))):
+                axes.update(dense_axes(f"h.{i}.{name}", kernel))
+            axes.update(norm_axes(f"h.{i}.ln_1"))
+            axes.update(norm_axes(f"h.{i}.ln_2"))
+        return axes
+
     def _block(self, block: Block, x: torch.Tensor,
                deterministic: bool) -> torch.Tensor:
         remat = self.config.remat
@@ -276,13 +318,14 @@ class GPT2(nn.Module):
         parallelism (:func:`sp_place`), the whole sequence otherwise."""
         cfg = self.config
         seq = tokens.shape[1]
-        size, rank = sp_place(cfg)
+        # placed parameters see the global batch, as GSPMD does
+        size, rank = (1, 0) if is_dtensor(self.wte) else sp_place(cfg)
         if seq * size > cfg.max_seq_len:
             raise ValueError(f"{seq * size} tokens exceed max_seq_len "
                              f"{cfg.max_seq_len}")
         # the gather commutes with the cast: the same values as casting
         # the whole table first (wte.astype(dtype)[tokens] in JAX)
-        x = F.embedding(tokens.long(), self.wte).to(cfg.dtype) + \
+        x = embed(tokens.long(), self.wte).to(cfg.dtype) + \
             self.wpe[rank * seq:(rank + 1) * seq].to(cfg.dtype)
         for block in self.h:
             x = self._block(block, x, deterministic)
@@ -292,6 +335,15 @@ class GPT2(nn.Module):
                 deterministic: bool = True) -> torch.Tensor:
         x, wte = self.hidden(tokens, deterministic)
         return x @ wte.float().T
+
+
+def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``F.embedding``; a DTensor table through the port's per-rank
+    lookup (``parallel._dtensor.embedding``)."""
+    if not is_dtensor(table):
+        return F.embedding(tokens, table)
+    from ray_tpu_torch.parallel._dtensor import embedding
+    return embedding(tokens, table)
 
 
 def _sp_groups(config: GPT2Config):
@@ -329,7 +381,7 @@ def loss_fn(model: GPT2, tokens: torch.Tensor, head_chunk: int = 8192,
     compute = torch.bfloat16 if model.config.dtype == torch.bfloat16 \
         else None
     sp, dp = _sp_groups(model.config)
-    if sp is None and dp is None:
+    if (sp is None and dp is None) or is_dtensor(wte):
         return chunked_lm_loss(x[:, :-1], wte, tokens[:, 1:],
                                chunk=head_chunk, compute_dtype=compute,
                                logits_dtype=head_logits_dtype)
@@ -356,7 +408,13 @@ def loss_fn(model: GPT2, tokens: torch.Tensor, head_chunk: int = 8192,
 def reduce_gradients(model: GPT2) -> None:
     """Sum the parameters' gradients over the global mesh's ``sp`` and
     ``dp`` ranks (a sequence-parallel config; nothing otherwise): each
-    rank's backward gives its share of the global loss's gradient."""
+    rank's backward gives its share of the global loss's gradient.
+    DTensor parameters take ``parallel.sharding.place_gradients``
+    instead."""
+    if is_dtensor(model.wte):
+        from ray_tpu_torch.parallel.sharding import place_gradients
+        place_gradients(model)
+        return
     for group in _sp_groups(model.config):
         if group is None:
             continue

@@ -29,7 +29,7 @@ training flagship is ``models/gpt2.py``).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -225,6 +225,26 @@ class Llama(nn.Module):
             generator = torch.Generator(device=device).manual_seed(0)
         self.reset_parameters(generator)
         self.requires_grad_(False)
+
+    def logical_axes(self) -> Dict[str, Tuple[Optional[str], ...]]:
+        """Every parameter's logical axes, by name, in the port's layout
+        (``parallel.sharding``): the flax model's ``nn.with_partitioning``
+        names, with each projection's two swapped (a flax kernel ``[in,
+        out]`` is a ``weight [out, in]`` here)."""
+        axes = {"embedding": ("vocab", "embed"),
+                "final_norm.weight": ("embed",)}
+        for i in range(self.config.num_layers):
+            for name, kernel in (("wq", ("embed", "heads")),
+                                 ("wk", ("embed", "kv")),
+                                 ("wv", ("embed", "kv")),
+                                 ("wo", ("heads", "embed")),
+                                 ("w_gate", ("embed", "mlp")),
+                                 ("w_up", ("embed", "mlp")),
+                                 ("w_down", ("mlp", "embed"))):
+                axes[f"layers.{i}.{name}.weight"] = kernel[::-1]
+            axes[f"layers.{i}.attn_norm.weight"] = ("embed",)
+            axes[f"layers.{i}.mlp_norm.weight"] = ("embed",)
+        return axes
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:

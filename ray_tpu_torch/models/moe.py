@@ -32,14 +32,16 @@ Numerics follow what the JAX model computes, not what its comments say:
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Optional, Tuple
+import math
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ray_tpu_torch._device import resolve_device
-from ray_tpu_torch.models.gpt2 import Dense, LayerNorm
+from ray_tpu_torch.models.gpt2 import Dense, LayerNorm, dense_axes, embed
+from ray_tpu_torch.ops._build import is_dtensor
 from ray_tpu_torch.ops.flash_attention import (attention_reference,
                                                flash_attention)
 from ray_tpu_torch.ops.fused import chunked_lm_loss
@@ -171,10 +173,22 @@ class SparseMoEMLP(nn.Module):
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, Routing]:
         cfg = self.config
         batch, seq, dim = x.shape
+        sharded = is_dtensor(x)
+        if sharded:  # the global batch, routed together as under GSPMD
+            from torch.distributed.tensor import Replicate
+            placements, mesh = x.placements, x.device_mesh
+            split = [mesh.size(i) for i, p in enumerate(self.up.placements)
+                     if p.is_shard(0)]
+            if cfg.num_experts % math.prod(split):
+                raise ValueError(f"{cfg.num_experts} experts do not split "
+                                 f"evenly over {math.prod(split)} ranks")
+            x = x.redistribute(mesh, [Replicate()] * mesh.ndim)
         tokens = x.reshape(batch * seq, dim)
         capacity = cfg.capacity(tokens.shape[0])
-        r = route(self.router(tokens.float(), cfg.dtype), cfg.top_k,
-                  cfg.router_aux_coef)
+        logits = self.router(tokens.float(), cfg.dtype)
+        if sharded:  # routing has no DTensor rules (sort, cumsum, one_hot)
+            logits = logits.full_tensor()
+        r = route(logits, cfg.top_k, cfg.router_aux_coef)
         kept = (r.slots < capacity).to(x.dtype)
         experts = F.one_hot(r.experts, cfg.num_experts).to(x.dtype)
         slots = (r.slots[..., None] == torch.arange(
@@ -182,6 +196,12 @@ class SparseMoEMLP(nn.Module):
         dispatch = (kept[..., None] * experts)[..., None] * \
             slots[:, :, None, :]  # [G, K, E, C]
         combine = dispatch * r.gates.to(x.dtype)[:, :, None, None]
+        if sharded:  # the same on every rank; the experts' einsums then
+            # take each rank's experts (up and down split over "expert")
+            from torch.distributed.tensor import DTensor
+            dispatch, combine = (DTensor.from_local(
+                t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+                for t in (dispatch, combine))
         # JAX promotes x's dtype against cfg.dtype: f32 buffers of
         # cfg.dtype-rounded tokens, f32 products of cfg.dtype-rounded
         # expert weights
@@ -193,8 +213,17 @@ class SparseMoEMLP(nn.Module):
         h = F.gelu(h, approximate="tanh")
         expert_out = torch.einsum("ecm,emd->ecd", h,
                                   self.down.to(cfg.dtype).to(work))
-        out = torch.einsum("gkec,ecd->gd", combine.to(work), expert_out)
-        return out.reshape(batch, seq, dim), r
+        if sharded:
+            # the same sum, written as one product over (e, c) with e the
+            # major dim: DTensor in torch 2.11 (the card's) cannot flatten
+            # einsum's (c, e) with e split over ep
+            out = combine.to(work).sum(1).reshape(tokens.shape[0], -1) @ \
+                expert_out.reshape(-1, dim)
+            out = out.reshape(batch, seq, dim).redistribute(mesh, placements)
+        else:
+            out = torch.einsum("gkec,ecd->gd", combine.to(work), expert_out)
+            out = out.reshape(batch, seq, dim)
+        return out, r
 
 
 class MoEBlock(nn.Module):
@@ -275,6 +304,21 @@ class MoETransformer(nn.Module):
         self.ln_f.weight.fill_(1.0)
         self.ln_f.bias.zero_()
 
+    def logical_axes(self) -> Dict[str, Tuple[Optional[str], ...]]:
+        """Every parameter's logical axes, by name, in the port's layout
+        (``parallel.sharding``): the flax model's ``nn.with_partitioning``
+        names, a Dense's two swapped; the stacked experts keep theirs, and
+        the LayerNorms, which the flax model leaves unnamed, replicate."""
+        axes = {"wte": ("vocab", "embed"), "wpe": (None, "embed")}
+        for i in range(self.config.num_layers):
+            axes.update(dense_axes(f"h.{i}.attn_qkv", ("embed", "heads")))
+            axes.update(dense_axes(f"h.{i}.attn_proj", ("heads", "embed")))
+            axes.update(dense_axes(f"h.{i}.moe.router",
+                                   ("embed", "expert")))
+            axes[f"h.{i}.moe.up"] = ("expert", "embed", "mlp")
+            axes[f"h.{i}.moe.down"] = ("expert", "mlp", "embed")
+        return axes
+
     def hidden(self, tokens: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor, List[Routing]]:
         cfg = self.config
@@ -283,7 +327,7 @@ class MoETransformer(nn.Module):
             raise ValueError(f"{seq} tokens exceed max_seq_len "
                              f"{cfg.max_seq_len}")
         # the gather commutes with the cast (wte.astype(dtype)[tokens])
-        x = F.embedding(tokens.long(), self.wte).to(cfg.dtype) + \
+        x = embed(tokens.long(), self.wte).to(cfg.dtype) + \
             self.wpe[:seq].to(cfg.dtype)
         routings = []
         for block in self.h:

@@ -39,12 +39,15 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.nn.functional import all_reduce
 
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models.conv import IN_CHANNELS, Conv, lecun_normal_
 from ray_tpu_torch.models.gpt2 import Dense
+from ray_tpu_torch.parallel.mesh import get_global_mesh
 
 BN_MOMENTUM = 0.9  # flax's: running = momentum * running + (1 - m) * batch
 BN_EPS = 1e-5
@@ -66,14 +69,35 @@ class ResNetConfig:
         return cls(stage_sizes=(3, 4, 6, 3), num_classes=num_classes, **kw)
 
 
+def _axis_group(axis_name: str):
+    """The process group of the global mesh's axis ``axis_name`` (one
+    rank's group too: its all-reduce then runs, and is the identity)."""
+    mesh = get_global_mesh()
+    if mesh is None or axis_name not in (mesh.mesh_dim_names or ()):
+        raise ValueError(
+            f"cross-replica BatchNorm over {axis_name!r} needs a global "
+            "mesh with that axis (parallel.use_mesh(build_mesh(...)))")
+    return mesh.get_group(axis_name)
+
+
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm(momentum=0.9, dtype=jnp.float32)`` over the
     channels of ``[B, C, H, W]``: f32 statistics and output, running
     averages of the mean and the biased variance (buffers, updated in
-    place by a training-mode call)."""
+    place by a training-mode call).
 
-    def __init__(self, channels: int, *, device=None):
+    With ``axis_name`` (flax's cross-replica statistics), training takes
+    the mean and the mean of squares over every rank of that axis of the
+    global mesh: each rank's two are averaged by one all-reduce, as
+    flax's ``lax.pmean`` of both does, and the variance and the running
+    averages come from the averaged values.  The all-reduce is
+    differentiable (its backward sums the cotangents over the axis, as
+    ``psum``'s transpose does)."""
+
+    def __init__(self, channels: int, *, device=None,
+                 axis_name: Optional[str] = None):
         super().__init__()
+        self.axis_name = axis_name
         self.weight = nn.Parameter(torch.ones(channels, device=device))
         self.bias = nn.Parameter(torch.zeros(channels, device=device))
         self.register_buffer("running_mean",
@@ -84,8 +108,12 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         x = x.float()
         if train:
-            mean = x.mean((0, 2, 3))
-            var = (x.square().mean((0, 2, 3)) - mean.square()).clamp_min(0)
+            mean, mean2 = x.mean((0, 2, 3)), x.square().mean((0, 2, 3))
+            if self.axis_name is not None:
+                group = _axis_group(self.axis_name)
+                stats = all_reduce(torch.stack([mean, mean2]), group=group)
+                mean, mean2 = stats / dist.get_world_size(group)
+            var = (mean2 - mean.square()).clamp_min(0)
             with torch.no_grad():
                 self.running_mean.mul_(BN_MOMENTUM).add_(
                     mean, alpha=1 - BN_MOMENTUM)
@@ -105,17 +133,19 @@ class BasicBlock(nn.Module):
     BatchNorm where the shape changes."""
 
     def __init__(self, in_channels: int, filters: int, strides: int,
-                 dtype: torch.dtype, *, device=None):
+                 dtype: torch.dtype, *, device=None,
+                 axis_name: Optional[str] = None):
         super().__init__()
         self.dtype = dtype
         self.conv1 = Conv(in_channels, filters, 3, strides, device=device)
-        self.bn1 = BatchNorm(filters, device=device)
+        self.bn1 = BatchNorm(filters, device=device, axis_name=axis_name)
         self.conv2 = Conv(filters, filters, 3, device=device)
-        self.bn2 = BatchNorm(filters, device=device)
+        self.bn2 = BatchNorm(filters, device=device, axis_name=axis_name)
         self.proj = self.proj_bn = None
         if strides != 1 or in_channels != filters:
             self.proj = Conv(in_channels, filters, 1, strides, device=device)
-            self.proj_bn = BatchNorm(filters, device=device)
+            self.proj_bn = BatchNorm(filters, device=device,
+                                     axis_name=axis_name)
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         y = F.relu(self.bn1(self.conv1(x, self.dtype), train))
@@ -135,29 +165,31 @@ class ResNet(nn.Module):
     drawn as flax draws them — LeCun-normal kernels, zero biases, ones
     for BatchNorm scales but zeros for each block's last — from
     ``generator`` (a fresh one seeded 0 on that device when omitted).
-    ``axis_name`` (flax's cross-replica statistics) needs the port's
-    parallel layer; only ``None`` is taken.
+    With ``axis_name`` (a data-parallel axis of the global mesh, set by
+    ``parallel.use_mesh``), every BatchNorm takes its training statistics
+    over the axis's ranks, each rank passing its own images
+    (:class:`BatchNorm`); the parameters name no logical axes and stay
+    replicated, as in the JAX package.
     """
 
     def __init__(self, config: ResNetConfig, *, device=None,
                  generator: Optional[torch.Generator] = None,
                  axis_name: Optional[str] = None):
         super().__init__()
-        if axis_name is not None:
-            raise NotImplementedError(
-                "cross-replica BatchNorm (axis_name) needs the port's "
-                "parallel layer (ROADMAP.md, queue 1)")
         device = resolve_device(device)
         self.config = cfg = config
+        self.axis_name = axis_name
         self.stem = Conv(IN_CHANNELS, cfg.num_filters, 3, device=device)
-        self.stem_bn = BatchNorm(cfg.num_filters, device=device)
+        self.stem_bn = BatchNorm(cfg.num_filters, device=device,
+                                 axis_name=axis_name)
         blocks, channels = [], cfg.num_filters
         for stage, size in enumerate(cfg.stage_sizes):
             for block in range(size):
                 filters = cfg.num_filters * 2 ** stage
                 strides = 2 if stage > 0 and block == 0 else 1
                 blocks.append(BasicBlock(channels, filters, strides,
-                                         cfg.dtype, device=device))
+                                         cfg.dtype, device=device,
+                                         axis_name=axis_name))
                 channels = filters
         self.blocks = nn.ModuleList(blocks)
         self.head = Dense(channels, cfg.num_classes, dtype=torch.float32,

@@ -25,7 +25,7 @@ returns f32 logits from a Dense in ``cfg.dtype``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,7 +33,7 @@ from torch import nn
 
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models.conv import IN_CHANNELS, Conv
-from ray_tpu_torch.models.gpt2 import Dense, LayerNorm
+from ray_tpu_torch.models.gpt2 import Dense, LayerNorm, dense_axes
 from ray_tpu_torch.ops.flash_attention import (attention_reference,
                                                flash_attention)
 
@@ -135,6 +135,25 @@ class ViT(nn.Module):
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         self.reset_parameters(generator)
+
+    def logical_axes(self) -> Dict[str, Tuple[Optional[str], ...]]:
+        """Every parameter's logical axes, by name, in the port's layout
+        (``parallel.sharding``): the flax model's ``nn.with_partitioning``
+        names, a Dense's two swapped and the patch embedding's conv
+        kernel ``[kh, kw, in, out]`` permuted to ``[out, in, kh, kw]``;
+        the LayerNorms and the patch embedding's bias, which the flax
+        model leaves unnamed, replicate."""
+        axes = {"patch_embed.weight": ("embed", None, None, None),
+                "cls": (None, None, "embed"),
+                "pos_embed": (None, None, "embed"),
+                **dense_axes("head", ("embed", "vocab"))}
+        for i in range(self.config.num_layers):
+            for name, kernel in (("attn_qkv", ("embed", "heads")),
+                                 ("attn_proj", ("heads", "embed")),
+                                 ("mlp_up", ("embed", "mlp")),
+                                 ("mlp_down", ("mlp", "embed"))):
+                axes.update(dense_axes(f"h.{i}.{name}", kernel))
+        return axes
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:

@@ -17,6 +17,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -193,6 +194,25 @@ def check(rc: int, what: str) -> None:
     """Raise on a nonzero ``cudaError_t`` returned by a C entry point."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def is_dtensor(*xs) -> bool:
+    """Whether any of ``xs`` is a ``torch.distributed.tensor.DTensor``
+    (none can be before that module is loaded)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and any(isinstance(x, mod.DTensor) for x in xs)
+
+
+def reject_dtensor(what: str, *xs) -> None:
+    """The kernels' entry points take raw pointers: a DTensor must never
+    reach them, neither gathered whole nor on the plain version.  Its
+    caller runs them on each rank's local shard (``flash_attention``
+    does, on the local heads)."""
+    if is_dtensor(*xs):
+        raise TypeError(
+            f"{what}: a DTensor reached a kernel entry point; run the "
+            "kernel on each rank's local shard (to_local() / "
+            "DTensor.from_local, as flash_attention does)")
 
 
 def dtype_code(dtype) -> int:

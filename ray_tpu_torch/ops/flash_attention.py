@@ -379,6 +379,7 @@ def _launch_fwd(q, k, v, causal, scale, hm=False):
 
 
 def _forward(q, k, v, causal, scale, hm):
+    _build.reject_dtensor("flash_attention forward", q, k, v)
     _validate(q, k, v, causal)
     if hm:
         _check_head_dim(q.shape[-1], hm)
@@ -492,6 +493,7 @@ def _launch_bwd(q, k, v, out, lse, do, causal, scale, hm=False):
 
 
 def _backward(q, k, v, out, lse, do, causal, scale, hm):
+    _build.reject_dtensor("flash_attention backward", q, k, v, out, lse, do)
     _validate_bwd(q, k, v, out, lse, do, causal)
     if hm:
         _check_head_dim(q.shape[-1], hm)
@@ -597,7 +599,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     on the CPU too), ``native=False`` the head-major ones (head_dim 1 to
     ``HM_MAX_HEAD_DIM``; :func:`_hm_route`); ``None`` the native-layout
     ones where eligible unless ``RAY_TPU_FLASH_NATIVE=0``.
+
+    DTensors (``parallel.sharding``'s placements: split over the batch
+    and the heads, or replicated) run on each rank's local batch rows and
+    heads, and the output comes back as a DTensor of the same placement;
+    the kernels never see a DTensor.
     """
+    if _build.is_dtensor(q, k, v):
+        from ray_tpu_torch.parallel._dtensor import on_local_shards
+        return on_local_shards(
+            lambda q_, k_, v_: flash_attention(q_, k_, v_, causal=causal,
+                                               scale=scale, native=native),
+            q, k, v, dims=(0, 2))
     if native and not _nl_eligible(q, k, v):
         raise ValueError(
             f"native-layout flash attention needs head_dim in (64, 128) "
@@ -638,6 +651,7 @@ def _flash_chunk_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``_flash_chunk_fwd.launches``, ``.launches_hm``, ``.launches_wide``,
     ``.launches_xwide``, ``.launches_xxwide``), or raise; f32 inputs take
     the f32 kernels, counted as the head-major wrappers count them."""
+    _build.reject_dtensor("_flash_chunk_fwd", q, k, v)
     _validate(q, k, v, causal)
     hm = _chunk_family(q, k, v)
     if q.device.type == "cpu":
@@ -678,6 +692,7 @@ def _flash_chunk_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     routed by :func:`_hm_route` (counted in
     ``_flash_chunk_bwd.launches_dkdv``, ``.launches_dq`` and their
     ``_hm``, ``_wide`` and ``_xwide`` forms), or raise."""
+    _build.reject_dtensor("_flash_chunk_bwd", q, k, v, out, lse, g, delta)
     _validate(q, k, v, causal)
     hm = _chunk_family(q, k, v)
     rows = (q.shape[0], q.shape[1], q.shape[2])

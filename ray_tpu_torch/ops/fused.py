@@ -70,6 +70,7 @@ def _kernel_weight(weight: torch.Tensor, cols: int) -> torch.Tensor:
 
 def _rmsnorm_forward(x: torch.Tensor, weight: torch.Tensor,
                      eps: float) -> torch.Tensor:
+    _build.reject_dtensor("fused_rmsnorm", x, weight)
     if x.device.type == "cpu":
         return rmsnorm_reference(x, weight, eps)
     if x.device.type != "cuda" or weight.device != x.device:
@@ -111,9 +112,12 @@ def fused_softmax_cross_entropy(logits: torch.Tensor,
 
 def _chunk_loss(h: torch.Tensor, y: torch.Tensor, m: torch.Tensor,
                 emb: torch.Tensor, compute_dtype: Optional[torch.dtype],
-                logits_dtype: Optional[torch.dtype]) -> torch.Tensor:
+                logits_dtype: Optional[torch.dtype],
+                parts=None) -> torch.Tensor:
     """Summed masked cross entropy of one ``[chunk, E]`` slice of hidden
-    states against the tied embedding ``emb [V, E]`` (f32)."""
+    states against the tied embedding ``emb [V, E]`` (f32); with
+    ``parts`` (sharded inputs), ``emb`` is this rank's rows of the
+    vocabulary and the softmax's reductions run over its ranks."""
     if compute_dtype is not None:
         # bf16 operands, logits in ``logits_dtype or f32`` (the JAX
         # version's preferred_element_type).  A bf16 product in torch
@@ -125,9 +129,14 @@ def _chunk_loss(h: torch.Tensor, y: torch.Tensor, m: torch.Tensor,
     else:
         logits = h @ emb.T
     mx = logits.max(dim=-1, keepdim=True).values.detach()
-    shifted = (logits - mx).float()
-    lse = torch.log(torch.exp(shifted).sum(dim=-1))
-    label_logit = shifted.gather(-1, y[:, None])[:, 0]
+    if parts is None:
+        shifted = (logits - mx).float()
+        lse = torch.log(torch.exp(shifted).sum(dim=-1))
+        label_logit = shifted.gather(-1, y[:, None])[:, 0]
+    else:
+        shifted = (logits - parts.max(mx)).float()
+        lse = torch.log(parts.vocab_sum(torch.exp(shifted).sum(dim=-1)))
+        label_logit = parts.label_logit(shifted, y)
     return ((lse - label_logit) * m).sum()
 
 
@@ -145,7 +154,21 @@ def chunked_lm_loss(hidden: torch.Tensor, emb: torch.Tensor,
     chunk runs and are recomputed in the backward, so memory never holds
     ``[B*T, V]``.  The tokens are padded to a multiple of ``chunk`` and
     the padded rows masked out of the sum.
+
+    DTensor inputs (``parallel.sharding``'s placements) run each rank's
+    rows of the batch against its rows of the vocabulary ("vocab" over
+    tp), the softmax's max, sum and label logit reduced over the
+    vocabulary's ranks and the loss over the batch's; the chunks are then
+    each rank's rows.  A vocabulary that does not divide by its ranks is
+    split as ``torch.chunk`` splits it, the leading ranks one row longer
+    (GPT-2's 50257 over tp = 2: 25129 + 25128 rows): each rank masks the
+    labels outside its rows, so the sums are the same.
     """
+    parts = None
+    if _build.is_dtensor(hidden, emb):
+        from ray_tpu_torch.parallel._dtensor import LossParts
+        parts = LossParts(hidden, emb, labels)
+        hidden, emb, labels = parts.hidden, parts.emb, parts.labels
     batch, seq, dim = hidden.shape
     flat_h = hidden.reshape(batch * seq, dim).float()
     flat_y = labels.reshape(batch * seq).long()
@@ -161,5 +184,7 @@ def chunked_lm_loss(hidden: torch.Tensor, emb: torch.Tensor,
         total = total + checkpoint(
             _chunk_loss, flat_h[lo:lo + chunk], flat_y[lo:lo + chunk],
             mask[lo:lo + chunk], emb_f32, compute_dtype, logits_dtype,
-            use_reentrant=False)
+            parts, use_reentrant=False)
+    if parts is not None:
+        return parts.total(total) / parts.count
     return total / n

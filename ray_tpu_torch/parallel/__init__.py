@@ -1,23 +1,21 @@
-"""Parallelism library: mesh building and sequence parallelism (ring
-attention, Ulysses) on ``torch.distributed``, as the JAX package's
-parallel layer.  The sharding presets (``ShardingRules`` and the
-rest of ``parallel/sharding.py``) and ``pipeline_apply`` come with the
-next slice of the parallel layer (ROADMAP.md, queue 1, item 5) and raise
-until then.
+"""Parallelism library: mesh building, the sharding presets, and
+sequence, pipeline and expert parallelism, on ``torch.distributed``, as
+the JAX package's parallel layer.  Parameters and batches placed by the
+presets (``parallel.sharding``) are DTensors over the port's
+``DeviceMesh``; ``pipeline_apply`` runs one stage a rank of the pp axis.
 
 Importing the package loads no torch (Train's config names
 ``MeshConfig``, and a CPU worker pays no torch import for it):
-``ring_attention`` and ``ulysses_attention`` are loaded at first use.
-As in the JAX package, ``ray_tpu_torch.parallel.ring_attention`` is the
-function; its module is ``sys.modules["ray_tpu_torch.parallel.
-ring_attention"]``.
+``ring_attention``, ``ulysses_attention`` and ``pipeline_apply`` are
+loaded at first use.  As in the JAX package,
+``ray_tpu_torch.parallel.ring_attention`` is the function; its module is
+``sys.modules["ray_tpu_torch.parallel.ring_attention"]``.
 """
 
 import importlib
 import sys
 import types
 
-from ray_tpu_torch import _port
 from ray_tpu_torch.parallel.mesh import (  # noqa: F401
     AXIS_ORDER,
     MeshConfig,
@@ -29,11 +27,17 @@ from ray_tpu_torch.parallel.mesh import (  # noqa: F401
     set_global_mesh,
     use_mesh,
 )
+from ray_tpu_torch.parallel.sharding import (  # noqa: F401
+    ShardingRules,
+    logical_to_mesh,
+    shard_params,
+    with_sharding_constraint,
+)
 
-_LATER = "queue 1, item 5"
 # name -> the module that defines it, imported at first use
 _LAZY = {"ring_attention": "ray_tpu_torch.parallel.ring_attention",
-         "ulysses_attention": "ray_tpu_torch.parallel.ulysses"}
+         "ulysses_attention": "ray_tpu_torch.parallel.ulysses",
+         "pipeline_apply": "ray_tpu_torch.parallel.pipeline"}
 
 
 def __getattr__(name):
@@ -57,24 +61,3 @@ class _Package(types.ModuleType):
 
 
 sys.modules[__name__].__class__ = _Package
-
-
-class ShardingRules:
-    def __init__(self, *args, **kwargs):
-        raise _port.not_ported("ShardingRules", _LATER)
-
-
-def logical_to_mesh(*args, **kwargs):
-    raise _port.not_ported("logical_to_mesh", _LATER)
-
-
-def shard_params(*args, **kwargs):
-    raise _port.not_ported("shard_params", _LATER)
-
-
-def with_sharding_constraint(*args, **kwargs):
-    raise _port.not_ported("with_sharding_constraint", _LATER)
-
-
-def pipeline_apply(*args, **kwargs):
-    raise _port.not_ported("pipeline_apply", _LATER)

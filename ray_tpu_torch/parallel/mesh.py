@@ -130,9 +130,11 @@ def mesh_axis_size(mesh: DeviceMesh, axis: str) -> int:
 
 def axis_group(mesh: Optional[DeviceMesh], axis: str):
     """The process group of ``axis`` on ``mesh``, or None where the
-    axis has one rank (or there is no mesh): its collectives are then
-    the identity and need no group."""
-    if mesh is None or mesh_axis_size(mesh, axis) == 1:
+    axis has one rank (or there is no mesh, or the mesh lacks the axis:
+    ``sharding.active_mesh`` drops the axes of one rank): its
+    collectives are then the identity and need no group."""
+    if mesh is None or axis not in (mesh.mesh_dim_names or ()) or \
+            mesh_axis_size(mesh, axis) == 1:
         return None
     return mesh.get_group(axis)
 

@@ -53,7 +53,6 @@ reference implementation):
 
 from __future__ import annotations
 
-import sys
 import threading
 import time
 from concurrent.futures import Future
@@ -64,6 +63,7 @@ from ray_tpu_torch.core import device_telemetry as _dt
 from ray_tpu_torch.core import flight_recorder as _flight
 from ray_tpu_torch.core import telemetry as _tm
 from ray_tpu_torch.core import tracing as _trace
+from ray_tpu_torch.core.serialization import loaded_torch
 
 __all__ = [
     "BatchingConfig", "ContinuousBatcher", "ModelSwapFailed",
@@ -75,11 +75,12 @@ __all__ = [
 def host_array(x: Any):
     """An engine's step output as a numpy array: a torch tensor (on the
     card or not) through ``.cpu().numpy()``, anything else through
-    ``np.asarray``.  torch is looked up in ``sys.modules``: an engine
-    that returned a tensor has imported it."""
+    ``np.asarray``.  torch is the one this process has loaded
+    (``core.serialization.loaded_torch``): an engine that returned a
+    tensor has imported it."""
     import numpy as np
 
-    torch = sys.modules.get("torch")
+    torch = loaded_torch()
     if torch is not None and isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)

@@ -465,6 +465,3 @@ def test_build_mesh_needs_a_process_group():
 def test_unported_names_raise():
     with pytest.raises(NotImplementedError, match="per-rank"):
         tmesh.shard_map(lambda x: x, mesh=None, in_specs=(), out_specs=())
-    for fn in (tparallel.ShardingRules, tparallel.pipeline_apply):
-        with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-            fn()

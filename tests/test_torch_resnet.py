@@ -328,6 +328,13 @@ def test_parameters_match_flax_init():
 
 
 def test_cross_replica_batchnorm_raises():
-    with pytest.raises(NotImplementedError, match="parallel layer"):
-        tresnet.ResNet(tresnet.ResNetConfig.resnet18(), device="cpu",
-                       axis_name="dp")
+    """``axis_name`` is taken (its statistics over ranks are held in
+    tests/test_torch_sharding.py); a training-mode forward with no global
+    mesh to take them over raises, naming ``use_mesh``, while evaluation
+    reads the running statistics and needs none."""
+    model = tresnet.ResNet(tresnet.ResNetConfig.resnet18(), device="cpu",
+                           axis_name="dp")
+    images = torch.zeros(2, 32, 32, 3)
+    with pytest.raises(ValueError, match="use_mesh"):
+        model(images, train=True)
+    assert model(images, train=False).shape == (2, 10)

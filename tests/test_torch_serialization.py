@@ -128,3 +128,44 @@ def test_wire_does_not_need_torch_imported_to_skip_tensors():
                        text=True, timeout=120,
                        cwd=pathlib.Path(__file__).resolve().parents[1])
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_serialize_while_another_thread_imports_torch():
+    """A result serialized while another thread of the process is still
+    importing torch (a train loop's first ``import torch`` beside the
+    actor's ``next_results``) takes the plain path: the partial module
+    has no ``torch.Tensor`` yet, and reading it raised AttributeError,
+    which killed the actor's executor and timed the trainer's poll out.
+    The import is replayed in a subprocess: a thread holds torch's
+    import open at its first submodule while the main thread serializes
+    a result dict and a large array."""
+    import pathlib
+    import subprocess
+    import sys
+    code = "\n".join([
+        "import sys, threading, importlib.abc",
+        "import numpy as np",
+        "from ray_tpu_torch.core import serialization as s",
+        "entered, release = threading.Event(), threading.Event()",
+        "class Hold(importlib.abc.MetaPathFinder):",
+        "    def find_spec(self, name, path=None, target=None):",
+        "        if name.startswith('torch.') and not entered.is_set():",
+        "            entered.set(); release.wait(60)",
+        "        return None",
+        "sys.meta_path.insert(0, Hold())",
+        "t = threading.Thread(target=lambda: __import__('torch'))",
+        "t.start(); assert entered.wait(60)",
+        "assert 'torch' in sys.modules and not hasattr(",
+        "    sys.modules['torch'], 'Tensor')",
+        "for v in ({'loss': 1.5, 'rank': 0}, np.ones(1 << 16)):",
+        "    w = s.serialize(v)",
+        "    got, _ = s.deserialize(w.to_bytes())",
+        "    assert repr(got) == repr(v)",
+        "assert s.loaded_torch() is None",
+        "release.set(); t.join(120)",
+        "assert s.loaded_torch() is sys.modules['torch']",
+    ])
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=180,
+                       cwd=pathlib.Path(__file__).resolve().parents[1])
+    assert r.returncode == 0, r.stdout + r.stderr
