@@ -113,6 +113,17 @@ no network.  Phases, one JSON line each:
     sequence (output and gradients); ResNet-18 at 256 images with
     ``axis_name="dp"`` against ``axis_name=None`` (logits, running
     statistics, gradients).
+23. ``rl``: PPO with the learner on the card.  ``learn_on_batch`` for
+    the MLP, LSTM and attention models on the card against the CPU on
+    the same weights and CartPole batch (each parameter's update, the
+    stats; the parameters and Adam's moments on the card), then
+    bench.py's ``bench_rllib_ppo`` shapes on ``init(num_cpus=16)``:
+    inline (0 workers x 8 envs), fleet_legacy (2 rollout workers x 16
+    envs, ``sample_async``; again with one torch thread a sampler) and
+    fleet (the decoupled pipeline, 2 env actors x 256 envs, inference
+    on the host): env-steps/s, the learner's ms per ``train()`` and per
+    SGD update, its busy share from a device trace, finite losses, the
+    pipeline's occupancy and stale drops.  No kernel of the port.
 
 The ``kernels`` phase also holds the backward kernels (dK/dV and dQ) and
 both kernel families (native layout and head-major; head-major at every
@@ -135,12 +146,12 @@ ring's chunk of 32768 tokens of GPT-2 124M and of XL's head count, and
 at head_dim 256, 512 and 1024, and held at the new kernels' ragged ends.  Each main path (``serve``, ``train``,
 ``train_xl``, ``vit``, ``moe``, ``resnet``, ``head_dims``, ``runtime``,
 ``train_gang``, whose worker counts its own, ``serve_batching``,
-``long_context``, each run of ``seq_parallel`` and each placed run and
-the pipeline of ``sharded``) is
+``long_context``, each run of ``seq_parallel``, each placed run and
+the pipeline of ``sharded``, and ``rl``'s shapes) is
 driven with the kernels' launch counts set to 0 just before it and read
 just after; the native-layout paths launch no
 head-major kernel, GPT-2 XL no native-layout one, and ResNet, the
-runtime and the toy decoder's serve path none at all.
+runtime, the toy decoder's serve path and RL none at all.
 
 Then the kernels' summary line, the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``.  Any failure raises: no result
@@ -3381,6 +3392,304 @@ SUMMARY = {  # name: (source, TPU kernel it replaces, shape in the table)
 F32_ROWS = FLASH_FMA
 
 
+# rl: PPO's learner on the card.  RL_PARITY holds learn_on_batch on the
+# card against the port's own CPU path on one CartPole batch (seed 0,
+# RL_PARITY_ENVS envs x RL_PARITY_STEPS steps, sampled on the host), 2 SGD
+# iterations over 32-row minibatches, with the CPU tests' limits: each
+# parameter's update within RL_UPDATE_TOL of its largest, the stats within
+# RL_STATS_RTOL.  RL_SHAPES are bench.py's bench_rllib_ppo shapes (label,
+# workers, envs per worker or env actor, mode): CartPole capped at 200
+# steps, train_batch_size 4000, sgd_minibatch_size 512, num_sgd_iter 4,
+# seed 0, on init(num_cpus=16); one warm-up train(), then train() calls
+# until RL_WINDOW_S of wall time has passed (bench.py's windows), then one
+# whose learn_on_batch's first RL_TRACE_UPDATES updates are traced for
+# device activity.
+RL_PARITY = {"fc": {},
+             "lstm": {"use_lstm": True, "max_seq_len": 8},
+             "attention": {"use_attention": True, "max_seq_len": 8}}
+RL_PARITY_ENVS, RL_PARITY_STEPS = 4, 256
+RL_UPDATE_TOL = 1e-3
+RL_STATS_RTOL = 1e-5
+RL_STATS = ("policy_loss", "vf_loss", "entropy", "kl", "total_loss",
+            "grad_gnorm", "kl_coeff", "mean_kl")
+RL_SHAPES = (("inline", 0, 8, "legacy"), ("fleet_legacy", 2, 16, "legacy"),
+             ("fleet", 2, 256, "pipeline"))
+RL_WINDOW_S = {"inline": 15.0, "fleet_legacy": 10.0, "fleet": 15.0}
+RL_TRACE_UPDATES = 64
+RL_STORE_MIB = 1024
+
+
+def _rl_batch(model):
+    """One CartPole batch from the port's host sampler, advantages
+    standardised as PPO's training_step does."""
+    from ray_tpu_torch.rllib.algorithms.ppo import PPOPolicy
+    from ray_tpu_torch.rllib.env import CartPole
+    from ray_tpu_torch.rllib.execution import standardize_advantages
+    from ray_tpu_torch.rllib.rollout_worker import RolloutWorker
+    worker = RolloutWorker(CartPole, PPOPolicy, {
+        "seed": SEED, "_device": "cpu", "model": model,
+        "num_envs_per_worker": RL_PARITY_ENVS,
+        "rollout_fragment_length": RL_PARITY_STEPS})
+    return standardize_advantages(worker.sample())
+
+
+def _rl_on_card(policy):
+    """The learner's parameters and Adam's moments lie on the card."""
+    assert policy.device.type == "cuda", policy.device
+    state = policy.opt.state_dict()["state"]
+    tensors = list(policy.model.parameters()) + [
+        t for s in state.values() for t in s.values()
+        if isinstance(t, torch.Tensor)]
+    assert state and all(t.is_cuda for t in tensors), \
+        "the learner's parameters or optimizer state left the card"
+    return len(tensors)
+
+
+def rl_learner_parity(kind, model):
+    """learn_on_batch on the card against the CPU on the same weights,
+    batch and minibatch order.  The attention's key biases have a zero
+    gradient in exact arithmetic (a shift of every key leaves the softmax
+    as it is), so Adam scales each device's rounding noise up to steps of
+    about lr: their updates are not compared, their gradient on the card
+    is held at 1e-6 of the largest instead."""
+    import numpy as np
+    from ray_tpu_torch.rllib.algorithms.ppo import PPOPolicy
+    from ray_tpu_torch.rllib.env import CartPole
+    from ray_tpu_torch.rllib.sample_batch import build_sequences
+    env = CartPole({})
+    batch = _rl_batch(model)
+    cfg = {"seed": SEED, "model": model, "num_sgd_iter": 2,
+           "sgd_minibatch_size": 32}
+    cpu = PPOPolicy(env.observation_space, env.action_space,
+                    dict(cfg, _device="cpu"))
+    gpu = PPOPolicy(env.observation_space, env.action_space, dict(cfg))
+    before = cpu.get_weights()
+    for name, w in gpu.get_weights().items():
+        assert np.array_equal(w, before[name]), name
+    want = cpu.learn_on_batch(batch.copy())
+    t0 = time.perf_counter()
+    got = gpu.learn_on_batch(batch.copy())
+    torch.cuda.synchronize()
+    learn_ms = (time.perf_counter() - t0) * 1e3
+    tensors = _rl_on_card(gpu)
+    cw, gw = cpu.get_weights(), gpu.get_weights()
+    noise = {n for n in gw if n.endswith("attn.key.bias")}
+    worst = 0.0
+    for name in set(gw) - noise:
+        upd = cw[name] - before[name]
+        scale = float(np.abs(upd).max())
+        assert scale > 0, f"rl {kind}: {name} was not updated"
+        err = float(np.abs((gw[name] - before[name]) - upd).max()) / scale
+        assert err <= RL_UPDATE_TOL, (kind, name, err)
+        worst = max(worst, err)
+    stats_err = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+                 for k in RL_STATS}
+    assert all(e <= RL_STATS_RTOL for e in stats_err.values()), \
+        (kind, stats_err)
+    zero_grad = None
+    if noise:
+        seq = build_sequences(batch, model["max_seq_len"])
+        seq["kl_coeff"] = np.float32(0.2)
+        grads, _ = gpu.compute_gradients(seq)
+        names = [n for n, _ in gpu.model.named_parameters()]
+        largest = max(float(np.abs(g).max()) for g in grads)
+        zero_grad = max(float(np.abs(g).max()) for n, g in
+                        zip(names, grads) if n in noise) / largest
+        assert zero_grad <= 1e-6, (kind, zero_grad)
+    return {"rows": len(batch), "update_err": worst,
+            "stats_rel_err": stats_err, "key_bias_grad": zero_grad,
+            "tensors_on_card": tensors, "gpu_learn_ms": learn_ms,
+            "total_loss": got["total_loss"]}
+
+
+class _LearnerClock:
+    """Wraps a policy's learn_on_batch (synchronised before and after)
+    and counts the SGD updates of the calls it times: ``ms`` and
+    ``updates`` cover the same calls.  With ``trace`` set, the next call's
+    first RL_TRACE_UPDATES updates run under a device-only trace: the
+    union of their kernels' intervals over the window's wall time (a
+    whole fleet-shape call launches some 60,000 kernels, whose events
+    would take the trace longer to read than the call took)."""
+
+    def __init__(self, policy):
+        from torch.profiler import ProfilerActivity, profile
+        self.ms, self.updates, self.trace = [], 0, False
+        self.traced, self._prof, self._n = None, None, 0
+        learn, update = policy.learn_on_batch, policy._update
+
+        def timed_learn(batch):
+            if self.trace:
+                self.trace = False
+                self._left = RL_TRACE_UPDATES
+                self._prof = profile(activities=[ProfilerActivity.CUDA])
+                self._prof.__enter__()
+                torch.cuda.synchronize()
+                self._t0 = time.perf_counter()
+                out = learn(batch)
+                if self._prof is not None:
+                    self._finish()
+                return out
+            n0 = self._n
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = learn(batch)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            n = len(batch)
+            want = int(policy.config.get("num_sgd_iter", 30)) * max(
+                1, n // int(policy.config.get("sgd_minibatch_size", 128)))
+            assert self._n - n0 == want, (n, self._n - n0, want)
+            self.updates += self._n - n0
+            return out
+
+        def counted_update(dev):
+            self._n += 1
+            out = update(dev)
+            if self._prof is not None:
+                self._left -= 1
+                if not self._left:
+                    self._finish()
+            return out
+
+        policy.learn_on_batch = timed_learn
+        policy._update = counted_update
+
+    def _finish(self):
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - self._t0) * 1e3
+        prof, self._prof = self._prof, None
+        prof.__exit__(None, None, None)
+        spans = [(ev.time_range.start, ev.time_range.end)
+                 for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA
+                 and not getattr(ev, "is_user_annotation", False)]
+        assert spans, "no kernel in the learner's device-only trace"
+        busy = _union_ms(spans)
+        self.traced = {"updates": RL_TRACE_UPDATES - self._left,
+                       "kernels": len(spans), "busy_ms": busy,
+                       "wall_ms": wall, "idle_share": 1 - busy / wall}
+
+
+def _rl_measure(algo, clock, label):
+    """One warm-up train(), then train() calls until RL_WINDOW_S[label]
+    has passed, then one whose learn_on_batch's first RL_TRACE_UPDATES
+    updates are traced.  Each timed call's env-steps/s too: their range
+    is the spread within the window."""
+    import numpy as np
+    t0 = time.perf_counter()
+    algo.train()  # warm-up: workers' first fragments, first shapes
+    warm_s = time.perf_counter() - t0
+    clock.ms, clock.updates = [], 0
+    steps, losses, rates = 0, [], []
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < RL_WINDOW_S[label]:
+        t1 = time.perf_counter()
+        r = algo.train()
+        n = r["num_env_steps_sampled_this_iter"]
+        rates.append(n / (time.perf_counter() - t1))
+        steps += n
+        losses.append(r["total_loss"])
+    wall = time.perf_counter() - t0
+    iters = len(rates)
+    clock.trace, clock.traced = True, None
+    r = algo.train()
+    losses.append(r["total_loss"])
+    assert clock.traced is not None
+    assert all(np.isfinite(x) for x in losses), losses
+    traced = clock.traced
+    per_update = sum(clock.ms) / clock.updates
+    return {"warmup_train_s": warm_s, "window_s": wall, "iters": iters,
+            "env_steps": steps, "env_steps_per_s": steps / wall,
+            "env_steps_per_s_per_train": [min(rates), max(rates)],
+            "train_ms": wall * 1e3 / iters,
+            "learner_ms_per_train": statistics.mean(clock.ms),
+            "learner_ms": clock.ms, "sgd_updates": clock.updates,
+            "learner_ms_per_update": per_update,
+            "learner_share_of_train": sum(clock.ms) / (wall * 1e3),
+            # the traced window's own share (the trace slows the host),
+            # and its busy ms per update over an untraced update's ms
+            "learner_busy_share_traced": 1 - traced["idle_share"],
+            "learner_busy_share": traced["busy_ms"] / traced["updates"]
+            / per_update,
+            "learner_traced": traced, "total_losses": losses,
+            "episode_reward_mean": r["episode_reward_mean"]}
+
+
+def _rl_shape(label, workers, envs, mode):
+    """One of bench_rllib_ppo's shapes, measured by _rl_measure."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rllib.algorithms.ppo import PPOConfig
+    from ray_tpu_torch.rllib.env import CartPole
+    config = (PPOConfig()
+              .environment(CartPole, env_config={"max_episode_steps": 200})
+              .rollouts(num_rollout_workers=workers,
+                        num_envs_per_worker=envs if mode != "pipeline"
+                        else 1,
+                        rollout_fragment_length=200,
+                        sample_async=(mode == "legacy" and workers > 0),
+                        decoupled=(mode == "pipeline"),
+                        rl_envs_per_actor=envs)
+              .training(train_batch_size=4000, sgd_minibatch_size=512,
+                        num_sgd_iter=4)
+              .debugging(seed=SEED))
+    t_shape = t0 = time.perf_counter()
+    algo = config.build()
+    build_s = time.perf_counter() - t0
+    try:
+        policy = algo.get_policy()
+        clock = _LearnerClock(policy)
+        out = {"shape": label, "workers": workers, "envs": envs,
+               "mode": mode, "build_s": build_s}
+        out.update(_rl_measure(algo, clock, label))
+        out["tensors_on_card"] = _rl_on_card(policy)
+        if mode == "pipeline":
+            stats = algo._pipeline.stats()
+            infer = stats["inference"][0]
+            out.update(inference_occupancy=infer["mean_occupancy"],
+                       inference_batch_shapes=infer["batch_shapes"],
+                       inference_dispatches=infer["dispatches"],
+                       stale_dropped=stats["stale_dropped"],
+                       weights_version=stats["weights_version"])
+            out["inference_device"] = rt.get(
+                algo._pipeline.inference_actors[0].device.remote(),
+                timeout=60)
+            assert out["inference_device"] == "cpu", out
+    finally:
+        algo.stop()
+    out["shape_s"] = time.perf_counter() - t_shape
+    return out
+
+
+def phase_rl():
+    """PPO with the learner on the card: learn_on_batch for FCNet, LSTM
+    and attention against the CPU path, then bench_rllib_ppo's three
+    shapes on the port's runtime.  Returns the launches of the port's
+    kernels over the shapes' runs (none: RL's models are plain torch)."""
+    import ray_tpu_torch as rt
+    t0 = time.perf_counter()
+    parity = {kind: rl_learner_parity(kind, model)
+              for kind, model in RL_PARITY.items()}
+    emit({"phase": "rl_parity", "ok": True, "models": parity,
+          "seconds": time.perf_counter() - t0,
+          "update_tol": RL_UPDATE_TOL, "stats_rtol": RL_STATS_RTOL})
+    _zero_all_counts()
+    before = _all_counts()
+    t0 = time.perf_counter()
+    rt.init(num_cpus=16, object_store_memory=RL_STORE_MIB * 2**20)
+    init_s = time.perf_counter() - t0
+    try:
+        shapes = [_rl_shape(*shape) for shape in RL_SHAPES]
+    finally:
+        t1 = time.perf_counter()
+        rt.shutdown()
+        shutdown_s = time.perf_counter() - t1
+    launches = _delta(before, _all_counts())
+    emit({"phase": "rl", "ok": True, "init_s": init_s,
+          "shutdown_s": shutdown_s, "shapes": shapes,
+          "launches": launches, "card": card_line()})
+    return launches
+
+
 def _case_is(c, name):
     """Whether case ``c`` ran kernel ``name`` (a forward's, or one part of
     a backward pair's; chunk-mode names too)."""
@@ -3639,9 +3948,13 @@ def main() -> int:
     seq_parallel = phase_seq_parallel()
     _free()
     sharded = phase_sharded()
-    # the runtime and the toy decoder launch no kernel of the port
+    _free()
+    rl = phase_rl()
+    # the runtime, the toy decoder and RL's models launch no kernel of
+    # the port
     assert not any(runtime.values()), runtime
     assert not any(serve_batching.values()), serve_batching
+    assert not any(rl.values()), rl
     emit(kernel_summary(cases, {"serve": serve, "train": train,
                                 "train_xl": train_xl, "vit": vit,
                                 "moe": moe, "resnet": resnet,
@@ -3649,7 +3962,7 @@ def main() -> int:
                                 "train_gang": train_gang,
                                 "long_context": long_context,
                                 "seq_parallel": seq_parallel,
-                                "sharded": sharded}, usage))
+                                "sharded": sharded, "rl": rl}, usage))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,8 @@ from typing import Any, Mapping
 
 
 # the JAX package's TPU keywords and the port's GPU ones in their place
-_TPU_OPTIONS = {"num_tpus": "num_gpus", "tpus_per_worker": "gpus_per_worker"}
+_TPU_OPTIONS = {"num_tpus": "num_gpus", "tpus_per_worker": "gpus_per_worker",
+                "num_tpus_per_learner": "num_gpus_per_learner"}
 
 
 def reject_tpu_options(where: str, options: Mapping[str, Any]) -> None:

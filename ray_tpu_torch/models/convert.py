@@ -162,3 +162,86 @@ def resnet_state_dict_from_jax(params: Mapping, batch_stats: Mapping
                    s[f"BatchNorm_{j}"])
         i += 1
     return sd
+
+
+# -- RL models (ray_tpu_torch.rllib.models) ---------------------------------
+
+def _rl_params(params: Mapping) -> Mapping:
+    """A flax ``init`` result (``{"params": ...}``) or the tree itself."""
+    return params["params"] if "params" in params else params
+
+
+def _dense_tree(sd: Dict[str, torch.Tensor], prefix: str,
+                tree: Mapping) -> None:
+    """Every Dense of ``tree`` under its own name."""
+    for name, sub in tree.items():
+        _dense(sd, f"{prefix}{name}", sub)
+
+
+def fcnet_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Map a flax ``FCNet`` tree (shared torso or a separate value
+    branch) onto :class:`ray_tpu_torch.rllib.models.FCNet`, whose Dense
+    names are flax's."""
+    sd: Dict[str, torch.Tensor] = {}
+    _dense_tree(sd, "", _rl_params(params))
+    return sd
+
+
+def twin_q_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Map a flax ``TwinQNetwork`` tree (``q1_fc_0`` ... ``q2_out``)."""
+    return fcnet_state_dict_from_jax(params)
+
+
+_LSTM_GATES = ("i", "f", "g", "o")
+
+
+def lstm_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Map a flax ``LSTMNet`` tree: ``embed``, ``out``, ``vf_out`` as
+    Denses, and the ``OptimizedLSTMCell``'s per-gate Denses (``ii`` ...
+    ``io`` without bias, ``hi`` ... ``ho`` with) stacked in gate order
+    i, f, g, o into ``lstm.ih.weight`` and ``lstm.hh.weight`` /
+    ``lstm.hh.bias``."""
+    p = dict(_rl_params(params))
+    cell = p.pop("lstm")
+    sd: Dict[str, torch.Tensor] = {}
+    _dense_tree(sd, "", p)
+    sd["lstm.ih.weight"] = torch.cat(
+        [_tensor(cell[f"i{g}"]["kernel"]) for g in _LSTM_GATES],
+        dim=1).T.contiguous()
+    sd["lstm.hh.weight"] = torch.cat(
+        [_tensor(cell[f"h{g}"]["kernel"]) for g in _LSTM_GATES],
+        dim=1).T.contiguous()
+    sd["lstm.hh.bias"] = torch.cat(
+        [_tensor(cell[f"h{g}"]["bias"]) for g in _LSTM_GATES])
+    return sd
+
+
+def attention_state_dict_from_jax(params: Mapping
+                                  ) -> Dict[str, torch.Tensor]:
+    """Map a flax ``AttentionNet`` tree: ``embed``, ``out``, ``vf_out``
+    and each ``block_<i>``'s Denses and LayerNorms by name; the
+    attention's per-head kernels (q/k/v ``[D, H, D/H]``, out ``[H, D/H,
+    D]``) flatten the heads into ``[D, D]`` before the transpose."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, tree in _rl_params(params).items():
+        if not name.startswith("block_"):
+            _dense(sd, name, tree)
+            continue
+        for part, sub in tree.items():
+            key = f"{name}.{part}"
+            if part.startswith("ln_"):
+                _norm(sd, key, sub)
+            elif part == "attn":
+                for proj in ("query", "key", "value"):
+                    k = _tensor(sub[proj]["kernel"])
+                    sd[f"{key}.{proj}.weight"] = \
+                        k.reshape(k.shape[0], -1).T.contiguous()
+                    sd[f"{key}.{proj}.bias"] = \
+                        _tensor(sub[proj]["bias"]).reshape(-1)
+                k = _tensor(sub["out"]["kernel"])
+                sd[f"{key}.out.weight"] = \
+                    k.reshape(-1, k.shape[-1]).T.contiguous()
+                sd[f"{key}.out.bias"] = _tensor(sub["out"]["bias"])
+            else:
+                _dense(sd, key, sub)
+    return sd

@@ -286,6 +286,9 @@ def _rank_gpt2(impl, mesh_kw, rank, state):
 
 
 def _gloo_worker(rank, port, out_dir, state):
+    # one intra-op thread a rank: four ranks of each of the gloo files,
+    # run side by side, would otherwise each start a thread per core
+    torch.set_num_threads(1)
     import torch.distributed as dist
     try:
         dist.init_process_group("gloo",

@@ -523,6 +523,9 @@ def _rank_refusals():
 
 
 def _gloo_worker(rank, port, out_dir, refs):
+    # one intra-op thread a rank: four ranks of each of the gloo files,
+    # run side by side, would otherwise each start a thread per core
+    torch.set_num_threads(1)
     import torch.distributed as dist
     try:
         dist.init_process_group("gloo",
