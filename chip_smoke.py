@@ -119,11 +119,22 @@ no network.  Phases, one JSON line each:
     stats; the parameters and Adam's moments on the card), then
     bench.py's ``bench_rllib_ppo`` shapes on ``init(num_cpus=16)``:
     inline (0 workers x 8 envs), fleet_legacy (2 rollout workers x 16
-    envs, ``sample_async``; again with one torch thread a sampler) and
-    fleet (the decoupled pipeline, 2 env actors x 256 envs, inference
-    on the host): env-steps/s, the learner's ms per ``train()`` and per
-    SGD update, its busy share from a device trace, finite losses, the
-    pipeline's occupancy and stale drops.  No kernel of the port.
+    envs, ``sample_async``) and fleet (the decoupled pipeline, 2 env
+    actors x 256 envs, inference on the host): env-steps/s, the
+    learner's ms per ``train()`` and per SGD update, its busy share from
+    a device trace, finite losses, the pipeline's occupancy and stale
+    drops.  No kernel of the port.
+24. ``rl_zoo``: the model-free algorithms with their learners on the
+    card.  ``learn_on_batch`` (R2D2: ``learn_on_sequences``) of IMPALA,
+    APPO, PG, A2C, MARWIL (beta 1 and 0), DQN (double-Q on and off),
+    R2D2, SAC, DDPG, TD3, CQL and CRR on the card against the CPU on the
+    same weights, batch, update noise and Adam moments (each tensor's
+    update, the stats; every network, target copy, log_alpha and moment
+    on the card; each state restored across devices), then the tuned
+    example of each ported algorithm on ``init(num_cpus=16)``: env-steps/s
+    (offline: rows learned/s) per ``train()``, the learner's ms per
+    update and updates per ``train()``, finite losses; IMPALA's and
+    APPO's yaml run to its criterion.  No kernel of the port.
 
 The ``kernels`` phase also holds the backward kernels (dK/dV and dQ) and
 both kernel families (native layout and head-major; head-major at every
@@ -147,7 +158,8 @@ at head_dim 256, 512 and 1024, and held at the new kernels' ragged ends.  Each m
 ``train_xl``, ``vit``, ``moe``, ``resnet``, ``head_dims``, ``runtime``,
 ``train_gang``, whose worker counts its own, ``serve_batching``,
 ``long_context``, each run of ``seq_parallel``, each placed run and
-the pipeline of ``sharded``, and ``rl``'s shapes) is
+the pipeline of ``sharded``, ``rl``'s shapes and ``rl_zoo``'s tuned
+examples) is
 driven with the kernels' launch counts set to 0 just before it and read
 just after; the native-layout paths launch no
 head-major kernel, GPT-2 XL no native-layout one, and ResNet, the
@@ -3690,6 +3702,461 @@ def phase_rl():
     return launches
 
 
+# rl_zoo: the model-free algorithms of ray_tpu_torch.rllib.algorithms with
+# their learners on the card.  rl_zoo_parity takes one or two updates
+# (RL_ZOO_PARITY's calls) of each policy on the card against the CPU on
+# the same weights (each tensor plus normal noise of std 0.05, the target
+# networks with their own noise), batch (numpy, from SEED, at the tuned
+# examples' sizes), update noise (drawn once on the host) and Adam
+# moments, warmed on both devices to count RL_ZOO_WARM_COUNT, mu 0 and nu
+# RL_ZOO_WARM_NU: a cold Adam's first step is lr * sign(g), so an element
+# whose gradient cancels to rounding level (some of the 256-wide critics'
+# 130,000 weights do) steps by +lr on one device and -lr on the other;
+# from these moments a small gradient makes a small step on both.  The
+# squashed actors' log_std bias is lowered by 2 on both, which keeps tanh
+# out of saturation, where log(1 - tanh^2 + 1e-6) turns a last-ulp
+# difference of tanh into a different loss.  Each tensor's move is held
+# within RL_UPDATE_TOL of its largest element's, the stats within
+# RL_STATS_RTOL of their magnitude or of 1, whichever is larger.  Then
+# each state crosses devices: the card's restored on the CPU and the
+# CPU's on the card, exactly.
+# RL_ZOO_EXAMPLES: each ported algorithm's tuned-example yaml on
+# init(num_cpus=16), learner on the card: train() until the learner has
+# taken its first update (the replay learners first fill to their start),
+# then train() calls for RL_ZOO_WINDOW_S of wall time; RL_ZOO_CRITERION's
+# yamls then go on training to their stop criterion (iterations counted
+# from the first); last, the last update's call runs RL_ZOO_TRACE_UPDATES
+# times more under a device-only trace.
+RL_ZOO_WARM_COUNT, RL_ZOO_WARM_NU = 20, 1e-4
+RL_ZOO_NOISE_STD = 0.05
+RL_ZOO_WINDOW_S = 2.5
+RL_ZOO_MAX_WARMUP = 300
+RL_ZOO_TRACE_UPDATES = 16
+RL_ZOO_EXAMPLES = (
+    "cartpole-impala", "cartpole-appo", "cartpole-pg", "cartpole-a2c",
+    "cartpole-a3c", "cartpole-marwil", "cartpole-bc", "cartpole-dqn",
+    "cartpole-simpleq", "cartpole-apex-dqn", "cartpole-r2d2",
+    "pendulum-sac", "pendulum-ddpg", "pendulum-td3", "pendulum-apex-ddpg",
+    "pendulum-cql", "pendulum-crr")
+RL_ZOO_CRITERION = ("cartpole-impala", "cartpole-appo")
+# label: (module, policy class, env, config, batch kind, rows, calls)
+RL_ZOO_PARITY = {
+    "impala": ("impala", "ImpalaPolicy", "CartPole",
+               {"rollout_fragment_length": 64}, "unrolls", 8 * 64, 2),
+    "appo": ("impala", "APPOPolicy", "CartPole",
+             {"rollout_fragment_length": 64}, "unrolls", 8 * 64, 2),
+    "pg": ("pg", "PGPolicy", "CartPole", {}, "onpolicy", 400, 2),
+    "a2c": ("pg", "A2CPolicy", "CartPole", {}, "onpolicy", 200, 2),
+    "marwil": ("marwil", "MARWILPolicy", "CartPole", {"beta": 1.0},
+               "offline", 1000, 2),
+    "bc": ("marwil", "MARWILPolicy", "CartPole", {"beta": 0.0},
+           "offline", 1000, 2),
+    "dqn": ("dqn", "DQNPolicy", "CartPole", {"double_q": True},
+            "transitions", 64, 2),
+    "simple_q": ("dqn", "DQNPolicy", "CartPole", {"double_q": False},
+                 "transitions", 64, 2),
+    "r2d2": ("r2d2", "R2D2Policy", "RepeatPrevEnv",
+             {"model": {"use_lstm": True, "lstm_cell_size": 32,
+                        "max_seq_len": 20, "fcnet_hiddens": [32]}},
+             "sequences", 32, 2),
+    "sac": ("sac", "SACPolicy", "Pendulum", {}, "continuous", 256, 2),
+    "ddpg": ("ddpg", "DDPGPolicy", "Pendulum", {}, "continuous", 256, 2),
+    "td3": ("ddpg", "DDPGPolicy", "Pendulum",
+            {"twin_q": True, "policy_delay": 2,
+             "smooth_target_policy": True}, "continuous", 256, 2),
+    "cql": ("cql", "CQLPolicy", "Pendulum", {"cql_n_actions": 2},
+            "continuous", 64, 2),
+    "crr": ("crr", "CRRPolicy", "Pendulum", {}, "continuous", 64, 2),
+}
+
+
+def _zoo_batch(kind, n, obs_dim, act_space, rng):
+    """A batch of ``kind`` with ``n`` rows (``n`` sequences of 20 for
+    "sequences"), from numpy's generator ``rng``."""
+    import numpy as np
+
+    def obs(*shape):
+        return rng.standard_normal(shape + (obs_dim,)).astype(np.float32)
+
+    term = rng.random(n) < 0.05
+    if kind == "sequences":
+        S, L = n, 20
+        lens = rng.integers(5, L + 1, S)
+        mask = (np.arange(L)[None] < lens[:, None]).astype(np.float32)
+        ends = np.zeros((S, L), bool)
+        ends[np.arange(S), lens - 1] = rng.random(S) < 0.5
+        return {"obs": obs(S, L) * mask[..., None],
+                "actions": rng.integers(0, 2, (S, L)) * mask.astype(int),
+                "rewards": rng.random((S, L)).astype(np.float32) * mask,
+                "terminateds": ends, "seq_mask": mask,
+                "state_in_c": rng.standard_normal((S, 32)).astype(
+                    np.float32),
+                "state_in_h": np.tanh(rng.standard_normal((S, 32))).astype(
+                    np.float32)}
+    if kind == "continuous":
+        high = float(act_space.high)
+        return {"obs": obs(n), "new_obs": obs(n),
+                "actions": rng.uniform(-0.95 * high, 0.95 * high,
+                                       (n,) + act_space.shape).astype(
+                    np.float32),
+                "rewards": rng.standard_normal(n).astype(np.float32),
+                "terminateds": term,
+                "weights": rng.uniform(0.2, 1.0, n).astype(np.float32)}
+    out = {"obs": obs(n), "new_obs": obs(n),
+           "actions": rng.integers(0, act_space.n, n),
+           "rewards": rng.random(n).astype(np.float32),
+           "terminateds": term,
+           "truncateds": ~term & (rng.random(n) < 0.05),
+           "action_logp": (np.log(0.5) + 0.3 * rng.standard_normal(n)
+                           ).astype(np.float32),
+           "advantages": rng.standard_normal(n).astype(np.float32),
+           "value_targets": rng.standard_normal(n).astype(np.float32),
+           "eps_id": np.cumsum(rng.random(n) < 0.02)}
+    if kind == "transitions":
+        out["rewards"] = 3 * out["rewards"]  # |td| on both Huber sides
+    return out
+
+
+def _zoo_modules(policy):
+    """Every network of a policy by name: the model and its target, or
+    the actor, critic and their targets."""
+    return {name: getattr(policy, name) for name in
+            ("model", "target_model", "actor", "critic", "target_actor",
+             "target_critic") if hasattr(policy, name)}
+
+
+def _zoo_opts(policy):
+    return [getattr(policy, name) for name in
+            ("opt", "actor_opt", "critic_opt", "alpha_opt")
+            if hasattr(policy, name)]
+
+
+def _zoo_flat(policy):
+    """Every parameter and log_alpha, on the host, by name."""
+    out = {f"{m}.{k}": v.detach().cpu().numpy().copy()
+           for m, module in _zoo_modules(policy).items()
+           for k, v in module.state_dict().items()}
+    if hasattr(policy, "log_alpha"):
+        out["log_alpha"] = policy.log_alpha.detach().cpu().numpy().copy()
+    return out
+
+
+def _zoo_prepare(cpu, gpu, seed):
+    """The same perturbed weights, lowered log_std bias and warmed Adam
+    moments on both policies."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, module in _zoo_modules(cpu).items():
+            target = _zoo_modules(gpu)[name]
+            for p, q in zip(module.parameters(), target.parameters()):
+                noise = RL_ZOO_NOISE_STD * torch.randn(p.shape,
+                                                       generator=gen)
+                p.add_(noise)
+                q.add_(noise.to(q.device))
+        for policy in (cpu, gpu):
+            if hasattr(getattr(policy, "actor", None), "log_std"):
+                policy.actor.log_std.bias.sub_(2.0)
+    for policy in (cpu, gpu):
+        for opt in _zoo_opts(policy):
+            for group in opt.param_groups:
+                for p in group["params"]:
+                    opt.state[p] = {
+                        "count": RL_ZOO_WARM_COUNT,
+                        "mu": torch.zeros_like(p),
+                        "nu": torch.full_like(p, RL_ZOO_WARM_NU)}
+
+
+def _zoo_on_card(policy):
+    """Every network, log_alpha and Adam moment of ``policy`` lies on the
+    card; returns how many tensors that is."""
+    assert policy.device.type == "cuda", policy.device
+    tensors = [t for m in _zoo_modules(policy).values()
+               for t in m.state_dict().values()]
+    if hasattr(policy, "log_alpha"):
+        tensors.append(policy.log_alpha)
+    states = [opt.state_dict()["state"] for opt in _zoo_opts(policy)]
+    assert any(states), "no optimizer has moments"  # (CRR's alpha: none)
+    tensors += [t for state in states for s in state.values()
+                for t in s.values() if isinstance(t, torch.Tensor)]
+    assert all(t.is_cuda for t in tensors), \
+        "a network, log_alpha or an Adam moment left the card"
+    return len(tensors)
+
+
+def _same_tree(a, b, path=""):
+    import numpy as np
+    if isinstance(a, dict):
+        assert set(a) == set(b), path
+        for k in a:
+            _same_tree(a[k], b[k], f"{path}/{k}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same_tree(x, y, f"{path}/{i}")
+    elif isinstance(a, np.ndarray):
+        assert np.array_equal(a, b), path
+    else:
+        assert a == b, path
+
+
+def rl_zoo_parity(label):
+    """RL_ZOO_PARITY[label]'s policy on the card against the CPU."""
+    import importlib
+    import numpy as np
+    from ray_tpu_torch.rllib import env as envs
+    from ray_tpu_torch.rllib.sample_batch import SampleBatch
+    module, cls_name, env_name, cfg, kind, rows, calls = \
+        RL_ZOO_PARITY[label]
+    cls = getattr(importlib.import_module(
+        f"ray_tpu_torch.rllib.algorithms.{module}"), cls_name)
+    env = getattr(envs, env_name)({})
+    spaces = (env.observation_space, env.action_space)
+    cfg = {"seed": SEED, **cfg}
+    cpu = cls(*spaces, dict(cfg, _device="cpu"))
+    gpu = cls(*spaces, dict(cfg))
+    _zoo_prepare(cpu, gpu, SEED + 1)
+    before = _zoo_flat(cpu)
+    _same_tree(before, _zoo_flat(gpu))
+    batch = _zoo_batch(kind, rows, spaces[0].shape[0], spaces[1],
+                       np.random.default_rng(SEED))
+    learn = "learn_on_sequences" if kind == "sequences" else \
+        "learn_on_batch"
+    ms = []
+    for _ in range(calls):
+        if hasattr(cpu, "_update_noise"):  # drawn once, on the host
+            noise = cpu._update_noise(rows)
+            cpu._update_noise = lambda b, n=noise: {
+                k: v.clone() for k, v in n.items()}
+            gpu._update_noise = lambda b, n=noise: {
+                k: v.to("cuda") for k, v in n.items()}
+        want = getattr(cpu, learn)(
+            SampleBatch(batch) if learn == "learn_on_batch" else batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = getattr(gpu, learn)(
+            SampleBatch(batch) if learn == "learn_on_batch" else batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    cw, gw = _zoo_flat(cpu), _zoo_flat(gpu)
+    update_err = {}
+    for name, b in before.items():
+        upd = cw[name] - b
+        scale = float(np.abs(upd).max())
+        if scale == 0.0:  # a tensor the CPU left as it was
+            assert np.array_equal(gw[name], b), (label, name)
+            update_err[name] = 0.0
+            continue
+        update_err[name] = float(np.abs((gw[name] - b) - upd).max()) / scale
+    moved = sum(1 for n in before if not np.array_equal(cw[n], before[n]))
+    td = {}
+    if "_td_error_np" in want:
+        w, g = want.pop("_td_error_np"), got.pop("_td_error_np")
+        td["td_error_err"] = float(np.abs(g - w).max() / np.abs(w).max())
+    stats_err = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+                 for k in want}
+    # a stat below 1 in magnitude is held absolutely: a mean of terms
+    # that cancel (CRR's mean advantage) loses relative digits to the
+    # cancellation, not to the device
+    held = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1.0)
+            for k in want}
+    failed = [f"update {n}" for n, e in update_err.items()
+              if e > RL_UPDATE_TOL] + [f"stat {k}" for k, e in held.items()
+                                       if e > RL_STATS_RTOL]
+    failed += [k for k, e in td.items() if e > RL_STATS_RTOL]
+    failed += [] if moved else ["nothing moved"]
+    tensors = _zoo_on_card(gpu)
+    # each state crosses devices: the card's restored on the CPU, the
+    # CPU's on the card, exactly
+    other = dict(cfg, seed=SEED + 7)
+    cpu2 = cls(*spaces, dict(other, _device="cpu"))
+    cpu2.set_state(gpu.get_state())
+    _same_tree(cpu2.get_state(), gpu.get_state())
+    gpu2 = cls(*spaces, dict(other))
+    gpu2.set_state(cpu.get_state())
+    _same_tree(gpu2.get_state(), cpu.get_state())
+    _zoo_on_card(gpu2)
+    return {"ok": not failed, "failed": failed, "policy": cls_name,
+            "config": cfg, "rows": rows, "calls": calls,
+            "update_err": update_err,
+            "worst_update_err": max(update_err.values()),
+            "tensors_moved": moved, "stats": got, "stats_rel_err": stats_err,
+            "stats_held_err": held, **td, "tensors_on_card": tensors,
+            "gpu_learn_ms": ms}
+
+
+class _UpdateClock:
+    """Times each learner update of a policy (synchronised before and
+    after): ``learn_on_batch``, R2D2's ``learn_on_sequences`` and A3C's
+    ``apply_gradients`` each take one.  :meth:`trace` runs the last
+    update's call again under a device-only trace."""
+
+    def __init__(self, policy):
+        self.ms, self.last = [], None
+        for name in ("learn_on_batch", "learn_on_sequences",
+                     "apply_gradients"):
+            if hasattr(policy, name):
+                setattr(policy, name, self._timed(getattr(policy, name)))
+
+    def _timed(self, fn):
+        def timed(*args):
+            self.last = (fn, args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed
+
+    def trace(self, n):
+        """The last update's call ``n`` times more (on the same inputs,
+        after the measurement) under a device-only trace: its kernels'
+        busy ms (the union of their intervals) per update."""
+        from torch.profiler import ProfilerActivity, profile
+        fn, args = self.last
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                torch.cuda.synchronize()
+                fn(*args)
+                torch.cuda.synchronize()
+        spans = [(ev.time_range.start, ev.time_range.end)
+                 for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA
+                 and not getattr(ev, "is_user_annotation", False)]
+        assert spans, "no kernel in the learner's device-only trace"
+        return {"updates": n, "kernels_per_update": len(spans) / n,
+                "busy_ms_per_update": _union_ms(spans) / n}
+
+
+def _loss_values(result):
+    return {k: v for k, v in result.items()
+            if "loss" in k and isinstance(v, float)}
+
+
+def rl_zoo_example(name):
+    """A tuned example's yaml, its learner on the card: train() until the
+    first update, then RL_ZOO_WINDOW_S of train() calls, then (for
+    RL_ZOO_CRITERION's yamls) on to the yaml's stop criterion, then the
+    last update traced.  ``criterion_met_at``: the first iteration whose
+    result met the yaml's criterion, if one did."""
+    import numpy as np
+    from ray_tpu_torch.rllib import tuned_examples
+    path = os.path.join(os.path.dirname(tuned_examples.__file__),
+                        name + ".yaml")
+    t_all = t0 = time.perf_counter()
+    algo, spec = tuned_examples.load(path)
+    build_s = time.perf_counter() - t0
+    stop, first, met = spec.get("stop") or {}, {}, []
+
+    def train():
+        r = algo.train()
+        if not first:
+            first.update(r)
+        if not met and tuned_examples._criteria_met(stop, r, first):
+            met.append(algo.iteration)
+        return r
+
+    try:
+        policy = algo.get_policy()
+        clock = _UpdateClock(policy)
+        t0 = time.perf_counter()
+        while not clock.ms:
+            train()
+            assert algo.iteration <= RL_ZOO_MAX_WARMUP, (name, "no update")
+        warm_s = time.perf_counter() - t0
+        warm = algo.iteration
+        clock.ms = []
+        steps0, rates, losses, trains = algo._timesteps_total, [], [], 0
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < RL_ZOO_WINDOW_S:
+            t1, n0 = time.perf_counter(), algo._timesteps_total
+            r = train()
+            rates.append((algo._timesteps_total - n0)
+                         / (time.perf_counter() - t1))
+            losses.append(_loss_values(r))
+            trains += 1
+        wall = time.perf_counter() - t0
+        assert clock.ms and all(losses), (name, losses)
+        assert all(np.isfinite(v) for d in losses for v in d.values()), \
+            (name, losses)
+        ms = list(clock.ms)
+        offline = bool(spec.get("offline_input"))
+        out = {"example": name, "algo": spec["run"], "build_s": build_s,
+               "warmup_trains": warm, "warmup_s": warm_s,
+               "window_s": wall, "trains": trains,
+               ("rows_per_s" if offline else "env_steps_per_s"):
+                   (algo._timesteps_total - steps0) / wall,
+               ("rows_per_s_per_train" if offline
+                else "env_steps_per_s_per_train"): [min(rates),
+                                                    max(rates)],
+               "updates": len(ms), "updates_per_train": len(ms) / trains,
+               "learner_ms_per_update": statistics.mean(ms),
+               "learner_ms_range": [min(ms), max(ms)],
+               "learner_share_of_train": sum(ms) / (wall * 1e3),
+               "last_losses": losses[-1]}
+        if name in RL_ZOO_CRITERION:
+            t0 = time.perf_counter()
+            budget = int(stop.get("training_iteration", 50))
+            while not met and algo.iteration < budget:
+                r = train()
+            out["criterion"] = {
+                "passed": bool(met), "iterations": met[0] if met else None,
+                "budget": budget, "iterations_run": algo.iteration,
+                "episode_reward_mean": r["episode_reward_mean"],
+                "seconds_after_window": time.perf_counter() - t0}
+            assert met, (name, out["criterion"])
+        out["criterion_met_at"] = met[0] if met else None
+        out["traced"] = clock.trace(RL_ZOO_TRACE_UPDATES)
+        # the device's busy share of an untraced update: the rest is the
+        # host's (dispatch, syncs, host-side batch work)
+        out["device_busy_share"] = out["traced"]["busy_ms_per_update"] \
+            / out["learner_ms_per_update"]
+        out["tensors_on_card"] = _zoo_on_card(policy)
+    finally:
+        algo.stop()
+    out["seconds"] = time.perf_counter() - t_all
+    return out
+
+
+def phase_rl_zoo():
+    """The model-free algorithm zoo with its learners on the card:
+    rl_zoo_parity for each RL_ZOO_PARITY policy, then each tuned example
+    of RL_ZOO_EXAMPLES on the port's runtime, RL_ZOO_CRITERION's to their
+    criteria.  Returns the launches of the port's kernels over the
+    runs (none: these learners' networks are plain torch)."""
+    import ray_tpu_torch as rt
+    t0 = time.perf_counter()
+    with no_tf32():
+        parity = {}
+        for label in RL_ZOO_PARITY:
+            t1 = time.perf_counter()
+            parity[label] = rl_zoo_parity(label)
+            parity[label]["seconds"] = time.perf_counter() - t1
+    ok = all(p["ok"] for p in parity.values())
+    emit({"phase": "rl_zoo_parity", "ok": ok, "policies": parity,
+          "seconds": time.perf_counter() - t0,
+          "update_tol": RL_UPDATE_TOL, "stats_rtol": RL_STATS_RTOL,
+          "card": card_line()})
+    assert ok, {k: p["failed"] for k, p in parity.items() if p["failed"]}
+    _zero_all_counts()
+    before = _all_counts()
+    t0 = time.perf_counter()
+    rt.init(num_cpus=16, object_store_memory=RL_STORE_MIB * 2**20)
+    init_s = time.perf_counter() - t0
+    try:
+        examples = [rl_zoo_example(name) for name in RL_ZOO_EXAMPLES]
+    finally:
+        t1 = time.perf_counter()
+        rt.shutdown()
+        shutdown_s = time.perf_counter() - t1
+    launches = _delta(before, _all_counts())
+    emit({"phase": "rl_zoo", "ok": True, "init_s": init_s,
+          "shutdown_s": shutdown_s, "examples": examples,
+          "launches": launches,
+          "seconds": time.perf_counter() - t0, "card": card_line()})
+    return launches
+
+
 def _case_is(c, name):
     """Whether case ``c`` ran kernel ``name`` (a forward's, or one part of
     a backward pair's; chunk-mode names too)."""
@@ -3950,11 +4417,14 @@ def main() -> int:
     sharded = phase_sharded()
     _free()
     rl = phase_rl()
+    _free()
+    rl_zoo = phase_rl_zoo()
     # the runtime, the toy decoder and RL's models launch no kernel of
     # the port
     assert not any(runtime.values()), runtime
     assert not any(serve_batching.values()), serve_batching
     assert not any(rl.values()), rl
+    assert not any(rl_zoo.values()), rl_zoo
     emit(kernel_summary(cases, {"serve": serve, "train": train,
                                 "train_xl": train_xl, "vit": vit,
                                 "moe": moe, "resnet": resnet,
@@ -3962,7 +4432,8 @@ def main() -> int:
                                 "train_gang": train_gang,
                                 "long_context": long_context,
                                 "seq_parallel": seq_parallel,
-                                "sharded": sharded, "rl": rl}, usage))
+                                "sharded": sharded, "rl": rl,
+                                "rl_zoo": rl_zoo}, usage))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -192,6 +192,20 @@ def twin_q_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     return fcnet_state_dict_from_jax(params)
 
 
+def squashed_actor_state_dict_from_jax(params: Mapping
+                                       ) -> Dict[str, torch.Tensor]:
+    """Map a flax SAC ``_SquashedActor`` tree (``fc_<i>``, ``mean``,
+    ``log_std``) onto ``rllib.algorithms.sac._SquashedActor``."""
+    return fcnet_state_dict_from_jax(params)
+
+
+def det_actor_state_dict_from_jax(params: Mapping
+                                  ) -> Dict[str, torch.Tensor]:
+    """Map a flax DDPG ``_DetActor`` tree (``fc_<i>``, ``out``) onto
+    ``rllib.algorithms.ddpg._DetActor``."""
+    return fcnet_state_dict_from_jax(params)
+
+
 _LSTM_GATES = ("i", "f", "g", "o")
 
 

@@ -513,17 +513,24 @@ def test_multi_card_learner_refused(n):
 
 
 def test_unported_algorithms_raise_naming_roadmap():
+    """The JAX package's algorithm names that the port has brought
+    import; every other one raises naming ROADMAP.md's queue 1, item 6."""
     import ray_tpu.rllib.algorithms as jalgos
     import ray_tpu_torch.rllib.algorithms as talgos
     jnames = {n for n in dir(jalgos) if n[0].isupper()}
-    assert {"PPO", "PPOConfig", "PPOPolicy"} <= jnames
+    ported = {n for n in jnames if n not in talgos._LATER}
+    assert {"PPO", "IMPALA", "APPO", "PG", "A2C", "A3C", "MARWIL", "BC",
+            "DQN", "SimpleQ", "ApexDQN", "R2D2", "SAC", "DDPG", "TD3",
+            "ApexDDPG", "CQL", "CRR"} <= ported
+    for name in sorted(ported):
+        assert getattr(talgos, name).__name__ == name
     missing = 0
-    for name in sorted(jnames - {"PPO", "PPOConfig", "PPOPolicy"}):
+    for name in sorted(jnames - ported):
         with pytest.raises(NotImplementedError,
                            match="queue 1, item 6"):
             getattr(talgos, name)
         missing += 1
-    assert missing > 50
+    assert missing > 25
     jrl = __import__("ray_tpu.rllib", fromlist=["*"])
     for name in dir(jrl):
         if name[0].isupper() and name != "JaxPolicy":
