@@ -3732,13 +3732,34 @@ RL_ZOO_NOISE_STD = 0.05
 RL_ZOO_WINDOW_S = 2.5
 RL_ZOO_MAX_WARMUP = 300
 RL_ZOO_TRACE_UPDATES = 16
+# the meta, model-based and search learners' parity also holds every
+# parameter's Adam moments within RL_UPDATE_TOL of their largest; a
+# tensor whose largest move is below RL_ZOO_RESOLUTION ulps of its
+# largest weight (a move read from the f32 weights resolves only an ulp:
+# DT's LayerNorm scales move by 2-3 ulps, its torso's by about 800) is
+# held by those moments alone
+RL_ZOO_RESOLUTION = 2 / RL_UPDATE_TOL
+# the attention's key biases have a zero gradient in exact arithmetic (the
+# softmax cancels q . b), so Adam scales each device's rounding up to a
+# step: their first moment is held below RL_ZOO_ROUNDING of their module's
+# largest on both devices instead (the CPU tests' rule)
+RL_ZOO_ZERO_GRAD = ("attn.key.bias",)
+RL_ZOO_ROUNDING = 1e-6
 RL_ZOO_EXAMPLES = (
     "cartpole-impala", "cartpole-appo", "cartpole-pg", "cartpole-a2c",
     "cartpole-a3c", "cartpole-marwil", "cartpole-bc", "cartpole-dqn",
     "cartpole-simpleq", "cartpole-apex-dqn", "cartpole-r2d2",
     "pendulum-sac", "pendulum-ddpg", "pendulum-td3", "pendulum-apex-ddpg",
-    "pendulum-cql", "pendulum-crr")
-RL_ZOO_CRITERION = ("cartpole-impala", "cartpole-appo")
+    "pendulum-cql", "pendulum-crr", "cartpole-es", "cartpole-ars",
+    "bandit-linucb", "bandit-lints", "rps-alphastar", "cartpole-mass-maml",
+    "cartpole-mass-mbmpo", "cartpole-dt", "catch-alphazero",
+    "simple-rec-slateq")
+RL_ZOO_CRITERION = ("cartpole-impala", "cartpole-appo",
+                    "cartpole-mass-mbmpo", "cartpole-dt")
+# examples whose learner is host numpy: ES/ARS (the policy acts on the
+# card, the search is numpy) and the bandits (no device code)
+RL_ZOO_HOST_LEARNERS = ("cartpole-es", "cartpole-ars", "bandit-linucb",
+                        "bandit-lints")
 # label: (module, policy class, env, config, batch kind, rows, calls)
 RL_ZOO_PARITY = {
     "impala": ("impala", "ImpalaPolicy", "CartPole",
@@ -3767,7 +3788,29 @@ RL_ZOO_PARITY = {
     "cql": ("cql", "CQLPolicy", "Pendulum", {"cql_n_actions": 2},
             "continuous", 64, 2),
     "crr": ("crr", "CRRPolicy", "Pendulum", {}, "continuous", 64, 2),
+    # the meta, model-based and search learners (their yamls' sizes):
+    # MAML's meta-update on 2 tasks of 200 rows; MBMPO's ensemble step
+    # (K = 2 members, 256-row bootstrap minibatches of 400 rows) and its
+    # meta-step (16 imagined envs, horizon 16; entropy_coeff 0.1, since
+    # the imagined ratio's logp is not detached and a discrete policy's
+    # own tensors learn only through the entropy); DT's update on 64
+    # windows of 20; AlphaZero's on 128 boards of 6 x 6; SlateQ's on 64
+    # transitions
+    "maml": ("maml", "MAMLPolicy", "CartPoleMass",
+             {"inner_lr": 0.05, "entropy_coeff": 0.01}, "meta", 200, 2),
+    "mbmpo_models": ("mbmpo", "MBMPOPolicy", "CartPoleMass",
+                     {"ensemble_size": 2}, "models", 400, 2),
+    "mbmpo_meta": ("mbmpo", "MBMPOPolicy", "CartPoleMass",
+                   {"ensemble_size": 2, "horizon": 16,
+                    "entropy_coeff": 0.1}, "imagined", 16, 2),
+    "dt": ("dt", "DTLearner", "CartPole", {}, "dt", 64, 2),
+    "alpha_zero": ("alpha_zero", "AlphaZeroLearner", "PixelCatch", {},
+                   "search", 128, 2),
+    "slateq": ("slateq", "SlateQLearner", "SimpleRecEnv", {}, "slates", 64,
+               2),
 }
+#: the env configs of RL_ZOO_PARITY's learners where not the default
+RL_ZOO_ENV_CONFIG = {"PixelCatch": {"height": 6, "width": 6}}
 
 
 def _zoo_batch(kind, n, obs_dim, act_space, rng):
@@ -3817,17 +3860,123 @@ def _zoo_batch(kind, n, obs_dim, act_space, rng):
     return out
 
 
+def _zoo_learner_batch(kind, n, env, rng):
+    """A batch for one of the meta, model-based or search learners:
+    numpy columns (``"meta"``: pre and post columns of 2 tasks,
+    ``"models"``: replay rows, ``"imagined"``: the imagined envs' start
+    states), from numpy's generator ``rng``."""
+    import numpy as np
+    if kind == "meta":
+        def columns():
+            return {"obs": rng.standard_normal((2, n, 4)).astype(
+                        np.float32),
+                    "actions": rng.integers(0, 2, (2, n)),
+                    "action_logp": (np.log(0.5) + 0.2 * rng.standard_normal(
+                        (2, n))).astype(np.float32),
+                    "advantages": (3 * rng.standard_normal((2, n)) + 1
+                                   ).astype(np.float32),
+                    "value_targets": rng.standard_normal((2, n)).astype(
+                        np.float32)}
+        return {"pre": columns(), "post": columns()}
+    if kind == "models":
+        obs = rng.standard_normal((n, 4)).astype(np.float32)
+        return {"obs": obs, "act": rng.integers(0, 2, n),
+                "nobs": (obs + 0.05 * rng.standard_normal(obs.shape)
+                         ).astype(np.float32),
+                "rew": np.ones(n, np.float32)}
+    if kind == "imagined":
+        return {"obs0": 0.1 * rng.standard_normal((n, 4)).astype(
+            np.float32)}
+    if kind == "dt":
+        K = 20
+        lens = rng.integers(1, K + 1, n)
+        mask = (np.arange(K)[None] < lens[:, None]).astype(np.float32)
+        act = rng.integers(0, 2, (n, K)) * mask.astype(np.int64)
+        prev = np.full((n, K), -1, np.int64)
+        prev[:, 1:] = np.where(mask[:, 1:] > 0, act[:, :-1], -1)
+        return {"obs": rng.standard_normal((n, K, 4)).astype(np.float32)
+                * mask[..., None], "act": act, "prev_act": prev,
+                "rtg": (rng.uniform(0, 100, (n, K, 1)) * mask[..., None]
+                        ).astype(np.float32), "mask": mask}
+    if kind == "search":
+        return {"obs": (rng.random((n, 36)) < 0.1).astype(np.float32),
+                "pi": rng.dirichlet(np.ones(3), n).astype(np.float32),
+                "z": rng.uniform(-1, 1, n).astype(np.float32)}
+    assert kind == "slates", kind
+    t, d = env.topic_dim, env.num_docs
+
+    def unit(*shape):
+        v = rng.standard_normal(shape + (t,))
+        return (v / np.linalg.norm(v, axis=-1, keepdims=True)).astype(
+            np.float32)
+    click = (rng.random(n) < 0.6).astype(np.float32)
+    return {"state": unit(n), "clicked_doc": unit(n) * click[:, None],
+            "click_mask": click,
+            "reward": (rng.random(n) * click).astype(np.float32),
+            "next_state": unit(n), "next_docs": unit(n, d),
+            "done": (rng.random(n) < 0.05).astype(np.float32)}
+
+
+def _zoo_build(cls, env, cfg, device):
+    """A policy of RL_ZOO_PARITY on ``device`` ("cpu", or None for the
+    card): a TorchPolicy subclass from the env's spaces, a learner from
+    the sizes its algorithm gives it."""
+    import numpy as np
+    name = cls.__name__
+    if name == "DTLearner":
+        return cls(env.action_space.n,
+                   int(np.prod(env.observation_space.shape)), cfg, device)
+    if name == "AlphaZeroLearner":
+        return cls(int(np.prod(env.observation_space.shape)),
+                   env.action_space.n, cfg, device)
+    if name == "SlateQLearner":
+        return cls(env.topic_dim, env.slate_size, cfg, device)
+    spaces = (env.observation_space, env.action_space)
+    return cls(*spaces, dict(cfg, _device=device) if device else dict(cfg))
+
+
+def _zoo_learner_step(policy, kind, batch, draws):
+    """One update of a meta, model-based or search learner on ``batch``
+    (numpy) with ``draws`` (host tensors: MBMPO's bootstrap indices or
+    action noise); its stats as floats."""
+    dev = policy.device
+    t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    if kind == "meta":
+        return {"meta_loss": float(policy.meta_update(batch["pre"],
+                                                      batch["post"]))}
+    if kind == "models":
+        loss = policy._train_models(
+            t(batch["obs"]), t(batch["act"]), t(batch["nobs"]),
+            t(batch["rew"]), draws["idx"].to(dev))
+        return {"model_loss": float(loss)}
+    if kind == "imagined":
+        loss, rew = policy._meta_step(
+            t(batch["obs0"]), {k: v.to(dev) for k, v in draws.items()})
+        return {"meta_loss": float(loss), "imagined_reward_mean": float(rew)}
+    out = policy.update(batch)
+    names = {"dt": ("loss",), "search": ("policy_loss", "value_loss"),
+             "slates": ("loss", "td_error_abs")}[kind]
+    out = out if isinstance(out, tuple) else (out,)
+    return {k: float(v) for k, v in zip(names, out)}
+
+
+#: RL_ZOO_PARITY's batch kinds of the meta, model-based and search
+#: learners
+_ZOO_LEARNER_KINDS = ("meta", "models", "imagined", "dt", "search",
+                      "slates")
+
+
 def _zoo_modules(policy):
     """Every network of a policy by name: the model and its target, or
     the actor, critic and their targets."""
     return {name: getattr(policy, name) for name in
             ("model", "target_model", "actor", "critic", "target_actor",
-             "target_critic") if hasattr(policy, name)}
+             "target_critic", "dyn") if hasattr(policy, name)}
 
 
 def _zoo_opts(policy):
     return [getattr(policy, name) for name in
-            ("opt", "actor_opt", "critic_opt", "alpha_opt")
+            ("opt", "actor_opt", "critic_opt", "alpha_opt", "dyn_opt")
             if hasattr(policy, name)]
 
 
@@ -3883,6 +4032,45 @@ def _zoo_on_card(policy):
     return len(tensors)
 
 
+def _zoo_moment_err(cpu, gpu):
+    """Each parameter's Adam moments (mu and nu) on the card against the
+    CPU's: the largest difference over the CPU's largest element, the
+    worse of the two, by the parameter's ``_zoo_flat`` name.  A
+    RL_ZOO_ZERO_GRAD tensor's entry is instead its largest first moment
+    on either device over the largest first moment of its module on the
+    CPU (rounding, held below RL_ZOO_ROUNDING)."""
+    import numpy as np
+    err = {}
+    for m, module in _zoo_modules(cpu).items():
+        gmod = _zoo_modules(gpu)[m]
+        copt = {id(p): o for o in _zoo_opts(cpu)
+                for g in o.param_groups for p in g["params"]}
+        gopt = {id(p): o for o in _zoo_opts(gpu)
+                for g in o.param_groups for p in g["params"]}
+        for (name, p), q in zip(module.named_parameters(),
+                                gmod.parameters()):
+            if id(p) not in copt:  # a target network: no moments
+                continue
+            if name.endswith(RL_ZOO_ZERO_GRAD):
+                top = max(float(copt[id(x)].state[x]["mu"].abs().max())
+                          for x in module.parameters() if id(x) in copt)
+                mu = max(float(copt[id(p)].state[p]["mu"].abs().max()),
+                         float(gopt[id(q)].state[q]["mu"].abs().max()))
+                err[f"{m}.{name}"] = mu / top
+                continue
+            worst = 0.0
+            for key in ("mu", "nu"):
+                c = copt[id(p)].state[p][key].detach().cpu().numpy()
+                g = gopt[id(q)].state[q][key].detach().cpu().numpy()
+                scale = float(np.abs(c).max())
+                if scale == 0.0:
+                    assert np.array_equal(g, c), (m, name, key)
+                    continue
+                worst = max(worst, float(np.abs(g - c).max()) / scale)
+            err[f"{m}.{name}"] = worst
+    return err
+
+
 def _same_tree(a, b, path=""):
     import numpy as np
     if isinstance(a, dict):
@@ -3907,22 +4095,40 @@ def rl_zoo_parity(label):
     from ray_tpu_torch.rllib.sample_batch import SampleBatch
     module, cls_name, env_name, cfg, kind, rows, calls = \
         RL_ZOO_PARITY[label]
-    cls = getattr(importlib.import_module(
-        f"ray_tpu_torch.rllib.algorithms.{module}"), cls_name)
-    env = getattr(envs, env_name)({})
-    spaces = (env.observation_space, env.action_space)
+    mod = importlib.import_module(
+        f"ray_tpu_torch.rllib.algorithms.{module}")
+    cls = getattr(mod, cls_name)
+    env_cls = getattr(envs, env_name, None) or getattr(mod, env_name)
+    env = env_cls(dict(RL_ZOO_ENV_CONFIG.get(env_name, {})))
     cfg = {"seed": SEED, **cfg}
-    cpu = cls(*spaces, dict(cfg, _device="cpu"))
-    gpu = cls(*spaces, dict(cfg))
+    cpu = _zoo_build(cls, env, cfg, "cpu")
+    gpu = _zoo_build(cls, env, cfg, None)
     _zoo_prepare(cpu, gpu, SEED + 1)
     before = _zoo_flat(cpu)
     _same_tree(before, _zoo_flat(gpu))
-    batch = _zoo_batch(kind, rows, spaces[0].shape[0], spaces[1],
-                       np.random.default_rng(SEED))
+    learner = kind in _ZOO_LEARNER_KINDS
+    if learner:
+        batch = _zoo_learner_batch(kind, rows, env,
+                                   np.random.default_rng(SEED))
+    else:
+        batch = _zoo_batch(kind, rows, env.observation_space.shape[0],
+                           env.action_space, np.random.default_rng(SEED))
     learn = "learn_on_sequences" if kind == "sequences" else \
         "learn_on_batch"
     ms = []
     for _ in range(calls):
+        if learner:
+            # MBMPO's draws, once on the host (the CPU policy's)
+            draws = ({"models": lambda: cpu._update_noise("models", rows),
+                      "imagined": lambda: cpu._update_noise("meta", rows)}
+                     .get(kind, dict)())
+            want = _zoo_learner_step(cpu, kind, batch, draws)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = _zoo_learner_step(gpu, kind, batch, draws)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            continue
         if hasattr(cpu, "_update_noise"):  # drawn once, on the host
             noise = cpu._update_noise(rows)
             cpu._update_noise = lambda b, n=noise: {
@@ -3938,13 +4144,24 @@ def rl_zoo_parity(label):
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
     cw, gw = _zoo_flat(cpu), _zoo_flat(gpu)
-    update_err = {}
+    update_err, by_moments = {}, []
+    moment_err = _zoo_moment_err(cpu, gpu) if learner else {}
     for name, b in before.items():
         upd = cw[name] - b
         scale = float(np.abs(upd).max())
         if scale == 0.0:  # a tensor the CPU left as it was
             assert np.array_equal(gw[name], b), (label, name)
             update_err[name] = 0.0
+            continue
+        if name.endswith(RL_ZOO_ZERO_GRAD) and name in moment_err:
+            update_err[name] = None  # held as rounding, below
+            continue
+        if learner and name in moment_err and scale < RL_ZOO_RESOLUTION \
+                * float(np.spacing(np.abs(b).max().astype(np.float32))):
+            # a move of a few ulps of the weights: held by the Adam
+            # moments that made it
+            update_err[name] = moment_err[name]
+            by_moments.append(name)
             continue
         update_err[name] = float(np.abs((gw[name] - b) - upd).max()) / scale
     moved = sum(1 for n in before if not np.array_equal(cw[n], before[n]))
@@ -3960,53 +4177,75 @@ def rl_zoo_parity(label):
     held = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1.0)
             for k in want}
     failed = [f"update {n}" for n, e in update_err.items()
-              if e > RL_UPDATE_TOL] + [f"stat {k}" for k, e in held.items()
-                                       if e > RL_STATS_RTOL]
+              if e is not None and e > RL_UPDATE_TOL] + [
+        f"stat {k}" for k, e in held.items() if e > RL_STATS_RTOL]
+    failed += [f"moments {n}" for n, e in moment_err.items()
+               if e > (RL_ZOO_ROUNDING if n.endswith(RL_ZOO_ZERO_GRAD)
+                       else RL_UPDATE_TOL)]
     failed += [k for k, e in td.items() if e > RL_STATS_RTOL]
     failed += [] if moved else ["nothing moved"]
     tensors = _zoo_on_card(gpu)
     # each state crosses devices: the card's restored on the CPU, the
     # CPU's on the card, exactly
     other = dict(cfg, seed=SEED + 7)
-    cpu2 = cls(*spaces, dict(other, _device="cpu"))
+    cpu2 = _zoo_build(cls, env, other, "cpu")
     cpu2.set_state(gpu.get_state())
     _same_tree(cpu2.get_state(), gpu.get_state())
-    gpu2 = cls(*spaces, dict(other))
+    gpu2 = _zoo_build(cls, env, other, None)
     gpu2.set_state(cpu.get_state())
     _same_tree(gpu2.get_state(), cpu.get_state())
     _zoo_on_card(gpu2)
     return {"ok": not failed, "failed": failed, "policy": cls_name,
             "config": cfg, "rows": rows, "calls": calls,
             "update_err": update_err,
-            "worst_update_err": max(update_err.values()),
+            "worst_update_err": max(e for e in update_err.values()
+                                    if e is not None),
+            "moment_err": moment_err, "held_by_moments": by_moments,
             "tensors_moved": moved, "stats": got, "stats_rel_err": stats_err,
             "stats_held_err": held, **td, "tensors_on_card": tensors,
             "gpu_learn_ms": ms}
 
 
+#: a policy's or learner's methods that each take one learner update:
+#: ``learn_on_batch``, R2D2's ``learn_on_sequences``, A3C's
+#: ``apply_gradients``, MAML's ``meta_update``, MBMPO's ``train_models``
+#: (the ensemble) and ``meta_step``, the DT, AlphaZero and SlateQ
+#: learners' ``update``
+UPDATE_METHODS = ("learn_on_batch", "learn_on_sequences", "apply_gradients",
+                  "meta_update", "train_models", "meta_step", "update")
+
+
 class _UpdateClock:
     """Times each learner update of a policy (synchronised before and
-    after): ``learn_on_batch``, R2D2's ``learn_on_sequences`` and A3C's
-    ``apply_gradients`` each take one.  :meth:`trace` runs the last
-    update's call again under a device-only trace."""
+    after), every UPDATE_METHODS call one, in ``ms`` and by method in
+    ``by_method``.  :meth:`trace` runs the last update's call again under
+    a device-only trace."""
 
-    def __init__(self, policy):
-        self.ms, self.last = [], None
-        for name in ("learn_on_batch", "learn_on_sequences",
-                     "apply_gradients"):
+    def __init__(self, policy, methods=UPDATE_METHODS):
+        self.ms, self.last, self.by_method = [], None, {}
+        for name in methods:
             if hasattr(policy, name):
-                setattr(policy, name, self._timed(getattr(policy, name)))
+                setattr(policy, name,
+                        self._timed(name, getattr(policy, name)))
 
-    def _timed(self, fn):
+    def _timed(self, name, fn):
         def timed(*args):
-            self.last = (fn, args)
+            self.last, self.last_method = (fn, args), name
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*args)
             torch.cuda.synchronize()
-            self.ms.append((time.perf_counter() - t0) * 1e3)
+            ms = (time.perf_counter() - t0) * 1e3
+            self.ms.append(ms)
+            self.by_method.setdefault(name, []).append(ms)
             return out
         return timed
+
+    def summary(self):
+        """Per method: calls, mean ms and range."""
+        return {name: {"calls": len(ms), "ms_mean": statistics.mean(ms),
+                       "ms_range": [min(ms), max(ms)]}
+                for name, ms in self.by_method.items()}
 
     def trace(self, n):
         """The last update's call ``n`` times more (on the same inputs,
@@ -4056,16 +4295,21 @@ def rl_zoo_example(name):
             met.append(algo.iteration)
         return r
 
+    host = name in RL_ZOO_HOST_LEARNERS
     try:
         policy = algo.get_policy()
         clock = _UpdateClock(policy)
+        # AlphaZero's leaf evaluations: one forward and one copy to the
+        # host a simulation
+        infer = _UpdateClock(policy, ("infer",))
         t0 = time.perf_counter()
-        while not clock.ms:
+        while not (clock.ms or host and algo.iteration):
             train()
             assert algo.iteration <= RL_ZOO_MAX_WARMUP, (name, "no update")
         warm_s = time.perf_counter() - t0
         warm = algo.iteration
-        clock.ms = []
+        clock.ms, clock.by_method, infer.ms = [], {}, []
+        sims0 = getattr(algo, "simulations", 0)
         steps0, rates, losses, trains = algo._timesteps_total, [], [], 0
         t0 = time.perf_counter()
         while time.perf_counter() - t0 < RL_ZOO_WINDOW_S:
@@ -4076,10 +4320,8 @@ def rl_zoo_example(name):
             losses.append(_loss_values(r))
             trains += 1
         wall = time.perf_counter() - t0
-        assert clock.ms and all(losses), (name, losses)
         assert all(np.isfinite(v) for d in losses for v in d.values()), \
             (name, losses)
-        ms = list(clock.ms)
         offline = bool(spec.get("offline_input"))
         out = {"example": name, "algo": spec["run"], "build_s": build_s,
                "warmup_trains": warm, "warmup_s": warm_s,
@@ -4089,11 +4331,30 @@ def rl_zoo_example(name):
                ("rows_per_s_per_train" if offline
                 else "env_steps_per_s_per_train"): [min(rates),
                                                     max(rates)],
-               "updates": len(ms), "updates_per_train": len(ms) / trains,
-               "learner_ms_per_update": statistics.mean(ms),
-               "learner_ms_range": [min(ms), max(ms)],
-               "learner_share_of_train": sum(ms) / (wall * 1e3),
-               "last_losses": losses[-1]}
+               "last_losses": losses[-1], "host_learner": host}
+        if host:
+            # ES/ARS report no loss; the bandits' update is numpy
+            out["episode_reward_mean"] = r["episode_reward_mean"]
+            out["policy_device"] = str(policy.device)
+            if name.startswith("cartpole-"):  # ES/ARS act on the card
+                assert policy.device.type == "cuda", policy.device
+        else:
+            assert clock.ms and all(losses), (name, losses)
+            ms = list(clock.ms)
+            out.update({
+                "updates": len(ms), "updates_per_train": len(ms) / trains,
+                "learner_ms_per_update": statistics.mean(ms),
+                "learner_ms_range": [min(ms), max(ms)],
+                "learner_share_of_train": sum(ms) / (wall * 1e3),
+                "by_method": clock.summary()})
+        if infer.ms:
+            sims = algo.simulations - sims0
+            out["simulations"] = sims
+            out["ms_per_simulation"] = wall * 1e3 / sims
+            out["infer"] = {"calls": len(infer.ms),
+                            "ms_mean": statistics.mean(infer.ms),
+                            "ms_range": [min(infer.ms), max(infer.ms)],
+                            "share_of_window": sum(infer.ms) / (wall * 1e3)}
         if name in RL_ZOO_CRITERION:
             t0 = time.perf_counter()
             budget = int(stop.get("training_iteration", 50))
@@ -4106,12 +4367,14 @@ def rl_zoo_example(name):
                 "seconds_after_window": time.perf_counter() - t0}
             assert met, (name, out["criterion"])
         out["criterion_met_at"] = met[0] if met else None
-        out["traced"] = clock.trace(RL_ZOO_TRACE_UPDATES)
-        # the device's busy share of an untraced update: the rest is the
-        # host's (dispatch, syncs, host-side batch work)
-        out["device_busy_share"] = out["traced"]["busy_ms_per_update"] \
-            / out["learner_ms_per_update"]
-        out["tensors_on_card"] = _zoo_on_card(policy)
+        if not host:
+            out["traced"] = clock.trace(RL_ZOO_TRACE_UPDATES)
+            # the device's busy share of an untraced update: the rest is
+            # the host's (dispatch, syncs, host-side batch work)
+            out["device_busy_share"] = \
+                out["traced"]["busy_ms_per_update"] \
+                / out["by_method"][clock.last_method]["ms_mean"]
+            out["tensors_on_card"] = _zoo_on_card(policy)
     finally:
         algo.stop()
     out["seconds"] = time.perf_counter() - t_all

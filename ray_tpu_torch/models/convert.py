@@ -238,24 +238,82 @@ def attention_state_dict_from_jax(params: Mapping
     D]``) flatten the heads into ``[D, D]`` before the transpose."""
     sd: Dict[str, torch.Tensor] = {}
     for name, tree in _rl_params(params).items():
-        if not name.startswith("block_"):
+        if name.startswith("block_"):
+            _gtrxl_block(sd, name, tree)
+        else:
             _dense(sd, name, tree)
-            continue
-        for part, sub in tree.items():
-            key = f"{name}.{part}"
-            if part.startswith("ln_"):
-                _norm(sd, key, sub)
-            elif part == "attn":
-                for proj in ("query", "key", "value"):
-                    k = _tensor(sub[proj]["kernel"])
-                    sd[f"{key}.{proj}.weight"] = \
-                        k.reshape(k.shape[0], -1).T.contiguous()
-                    sd[f"{key}.{proj}.bias"] = \
-                        _tensor(sub[proj]["bias"]).reshape(-1)
-                k = _tensor(sub["out"]["kernel"])
-                sd[f"{key}.out.weight"] = \
-                    k.reshape(-1, k.shape[-1]).T.contiguous()
-                sd[f"{key}.out.bias"] = _tensor(sub["out"]["bias"])
-            else:
-                _dense(sd, key, sub)
+    return sd
+
+
+def _gtrxl_block(sd: Dict[str, torch.Tensor], name: str,
+                 tree: Mapping) -> None:
+    """One flax ``_GatedTransformerBlock``: LayerNorms and Denses by
+    name, the attention's per-head kernels flattened."""
+    for part, sub in tree.items():
+        key = f"{name}.{part}"
+        if part.startswith("ln_"):
+            _norm(sd, key, sub)
+        elif part == "attn":
+            for proj in ("query", "key", "value"):
+                k = _tensor(sub[proj]["kernel"])
+                sd[f"{key}.{proj}.weight"] = \
+                    k.reshape(k.shape[0], -1).T.contiguous()
+                sd[f"{key}.{proj}.bias"] = \
+                    _tensor(sub[proj]["bias"]).reshape(-1)
+            k = _tensor(sub["out"]["kernel"])
+            sd[f"{key}.out.weight"] = \
+                k.reshape(-1, k.shape[-1]).T.contiguous()
+            sd[f"{key}.out.bias"] = _tensor(sub["out"]["bias"])
+        else:
+            _dense(sd, key, sub)
+
+
+def dt_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Map a flax Decision Transformer ``_DTNet`` tree onto
+    ``rllib.algorithms.dt._DTNet``: ``pos_embed`` as-is, the action
+    embedding's ``embedding`` as ``act_embed.weight``, ``ln_f`` as a
+    LayerNorm, each ``block_<i>`` as :func:`attention_state_dict_from_jax`
+    maps it, the rest as Denses."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, tree in _rl_params(params).items():
+        if name == "pos_embed":
+            sd[name] = _tensor(tree)
+        elif name == "act_embed":
+            sd["act_embed.weight"] = _tensor(tree["embedding"])
+        elif name == "ln_f":
+            _norm(sd, name, tree)
+        elif name.startswith("block_"):
+            _gtrxl_block(sd, name, tree)
+        else:
+            _dense(sd, name, tree)
+    return sd
+
+
+def item_q_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Map a flax SlateQ ``_ItemQNet`` tree (``fc_<i>``, ``out``) onto
+    ``rllib.algorithms.slateq._ItemQNet``."""
+    return fcnet_state_dict_from_jax(params)
+
+
+def alpha_zero_state_dict_from_jax(params: Mapping
+                                   ) -> Dict[str, torch.Tensor]:
+    """Map AlphaZero's flax ``FCNet`` (shared torso: ``fc_0``, ``fc_1``,
+    ``out``, ``vf_out``) onto the learner's FCNet."""
+    return fcnet_state_dict_from_jax(params)
+
+
+def mbmpo_ensemble_state_dict_from_jax(params: Mapping
+                                       ) -> Dict[str, torch.Tensor]:
+    """Map MBMPO's vmapped flax ``_DynamicsNet`` tree, every leaf with a
+    leading ensemble axis ``[K]``, onto
+    ``rllib.algorithms.mbmpo._DynamicsEnsemble``: flax's ``Dense_<i>``
+    become ``fc_<i>``, ``delta`` and ``reward`` keep their names; a
+    kernel ``[K, in, out]`` becomes ``weight [K, out, in]``, a bias
+    ``[K, out]`` copies as-is."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, tree in _rl_params(params).items():
+        key = name.replace("Dense_", "fc_")
+        sd[f"{key}.weight"] = \
+            _tensor(tree["kernel"]).transpose(1, 2).contiguous()
+        sd[f"{key}.bias"] = _tensor(tree["bias"])
     return sd

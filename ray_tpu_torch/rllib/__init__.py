@@ -10,9 +10,10 @@ GPU (``num_gpus_per_learner=0`` names the CPU).
 The JAX package's ``JaxPolicy`` is :class:`TorchPolicy` here.  Of the
 algorithms (``ray_tpu_torch.rllib.algorithms``), PPO, IMPALA/APPO,
 PG/A2C/A3C, MARWIL/BC, DQN/SimpleQ/Ape-X DQN, R2D2, SAC, DDPG/TD3/Ape-X
-DDPG, CQL and CRR are ported, with ``tuned_examples``; the others' names
-raise ``NotImplementedError`` naming the ROADMAP.md item that brings
-them.
+DDPG, CQL, CRR, ES/ARS, LinUCB/LinTS, AlphaStar, MAML, MBMPO, Decision
+Transformer, AlphaZero and SlateQ are ported, with ``tuned_examples``;
+the others' names (MADDPG, QMIX, Dreamer, DD-PPO) raise
+``NotImplementedError`` naming the ROADMAP.md item that brings them.
 """
 
 from ray_tpu_torch.rllib.algorithm import Algorithm  # noqa: F401

@@ -1,12 +1,29 @@
 """Algorithm zoo (reference ``rllib/algorithms/``).
 
 Ported: PPO, IMPALA/APPO, PG/A2C/A3C, MARWIL/BC, DQN/SimpleQ/Ape-X DQN,
-R2D2, SAC, DDPG/TD3/Ape-X DDPG, CQL and CRR.  The JAX package's other
-algorithms are not yet: their names raise ``NotImplementedError`` naming
+R2D2, SAC, DDPG/TD3/Ape-X DDPG, CQL, CRR, ES/ARS, the linear bandits
+(LinUCB, LinTS), AlphaStar, MAML, MBMPO, Decision Transformer, AlphaZero
+and SlateQ.  The JAX package's other algorithms (MADDPG, QMIX, Dreamer,
+DD-PPO) are not yet: their names raise ``NotImplementedError`` naming
 the ROADMAP.md item that brings them (queue 1, item 6).
 """
 
 from ray_tpu_torch import _port
+from ray_tpu_torch.rllib.algorithms.alpha_star import (  # noqa: F401
+    AlphaStar,
+    AlphaStarConfig,
+    RepeatedRPS,
+)
+from ray_tpu_torch.rllib.algorithms.alpha_zero import (  # noqa: F401
+    AlphaZero,
+    AlphaZeroConfig,
+)
+from ray_tpu_torch.rllib.algorithms.bandit import (  # noqa: F401
+    BanditLinTS,
+    BanditLinTSConfig,
+    BanditLinUCB,
+    BanditLinUCBConfig,
+)
 from ray_tpu_torch.rllib.algorithms.cql import (  # noqa: F401
     CQL,
     CQLConfig,
@@ -35,6 +52,13 @@ from ray_tpu_torch.rllib.algorithms.dqn import (  # noqa: F401
     SimpleQ,
     SimpleQConfig,
 )
+from ray_tpu_torch.rllib.algorithms.dt import DT, DTConfig  # noqa: F401
+from ray_tpu_torch.rllib.algorithms.es import (  # noqa: F401
+    ARS,
+    ES,
+    ARSConfig,
+    ESConfig,
+)
 from ray_tpu_torch.rllib.algorithms.impala import (  # noqa: F401
     APPO,
     IMPALA,
@@ -49,6 +73,16 @@ from ray_tpu_torch.rllib.algorithms.marwil import (  # noqa: F401
     BCConfig,
     MARWILConfig,
     MARWILPolicy,
+)
+from ray_tpu_torch.rllib.algorithms.maml import (  # noqa: F401
+    MAML,
+    MAMLConfig,
+    MAMLPolicy,
+)
+from ray_tpu_torch.rllib.algorithms.mbmpo import (  # noqa: F401
+    MBMPO,
+    MBMPOConfig,
+    MBMPOPolicy,
 )
 from ray_tpu_torch.rllib.algorithms.pg import (  # noqa: F401
     A2C,
@@ -75,42 +109,23 @@ from ray_tpu_torch.rllib.algorithms.sac import (  # noqa: F401
     SACConfig,
     SACPolicy,
 )
+from ray_tpu_torch.rllib.algorithms.slateq import (  # noqa: F401
+    SimpleRecEnv,
+    SlateQ,
+    SlateQConfig,
+)
 
 #: the JAX package's algorithm names that later slices bring, by module
 _LATER = {
-    "ARS": "es",
-    "ARSConfig": "es",
-    "AlphaStar": "alpha_star",
-    "AlphaStarConfig": "alpha_star",
-    "AlphaZero": "alpha_zero",
-    "AlphaZeroConfig": "alpha_zero",
-    "BanditLinTS": "bandit",
-    "BanditLinTSConfig": "bandit",
-    "BanditLinUCB": "bandit",
-    "BanditLinUCBConfig": "bandit",
     "DDPPO": "ddppo",
     "DDPPOConfig": "ddppo",
-    "DT": "dt",
-    "DTConfig": "dt",
     "Dreamer": "dreamer",
     "DreamerConfig": "dreamer",
-    "ES": "es",
-    "ESConfig": "es",
     "MADDPG": "maddpg",
     "MADDPGConfig": "maddpg",
-    "MAML": "maml",
-    "MAMLConfig": "maml",
-    "MAMLPolicy": "maml",
-    "MBMPO": "mbmpo",
-    "MBMPOConfig": "mbmpo",
-    "MBMPOPolicy": "mbmpo",
     "QMix": "qmix",
     "QMixConfig": "qmix",
-    "RepeatedRPS": "alpha_star",
-    "SimpleRecEnv": "slateq",
     "SimpleTargetChase": "maddpg",
-    "SlateQ": "slateq",
-    "SlateQConfig": "slateq",
 }
 
 

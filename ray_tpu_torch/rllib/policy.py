@@ -72,11 +72,15 @@ class Adam(torch.optim.Optimizer):
     folded into the step size); over PPO's 64 updates at the CPU tests'
     size its stats then drifted from the JAX package's by up to 1.5e-5
     relative, this order's by 3e-7.  One multi-tensor (``_foreach``)
-    launch per operation across all parameters."""
+    launch per operation across all parameters.  ``weight_decay`` makes
+    it optax's ``adamw``: ``weight_decay * p`` added to each update
+    before the ``-lr`` scale (every tensor decays, optax's default)."""
 
     def __init__(self, params, lr: float, b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8):
-        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps))
+                 b2: float = 0.999, eps: float = 1e-8,
+                 weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps,
+                                      weight_decay=weight_decay))
 
     @torch.no_grad()
     def step(self, closure=None) -> None:
@@ -104,8 +108,12 @@ class Adam(torch.optim.Optimizer):
             bc2 = float(one - np.float32(b2) ** np.float32(count))
             denom = torch._foreach_add(
                 torch._foreach_sqrt(torch._foreach_div(nu, bc2)), eps)
-            updates = torch._foreach_mul(
-                torch._foreach_div(torch._foreach_div(mu, bc1), denom), -lr)
+            updates = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
+            decay = group.get("weight_decay", 0.0)
+            if decay:
+                updates = torch._foreach_add(
+                    updates, torch._foreach_mul(params, decay))
+            updates = torch._foreach_mul(updates, -lr)
             torch._foreach_add_(params, updates)
             for p, m, n in zip(params, mu, nu):
                 self.state[p].update(count=count, mu=m, nu=n)

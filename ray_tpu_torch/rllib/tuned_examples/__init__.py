@@ -42,11 +42,7 @@ _DIR = os.path.dirname(__file__)
 #: the JAX package's tuned-example algorithms that later slices bring,
 #: by module of ``ray_tpu/rllib/algorithms``
 _LATER = {"DDPPO": "ddppo", "QMIX": "qmix", "MADDPG": "maddpg",
-          "ES": "es", "ARS": "es", "SlateQ": "slateq",
-          "AlphaZero": "alpha_zero", "DT": "dt",
-          "BanditLinTS": "bandit", "BanditLinUCB": "bandit",
-          "Dreamer": "dreamer", "MAML": "maml", "MBMPO": "mbmpo",
-          "AlphaStar": "alpha_star"}
+          "Dreamer": "dreamer"}
 
 # generated offline datasets, keyed by (env, num_steps, seed)
 _OFFLINE_CACHE: Dict[tuple, str] = {}
@@ -66,6 +62,12 @@ def _registry() -> Dict[str, Any]:
         "A3C": algos.A3CConfig, "R2D2": algos.R2D2Config,
         "BC": algos.BCConfig, "MARWIL": algos.MARWILConfig,
         "CQL": algos.CQLConfig, "CRR": algos.CRRConfig,
+        "ES": algos.ESConfig, "ARS": algos.ARSConfig,
+        "BanditLinUCB": algos.BanditLinUCBConfig,
+        "BanditLinTS": algos.BanditLinTSConfig,
+        "AlphaStar": algos.AlphaStarConfig, "MAML": algos.MAMLConfig,
+        "MBMPO": algos.MBMPOConfig, "DT": algos.DTConfig,
+        "AlphaZero": algos.AlphaZeroConfig, "SlateQ": algos.SlateQConfig,
     }
 
 

@@ -289,7 +289,7 @@ def test_tuned_examples_cover_the_ported_algorithms():
                 open(os.path.join(jax_dir, name)) as b:
             assert a.read() == b.read(), name
     assert set(tuned_examples.algo_names()) == {RUNS[p] for p in PORTED}
-    assert len(PORTED) == 18
+    assert len(PORTED) == 28
 
 
 @pytest.mark.usefixtures("cluster")
@@ -306,6 +306,20 @@ def test_tuned_example_builds_and_trains(name):
         assert result["training_iteration"] == 1
     finally:
         algo.stop()
+
+
+@pytest.mark.parametrize("name", ["cartpole-mass-mbmpo.yaml",
+                                  "cartpole-dt.yaml"])
+def test_model_learner_yaml_runs_to_its_criterion(name):
+    """The two learners that fit a model (MBMPO's dynamics ensemble, DT's
+    action model) reach their yaml's stop criterion through
+    ``tuned_examples.run`` on the CPU within its iteration budget."""
+    path = os.path.join(os.path.dirname(tuned_examples.__file__), name)
+    with open(path) as f:
+        budget = yaml.safe_load(f)["stop"]["training_iteration"]
+    result = tuned_examples.run(path, device="cpu")
+    assert result["passed"], result
+    assert result["training_iteration"] <= budget
 
 
 @pytest.mark.parametrize("name", UNPORTED)
