@@ -3753,13 +3753,23 @@ RL_ZOO_EXAMPLES = (
     "pendulum-cql", "pendulum-crr", "cartpole-es", "cartpole-ars",
     "bandit-linucb", "bandit-lints", "rps-alphastar", "cartpole-mass-maml",
     "cartpole-mass-mbmpo", "cartpole-dt", "catch-alphazero",
-    "simple-rec-slateq")
+    "simple-rec-slateq", "target-chase-maddpg", "two-step-qmix",
+    "pixelcatch-dreamer", "cartpole-ddppo")
 RL_ZOO_CRITERION = ("cartpole-impala", "cartpole-appo",
-                    "cartpole-mass-mbmpo", "cartpole-dt")
+                    "cartpole-mass-mbmpo", "cartpole-dt",
+                    "pixelcatch-dreamer", "two-step-qmix", "cartpole-ddppo")
+# examples whose learners are remote workers (DD-PPO's ranks, each on a
+# share of the card), which the driver's _UpdateClock cannot see:
+# rl_zoo_gang runs them
+RL_ZOO_GANG = ("cartpole-ddppo",)
+# DD-PPO: minibatch steps (gradient, allreduce, apply) timed inside each rank
+RL_DDPPO_TIMED = 20
 # examples whose learner is host numpy: ES/ARS (the policy acts on the
 # card, the search is numpy) and the bandits (no device code)
 RL_ZOO_HOST_LEARNERS = ("cartpole-es", "cartpole-ars", "bandit-linucb",
                         "bandit-lints")
+#: pixelcatch-dreamer.yaml's sizes
+RL_DREAMER_CFG = {"batch_size": 8, "batch_length": 10, "imagine_horizon": 5}
 # label: (module, policy class, env, config, batch kind, rows, calls)
 RL_ZOO_PARITY = {
     "impala": ("impala", "ImpalaPolicy", "CartPole",
@@ -3808,9 +3818,23 @@ RL_ZOO_PARITY = {
                    "search", 128, 2),
     "slateq": ("slateq", "SlateQLearner", "SimpleRecEnv", {}, "slates", 64,
                2),
+    # the multi-agent and world-model learners (their yamls' sizes):
+    # MADDPG's update on 64 transitions of 2 agents; QMIX's recurrent
+    # update on 32 TwoStepGame episodes; Dreamer's world-model update on 8
+    # sequences of 10 8x8 frames (masked tails) and its behavior update,
+    # imagining 5 steps from those 80 states
+    "maddpg": ("maddpg", "MADDPGLearner", "SimpleTargetChase", {},
+               "multiagent", 64, 2),
+    "qmix": ("qmix", "QMixLearner", "TwoStepGame", {}, "episodes", 32, 2),
+    "dreamer_wm": ("dreamer", "DreamerLearner", "PixelCatch",
+                   RL_DREAMER_CFG, "world_model", 8, 2),
+    "dreamer_behavior": ("dreamer", "DreamerLearner", "PixelCatch",
+                         RL_DREAMER_CFG, "behavior", 8, 2),
 }
 #: the env configs of RL_ZOO_PARITY's learners where not the default
-RL_ZOO_ENV_CONFIG = {"PixelCatch": {"height": 6, "width": 6}}
+RL_ZOO_ENV_CONFIG = {"alpha_zero": {"height": 6, "width": 6},
+                     "dreamer_wm": {"height": 8, "width": 8},
+                     "dreamer_behavior": {"height": 8, "width": 8}}
 
 
 def _zoo_batch(kind, n, obs_dim, act_space, rng):
@@ -3898,6 +3922,43 @@ def _zoo_learner_batch(kind, n, env, rng):
                 * mask[..., None], "act": act, "prev_act": prev,
                 "rtg": (rng.uniform(0, 100, (n, K, 1)) * mask[..., None]
                         ).astype(np.float32), "mask": mask}
+    if kind == "multiagent":  # n transitions of SimpleTargetChase's agents
+        a = len(env.agent_ids)
+        return {"obs": rng.uniform(-1, 1, (n, a, 2)).astype(np.float32),
+                "actions": rng.uniform(-0.9, 0.9, (n, a, 1)).astype(
+                    np.float32),
+                "rewards": rng.standard_normal((n, a)).astype(np.float32),
+                "next_obs": rng.uniform(-1, 1, (n, a, 2)).astype(np.float32),
+                "dones": (rng.random(n) < 0.1).astype(np.float32)}
+    if kind == "episodes":  # n padded two-step episodes (QMIX's replay)
+        a, d, st = len(env.agent_ids), 4 + len(env.agent_ids), 3
+        dones = np.zeros((n, 2), np.float32)
+        dones[:, -1] = 1.0
+        return {"obs_seq": rng.random((n, 3, a, d)).astype(np.float32),
+                "state_seq": rng.random((n, 3, st)).astype(np.float32),
+                "actions": rng.integers(0, 2, (n, 2, a)),
+                "rewards": rng.uniform(0, 8, (n, 2)).astype(np.float32),
+                "dones": dones, "mask": np.ones((n, 2), np.float32)}
+    if kind in ("world_model", "behavior"):  # n sequences, masked tails
+        T = RL_DREAMER_CFG["batch_length"]
+        lens = rng.integers(4, T + 1, n)
+        mask = (np.arange(T)[None] < lens[:, None]).astype(np.float32)
+        if kind == "behavior":  # posterior states to imagine from
+            return {"deter": np.tanh(rng.standard_normal((n, T, 64))).astype(
+                        np.float32),
+                    "stoch": rng.standard_normal((n, T, 16)).astype(
+                        np.float32), "mask": mask}
+        obs = np.zeros((n, T, 64), np.float32)  # ball and paddle pixels
+        for _ in range(2):
+            obs[np.arange(n)[:, None], np.arange(T)[None],
+                rng.integers(0, 64, (n, T))] = 1.0
+        act = np.eye(3, dtype=np.float32)[rng.integers(0, 3, (n, T))]
+        act[:, 0] = 0.0
+        return {"obs": obs * mask[..., None], "actions_onehot": act,
+                "rewards": (rng.choice([-0.1, 0.1], (n, T)) * mask).astype(
+                    np.float32),
+                "dones": (np.arange(T)[None] == lens[:, None] - 1).astype(
+                    np.float32), "mask": mask}
     if kind == "search":
         return {"obs": (rng.random((n, 36)) < 0.1).astype(np.float32),
                 "pi": rng.dirichlet(np.ones(3), n).astype(np.float32),
@@ -3931,6 +3992,21 @@ def _zoo_build(cls, env, cfg, device):
                    env.action_space.n, cfg, device)
     if name == "SlateQLearner":
         return cls(env.topic_dim, env.slate_size, cfg, device)
+    if name == "MADDPGLearner":
+        first = env.agent_ids[0]
+        return cls(len(env.agent_ids),
+                   int(np.prod(env.observation_space_for(first).shape)),
+                   int(np.prod(env.action_space_for(first).shape)), cfg,
+                   device)
+    if name == "QMixLearner":
+        first, n = env.agent_ids[0], len(env.agent_ids)
+        return cls(n, int(np.prod(env.observation_space_for(first).shape))
+                   + n, len(env.global_state()),
+                   env.action_space_for(first).n, cfg, device)
+    if name == "DreamerLearner":
+        shape = tuple(env.observation_space.shape)
+        return cls(int(np.prod(shape)), env.action_space.n, shape, cfg,
+                   device)
     spaces = (env.observation_space, env.action_space)
     return cls(*spaces, dict(cfg, _device=device) if device else dict(cfg))
 
@@ -3953,9 +4029,22 @@ def _zoo_learner_step(policy, kind, batch, draws):
         loss, rew = policy._meta_step(
             t(batch["obs0"]), {k: v.to(dev) for k, v in draws.items()})
         return {"meta_loss": float(loss), "imagined_reward_mean": float(rew)}
+    if kind == "world_model":
+        out = policy._wm_update(policy.tensors(batch),
+                                {k: v.to(dev) for k, v in draws.items()})
+        return {k: float(v) for k, v in zip(
+            ("world_model_loss", "recon_loss", "reward_loss", "kl_loss"),
+            out)}
+    if kind == "behavior":
+        out = policy._behavior_update(
+            t(batch["deter"]), t(batch["stoch"]), t(batch["mask"]),
+            {k: v.to(dev) for k, v in draws.items()})
+        return {"actor_loss": float(out[0]), "critic_loss": float(out[1])}
     out = policy.update(batch)
     names = {"dt": ("loss",), "search": ("policy_loss", "value_loss"),
-             "slates": ("loss", "td_error_abs")}[kind]
+             "slates": ("loss", "td_error_abs"),
+             "multiagent": ("critic_loss", "actor_loss"),
+             "episodes": ("loss", "td_error_abs")}[kind]
     out = out if isinstance(out, tuple) else (out,)
     return {k: float(v) for k, v in zip(names, out)}
 
@@ -3963,7 +4052,8 @@ def _zoo_learner_step(policy, kind, batch, draws):
 #: RL_ZOO_PARITY's batch kinds of the meta, model-based and search
 #: learners
 _ZOO_LEARNER_KINDS = ("meta", "models", "imagined", "dt", "search",
-                      "slates")
+                      "slates", "multiagent", "episodes", "world_model",
+                      "behavior")
 
 
 def _zoo_modules(policy):
@@ -3971,13 +4061,14 @@ def _zoo_modules(policy):
     the actor, critic and their targets."""
     return {name: getattr(policy, name) for name in
             ("model", "target_model", "actor", "critic", "target_actor",
-             "target_critic", "dyn") if hasattr(policy, name)}
+             "target_critic", "dyn", "nets", "target", "wm")
+            if hasattr(policy, name)}
 
 
 def _zoo_opts(policy):
     return [getattr(policy, name) for name in
-            ("opt", "actor_opt", "critic_opt", "alpha_opt", "dyn_opt")
-            if hasattr(policy, name)]
+            ("opt", "actor_opt", "critic_opt", "alpha_opt", "dyn_opt",
+             "wm_opt") if hasattr(policy, name)]
 
 
 def _zoo_flat(policy):
@@ -4099,7 +4190,7 @@ def rl_zoo_parity(label):
         f"ray_tpu_torch.rllib.algorithms.{module}")
     cls = getattr(mod, cls_name)
     env_cls = getattr(envs, env_name, None) or getattr(mod, env_name)
-    env = env_cls(dict(RL_ZOO_ENV_CONFIG.get(env_name, {})))
+    env = env_cls(dict(RL_ZOO_ENV_CONFIG.get(label, {})))
     cfg = {"seed": SEED, **cfg}
     cpu = _zoo_build(cls, env, cfg, "cpu")
     gpu = _zoo_build(cls, env, cfg, None)
@@ -4118,9 +4209,15 @@ def rl_zoo_parity(label):
     ms = []
     for _ in range(calls):
         if learner:
-            # MBMPO's draws, once on the host (the CPU policy's)
+            # the draws of MBMPO and Dreamer, once on the host (the CPU
+            # policy's)
             draws = ({"models": lambda: cpu._update_noise("models", rows),
-                      "imagined": lambda: cpu._update_noise("meta", rows)}
+                      "imagined": lambda: cpu._update_noise("meta", rows),
+                      "world_model": lambda: cpu._draws(
+                          "observe", rows, cfg["batch_length"]),
+                      "behavior": lambda: cpu._draws(
+                          "imagine", rows * cfg["batch_length"],
+                          cfg["imagine_horizon"])}
                      .get(kind, dict)())
             want = _zoo_learner_step(cpu, kind, batch, draws)
             torch.cuda.synchronize()
@@ -4209,10 +4306,12 @@ def rl_zoo_parity(label):
 #: a policy's or learner's methods that each take one learner update:
 #: ``learn_on_batch``, R2D2's ``learn_on_sequences``, A3C's
 #: ``apply_gradients``, MAML's ``meta_update``, MBMPO's ``train_models``
-#: (the ensemble) and ``meta_step``, the DT, AlphaZero and SlateQ
-#: learners' ``update``
+#: (the ensemble) and ``meta_step``, the DT, AlphaZero, SlateQ, MADDPG
+#: and QMIX learners' ``update``, Dreamer's ``wm_update`` and
+#: ``behavior_update``
 UPDATE_METHODS = ("learn_on_batch", "learn_on_sequences", "apply_gradients",
-                  "meta_update", "train_models", "meta_step", "update")
+                  "meta_update", "train_models", "meta_step", "update",
+                  "wm_update", "behavior_update")
 
 
 class _UpdateClock:
@@ -4299,9 +4398,10 @@ def rl_zoo_example(name):
     try:
         policy = algo.get_policy()
         clock = _UpdateClock(policy)
-        # AlphaZero's leaf evaluations: one forward and one copy to the
-        # host a simulation
-        infer = _UpdateClock(policy, ("infer",))
+        # AlphaZero's leaf evaluations (one forward and one copy to the
+        # host a simulation) and Dreamer's acting steps (one posterior
+        # filter step and actor sample a step, then the action's copy)
+        infer = _UpdateClock(policy, ("infer", "policy_step"))
         t0 = time.perf_counter()
         while not (clock.ms or host and algo.iteration):
             train()
@@ -4347,10 +4447,11 @@ def rl_zoo_example(name):
                 "learner_ms_range": [min(ms), max(ms)],
                 "learner_share_of_train": sum(ms) / (wall * 1e3),
                 "by_method": clock.summary()})
-        if infer.ms:
+        if infer.ms and hasattr(algo, "simulations"):
             sims = algo.simulations - sims0
             out["simulations"] = sims
             out["ms_per_simulation"] = wall * 1e3 / sims
+        if infer.ms:
             out["infer"] = {"calls": len(infer.ms),
                             "ms_mean": statistics.mean(infer.ms),
                             "ms_range": [min(infer.ms), max(infer.ms)],
@@ -4381,6 +4482,191 @@ def rl_zoo_example(name):
     return out
 
 
+def _rank_device(worker):
+    """Inside a DD-PPO rank: its policy's device, and whether every
+    parameter and Adam moment lies on it."""
+    policy = worker.policy
+    tensors = list(policy.model.parameters()) + [
+        t for s in policy.opt.state.values() for t in s.values()
+        if isinstance(t, torch.Tensor)]
+    return str(policy.device), all(t.device.type == policy.device.type
+                                   for t in tensors)
+
+
+def _ddppo_minibatch_ms(worker, group_name, n):
+    """Inside a DD-PPO rank (every rank at once: each step allreduces):
+    ``n`` minibatch steps on a fresh batch of the rank's, each timed in
+    three parts with the card synchronised between them: the gradient,
+    the gang's mean (one copy to the host, the object-store allreduce,
+    one copy back) and the apply (clip and Adam)."""
+    import numpy as np
+    from ray_tpu_torch.rllib.algorithms.ddppo import allreduce_gradients
+    from ray_tpu_torch.rllib.execution import standardize_advantages
+    from ray_tpu_torch.util.collective import collective
+    policy = worker.policy
+    world = collective.get_collective_group_size(group_name)
+    batch = standardize_advantages(worker.sample())
+    mb = batch.slice(0, min(len(batch), int(
+        policy.config.get("sgd_minibatch_size", 128))))
+    dev = policy._device_batch(mb)
+    dev["kl_coeff"] = float(np.float32(policy.kl_coeff))
+    parts = {"grads_ms": [], "allreduce_ms": [], "apply_ms": []}
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads, _ = policy._grads(dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mean = allreduce_gradients(policy, grads, group_name, world)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        policy.apply_gradients(mean)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for key, ms in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+            parts[key].append(ms * 1e3)
+    return {"rows": len(mb), "floats": int(sum(g.numel() for g in grads)),
+            **{k: {"mean": statistics.mean(v), "range": [min(v), max(v)]}
+               for k, v in parts.items()}}
+
+
+def rl_zoo_gang(name):
+    """DD-PPO's yaml with its learners on the card: every rank's policy
+    is asserted on CUDA, one warm-up train(), RL_ZOO_WINDOW_S of train()
+    calls (env steps a second, ms a train()), then train() on to the
+    yaml's criterion; the ranks' weights must then be equal bit for bit.
+    Last, RL_DDPPO_TIMED minibatch steps timed inside each rank
+    (_ddppo_minibatch_ms) and the ranks held equal again."""
+    import numpy as np
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rllib import tuned_examples
+    path = os.path.join(os.path.dirname(tuned_examples.__file__),
+                        name + ".yaml")
+    t_all = t0 = time.perf_counter()
+    algo, spec = tuned_examples.load(path)
+    build_s = time.perf_counter() - t0
+    stop, first, met = spec.get("stop") or {}, {}, []
+
+    def train():
+        r = algo.train()
+        if not first:
+            first.update(r)
+        if not met and tuned_examples._criteria_met(stop, r, first):
+            met.append(algo.iteration)
+        return r
+
+    def same_ranks():
+        weights = rt.get([w.get_weights.remote() for w in workers])
+        return all(np.array_equal(weights[0][k], w[k])
+                   for w in weights[1:] for k in weights[0])
+
+    try:
+        workers = algo.workers.remote_workers
+        devices = rt.get([w.apply.remote(_rank_device) for w in workers])
+        assert all(d.startswith("cuda") and on for d, on in devices), \
+            devices
+        t0 = time.perf_counter()
+        train()
+        warm_s = time.perf_counter() - t0
+        steps0, ms, losses = algo._timesteps_total, [], []
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < RL_ZOO_WINDOW_S:
+            t1 = time.perf_counter()
+            r = train()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            losses.append(_loss_values(r))
+        wall = time.perf_counter() - t0
+        assert all(np.isfinite(v) for d in losses for v in d.values()), \
+            (name, losses)
+        cfg = algo.config
+        minibatches = int(cfg["num_sgd_iter"]) * max(1, (
+            int(cfg["rollout_fragment_length"])
+            * int(cfg["num_envs_per_worker"]))
+            // int(cfg["sgd_minibatch_size"]))
+        out = {"example": name, "algo": spec["run"], "build_s": build_s,
+               "ranks": len(workers), "rank_devices": devices,
+               "warmup_s": warm_s, "window_s": wall, "trains": len(ms),
+               "env_steps_per_s": (algo._timesteps_total - steps0) / wall,
+               "ms_per_train": statistics.mean(ms),
+               "ms_per_train_range": [min(ms), max(ms)],
+               "minibatches_per_train": minibatches,
+               "last_losses": losses[-1]}
+        t0 = time.perf_counter()
+        budget = int(stop.get("training_iteration", 50))
+        while not met and algo.iteration < budget:
+            r = train()
+        out["criterion"] = {
+            "passed": bool(met), "iterations": met[0] if met else None,
+            "budget": budget, "iterations_run": algo.iteration,
+            "episode_reward_mean": r["episode_reward_mean"],
+            "seconds_after_window": time.perf_counter() - t0}
+        assert met, (name, out["criterion"])
+        out["criterion_met_at"] = met[0]
+        out["ranks_equal"] = same_ranks()
+        assert out["ranks_equal"], "DD-PPO's ranks diverged"
+        timed = rt.get([w.apply.remote(_ddppo_minibatch_ms, algo._group,
+                                       RL_DDPPO_TIMED) for w in workers])
+        assert same_ranks(), "DD-PPO's ranks diverged in the timed steps"
+        out["minibatch"] = timed
+        allreduce = statistics.mean(t["allreduce_ms"]["mean"]
+                                    for t in timed)
+        out["allreduce_ms_per_minibatch"] = allreduce
+        out["allreduce_share_of_train"] = \
+            allreduce * minibatches / out["ms_per_train"]
+    finally:
+        algo.stop()
+    out["seconds"] = time.perf_counter() - t_all
+    return out
+
+
+def rl_zoo_rl_trainer(iterations=3):
+    """RLTrainer.fit() with PG, its learner on the card, for
+    ``iterations`` iterations; its checkpoint restored into a PG on the
+    CPU, every weight equal to the card's."""
+    import pickle
+    import tempfile
+    import numpy as np
+    from ray_tpu_torch.rllib.algorithms import PG, PGConfig
+    from ray_tpu_torch.train import RLTrainer, RunConfig
+    devices = []
+
+    class _PG(PG):  # PG, recording where its learner was built
+        def setup(self):
+            super().setup()
+            devices.append(str(self.get_policy().device))
+
+    config = {"env": "CartPole-v1", "train_batch_size": 400, "lr": 4e-3,
+              "seed": SEED}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        result = RLTrainer(algorithm=_PG, config=config,
+                           stop={"training_iteration": iterations},
+                           run_config=RunConfig(storage_path=d)).fit()
+        fit_s = time.perf_counter() - t0
+        assert devices and devices[0].startswith("cuda"), devices
+        assert result.metrics["training_iteration"] == iterations
+        algo = (PGConfig().environment("CartPole-v1")
+                .resources(num_gpus_per_learner=0).debugging(seed=SEED)
+                .build())
+        try:
+            with result.checkpoint.as_directory() as cd:
+                algo.restore(cd)
+                with open(os.path.join(cd, "algorithm_state.pkl"),
+                          "rb") as f:
+                    saved = pickle.load(f)["policy_state"]["weights"]
+            policy = algo.get_policy()
+            assert algo.iteration == iterations
+            assert policy.device.type == "cpu"
+            restored = policy.get_weights()
+            assert all(np.array_equal(saved[k], restored[k]) for k in saved)
+        finally:
+            algo.stop()
+    return {"algorithm": "PG", "learner_device": devices[0],
+            "iterations": iterations, "fit_s": fit_s,
+            "episode_reward_mean": result.metrics["episode_reward_mean"],
+            "restored_on": "cpu", "weights_equal": True}
+
+
 def phase_rl_zoo():
     """The model-free algorithm zoo with its learners on the card:
     rl_zoo_parity for each RL_ZOO_PARITY policy, then each tuned example
@@ -4404,10 +4690,16 @@ def phase_rl_zoo():
     _zero_all_counts()
     before = _all_counts()
     t0 = time.perf_counter()
-    rt.init(num_cpus=16, object_store_memory=RL_STORE_MIB * 2**20)
+    # the card as a resource: DD-PPO's ranks each lease a share of it
+    rt.init(num_cpus=16, num_gpus=1,
+            object_store_memory=RL_STORE_MIB * 2**20)
     init_s = time.perf_counter() - t0
     try:
-        examples = [rl_zoo_example(name) for name in RL_ZOO_EXAMPLES]
+        examples = [rl_zoo_gang(name) if name in RL_ZOO_GANG
+                    else rl_zoo_example(name) for name in RL_ZOO_EXAMPLES]
+        t1 = time.perf_counter()
+        rl_trainer = rl_zoo_rl_trainer()
+        rl_trainer["seconds"] = time.perf_counter() - t1
     finally:
         t1 = time.perf_counter()
         rt.shutdown()
@@ -4415,7 +4707,7 @@ def phase_rl_zoo():
     launches = _delta(before, _all_counts())
     emit({"phase": "rl_zoo", "ok": True, "init_s": init_s,
           "shutdown_s": shutdown_s, "examples": examples,
-          "launches": launches,
+          "rl_trainer": rl_trainer, "launches": launches,
           "seconds": time.perf_counter() - t0, "card": card_line()})
     return launches
 

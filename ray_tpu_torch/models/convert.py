@@ -317,3 +317,93 @@ def mbmpo_ensemble_state_dict_from_jax(params: Mapping
             _tensor(tree["kernel"]).transpose(1, 2).contiguous()
         sd[f"{key}.bias"] = _tensor(tree["bias"])
     return sd
+
+
+def maddpg_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Map MADDPG's flax ``_PerAgentNets`` tree (``actors_<i>``,
+    ``critics_<i>``, each ``fc_<j>`` and ``out``) onto
+    ``rllib.algorithms.maddpg._PerAgentNets`` (``actors.<i>``,
+    ``critics.<i>``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, tree in _rl_params(params).items():
+        group, index = name.rsplit("_", 1)
+        _dense_tree(sd, f"{group}.{index}.", tree)
+    return sd
+
+
+_GRU_INPUT = ("ir", "iz", "in")
+_GRU_HIDDEN = ("hr", "hz", "hn")
+
+
+def _gru(sd: Dict[str, torch.Tensor], name: str, tree: Mapping) -> None:
+    """flax's ``GRUCell`` (``ir``, ``iz``, ``in`` with bias; ``hr``,
+    ``hz`` without, ``hn`` with) onto ``rllib.models.GRUCell``: the input
+    Denses stacked in gate order r, z, n into ``ih``, the hidden ones
+    into ``hh``, ``hn``'s bias as ``hn_bias``."""
+    sd[f"{name}.ih.weight"] = torch.cat(
+        [_tensor(tree[g]["kernel"]) for g in _GRU_INPUT],
+        dim=1).T.contiguous()
+    sd[f"{name}.ih.bias"] = torch.cat(
+        [_tensor(tree[g]["bias"]) for g in _GRU_INPUT])
+    sd[f"{name}.hh.weight"] = torch.cat(
+        [_tensor(tree[g]["kernel"]) for g in _GRU_HIDDEN],
+        dim=1).T.contiguous()
+    sd[f"{name}.hn_bias"] = _tensor(tree["hn"]["bias"])
+
+
+def qmix_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Map either QMIX model's flax tree onto its port: the agent
+    (``agent``: the recurrent one's ``fc_in``, scanned ``gru`` and
+    ``q_out``, or the feed-forward one's ``fc_<i>`` and ``q_out``) and
+    the mixer's hypernetwork Denses (``mixer``)."""
+    p = _rl_params(params)
+    agent = dict(p["agent"])
+    gru = agent.pop("gru", None)
+    sd: Dict[str, torch.Tensor] = {}
+    _dense_tree(sd, "agent.", agent)
+    if gru is not None:
+        _gru(sd, "agent.gru", gru)
+    _dense_tree(sd, "mixer.", p["mixer"])
+    return sd
+
+
+def _conv_transpose(tree: Mapping) -> torch.Tensor:
+    """A flax ``ConvTranspose`` kernel ``[kh, kw, in, out]`` as
+    ``conv_transpose2d``'s ``[in, out, kh, kw]``, flipped in both
+    spatial axes (``lax.conv_transpose`` does not flip the kernel)."""
+    return _tensor(tree["kernel"]).permute(2, 3, 0, 1).flip(2, 3) \
+        .contiguous()
+
+
+def dreamer_rssm_state_dict_from_jax(params: Mapping
+                                     ) -> Dict[str, torch.Tensor]:
+    """Map Dreamer's flax ``_RSSM`` tree onto
+    ``rllib.algorithms.dreamer._RSSM``: ``gru`` as :func:`_gru` maps it,
+    the Denses and the heads' ``layers_<i>`` by name, and on images the
+    encoder's ``conv<i>`` (kernels ``[out, in, kh, kw]``) and the
+    decoder's ``deconv<i>`` (kernels flipped, :func:`_conv_transpose`)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, tree in _rl_params(params).items():
+        if name == "gru":
+            _gru(sd, name, tree)
+        elif "kernel" in tree:
+            _dense(sd, name, tree)
+        else:
+            for part, sub in tree.items():
+                key = f"{name}.{part}"
+                if part.startswith("conv"):
+                    sd[f"{key}.weight"] = _conv(sub)
+                    sd[f"{key}.bias"] = _tensor(sub["bias"])
+                elif part.startswith("deconv"):
+                    sd[f"{key}.weight"] = _conv_transpose(sub)
+                    sd[f"{key}.bias"] = _tensor(sub["bias"])
+                else:
+                    _dense(sd, key, sub)
+    return sd
+
+
+def dreamer_head_state_dict_from_jax(params: Mapping
+                                     ) -> Dict[str, torch.Tensor]:
+    """Map Dreamer's flax actor or critic ``_Head`` (``Dense_0`` ...
+    ``Dense_2``) onto ``rllib.algorithms.dreamer._Head``."""
+    return fcnet_state_dict_from_jax(params)

@@ -7,13 +7,10 @@ policies.  Distributed pattern (SURVEY.md §3.6): driver Algorithm +
 rollout actor fleet sampling on host CPUs, the learner's updates on the
 GPU (``num_gpus_per_learner=0`` names the CPU).
 
-The JAX package's ``JaxPolicy`` is :class:`TorchPolicy` here.  Of the
-algorithms (``ray_tpu_torch.rllib.algorithms``), PPO, IMPALA/APPO,
-PG/A2C/A3C, MARWIL/BC, DQN/SimpleQ/Ape-X DQN, R2D2, SAC, DDPG/TD3/Ape-X
-DDPG, CQL, CRR, ES/ARS, LinUCB/LinTS, AlphaStar, MAML, MBMPO, Decision
-Transformer, AlphaZero and SlateQ are ported, with ``tuned_examples``;
-the others' names (MADDPG, QMIX, Dreamer, DD-PPO) raise
-``NotImplementedError`` naming the ROADMAP.md item that brings them.
+The JAX package's ``JaxPolicy`` is :class:`TorchPolicy` here.  Every
+algorithm of the JAX package is in ``ray_tpu_torch.rllib.algorithms``,
+with ``tuned_examples``; DD-PPO's learners are its remote rollout
+workers, each on a share of the card.
 """
 
 from ray_tpu_torch.rllib.algorithm import Algorithm  # noqa: F401

@@ -1,14 +1,12 @@
 """Algorithm zoo (reference ``rllib/algorithms/``).
 
-Ported: PPO, IMPALA/APPO, PG/A2C/A3C, MARWIL/BC, DQN/SimpleQ/Ape-X DQN,
-R2D2, SAC, DDPG/TD3/Ape-X DDPG, CQL, CRR, ES/ARS, the linear bandits
-(LinUCB, LinTS), AlphaStar, MAML, MBMPO, Decision Transformer, AlphaZero
-and SlateQ.  The JAX package's other algorithms (MADDPG, QMIX, Dreamer,
-DD-PPO) are not yet: their names raise ``NotImplementedError`` naming
-the ROADMAP.md item that brings them (queue 1, item 6).
+Every algorithm of the JAX package: PPO, DD-PPO, IMPALA/APPO,
+PG/A2C/A3C, MARWIL/BC, DQN/SimpleQ/Ape-X DQN, R2D2, SAC, DDPG/TD3/Ape-X
+DDPG, CQL, CRR, ES/ARS, the linear bandits (LinUCB, LinTS), AlphaStar,
+MAML, MBMPO, Decision Transformer, AlphaZero, SlateQ, MADDPG, QMIX and
+Dreamer.
 """
 
-from ray_tpu_torch import _port
 from ray_tpu_torch.rllib.algorithms.alpha_star import (  # noqa: F401
     AlphaStar,
     AlphaStarConfig,
@@ -43,6 +41,10 @@ from ray_tpu_torch.rllib.algorithms.ddpg import (  # noqa: F401
     DDPGPolicy,
     TD3Config,
 )
+from ray_tpu_torch.rllib.algorithms.ddppo import (  # noqa: F401
+    DDPPO,
+    DDPPOConfig,
+)
 from ray_tpu_torch.rllib.algorithms.dqn import (  # noqa: F401
     DQN,
     ApexDQN,
@@ -51,6 +53,10 @@ from ray_tpu_torch.rllib.algorithms.dqn import (  # noqa: F401
     DQNPolicy,
     SimpleQ,
     SimpleQConfig,
+)
+from ray_tpu_torch.rllib.algorithms.dreamer import (  # noqa: F401
+    Dreamer,
+    DreamerConfig,
 )
 from ray_tpu_torch.rllib.algorithms.dt import DT, DTConfig  # noqa: F401
 from ray_tpu_torch.rllib.algorithms.es import (  # noqa: F401
@@ -73,6 +79,11 @@ from ray_tpu_torch.rllib.algorithms.marwil import (  # noqa: F401
     BCConfig,
     MARWILConfig,
     MARWILPolicy,
+)
+from ray_tpu_torch.rllib.algorithms.maddpg import (  # noqa: F401
+    MADDPG,
+    MADDPGConfig,
+    SimpleTargetChase,
 )
 from ray_tpu_torch.rllib.algorithms.maml import (  # noqa: F401
     MAML,
@@ -99,6 +110,10 @@ from ray_tpu_torch.rllib.algorithms.ppo import (  # noqa: F401
     PPOConfig,
     PPOPolicy,
 )
+from ray_tpu_torch.rllib.algorithms.qmix import (  # noqa: F401
+    QMix,
+    QMixConfig,
+)
 from ray_tpu_torch.rllib.algorithms.r2d2 import (  # noqa: F401
     R2D2,
     R2D2Config,
@@ -115,23 +130,5 @@ from ray_tpu_torch.rllib.algorithms.slateq import (  # noqa: F401
     SlateQConfig,
 )
 
-#: the JAX package's algorithm names that later slices bring, by module
-_LATER = {
-    "DDPPO": "ddppo",
-    "DDPPOConfig": "ddppo",
-    "Dreamer": "dreamer",
-    "DreamerConfig": "dreamer",
-    "MADDPG": "maddpg",
-    "MADDPGConfig": "maddpg",
-    "QMix": "qmix",
-    "QMixConfig": "qmix",
-    "SimpleTargetChase": "maddpg",
-}
-
-
-def __getattr__(name: str):
-    if name in _LATER:
-        raise _port.not_ported(
-            f"ray_tpu_torch.rllib.algorithms.{name} "
-            f"(algorithms/{_LATER[name]}.py)", "queue 1, item 6")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+#: the JAX package's algorithm names that later slices bring: none
+_LATER: dict = {}

@@ -254,6 +254,38 @@ class LSTMNet(nn.Module):
         return (zeros, zeros.clone())
 
 
+class GRUCell(nn.Module):
+    """flax's ``GRUCell`` (QMIX's agents, Dreamer's RSSM): the input
+    projections with bias (``ir``, ``iz``, ``in``; here one ``ih`` in
+    gate order r, z, n), the hidden ones without (``hr``, ``hz``, ``hn``;
+    one ``hh``) but for n's bias (``hn_bias``), so that ``n = tanh(in(x)
+    + r * (hn(h) + b))`` and the new carry is ``(1 - z) n + z h``.
+    ``torch.nn.GRUCell`` computes the same map with r's and z's hidden
+    biases at zero, but would train them."""
+
+    def __init__(self, n_in: int, hidden: int, gen: torch.Generator):
+        super().__init__()
+        self.ih = nn.Linear(n_in, 3 * hidden)
+        self.hh = nn.Linear(hidden, 3 * hidden, bias=False)
+        self.hn_bias = nn.Parameter(torch.zeros(hidden))
+        with torch.no_grad():
+            for g in range(3):  # per gate, as flax initialises each Dense
+                rows = slice(g * hidden, (g + 1) * hidden)
+                _lecun_normal_(self.ih.weight[rows], gen)
+                nn.init.orthogonal_(self.hh.weight[rows], generator=gen)
+            nn.init.zeros_(self.ih.bias)
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """One step: carry ``h`` [..., hidden], input ``x`` -> new carry
+        (flax returns it twice, as carry and output)."""
+        ir, iz, i_n = torch.chunk(self.ih(x), 3, dim=-1)
+        hr, hz, hn = torch.chunk(self.hh(h), 3, dim=-1)
+        r = torch.sigmoid(ir + hr)
+        z = torch.sigmoid(iz + hz)
+        n = torch.tanh(i_n + r * (hn + self.hn_bias))
+        return (1.0 - z) * n + z * h
+
+
 class _MultiHeadAttention(nn.Module):
     """flax ``MultiHeadDotProductAttention``: per-head q/k/v projections
     with biases (flax kernels ``[D, H, D/H]``, here ``[H*D/H, D]``

@@ -342,8 +342,12 @@ class TorchPolicy:
                 {k: float(v) for k, v in stats.items()})
 
     def apply_gradients(self, grads) -> None:
+        """Clip and one optimizer step on ``grads``, one array or tensor
+        per trainable parameter in :meth:`_params` order."""
         for p, g in zip(self._params(), grads):
-            p.grad = torch.as_tensor(np.asarray(g), dtype=p.dtype,
+            if not isinstance(g, torch.Tensor):
+                g = np.asarray(g)
+            p.grad = torch.as_tensor(g, dtype=p.dtype,
                                      device=self.device).clone()
         self._clip_gradients([p.grad for p in self._params()])
         self.opt.step()

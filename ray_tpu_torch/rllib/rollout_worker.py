@@ -262,9 +262,10 @@ class RolloutWorker:
         if seed is not None:
             seed = int(seed) + worker_index
             self.config["seed"] = seed
-        if worker_index > 0:
+        if worker_index > 0 and not config.get("_num_gpus_per_worker"):
             # remote samplers run on host CPUs; the card belongs to the
-            # learner (reference: rollout workers get num_gpus=0)
+            # learner (reference: rollout workers get num_gpus=0) unless
+            # the workers are the learners and were given a share of it
             self.config.setdefault("_device", "cpu")
         n = int(config.get("num_envs_per_worker", 1))
         env_config = dict(config.get("env_config", {}))

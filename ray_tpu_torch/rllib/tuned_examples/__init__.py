@@ -5,9 +5,6 @@ the Algorithm and ``run`` trains until the criterion or the iteration
 budget.  The learner runs on the card, as every algorithm's does by
 default, unless ``device="cpu"`` names the CPU.
 
-A yaml whose algorithm is not ported yet raises ``NotImplementedError``
-naming the ROADMAP.md item that brings it.
-
 Yaml schema::
 
     run: PPO                    # algorithm name (see _algo_config)
@@ -35,14 +32,7 @@ from typing import Any, Dict, List, Optional
 
 import yaml
 
-from ray_tpu_torch import _port
-
 _DIR = os.path.dirname(__file__)
-
-#: the JAX package's tuned-example algorithms that later slices bring,
-#: by module of ``ray_tpu/rllib/algorithms``
-_LATER = {"DDPPO": "ddppo", "QMIX": "qmix", "MADDPG": "maddpg",
-          "Dreamer": "dreamer"}
 
 # generated offline datasets, keyed by (env, num_steps, seed)
 _OFFLINE_CACHE: Dict[tuple, str] = {}
@@ -68,14 +58,12 @@ def _registry() -> Dict[str, Any]:
         "AlphaStar": algos.AlphaStarConfig, "MAML": algos.MAMLConfig,
         "MBMPO": algos.MBMPOConfig, "DT": algos.DTConfig,
         "AlphaZero": algos.AlphaZeroConfig, "SlateQ": algos.SlateQConfig,
+        "DDPPO": algos.DDPPOConfig, "QMIX": algos.QMixConfig,
+        "MADDPG": algos.MADDPGConfig, "Dreamer": algos.DreamerConfig,
     }
 
 
 def _algo_config(name: str):
-    if name in _LATER:
-        raise _port.not_ported(
-            f"the tuned example's algorithm {name} "
-            f"(algorithms/{_LATER[name]}.py)", "queue 1, item 6")
     return _registry()[name]()
 
 

@@ -31,8 +31,12 @@ class WorkerSet:
             local_cfg.setdefault("_device", "cpu")
         self.local_worker = RolloutWorker(env_spec, policy_cls, local_cfg,
                                           worker_index=0)
+        # a share of the card for samplers that learn themselves (DD-PPO
+        # sets "_num_gpus_per_worker"); other samplers stay on the host
+        gpus = float(config.get("_num_gpus_per_worker", 0) or 0)
         self._remote_cls = ray_tpu_torch.remote(RolloutWorker).options(
-            num_cpus=float(config.get("num_cpus_per_worker", 1)))
+            num_cpus=float(config.get("num_cpus_per_worker", 1)),
+            **({"num_gpus": gpus} if gpus else {}))
         # every creation issues up front without awaiting readiness:
         # the whole fleet registers as one coalesced batch and brings
         # up as one pipelined lease wave on the control plane

@@ -2,9 +2,10 @@
 surface): :class:`TorchTrainer` over gang actors, checkpoints of torch
 tensor pytrees, predictors.
 
-The JAX package's framework trainers (``XGBoostTrainer``,
-``LightGBMTrainer``, ``SklearnTrainer``, ``HuggingFaceTrainer``,
-``RLTrainer``) and ``HuggingFacePredictor`` are not ported yet: their
+:class:`RLTrainer` runs an RLlib algorithm under the fit contract.  The
+JAX package's framework trainers (``XGBoostTrainer``,
+``LightGBMTrainer``, ``SklearnTrainer``, ``HuggingFaceTrainer``) and
+``HuggingFacePredictor`` are not ported yet: their
 names raise ``NotImplementedError`` naming the ROADMAP.md item that
 brings them.
 """
@@ -24,6 +25,7 @@ from ray_tpu_torch.train.predictor import (  # noqa: F401
     SklearnPredictor,
     TorchPredictor,
 )
+from ray_tpu_torch.train.rl import RLTrainer  # noqa: F401
 from ray_tpu_torch.train.trainer import (  # noqa: F401
     Result,
     TensorflowTrainer,
@@ -38,7 +40,6 @@ _LATER = {
     "SklearnTrainer": "queue 1, item 4 (framework trainers)",
     "HuggingFaceTrainer": "queue 1, item 4 (framework trainers)",
     "HuggingFacePredictor": "queue 1, item 4 (framework trainers)",
-    "RLTrainer": "queue 1, item 6 (RL)",
 }
 
 

@@ -513,26 +513,20 @@ def test_multi_card_learner_refused(n):
 
 
 def test_unported_algorithms_raise_naming_roadmap():
-    """The JAX package's algorithm names that the port has brought
-    import; every other one raises naming ROADMAP.md's queue 1, item 6."""
+    """Every algorithm name of the JAX package's ``rllib.algorithms`` is
+    the port's too: no name is left for a later slice to bring."""
     import ray_tpu.rllib.algorithms as jalgos
     import ray_tpu_torch.rllib.algorithms as talgos
     jnames = {n for n in dir(jalgos) if n[0].isupper()}
-    ported = {n for n in jnames if n not in talgos._LATER}
-    assert {"PPO", "IMPALA", "APPO", "PG", "A2C", "A3C", "MARWIL", "BC",
-            "DQN", "SimpleQ", "ApexDQN", "R2D2", "SAC", "DDPG", "TD3",
+    assert talgos._LATER == {}
+    assert {"PPO", "DDPPO", "IMPALA", "APPO", "PG", "A2C", "A3C", "MARWIL",
+            "BC", "DQN", "SimpleQ", "ApexDQN", "R2D2", "SAC", "DDPG", "TD3",
             "ApexDDPG", "CQL", "CRR", "ES", "ARS", "BanditLinUCB",
             "BanditLinTS", "AlphaStar", "MAML", "MBMPO", "DT", "AlphaZero",
-            "SlateQ", "RepeatedRPS", "SimpleRecEnv"} <= ported
-    for name in sorted(ported):
+            "SlateQ", "MADDPG", "QMix", "Dreamer", "RepeatedRPS",
+            "SimpleRecEnv", "SimpleTargetChase"} <= jnames
+    for name in sorted(jnames):
         assert getattr(talgos, name).__name__ == name
-    for name in sorted(jnames - ported):
-        with pytest.raises(NotImplementedError,
-                           match="queue 1, item 6"):
-            getattr(talgos, name)
-    assert jnames - ported == {
-        "DDPPO", "DDPPOConfig", "Dreamer", "DreamerConfig", "MADDPG",
-        "MADDPGConfig", "QMix", "QMixConfig", "SimpleTargetChase"}
     jrl = __import__("ray_tpu.rllib", fromlist=["*"])
     for name in dir(jrl):
         if name[0].isupper() and name != "JaxPolicy":

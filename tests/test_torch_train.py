@@ -157,13 +157,15 @@ def test_torch_trainer_ddp_gloo():
 
 
 def test_rl_trainer_waits_for_rllib():
-    """The JAX package's RLTrainer runs an RLlib algorithm; the port has
-    no rllib yet, so the name raises naming the queue item that brings
-    it (and the other framework trainers theirs)."""
+    """The JAX package's RLTrainer runs an RLlib algorithm: the port's is
+    exported now that its rllib is whole (its run is
+    ``tests/test_torch_rllib_ddppo.py``); the other framework trainers
+    still raise naming the queue item that brings them."""
     import ray_tpu_torch.train as train
+    from ray_tpu_torch.train.rl import RLTrainer
 
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        train.RLTrainer
+    assert train.RLTrainer is RLTrainer
+    assert "RLTrainer" not in train._LATER
     for name in ("XGBoostTrainer", "LightGBMTrainer", "SklearnTrainer",
                  "HuggingFaceTrainer", "HuggingFacePredictor"):
         with pytest.raises(NotImplementedError, match="queue 1, item 4"):
