@@ -135,6 +135,18 @@ no network.  Phases, one JSON line each:
     (offline: rows learned/s) per ``train()``, the learner's ms per
     update and updates per ``train()``, finite losses; IMPALA's and
     APPO's yaml run to its criterion.  No kernel of the port.
+25. ``tune``: Tune on ``init(num_cpus=4, num_gpus=1)`` with trials that
+    train GPT-2 124M at full width (8 x 1024 tokens a step, AdamW(lr,
+    0.01)), each trial a cold-spawned worker leasing half the card, two
+    at a time: the direct run of each lr in this process first, then
+    ASHA over four lrs (every loss against the direct run's, the later
+    two stopped at rung 2, the best result's lr), then PBT over two
+    trials that check in together and checkpoint every step (model,
+    AdamW state, step and writer): an exploit restores the other
+    trial's checkpoint, and the restored trial's first loss must equal
+    the loss its writer reported at that step.  Each trial's start,
+    the step alone and shared, the checkpoint's bytes and trip, the
+    card's busy share from ``nvidia-smi``.
 
 The ``kernels`` phase also holds the backward kernels (dK/dV and dQ) and
 both kernel families (native layout and head-major; head-major at every
@@ -158,8 +170,8 @@ at head_dim 256, 512 and 1024, and held at the new kernels' ragged ends.  Each m
 ``train_xl``, ``vit``, ``moe``, ``resnet``, ``head_dims``, ``runtime``,
 ``train_gang``, whose worker counts its own, ``serve_batching``,
 ``long_context``, each run of ``seq_parallel``, each placed run and
-the pipeline of ``sharded``, ``rl``'s shapes and ``rl_zoo``'s tuned
-examples) is
+the pipeline of ``sharded``, ``rl``'s shapes, ``rl_zoo``'s tuned
+examples and ``tune``, whose trials count their own) is
 driven with the kernels' launch counts set to 0 just before it and read
 just after; the native-layout paths launch no
 head-major kernel, GPT-2 XL no native-layout one, and ResNet, the
@@ -3729,7 +3741,8 @@ def phase_rl():
 # times more under a device-only trace.
 RL_ZOO_WARM_COUNT, RL_ZOO_WARM_NU = 20, 1e-4
 RL_ZOO_NOISE_STD = 0.05
-RL_ZOO_WINDOW_S = 2.5
+# short, so that the whole script ends well inside its 1200 s limit
+RL_ZOO_WINDOW_S = 1.0
 RL_ZOO_MAX_WARMUP = 300
 RL_ZOO_TRACE_UPDATES = 16
 # the meta, model-based and search learners' parity also holds every
@@ -4712,6 +4725,484 @@ def phase_rl_zoo():
     return launches
 
 
+# tune: Tune trials that train GPT-2 124M at full width, two sharing the
+# card (resources_per_trial {"GPU": 0.5}), under ASHA and then PBT.  The
+# trials are cold-spawned GPU workers; each counts its own launches.
+TUNE_LRS = (1e-4, 3e-4, 1e-3, 3e-3)
+TUNE_STEPS = 8
+TUNE_BATCH = 8
+TUNE_PBT_LRS = (1e-4, 1e-3)
+TUNE_PBT_STEPS = 6
+TUNE_RESOURCES = {"GPU": 0.5, "CPU": 1}
+# the driver holds each trial's newest checkpoint (1.5 GB) and the store
+# carries it from the trial's actor; PBT's donor crosses it once more
+TUNE_STORE_MIB = 12288
+TUNE_BARRIER_S = 300  # the trials' bounded wait for their population
+TUNE_UTIL_MS = 200  # nvidia-smi's sampling period for the busy share
+
+
+def _process_start() -> float:
+    """This process's start on the host's clock (/proc: the boot time
+    plus the start in clock ticks)."""
+    with open("/proc/stat") as f:
+        btime = next(int(ln.split()[1]) for ln in f if ln.startswith("btime"))
+    with open(f"/proc/{os.getpid()}/stat") as f:
+        ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    return btime + ticks / os.sysconf("SC_CLK_TCK")
+
+
+def tune_trial_loop(config):
+    """The Tune trainable of phase tune, in a trial's cold-spawned GPU
+    worker: GPT-2 124M from ``config["seed"]`` with AdamW(config["lr"],
+    0.01) on the batch of each step, ``tune.report`` each step, a
+    checkpoint (the model, the optimizer's state and the step, and its
+    writer: this run's token, lr and step) every ``ckpt_every`` steps.
+    It resumes from ``tune.get_checkpoint()`` at the saved step, and its
+    first result after a restore names the writer.  With a
+    ``population``, a run that resumes nothing first checks in under
+    ``config["barrier"]`` and waits (bounded) for the round of that many
+    runs it belongs to, so that they train side by side.  Each result
+    carries the step's launches, the current device and the GPU lease;
+    the first, when the run reached each stage of its start."""
+    t_loop_start = time.time()
+    import hashlib
+    import uuid
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.models.gpt2 import GPT2, GPT2Config, adamw, train_step
+    from ray_tpu_torch.ops.fused import fused_rmsnorm
+    from ray_tpu_torch.train import Checkpoint
+
+    t_imports = time.time()
+    token = uuid.uuid4().hex[:12]
+    lease = rt.get_gpu_ids()
+    resumed = tune.get_checkpoint()
+    if config["population"] and resumed is None:
+        open(os.path.join(config["barrier"], token), "w").close()
+        size, population = len(os.listdir(config["barrier"])), \
+            config["population"]
+        goal = -(-size // population) * population
+        deadline = time.time() + TUNE_BARRIER_S
+        while len(os.listdir(config["barrier"])) < goal:
+            if time.time() > deadline:
+                raise TimeoutError("the population never checked in")
+            time.sleep(0.05)
+    t_barrier = time.time()
+    torch.zeros(1, device="cuda")  # the CUDA context
+    torch.cuda.synchronize()
+    t_cuda = time.time()
+    _zero_counts()
+    fused_rmsnorm.launches = 0
+    cfg = GPT2Config.gpt2_small(max_seq_len=config["batches"][0].shape[1])
+    model = GPT2(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(config["seed"]))
+    torch.cuda.synchronize()
+    t_model = time.time()
+    # a process's first torch.optim optimizer imports torch._dynamo
+    opt = adamw(model.parameters(), lr=config["lr"], weight_decay=0.01)
+    t_opt = time.time()
+    start, writer, restore_s = 0, None, None
+    if resumed is not None:
+        t0 = time.perf_counter()
+        tree = resumed.to_pytree({"model": model.state_dict(),
+                                  "optim": opt.state_dict(), "step": 0,
+                                  "writer": {}})
+        model.load_state_dict(tree["model"])
+        opt.load_state_dict(tree["optim"])
+        for group in opt.param_groups:  # the new config's lr
+            group["lr"] = config["lr"]
+        start, writer = tree["step"], tree["writer"]
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    t_ready = time.time()
+    for step in range(start + 1, config["steps"] + 1):
+        tokens = torch.tensor(config["batches"][step - 1], device="cuda")
+        before = {**_flash_counts(), "rmsnorm": fused_rmsnorm.launches}
+        t0 = time.perf_counter()
+        loss = train_step(model, opt, tokens,
+                          head_logits_dtype=torch.bfloat16)
+        value = loss.item()
+        step_s = time.perf_counter() - t0
+        after = {**_flash_counts(), "rmsnorm": fused_rmsnorm.launches}
+        metrics = {
+            "loss": value, "step": step, "training_iteration": step,
+            "lr": config["lr"], "token": token, "step_s": step_s,
+            "launches": {k: after[k] - before[k] for k in after},
+            "device": str(tokens.device),
+            "current_device": torch.cuda.current_device(), "lease": lease,
+            "batch_sha1": hashlib.sha1(
+                config["batches"][step - 1].tobytes()).hexdigest(),
+            "t_result": time.time()}
+        if step == start + 1:  # the run's first result
+            metrics.update(t_process_start=_process_start(),
+                           t_loop_start=t_loop_start, t_imports=t_imports,
+                           t_barrier=t_barrier, t_cuda=t_cuda,
+                           t_model=t_model, t_opt=t_opt, t_ready=t_ready,
+                           resumed_from=writer, restore_s=restore_s)
+        ckpt = None
+        if config["ckpt_every"] and step % config["ckpt_every"] == 0:
+            t0 = time.perf_counter()
+            ckpt = Checkpoint.from_pytree(
+                {"model": model.state_dict(), "optim": opt.state_dict(),
+                 "step": step, "writer": {"token": token,
+                                          "lr": config["lr"], "step": step}})
+            metrics["ckpt_build_s"] = time.perf_counter() - t0
+            metrics["ckpt_bytes"] = len(ckpt.to_dict()["pytree_torch"])
+        if step > start + 1:  # the last report's wait for the runner
+            metrics["prev_report_s"] = report_s
+        t0 = time.perf_counter()
+        tune.report(metrics, checkpoint=ckpt)
+        report_s = time.perf_counter() - t0
+
+
+class _BusySampler:
+    """The card's utilization (the share of each sample period in which
+    a kernel ran) from ``nvidia-smi -lms``, over a ``with`` block."""
+
+    def __enter__(self):
+        self._proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=utilization.gpu",
+             "--format=csv,noheader,nounits", "-lms", str(TUNE_UTIL_MS)],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self._proc.terminate()
+        out = self._proc.communicate(timeout=30)[0]
+        self.samples = [int(v) for v in out.split() if v.isdigit()]
+
+
+def _tune_runs(grid):
+    """Each run of each trial: its results in order, split where the
+    token (one per actor run) changes."""
+    runs = {}
+    for i in range(len(grid)):
+        r = grid[i]
+        rows = []
+        for h in r.metrics_history:
+            if not rows or rows[-1][0]["token"] != h["token"]:
+                rows.append([])
+            rows[-1].append(h)
+        runs[r.trial_id] = rows
+    return runs
+
+
+def _tune_check_run(run, per_step):
+    """What every run must show: each step on the card, on its lease,
+    with the flash kernels' launches of one GPT-2 124M step."""
+    for h in run:
+        assert h["device"].startswith("cuda"), h["device"]
+        assert h["lease"] and h["current_device"] == int(h["lease"][0]), (
+            h["current_device"], h["lease"])
+        assert h["launches"] == per_step, (h["step"], h["launches"])
+        assert math.isfinite(h["loss"]), h
+
+
+def _tune_step_ms(rows):
+    """The ms of each step but a run's first (its warm-up), split by
+    whether a step of another run was on the card at the same time."""
+    spans = [(h["t_result"] - h["step_s"], h["t_result"], h["token"])
+             for h in rows]
+    shared, alone = [], []
+    for h in rows:
+        if "t_process_start" in h:  # a run's first result
+            continue
+        a, b = h["t_result"] - h["step_s"], h["t_result"]
+        side = any(t != h["token"] and lo < b and hi > a
+                   for lo, hi, t in spans)
+        (shared if side else alone).append(h["step_s"] * 1e3)
+    return {"shared_ms": statistics.mean(shared) if shared else None,
+            "shared_ms_each": shared,
+            "alone_ms": statistics.mean(alone) if alone else None,
+            "alone_ms_each": alone}
+
+
+def _tune_start_s(run):
+    """A run's start, stage by stage: the worker's spawn to the loop
+    (interpreter, runtime, torch and chip_smoke imports, the actor's
+    arguments), the loop's imports, the wait for its population, the
+    CUDA context, the model on the card, the optimizer, the restore,
+    the first step."""
+    first = run[0]
+    return {"process_to_first_result_s":
+            first["t_result"] - first["t_process_start"],
+            "process_to_loop_s":
+            first["t_loop_start"] - first["t_process_start"],
+            "imports_s": first["t_imports"] - first["t_loop_start"],
+            "barrier_s": first["t_barrier"] - first["t_imports"],
+            "cuda_s": first["t_cuda"] - first["t_barrier"],
+            "model_s": first["t_model"] - first["t_cuda"],
+            "optimizer_s": first["t_opt"] - first["t_model"],
+            "restore_s": first["restore_s"],
+            "first_step_s": first["t_result"] - first["t_ready"]}
+
+
+def phase_tune(batch=TUNE_BATCH, seq=1024):
+    """Tune on the port's runtime with GPT-2 124M trials on the card:
+    the direct reference for each lr of TUNE_LRS in this process first
+    (freed after); then ASHA over the four lrs, two trials at a time on
+    one card, every loss against the direct run's; then PBT over two
+    trials that checkpoint every step, whose exploit restores the other
+    trial's checkpoint: the restored trial's first loss against the one
+    its writer reported at that step, on the same weights and batch.
+    Returns the launches of every trial's steps."""
+    import hashlib
+    import shutil
+    import tempfile
+    import numpy as np
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.models.gpt2 import GPT2, GPT2Config, adamw, train_step
+    from ray_tpu_torch.train import RunConfig
+
+    class StartLog(tune.Callback):
+        """Each trial's starts, with the config each started with, and
+        when the runner took each result."""
+
+        def __init__(self):
+            self.starts = {}
+
+        def on_trial_start(self, iteration, trials, trial):
+            self.starts.setdefault(trial.trial_id, []).append(
+                {k: v for k, v in trial.config.items() if k != "batches"})
+
+        def on_trial_result(self, iteration, trials, trial, result):
+            # after the runner took the result (and fetched its checkpoint)
+            result["t_driver"] = time.time()
+
+    t_phase = time.perf_counter()
+    st = os.statvfs("/dev/shm")
+    if st.f_bavail * st.f_frsize < TUNE_STORE_MIB * 2**20:
+        raise RuntimeError(f"/dev/shm has less than {TUNE_STORE_MIB} MiB "
+                           "free; tune sizes the object store there")
+    cfg = GPT2Config.gpt2_small(max_seq_len=seq)
+    rows = np.random.default_rng(SEED + 11).integers(
+        0, cfg.vocab_size, (TUNE_STEPS * batch, seq), dtype=np.int64)
+    batches = [rows[i * batch:(i + 1) * batch] for i in range(TUNE_STEPS)]
+    digests = [hashlib.sha1(b.tobytes()).hexdigest() for b in batches]
+
+    # 1. the direct reference: each lr's steps in this process, one trial
+    # alone on the card
+    direct, direct_s = {}, []
+    for lr in TUNE_LRS:
+        model = GPT2(cfg, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(SEED))
+        opt = adamw(model.parameters(), lr=lr, weight_decay=0.01)
+        direct[lr] = []
+        for i, b in enumerate(batches):
+            tokens = torch.as_tensor(b).cuda()
+            t0 = time.perf_counter()
+            loss = train_step(model, opt, tokens,
+                              head_logits_dtype=torch.bfloat16)
+            direct[lr].append(loss.item())
+            if i:  # the first step of each model is warm-up
+                direct_s.append(time.perf_counter() - t0)
+        del model, opt, loss, tokens
+        _free()
+    per_step = {**_flash_per(cfg.num_layers), "rmsnorm": 0}
+    order = sorted(TUNE_LRS, key=lambda lr: direct[lr][1])
+
+    def close(got, want):
+        return abs(got - want) <= GANG_LOSS_RTOL * abs(want)
+
+    barriers = [tempfile.mkdtemp(prefix="chip_smoke_tune_")
+                for _ in range(2)]  # ASHA's and PBT's
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4, num_gpus=1,
+            object_store_memory=TUNE_STORE_MIB * 2**20)
+    init_s = time.perf_counter() - t0
+    try:
+        # 2. ASHA: four lrs in the order of their step-2 loss, best first,
+        # so the later two meet a better value at rung 2 and stop there;
+        # each pair that runs together starts its steps together
+        log = StartLog()
+        t0 = time.perf_counter()
+        with _BusySampler() as asha_busy:
+            asha = tune.Tuner(
+                tune_trial_loop,
+                param_space={"lr": tune.grid_search(order), "seed": SEED,
+                             "steps": TUNE_STEPS, "ckpt_every": 0,
+                             "batches": batches, "population": 2,
+                             "barrier": barriers[0]},
+                tune_config=tune.TuneConfig(
+                    metric="loss", mode="min", max_concurrent_trials=2,
+                    scheduler=tune.AsyncHyperBandScheduler(
+                        metric="loss", mode="min", max_t=TUNE_STEPS,
+                        grace_period=2, reduction_factor=2)),
+                run_config=RunConfig(name="chip_smoke_tune_asha",
+                                     callbacks=[log]),
+                resources_per_trial=dict(TUNE_RESOURCES)).fit()
+        asha_s = time.perf_counter() - t0
+        assert not asha.errors, asha.errors
+        runs = runs_asha = _tune_runs(asha)
+        reached = {}
+        for i in range(len(asha)):
+            r = asha[i]
+            trial_runs = runs[r.trial_id]
+            assert len(trial_runs) == 1, r.trial_id
+            run = trial_runs[0]
+            _tune_check_run(run, per_step)
+            lr = r.config["lr"]
+            assert [h["step"] for h in run] == list(range(1, len(run) + 1))
+            for h in run:
+                assert h["batch_sha1"] == digests[h["step"] - 1]
+                assert close(h["loss"], direct[lr][h["step"] - 1]), (
+                    lr, h["step"], h["loss"], direct[lr][h["step"] - 1])
+            reached[lr] = len(run)
+        assert min(reached.values()) < TUNE_STEPS, reached
+        assert max(reached.values()) == TUNE_STEPS, reached
+        # ResultGrid's pick (each trial's best result) from the direct losses
+        want_best = min(reached, key=lambda lr: min(direct[lr][:reached[lr]]))
+        best = asha.get_best_result()
+        assert best.config["lr"] == want_best, (best.config["lr"], want_best)
+        assert reached[want_best] == TUNE_STEPS, reached
+        asha_starts = [_tune_start_s(runs[asha[i].trial_id][0])
+                       for i in range(len(asha))]
+        asha_rows = [h for i in range(len(asha))
+                     for h in runs[asha[i].trial_id][0]]
+        launches = dict.fromkeys(FLASH_ALL, 0)
+        for h in asha_rows:
+            for k in launches:
+                launches[k] += h["launches"][k]
+        asha_summary = {
+            "order": order, "steps_reached": {
+                str(lr): n for lr, n in reached.items()},
+            "best_lr": best.config["lr"], "seconds": asha_s,
+            "starts": asha_starts,
+            "steps": _tune_step_ms(asha_rows),
+            "report_wait_s_mean": statistics.mean(
+                h["prev_report_s"] for h in asha_rows
+                if "prev_report_s" in h),
+            "report_to_driver_s_mean": statistics.mean(
+                h["t_driver"] - h["t_result"] for h in asha_rows),
+            "busy_pct_mean": statistics.mean(asha_busy.samples),
+            "busy_samples": len(asha_busy.samples)}
+        emit({"phase": "tune_asha", **asha_summary, "card": card_line()})
+
+        # 3. PBT: two trials that check in together, a checkpoint a step
+        pbt_log = StartLog()
+        t0 = time.perf_counter()
+        with _BusySampler() as pbt_busy:
+            pbt = tune.Tuner(
+                tune_trial_loop,
+                param_space={"lr": tune.grid_search(list(TUNE_PBT_LRS)),
+                             "seed": SEED, "steps": TUNE_PBT_STEPS,
+                             "ckpt_every": 1, "batches": batches,
+                             "population": len(TUNE_PBT_LRS),
+                             "barrier": barriers[1]},
+                tune_config=tune.TuneConfig(
+                    metric="loss", mode="min",
+                    max_concurrent_trials=len(TUNE_PBT_LRS),
+                    scheduler=tune.PopulationBasedTraining(
+                        metric="loss", mode="min", perturbation_interval=2,
+                        hyperparam_mutations={"lr": [1e-4, 3e-4, 1e-3]},
+                        seed=0)),
+                run_config=RunConfig(name="chip_smoke_tune_pbt",
+                                     callbacks=[pbt_log]),
+                resources_per_trial=dict(TUNE_RESOURCES)).fit()
+        pbt_s = time.perf_counter() - t0
+        assert not pbt.errors, pbt.errors
+    finally:
+        t0 = time.perf_counter()
+        rt.shutdown()
+        shutdown_s = time.perf_counter() - t0
+        for path in barriers:
+            shutil.rmtree(path, ignore_errors=True)
+    runs = _tune_runs(pbt)
+    by_token = {h["token"]: (tid, run) for tid, trial_runs in runs.items()
+                for run in trial_runs for h in run[:1]}
+    first_runs = {trial_runs[0][0]["token"] for trial_runs in runs.values()}
+    restores, checked = [], 0
+    for tid, trial_runs in runs.items():
+        starts = pbt_log.starts[tid]
+        # a restore from the last step's checkpoint runs no step
+        assert len(starts) - len(trial_runs) in (0, 1), (tid, len(starts))
+        first_lr = trial_runs[0][0]["lr"]
+        for k, run in enumerate(trial_runs):
+            _tune_check_run(run, per_step)
+            for h in run:
+                assert h["batch_sha1"] == digests[h["step"] - 1]
+                assert h["lr"] == starts[k]["lr"], (h["lr"], starts[k])
+            if k == 0:  # before the trial's first exploit: the direct run
+                assert run[0]["resumed_from"] is None
+                for h in run:
+                    assert close(h["loss"], direct[first_lr][h["step"] - 1]), (
+                        first_lr, h["step"], h["loss"])
+                continue
+            writer = run[0]["resumed_from"]
+            if writer is None:
+                continue  # PBT found no checkpoint of the donor yet
+            w_tid, w_run = by_token[writer["token"]]
+            assert run[0]["step"] == writer["step"] + 1, (run[0], writer)
+            later = [h for h in w_run if h["step"] == run[0]["step"]]
+            entry = {"trial": tid, "writer_trial": w_tid,
+                     "writer_lr": writer["lr"], "lr": run[0]["lr"],
+                     "step": writer["step"], "loss": run[0]["loss"],
+                     "writer_loss_same_step":
+                     later[0]["loss"] if later else None,
+                     **_tune_start_s(run),
+                     "writer_report_to_restored_s":
+                     run[0]["t_ready"] - next(
+                         h["t_result"] for h in w_run
+                         if h["step"] == writer["step"])}
+            # the loss at step s + 1 on a checkpoint of step s: what its
+            # writer reported at s + 1 or, where the exploit stopped the
+            # writer at s, the direct run that the writer's first run
+            # followed (held against it above)
+            if later:
+                entry["want"], entry["want_from"] = later[0]["loss"], "writer"
+            elif writer["token"] in first_runs:
+                entry["want"] = direct[writer["lr"]][writer["step"]]
+                entry["want_from"] = "direct"
+            restores.append(entry)
+            if w_tid != tid and "want" in entry:
+                assert close(run[0]["loss"], entry["want"]), entry
+                checked += 1
+    assert any(e["writer_trial"] != e["trial"] for e in restores), restores
+    assert checked, restores
+    pbt_first = [_tune_start_s(trial_runs[0]) for trial_runs in runs.values()]
+    pbt_rows = [h for trial_runs in runs.values() for run in trial_runs
+                for h in run]
+    ckpts = [h for h in pbt_rows if "ckpt_bytes" in h]
+    for trial_runs in runs.values():
+        for run in trial_runs:
+            for h in run:
+                for k in launches:
+                    launches[k] += h["launches"][k]
+    emit({"phase": "tune", "ok": True,
+          "config": f"gpt2_small ({cfg.num_layers} layers, {cfg.embed_dim} "
+          "wide, bf16 compute, f32 masters, AdamW(lr, 0.01), bf16 head "
+          f"logits), {batch} x {seq} tokens a step, Tune trials on "
+          f"init(num_cpus=4, num_gpus=1), resources_per_trial "
+          f"{TUNE_RESOURCES}",
+          "direct_losses": {str(lr): v for lr, v in direct.items()},
+          "direct_step_ms": statistics.mean(direct_s) * 1e3,
+          "direct_step_ms_each": [t * 1e3 for t in direct_s],
+          "init_s": init_s, "shutdown_s": shutdown_s,
+          "asha": asha_summary,
+          "pbt": {"seconds": pbt_s, "first_starts": pbt_first,
+                  "restores": restores, "restores_checked": checked,
+                  "runs": {tid: [[{k: h[k] for k in ("step", "lr", "loss")}
+                                  for h in run] for run in trial_runs]
+                           for tid, trial_runs in runs.items()},
+                  "steps": _tune_step_ms(pbt_rows),
+                  "report_wait_s_mean": statistics.mean(
+                      h["prev_report_s"] for h in pbt_rows
+                      if "prev_report_s" in h),
+                  "report_to_driver_s_mean": statistics.mean(
+                      h["t_driver"] - h["t_result"] for h in pbt_rows),
+                  "ckpt_bytes": ckpts[0]["ckpt_bytes"],
+                  "ckpt_build_s_mean": statistics.mean(
+                      h["ckpt_build_s"] for h in ckpts),
+                  "checkpoints": len(ckpts),
+                  "busy_pct_mean": statistics.mean(pbt_busy.samples),
+                  "busy_samples": len(pbt_busy.samples)},
+          "loss_rtol": GANG_LOSS_RTOL, "launches_per_step": per_step,
+          "launches": {k: v for k, v in launches.items() if v},
+          "seconds": time.perf_counter() - t_phase, "card": card_line()})
+    return launches
+
+
 def _case_is(c, name):
     """Whether case ``c`` ran kernel ``name`` (a forward's, or one part of
     a backward pair's; chunk-mode names too)."""
@@ -4974,6 +5465,8 @@ def main() -> int:
     rl = phase_rl()
     _free()
     rl_zoo = phase_rl_zoo()
+    _free()
+    tune = phase_tune()
     # the runtime, the toy decoder and RL's models launch no kernel of
     # the port
     assert not any(runtime.values()), runtime
@@ -4988,7 +5481,7 @@ def main() -> int:
                                 "long_context": long_context,
                                 "seq_parallel": seq_parallel,
                                 "sharded": sharded, "rl": rl,
-                                "rl_zoo": rl_zoo}, usage))
+                                "rl_zoo": rl_zoo, "tune": tune}, usage))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,7 @@ options that name the TPU, and features of later slices."""
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 
 # the JAX package's TPU keywords and the port's GPU ones in their place
@@ -18,6 +18,16 @@ def reject_tpu_options(where: str, options: Mapping[str, Any]) -> None:
             raise TypeError(
                 f"{where}: {tpu}= is the JAX package's option; "
                 f"ray_tpu_torch schedules GPUs: pass {gpu}=")
+
+
+def reject_tpu_resources(where: str,
+                         resources: Optional[Mapping[str, Any]]) -> None:
+    """Raise if a resources dict asks for ``"TPU"``: no node of the port
+    has that resource, so a lease for it would wait forever."""
+    if resources and "TPU" in resources:
+        raise TypeError(
+            f"{where}: \"TPU\" is the JAX package's resource; "
+            f"ray_tpu_torch schedules GPUs: ask for \"GPU\"")
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:

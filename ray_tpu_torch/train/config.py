@@ -83,7 +83,7 @@ class RunConfig:
     #: ``tune/stopper/``) applied to every trial result
     stop: Optional[object] = None
     #: where logger callbacks write per-trial files (defaults to
-    #: ~/ray_tpu_results/<name>)
+    #: ~/ray_tpu_torch_results/<name>)
     local_dir: Optional[str] = None
     #: console progress reporting period (0 disables; reference
     #: ``tune/progress_reporter.py``)

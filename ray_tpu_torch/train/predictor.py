@@ -5,8 +5,8 @@ Parity: reference ``python/ray/train/predictor.py`` (``Predictor``),
 class mapped over a Dataset with task or actor-pool compute) and the
 per-framework ``*_predictor.py`` files: here ``TorchPredictor`` (a
 module's weights from a checkpoint, the counterpart of the JAX package's
-``JaxPredictor``) and ``SklearnPredictor``.  ``HuggingFacePredictor``
-comes with the framework trainers (ROADMAP.md, queue 1, item 4).
+``JaxPredictor``), ``SklearnPredictor`` and ``HuggingFacePredictor``.
+The torch predictors run on the card unless given ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -98,6 +98,48 @@ class SklearnPredictor(Predictor):
 
     def predict(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         return {"predictions": self._est.predict(self._features(batch))}
+
+
+class HuggingFacePredictor(Predictor):
+    """Inference from a HuggingFaceTrainer checkpoint (reference
+    ``train/huggingface/huggingface_predictor.py``): the checkpoint
+    directory is a ``from_pretrained``-loadable model.  The model runs on
+    the card unless it is given ``device="cpu"`` (the JAX package's runs
+    on the CPU); logits come back as numpy."""
+
+    def __init__(self, model: Any, tokenizer: Any = None, *,
+                 device: Any = None):
+        from ray_tpu_torch._device import resolve_device
+
+        self._device = resolve_device(device)
+        self._model = model.to(self._device)
+        self._tokenizer = tokenizer
+
+    @classmethod
+    def from_checkpoint(cls, checkpoint: Checkpoint, *,
+                        model_cls: Any = None,
+                        tokenizer_cls: Any = None, device: Any = None,
+                        **kwargs) -> "HuggingFacePredictor":
+        import transformers
+
+        model_cls = model_cls or transformers.AutoModel
+        with checkpoint.as_directory() as d:
+            model = model_cls.from_pretrained(d, **kwargs)
+            tokenizer = None
+            if tokenizer_cls is not None:
+                tokenizer = tokenizer_cls.from_pretrained(d)
+        model.eval()
+        return cls(model, tokenizer, device=device)
+
+    def predict(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        import torch
+
+        with torch.no_grad():
+            tensors = {k: torch.as_tensor(np.asarray(v), device=self._device)
+                       for k, v in batch.items()}
+            out = self._model(**tensors)
+        logits = out.logits if hasattr(out, "logits") else out[0]
+        return {"predictions": logits.cpu().numpy()}
 
 
 class BatchPredictor:

@@ -90,13 +90,16 @@ def test_worker_main_import_leaves_torch_unloaded():
 
 
 def test_train_and_data_imports_leave_torch_unloaded():
-    """Importing Train, the data plane, AIR and the parallel vocabulary
-    loads no torch (and no JAX): a CPU worker that runs a data task or a
-    train loop that never touches torch pays no torch import.  torch
-    comes with a loop's own import or with ``to_torch``."""
+    """Importing Train (its framework trainers too), Tune, the data plane,
+    AIR and the parallel vocabulary loads no torch (and no JAX): a CPU
+    worker that runs a data task, a trial or a train loop that never
+    touches torch pays no torch import.  torch comes with a loop's own
+    import or with ``to_torch``."""
     code = ("import sys, ray_tpu_torch.train, ray_tpu_torch.data, "
             "ray_tpu_torch.air, ray_tpu_torch.parallel, "
-            "ray_tpu_torch.train.pytree_io, ray_tpu_torch.util.actor_pool; "
+            "ray_tpu_torch.train.pytree_io, ray_tpu_torch.util.actor_pool, "
+            "ray_tpu_torch.tune, ray_tpu_torch.train.sklearn, "
+            "ray_tpu_torch.train.gbdt, ray_tpu_torch.train.huggingface; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{('torch',) + FORBIDDEN!r}]; print(bad); "
             "import numpy as np; "
@@ -115,7 +118,9 @@ def test_import_leaves_jax_unloaded():
     code = ("import sys, ray_tpu_torch.models, "
             "ray_tpu_torch.models.convert, ray_tpu_torch.serve, "
             "ray_tpu_torch.core.worker, ray_tpu_torch.train, "
-            "ray_tpu_torch.data, ray_tpu_torch.parallel; "
+            "ray_tpu_torch.data, ray_tpu_torch.parallel, ray_tpu_torch.tune, "
+            "ray_tpu_torch.train.sklearn, ray_tpu_torch.train.gbdt, "
+            "ray_tpu_torch.train.huggingface; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -159,17 +159,20 @@ def test_torch_trainer_ddp_gloo():
 def test_rl_trainer_waits_for_rllib():
     """The JAX package's RLTrainer runs an RLlib algorithm: the port's is
     exported now that its rllib is whole (its run is
-    ``tests/test_torch_rllib_ddppo.py``); the other framework trainers
-    still raise naming the queue item that brings them."""
+    ``tests/test_torch_rllib_ddppo.py``), and so are the framework
+    trainers and ``HuggingFacePredictor``: no name of the JAX package's
+    ``ray_tpu.train`` waits for a later slice."""
     import ray_tpu_torch.train as train
+    from ray_tpu_torch.train import gbdt, huggingface, predictor, sklearn
     from ray_tpu_torch.train.rl import RLTrainer
 
     assert train.RLTrainer is RLTrainer
-    assert "RLTrainer" not in train._LATER
-    for name in ("XGBoostTrainer", "LightGBMTrainer", "SklearnTrainer",
-                 "HuggingFaceTrainer", "HuggingFacePredictor"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-            getattr(train, name)
+    assert train._LATER == {}
+    assert train.SklearnTrainer is sklearn.SklearnTrainer
+    assert train.XGBoostTrainer is gbdt.XGBoostTrainer
+    assert train.LightGBMTrainer is gbdt.LightGBMTrainer
+    assert train.HuggingFaceTrainer is huggingface.HuggingFaceTrainer
+    assert train.HuggingFacePredictor is predictor.HuggingFacePredictor
     assert not hasattr(train, "JaxTrainer")
 
 
