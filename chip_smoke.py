@@ -147,6 +147,19 @@ no network.  Phases, one JSON line each:
     the loss its writer reported at that step.  Each trial's start,
     the step alone and shared, the checkpoint's bytes and trip, the
     card's busy share from ``nvidia-smi``.
+26. ``cluster``: GPT-2 124M on a multi-node cluster
+    (``cluster_utils.Cluster``: a head with no GPU, a GPU node and a CPU
+    node), its weights put once as CPU tensors; a ``num_gpus=1`` actor,
+    placed on the GPU node (read through ``experimental.state``), runs
+    the bf16 forward at 8 x 1024 tokens (12 launches of #1), held against
+    the same forward in this process; ``timeline()`` and
+    ``summarize_tasks`` show its calls; a second driver connects by
+    ``ray://`` to a client server on the head and runs the forward as a
+    GPU task, the logits back on its own card; then the CLI starts a
+    head with the GPU, a driver joins with ``init(address="auto")`` and
+    runs it once more; the CLI's ``status``, ``list tasks`` and
+    ``stop``.  Each stage's seconds, the launches, each max |diff| and
+    whether it is bitwise.
 
 The ``kernels`` phase also holds the backward kernels (dK/dV and dQ) and
 both kernel families (native layout and head-major; head-major at every
@@ -171,7 +184,8 @@ at head_dim 256, 512 and 1024, and held at the new kernels' ragged ends.  Each m
 ``train_gang``, whose worker counts its own, ``serve_batching``,
 ``long_context``, each run of ``seq_parallel``, each placed run and
 the pipeline of ``sharded``, ``rl``'s shapes, ``rl_zoo``'s tuned
-examples and ``tune``, whose trials count their own) is
+examples, ``tune``, whose trials count their own, and ``cluster``, whose
+actor and GPU tasks count their own) is
 driven with the kernels' launch counts set to 0 just before it and read
 just after; the native-layout paths launch no
 head-major kernel, GPT-2 XL no native-layout one, and ResNet, the
@@ -5203,6 +5217,469 @@ def phase_tune(batch=TUNE_BATCH, seq=1024):
     return launches
 
 
+# ---------------------------------------------------------------- cluster --
+# GPT-2 124M answering on a multi-node cluster: a head without the card,
+# a GPU node and a CPU node (cluster_utils), a ray:// client server and
+# a second driver, then a head started by the CLI and a driver that finds
+# it with address="auto".  Each forward runs in a cluster worker that
+# zeroes and reads its own launch counts.  The drivers' processes, the
+# client server and the CLI's head start with the phase, so that their
+# interpreters and imports overlap the actor's stage; the actor warms its
+# process (torch, the model's modules, the CUDA context) while the
+# weights are put; the two drivers then run side by side, each on its
+# own cluster.
+CLUSTER_SHAPE = (8, 1024)  # tokens of each forward
+CLUSTER_PRESET = "gpt2_small"
+CLUSTER_HOLDER = "chip-smoke-cluster-weights"
+CLUSTER_DRIVER_TIMEOUT_S = 300
+
+
+def cluster_weights(preset=CLUSTER_PRESET):
+    """GPT-2's f32 master weights as CPU tensors, random from a seeded
+    CPU generator, and the forward's tokens."""
+    from ray_tpu_torch.models.gpt2 import GPT2, GPT2Config
+    cfg = getattr(GPT2Config, preset)(max_seq_len=CLUSTER_SHAPE[1])
+    model = GPT2(cfg, device="cpu",
+                 generator=torch.Generator().manual_seed(SEED))
+    tokens = torch.randint(0, cfg.vocab_size, CLUSTER_SHAPE,
+                           generator=torch.Generator().manual_seed(SEED + 1))
+    return {k: v.detach() for k, v in model.state_dict().items()}, tokens
+
+
+def _cluster_warm(device):
+    """This process ready for the forward: the model's modules imported
+    and, on the card, the CUDA context made."""
+    from ray_tpu_torch.models.gpt2 import GPT2  # noqa: F401
+    if device == "cuda":
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+
+
+def cluster_forward(weights, tokens, preset, device):
+    """The bf16 forward from ``weights`` on ``device``: f32 logits, this
+    process's launches of the port's kernels in it, and the seconds of
+    the model's build and of the forward."""
+    from ray_tpu_torch.models.gpt2 import GPT2, GPT2Config
+    from ray_tpu_torch.ops.fused import fused_rmsnorm
+    t0 = time.perf_counter()
+    cfg = getattr(GPT2Config, preset)(max_seq_len=CLUSTER_SHAPE[1])
+    model = GPT2(cfg, device=device)
+    model.load_state_dict(weights)
+    _zero_counts()
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        logits = model(tokens.to(device))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return logits, {**_flash_counts(), "rmsnorm": fused_rmsnorm.launches}, \
+        {"model_s": t1 - t0, "forward_s": time.perf_counter() - t1}
+
+
+def _cluster_where():
+    import ray_tpu_torch as rt
+    return {"node": rt.get_runtime_context().get_node_id(),
+            "gpu_ids": rt.get_gpu_ids(), "pid": os.getpid(),
+            "process_start": _process_start(),
+            "device": (torch.cuda.get_device_name()
+                       if torch.cuda.is_available() else "cpu")}
+
+
+class ClusterForwardActor:
+    """The GPU actor of phase ``cluster``: warms its process when made,
+    then one forward a call."""
+
+    def __init__(self, device):
+        t0 = time.time()
+        _cluster_warm(device)
+        self.times = {"warm_start": t0, "warm_end": time.time()}
+
+    def forward(self, weights, tokens, preset, device):
+        self.times["call_start"] = time.time()
+        logits, self.launches, took = cluster_forward(weights, tokens,
+                                                      preset, device)
+        self.times.update(took, call_end=time.time())
+        return logits
+
+    def info(self):
+        return {**_cluster_where(), "launches": self.launches,
+                "times": self.times}
+
+
+class ClusterWeightsHolder:
+    """Holds the weights' ObjectRef (in a list, so that it stays a ref)
+    for drivers that did not put them."""
+
+    def __init__(self, box):
+        self._box = box
+
+    def box(self):
+        return self._box
+
+
+def cluster_forward_task(weights, tokens, preset, device):
+    """Phase ``cluster``'s GPU task: the forward from ``weights``, or,
+    where None, from the weights the named holder keeps.  Returns the
+    logits and, as a second value, where it ran, its launches and its
+    times (the logits alone take the store's tensor path)."""
+    import ray_tpu_torch as rt
+    times = {"call_start": time.time()}
+    _cluster_warm(device)
+    times["warm_end"] = time.time()
+    if weights is None:
+        box = rt.get(rt.get_actor(CLUSTER_HOLDER).box.remote(), timeout=60)
+        weights = rt.get(box[0], timeout=120)
+    times["weights_end"] = time.time()
+    logits, launches, took = cluster_forward(weights, tokens, preset, device)
+    times.update(took, call_end=time.time())
+    return logits, {**_cluster_where(), "launches": launches,
+                    "times": times}
+
+
+def cluster_hold(got, ref):
+    """``got`` against the in-process logits ``ref``, within
+    model_parity's limit (atol = rtol = 1e-3): its max |diff| and whether
+    the two are equal bit for bit."""
+    got = got.to(ref.device)
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, atol=1e-3, rtol=1e-3)
+    return {"max_abs_err": max_err(got, ref), "bitwise": torch.equal(got, ref)}
+
+
+def _await_file(path, timeout=CLUSTER_DRIVER_TIMEOUT_S):
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} never appeared")
+        time.sleep(0.05)
+    with open(path) as f:
+        return f.read().strip()
+
+
+def cluster_driver(mode, go_path, ref_path, preset=CLUSTER_PRESET,
+                   device="cuda"):
+    """A second driver process of phase ``cluster``, started early: it
+    imports what it needs, then waits for ``go_path`` to name its
+    address.  ``mode`` "client" connects by ``ray://`` and runs the
+    forward as a GPU task on the holder's weights; "auto" (the file says
+    "auto") finds the CLI's head with ``init(address="auto")``, puts the
+    weights again and runs it.  The logits come back to this process (on
+    its card), are held against the in-process ones saved at
+    ``ref_path``, and a JSON line reports it."""
+    import ray_tpu_torch as rt
+    _cluster_warm(device)
+    _, tokens = cluster_weights(preset)
+    t_ready = time.time()
+    address = _await_file(go_path)
+    t0 = time.perf_counter()
+    info = rt.init(address=address)
+    t_init = time.perf_counter() - t0
+    weights = None
+    if mode == "auto":
+        weights = rt.put(cluster_weights(preset)[0])
+    # on the card the GPU lease places the task; the rehearsal without
+    # one names the GPU node of phase cluster's Cluster by its resource
+    place = {"num_gpus": 1} if device == "cuda" else (
+        {"resources": {"gpu_node": 1}} if mode == "client" else {})
+    remote = rt.remote(cluster_forward_task).options(num_returns=2, **place)
+    t1 = time.perf_counter()
+    t_submit = time.time()
+    logits_ref, where_ref = remote.remote(weights, tokens, preset, device)
+    logits = rt.get(logits_ref, timeout=CLUSTER_DRIVER_TIMEOUT_S)
+    t_got = time.time()
+    where = rt.get(where_ref, timeout=60)
+    t_forward = time.perf_counter() - t1
+    if device == "cuda":
+        assert logits.device.type == "cuda", logits.device
+    held = cluster_hold(logits, torch.load(ref_path).to(logits.device))
+    out = {"mode": mode, "address": address, "connection": info,
+           "logits_device": str(logits.device), "where": where,
+           "process_start": _process_start(), "ready": t_ready,
+           "submit": t_submit, "got": t_got,
+           "init_s": t_init, "forward_s": t_forward, **held}
+    rt.shutdown()
+    print("CLUSTER_DRIVER " + json.dumps(out, default=str), flush=True)
+    return 0
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _repo_root():
+    return os.path.dirname(os.path.abspath(__file__))
+
+
+def _cluster_spawn(mode, go_path, ref_path, preset, device, env=None):
+    """Start a driver of ``cluster_driver`` (it waits for ``go_path``)."""
+    return subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke as c; "
+         f"sys.exit(c.cluster_driver({mode!r}, {go_path!r}, {ref_path!r},"
+         f" {preset!r}, {device!r}))"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=_repo_root(), env={**os.environ, **(env or {})})
+
+
+def _cluster_go(go_path, address):
+    """Let a waiting driver go at ``address``."""
+    with open(go_path + ".tmp", "w") as f:
+        f.write(address)
+    os.replace(go_path + ".tmp", go_path)
+
+
+def _cluster_report(proc):
+    """A driver's report, once it has ended."""
+    out, err = proc.communicate(timeout=CLUSTER_DRIVER_TIMEOUT_S)
+    assert proc.returncode == 0, (out[-3000:], err[-3000:])
+    line = [ln for ln in out.splitlines() if ln.startswith("CLUSTER_DRIVER ")]
+    return json.loads(line[-1].split(" ", 1)[1])
+
+
+def _cluster_cli(*argv, env):
+    out = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch.scripts.cli", *argv],
+        capture_output=True, text=True, cwd=_repo_root(), timeout=120,
+        env={**os.environ, **env})
+    assert out.returncode == 0, (argv, out.stdout[-3000:],
+                                 out.stderr[-3000:])
+    return out.stdout
+
+
+def _cluster_task_times(where, submit, got):
+    """A remote forward's seconds: from the driver's submit to its
+    worker's start (a cold spawn) and to the call, the warm-up, the
+    weights' fetch, the model's build, the forward, and the logits' way
+    back to the driver."""
+    t = where["times"]
+    return {"spawn_s": t["call_start"] - max(submit, where["process_start"])
+            if where["process_start"] > submit else 0.0,
+            "to_call_s": t["call_start"] - submit,
+            "warm_s": t["warm_end"] - t["call_start"],
+            "weights_s": t["weights_end"] - t["warm_end"],
+            "model_s": t["model_s"], "forward_s": t["forward_s"],
+            "back_s": got - t["call_end"]}
+
+
+def phase_cluster(preset=CLUSTER_PRESET, device="cuda"):
+    """GPT-2 124M (12 layers, full width, random from a seed) answering
+    on a two-node cluster on the card: a head without the GPU, a GPU node
+    and a CPU node (``cluster_utils.Cluster``); the weights put once as
+    CPU tensors; a ``num_gpus=1`` actor, which must land on the GPU node
+    (``experimental.state.list_actors``), runs the bf16 forward at
+    CLUSTER_SHAPE, held against the same forward in this process;
+    ``timeline()`` and ``summarize_tasks`` must show the actor's calls.
+    Then a second driver connects by ``ray://`` to a client server on the
+    head and runs the forward as a GPU task, its logits back on its own
+    card, while beside it a driver finds the head the CLI started with
+    the GPU (``init(address="auto")``) and runs it once more; the CLI's
+    ``status``, ``list tasks`` and ``stop``.  Returns the launches of
+    the three forwards.  ``device="cpu"`` (and a smaller ``preset``)
+    rehearses it without a card."""
+    import concurrent.futures
+    import shutil
+    import tempfile
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.experimental.state import api as state
+
+    gpus = 1 if device == "cuda" else 0
+    t_phase = time.perf_counter()
+    stages = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+    ref_path = os.path.join(tmp, "reference_logits.pt")
+    go = {m: os.path.join(tmp, f"go_{m}") for m in ("client", "auto")}
+    env = {"RAY_TPU_TORCH_SESSION_ROOT": os.path.join(tmp, "sessions")}
+    os.makedirs(env["RAY_TPU_TORCH_SESSION_ROOT"])
+    drivers = {m: _cluster_spawn(m, go[m], ref_path, preset, device,
+                                 env=env if m == "auto" else None)
+               for m in ("client", "auto")}
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+
+    def start_head():
+        t0 = time.perf_counter()
+        out = _cluster_cli("start", "--head", "--num-cpus", "2",
+                           "--num-gpus", str(gpus), env=env)
+        return out, time.perf_counter() - t0
+
+    cli_head = pool.submit(start_head)
+    cluster = client_server = None
+    try:
+        t0 = time.perf_counter()
+        cluster = Cluster(initialize_head=True,
+                          head_node_args={"num_cpus": 2, "num_gpus": 0})
+        gpu_node = cluster.add_node(num_cpus=2, num_gpus=1,
+                                    resources={"gpu_node": 1})
+        cluster.add_node(num_cpus=2, num_gpus=0)
+        cluster.connect()
+        cluster.wait_for_nodes()
+        assert rt.cluster_resources().get("GPU") == 1.0, \
+            rt.cluster_resources()
+        stages["cluster_up_s"] = time.perf_counter() - t0
+        # the GPU node's lease places the actor; without the card (the
+        # rehearsal) the node's own resource does
+        t_actor = time.time()
+        actor = rt.remote(ClusterForwardActor).options(
+            num_gpus=gpus, num_cpus=0,
+            **({} if gpus else {"resources": {"gpu_node": 1}})).remote(
+                device)
+        port = _free_port()
+        client_server = subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu_torch.util.client.server",
+             "--address", "{}:{}".format(*cluster.gcs_address),
+             "--host", "127.0.0.1", "--port", str(port)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            cwd=_repo_root())
+
+        # the in-process reference, saved for the other drivers
+        t0 = time.perf_counter()
+        weights, tokens = cluster_weights(preset)
+        ref, _, _ = cluster_forward(weights, tokens, preset, device)
+        torch.save(ref.cpu(), ref_path)
+        stages["reference_s"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        weights_ref = rt.put(weights)
+        # kept: the holder lives while its handle does
+        holder = rt.remote(ClusterWeightsHolder).options(
+            name=CLUSTER_HOLDER, num_cpus=0).remote([weights_ref])
+        stages["put_weights_s"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        t_submit = time.time()
+        logits = rt.get(actor.forward.remote(weights_ref, tokens, preset,
+                                             device), timeout=300)
+        t_got = time.time()
+        actor_info = rt.get(actor.info.remote(), timeout=60)
+        stages["actor_forward_s"] = time.perf_counter() - t0
+        at = actor_info["times"]
+        actor_times = {
+            "start_to_warm_s": at["warm_end"] - t_actor,
+            "warm_s": at["warm_end"] - at["warm_start"],
+            "wait_s": at["call_start"] - t_submit,
+            "model_s": at["model_s"], "forward_s": at["forward_s"],
+            "back_s": t_got - at["call_end"]}
+        if gpus:
+            assert logits.device.type == "cuda", logits.device
+        actor_held = cluster_hold(logits, ref)
+        del logits
+        rows = [a for a in state.list_actors(filters=[("state", "=",
+                                                       "ALIVE")])
+                if "ClusterForwardActor" in a.get("class_name", "")]
+        assert len(rows) == 1, rows
+        assert rows[0]["node_id"] == gpu_node.node_id_hex == \
+            actor_info["node"], (rows, gpu_node.node_id_hex, actor_info)
+        if gpus:
+            assert actor_info["gpu_ids"], actor_info
+        rt.kill(actor)  # its GPU lease goes back for the client's task
+
+        t0 = time.perf_counter()
+        time.sleep(1.5)  # the task events' flush period
+        trace_path = os.path.join(tmp, "timeline.json")
+        rt.timeline(trace_path)
+        with open(trace_path) as f:
+            trace = json.load(f)
+        # an actor's calls are named by their method
+        method_events = [e for e in trace if e.get("cat") == "task"
+                         and e["name"] == "forward"]
+        assert method_events, sorted({e["name"] for e in trace})[:40]
+        summary = state.summarize_tasks()
+        key = "forward"
+        assert summary.get(key, {}).get("FINISHED", 0) >= 1, summary
+        stages["timeline_s"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + 120
+        while "ready on ray://" not in client_server.stdout.readline():
+            assert client_server.poll() is None and \
+                time.monotonic() < deadline, "client server did not start"
+        started, stages["cli_start_s"] = cli_head.result(timeout=120)
+        stages["client_server_and_cli_head_wait_s"] = \
+            time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _cluster_go(go["client"], f"ray://127.0.0.1:{port}")
+        _cluster_go(go["auto"], "auto")
+        client = _cluster_report(drivers.pop("client"))
+        stages["client_driver_s"] = time.perf_counter() - t0
+        auto = _cluster_report(drivers.pop("auto"))
+        stages["auto_driver_s"] = time.perf_counter() - t0
+        assert client["where"]["node"] == gpu_node.node_id_hex, client
+        if gpus:
+            assert client["logits_device"].startswith("cuda"), client
+        client_server.terminate()
+        client_server.wait(timeout=30)
+        client_server = None
+        del holder
+        t0 = time.perf_counter()
+        cluster.shutdown()
+        cluster = None
+        stages["cluster_down_s"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        status = _cluster_cli("status", env=env)
+        assert "alive" in status and ("GPU" in status or not gpus), status
+        tasks = json.loads(_cluster_cli("list", "tasks", env=env))
+        assert any("cluster_forward_task" in (r.get("name") or "")
+                   and r.get("state") == "FINISHED" for r in tasks), \
+            [(r.get("name"), r.get("state")) for r in tasks]
+        stages["cli_status_list_s"] = time.perf_counter() - t0
+    finally:
+        for proc in drivers.values():
+            proc.kill()
+            proc.wait(timeout=30)
+        if client_server is not None:
+            client_server.kill()
+        if cluster is not None:
+            cluster.shutdown()
+        try:
+            cli_head.result(timeout=120)
+        except Exception:  # noqa: BLE001 — no head was recorded
+            pass
+        else:
+            t0 = time.perf_counter()
+            stopped = _cluster_cli("stop", env=env)
+            stages["cli_stop_s"] = time.perf_counter() - t0
+        pool.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert "SIGTERM" in stopped, stopped
+
+    per_forward = {**_flash_per(0), "rmsnorm": 0}
+    if gpus:
+        from ray_tpu_torch.models.gpt2 import GPT2Config
+        per_forward = {**_flash_per(getattr(GPT2Config, preset)().num_layers,
+                                    bwd=0), "rmsnorm": 0}
+    launches = dict.fromkeys(per_forward, 0)
+    for got in (actor_info["launches"], client["where"]["launches"],
+                auto["where"]["launches"]):
+        assert got == per_forward, (got, per_forward)
+        for k in launches:
+            launches[k] += got[k]
+    drivers_out = {
+        d["mode"]: {**{k: d[k] for k in ("max_abs_err", "bitwise",
+                                         "logits_device", "init_s",
+                                         "forward_s")},
+                    "task": _cluster_task_times(d["where"], d["submit"],
+                                                d["got"])}
+        for d in (client, auto)}
+    emit({"phase": "cluster", "ok": True,
+          "config": f"{preset} ({CLUSTER_SHAPE[0]} x {CLUSTER_SHAPE[1]} "
+          "tokens, bf16 compute, f32 masters, random from a seed); "
+          "Cluster: head num_cpus=2 num_gpus=0, a GPU node (num_gpus=1) "
+          "and a CPU node (num_gpus=0)",
+          "stages_s": stages,
+          "actor": {**actor_held, "node": actor_info["node"],
+                    "gpu_ids": actor_info["gpu_ids"],
+                    "times": actor_times},
+          "timeline_method_events": len(method_events),
+          "summary": {key: summary[key]}, **drivers_out,
+          "cli_start": started.strip().splitlines()[:2],
+          "atol": 1e-3, "launches": {k: v for k, v in launches.items() if v},
+          "seconds": time.perf_counter() - t_phase,
+          "card": card_line() if gpus else "no card"})
+    return launches
+
+
 def _case_is(c, name):
     """Whether case ``c`` ran kernel ``name`` (a forward's, or one part of
     a backward pair's; chunk-mode names too)."""
@@ -5467,6 +5944,8 @@ def main() -> int:
     rl_zoo = phase_rl_zoo()
     _free()
     tune = phase_tune()
+    _free()
+    cluster = phase_cluster()
     # the runtime, the toy decoder and RL's models launch no kernel of
     # the port
     assert not any(runtime.values()), runtime
@@ -5481,7 +5960,8 @@ def main() -> int:
                                 "long_context": long_context,
                                 "seq_parallel": seq_parallel,
                                 "sharded": sharded, "rl": rl,
-                                "rl_zoo": rl_zoo, "tune": tune}, usage))
+                                "rl_zoo": rl_zoo, "tune": tune,
+                                "cluster": cluster}, usage))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -26,6 +26,7 @@ import atexit
 import logging
 import os
 import subprocess
+import sys
 import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -51,7 +52,7 @@ from ray_tpu_torch.core import worker as _worker_mod
 from ray_tpu_torch.actor import ActorClass, ActorHandle, get_actor  # noqa: F401
 from ray_tpu_torch.remote_function import RemoteFunction
 from ray_tpu_torch.runtime_context import get_runtime_context  # noqa: F401
-from ray_tpu_torch._port import not_ported, reject_tpu_options
+from ray_tpu_torch._port import reject_tpu_options
 
 __version__ = "0.1.0"
 
@@ -63,8 +64,16 @@ _head_supervisor = None
 _owns_head = False
 
 
+def _client_or_none():
+    # no client can be connected before its module is imported: every
+    # API call looks it up without importing it
+    mod = sys.modules.get("ray_tpu_torch.util.client")
+    return None if mod is None else mod._client
+
+
 def is_initialized() -> bool:
-    return _worker_mod.global_worker_or_none() is not None
+    return (_worker_mod.global_worker_or_none() is not None
+            or _client_or_none() is not None)
 
 
 def init(address: Optional[str] = None, *,
@@ -94,9 +103,12 @@ def init(address: Optional[str] = None, *,
             raise RayTpuError("ray_tpu_torch.init() called twice")
 
         if address and address.startswith("ray://"):
-            # remote-driver (client) mode
-            raise not_ported("ray:// client mode (util/client)",
-                             "queue 1, item 7")
+            # remote-driver (client) mode: no local runtime, everything
+            # proxies through the cluster's client server
+            from ray_tpu_torch.util import client as client_mod
+            client_mod.connect(address[len("ray://"):])
+            atexit.register(shutdown)
+            return {"address": address, "mode": "client"}
 
         config = Config().apply_env_overrides().apply_overrides(_system_config)
         if object_store_memory:
@@ -117,11 +129,15 @@ def init(address: Optional[str] = None, *,
             env_addr = os.environ.get("RAY_TPU_TORCH_ADDRESS")
             address = env_addr if env_addr and env_addr != "auto" else None
             if address is None:
-                # the JAX package also reads the head that its CLI
-                # (`ray-tpu start --head`) recorded
-                raise not_ported("address='auto' without "
-                                 "RAY_TPU_TORCH_ADDRESS (the scripts CLI)",
-                                 "queue 1, item 7")
+                from ray_tpu_torch.scripts.cli import _load_latest
+                latest = _load_latest()
+                if latest:
+                    address = "{}:{}".format(*latest["gcs_address"])
+            if address is None:
+                raise RayTpuError(
+                    "address='auto' but no running cluster found (set "
+                    "RAY_TPU_TORCH_ADDRESS or run `python -m "
+                    "ray_tpu_torch.scripts.cli start --head`)")
         if address is None:
             session_dir = node_mod.new_session_dir(config)
             res: Dict[str, float] = dict(resources or {})
@@ -207,6 +223,10 @@ def _discover_via_gcs(gcs_address: Tuple[str, int]) -> Dict[str, Any]:
 
 
 def connection_info() -> Dict[str, Any]:
+    client = _client_or_none()
+    if client is not None:
+        return {"address": "ray://{}:{}".format(*client._address),
+                "mode": "client"}
     core = _worker_mod.global_worker()
     return {
         "gcs_address": core.gcs_address,
@@ -223,6 +243,8 @@ def shutdown() -> None:
         if _head_supervisor is not None:
             _head_supervisor.stop()  # intentional: never respawn now
             _head_supervisor = None
+        from ray_tpu_torch.util import client as client_mod
+        client_mod.disconnect()
         # retire any serve router poll thread bound to this cluster
         import sys as _sys
         _serve = _sys.modules.get("ray_tpu_torch.serve")
@@ -244,6 +266,12 @@ def remote(*args, **options):
     """``@remote`` decorator for functions and classes (parity:
     ``ray.remote``)."""
     def decorate(fn_or_class):
+        if _client_or_none() is not None:
+            from ray_tpu_torch.util.client import (ClientActorClass,
+                                             ClientRemoteFunction)
+            if isinstance(fn_or_class, type):
+                return ClientActorClass(fn_or_class, **options)
+            return ClientRemoteFunction(fn_or_class, **options)
         if isinstance(fn_or_class, type):
             return ActorClass(fn_or_class, **options)
         return RemoteFunction(fn_or_class, **options)
@@ -257,6 +285,11 @@ def remote(*args, **options):
 
 def get(refs: Union[ObjectRef, Sequence[ObjectRef]],
         *, timeout: Optional[float] = None) -> Any:
+    client = _client_or_none()
+    if client is not None:
+        single = isinstance(refs, ObjectRef)
+        out = client.get([refs] if single else list(refs), timeout=timeout)
+        return out[0] if single else out
     core = _worker_mod.global_worker()
     single = isinstance(refs, ObjectRef)
     out = core.get([refs] if single else list(refs), timeout=timeout)
@@ -267,17 +300,27 @@ def put(value: Any, *, _force_plasma: bool = False) -> ObjectRef:
     """``_force_plasma`` (internal) places the object in the shm arena
     even when small enough for the in-process store — the serve plane's
     KV pages need arena residency (spill tier, cross-replica pulls)."""
+    client = _client_or_none()
+    if client is not None:
+        return client.put(value)
     return _worker_mod.global_worker().put(value, force_plasma=_force_plasma)
 
 
 def wait(refs: Sequence[ObjectRef], *, num_returns: int = 1,
          timeout: Optional[float] = None
          ) -> Tuple[List[ObjectRef], List[ObjectRef]]:
+    client = _client_or_none()
+    if client is not None:
+        return client.wait(refs, num_returns=num_returns, timeout=timeout)
     return _worker_mod.global_worker().wait(
         refs, num_returns=num_returns, timeout=timeout)
 
 
 def kill(actor: "ActorHandle", *, no_restart: bool = True) -> None:
+    client = _client_or_none()
+    if client is not None:
+        client.kill_actor(actor.actor_id, no_restart=no_restart)
+        return
     _worker_mod.global_worker().kill_actor(actor.actor_id,
                                            no_restart=no_restart)
 
@@ -293,6 +336,17 @@ def cancel(ref: ObjectRef, *, force: bool = False,
     :class:`TaskCancelledError` — unless the task finished first."""
     from ray_tpu_torch.core.object_ref import StreamingObjectRefGenerator
     streaming = isinstance(ref, StreamingObjectRefGenerator)
+    client = _client_or_none()
+    if client is not None:
+        if streaming:
+            # the generator's task id is the handle: route it through
+            # the client cancel protocol (parity: the reference cancels
+            # streaming generators through the client too)
+            client.cancel_task_id(ref.task_id.binary(), force=force,
+                                  recursive=recursive)
+            return
+        client.cancel(ref, force=force, recursive=recursive)
+        return
     # the streaming handle is the ONLY thing a streaming caller holds
     # (parity: the reference cancels the generator object directly)
     task_id = ref.task_id if streaming else ref.task_id()
@@ -301,23 +355,39 @@ def cancel(ref: ObjectRef, *, force: bool = False,
 
 
 def free(refs: Sequence[ObjectRef]) -> None:
+    client = _client_or_none()
+    if client is not None:
+        client.free(list(refs))
+        return
     _worker_mod.global_worker().free(list(refs))
 
 
 def nodes() -> List[Dict[str, Any]]:
+    client = _client_or_none()
+    if client is not None:
+        return client.cluster_info("nodes")
     return _worker_mod.global_worker().get_nodes()
 
 
 def cluster_resources() -> Dict[str, float]:
+    client = _client_or_none()
+    if client is not None:
+        return client.cluster_info("cluster_resources")
     return _worker_mod.global_worker().cluster_resources()
 
 
 def available_resources() -> Dict[str, float]:
+    client = _client_or_none()
+    if client is not None:
+        return client.cluster_info("available_resources")
     return _worker_mod.global_worker().available_resources()
 
 
 def get_actor(name: str, namespace: str = "default"):
     """Look up a named actor (parity: ``ray.get_actor``)."""
+    client = _client_or_none()
+    if client is not None:
+        return client.get_named_actor(name, namespace)
     from ray_tpu_torch import actor as _actor_mod
     return _actor_mod.get_actor(name, namespace)
 
@@ -348,7 +418,8 @@ def get_gpu_ids() -> List[int]:
 
 def timeline(filename: Optional[str] = None) -> List[Dict[str, Any]]:
     """Chrome-trace export of task events (reference ``ray.timeline``)."""
-    raise not_ported("timeline (experimental/state)", "queue 1, item 7")
+    from ray_tpu_torch.experimental.state.api import timeline as _timeline
+    return _timeline(filename)
 
 
 def __getattr__(name: str):

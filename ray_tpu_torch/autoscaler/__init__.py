@@ -4,7 +4,7 @@ the runtime reaches.
 ``fair_queue`` is the raylet's and the GCS's per-job fair lease queue;
 ``sdk.request_resources`` is the serve controller's standing capacity
 request.  The autoscaler itself (monitor, policy, node providers) is not
-ported yet (ROADMAP.md, queue 1, item 7).
+ported yet (ROADMAP.md, queue 1, item 7.6).
 
 Exports resolve lazily (PEP 562): the core GCS imports the pure
 ``fair_queue`` state machine from this package, and an eager package

@@ -28,6 +28,7 @@ import pickle
 import struct
 import sys
 import warnings
+import weakref
 from typing import Any, Callable, List, Optional, Tuple
 
 import cloudpickle
@@ -128,6 +129,17 @@ class _RefAwarePickler(cloudpickle.CloudPickler):
         return None
 
 
+class _HeldAwarePickler(_RefAwarePickler):
+    """The pickler of a process that holds CUDA tensors on the host: a
+    held tensor too small for the buffer path still travels as CUDA."""
+
+    def reducer_override(self, obj):
+        held = _HELD_ON_HOST
+        if held is not None and held.get(id(obj)) is obj:
+            return tensor_reduce(obj)
+        return super().reducer_override(obj)
+
+
 _EMPTY_DICT_WIRE: Any = None
 _NONE_WIRE: Any = None
 
@@ -144,14 +156,43 @@ def _rebuild_bytearray(buf) -> bytearray:
     return bytearray(buf)
 
 
+#: CPU tensors that stand for CUDA ones, by id, while this process
+#: holds CUDA tensors on the host (``hold_cuda_on_host``); None otherwise
+_HELD_ON_HOST: Optional["weakref.WeakValueDictionary"] = None
+
+
+def hold_cuda_on_host() -> None:
+    """From now on a CUDA tensor read in this process lands on the CPU
+    and keeps its kind: written again (to the store, or by
+    ``tensor_reduce``), it travels as a CUDA tensor.  For a process that
+    only relays values, as the ray:// client server does, and so must
+    neither start CUDA nor turn a reader's CUDA tensor into a CPU one."""
+    global _HELD_ON_HOST
+    if _HELD_ON_HOST is None:
+        _HELD_ON_HOST = weakref.WeakValueDictionary()
+
+
+def device_kind(value) -> str:
+    """``value``'s device type as the wire names it: ``"cuda"`` for a
+    tensor held on the host for CUDA (``hold_cuda_on_host``)."""
+    held = _HELD_ON_HOST
+    if held is not None and held.get(id(value)) is value:
+        return "cuda"
+    return value.device.type
+
+
 def _rebuild_tensor(shape, dtype, device_type, buf):
     """A tensor of ``shape`` and ``dtype`` (its name in ``torch``) from
     its raw bytes, in one copy: on the reader's current CUDA device if
     the putter's tensor was on CUDA (one host-to-device copy; raises
-    where there is no CUDA), else on the CPU."""
+    where there is no CUDA), else on the CPU.  A process that holds CUDA
+    tensors on the host (``hold_cuda_on_host``) keeps them on the CPU."""
     import torch  # the putter had torch imported; readers import it lazily
 
-    if device_type == "cuda":
+    held = device_type == "cuda" and _HELD_ON_HOST is not None
+    if held:
+        device = torch.device("cpu")
+    elif device_type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "a CUDA tensor was read in a process without CUDA; put a "
@@ -166,6 +207,8 @@ def _rebuild_tensor(shape, dtype, device_type, buf):
             warnings.simplefilter("ignore", UserWarning)
             src = torch.frombuffer(buf, dtype=torch.uint8)
         out.view(-1).view(torch.uint8).copy_(src)
+    if held:
+        _HELD_ON_HOST[id(out)] = out
     return out
 
 
@@ -187,7 +230,20 @@ def _tensor_wire(torch_mod, value) -> Optional["_BufferWire"]:
     return _BufferWire(_rebuild_tensor,
                        (tuple(value.shape),
                         str(value.dtype).removeprefix("torch."),
-                        value.device.type), raw)
+                        device_kind(value)), raw)
+
+
+def tensor_reduce(value) -> Any:
+    """``value``'s reduction for a pickle stream (in band), by the
+    store's rule: a CUDA tensor comes back on the reader's card, or
+    raises where the reader has no CUDA.  NotImplemented for anything
+    but a plain dense tensor, so a ``reducer_override`` can return it
+    as is."""
+    torch_mod = loaded_torch()
+    if torch_mod is None or not isinstance(value, torch_mod.Tensor):
+        return NotImplemented
+    wire = _tensor_wire(torch_mod, value)
+    return NotImplemented if wire is None else wire.__reduce__()
 
 
 class _BufferWire:
@@ -300,7 +356,9 @@ def serialize(value: Any) -> SerializedObject:
     buffers: List = []
     contained: List = []
     sink = io.BytesIO()
-    _RefAwarePickler(sink, buffers, contained).dump(value)
+    pickler = (_RefAwarePickler if _HELD_ON_HOST is None
+               else _HeldAwarePickler)
+    pickler(sink, buffers, contained).dump(value)
     return SerializedObject(sink.getvalue(), buffers, contained)
 
 

@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ray_tpu_torch.ops._build import is_dtensor
+
 # images are RGB (flax infers the channels from the first batch; the
 # JAX ViT's init_params builds 3)
 IN_CHANNELS = 3
@@ -78,9 +80,20 @@ class Conv(nn.Module):
             out_channels, dtype=dtype, device=device)) if bias else None
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        y = conv2d_same(x, self.weight, self.stride, dtype)
-        if self.bias is not None:
-            y = y + self.bias.to(dtype)[:, None, None]
+        params = (self.weight,) if self.bias is None \
+            else (self.weight, self.bias)
+        if is_dtensor(x, *params):
+            # DTensor's convolution rule splits no channel: each rank
+            # convolves its batch rows with the whole kernel
+            from ray_tpu_torch.parallel._dtensor import on_rows
+            return on_rows(lambda x_, *p: self._conv(x_, dtype, *p),
+                           x, *params)
+        return self._conv(x, dtype, *params)
+
+    def _conv(self, x, dtype, weight, bias=None):
+        y = conv2d_same(x, weight, self.stride, dtype)
+        if bias is not None:
+            y = y + bias.to(dtype)[:, None, None]
         return y
 
     @torch.no_grad()

@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch.ops._build import is_dtensor
 from ray_tpu_torch.ops.flash_attention import NEG_INF, flash_attention
 from ray_tpu_torch.ops.fused import fused_rmsnorm
 
@@ -85,6 +86,10 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     angles = positions[:, :, None].float() * freqs[None, None]
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
+    if is_dtensor(x) and not is_dtensor(cos):
+        # the same angles on every rank, met by its rows and heads of x
+        from ray_tpu_torch.parallel._dtensor import as_dtensor
+        cos, sin = (as_dtensor(t, x.device_mesh) for t in (cos, sin))
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -115,6 +120,10 @@ class RMSNorm(nn.Module):
             torch.ones(dim, dtype=torch.float32, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if is_dtensor(x, self.weight):  # the kernel on each rank's rows
+            from ray_tpu_torch.parallel._dtensor import on_rows
+            return on_rows(lambda x_, w_: fused_rmsnorm(x_, w_, eps=self.eps),
+                           x, self.weight, dims=range(x.dim() - 1))
         return fused_rmsnorm(x, self.weight, eps=self.eps)
 
 
@@ -265,7 +274,11 @@ class Llama(nn.Module):
                     tokens.shape)
         # the gather commutes with the cast: same values as casting the
         # whole table first (emb.astype(dtype)[tokens] in JAX)
-        x = F.embedding(tokens, self.embedding).to(cfg.dtype)
+        if is_dtensor(self.embedding):
+            from ray_tpu_torch.parallel._dtensor import embedding
+            x = embedding(tokens, self.embedding).to(cfg.dtype)
+        else:
+            x = F.embedding(tokens, self.embedding).to(cfg.dtype)
         new_caches = []
         for i, layer in enumerate(self.layers):
             cache = kv_caches[i] if kv_caches is not None else None

@@ -71,6 +71,36 @@ def on_local_shards(fn: Callable, *xs: DTensor,
                               stride=_contiguous(first.shape))
 
 
+def on_rows(fn: Callable, x, *params, dims: Sequence[int] = (0,)
+            ) -> DTensor:
+    """``fn(rows, *params)`` on each rank's rows of ``x`` (its split over
+    ``dims`` kept, gathered elsewhere) with every parameter whole, the
+    result rewrapped split as the rows are: the per-rank path of a
+    kernel that reads a whole row (RMSNorm over the last dim) or of an
+    op DTensor has no rule for (the ViT's patch convolution).  Where the
+    rows are split, each rank's gradient of a parameter is a partial
+    sum.  ``fn`` must keep the extent of each dim in ``dims``."""
+    mesh = next(t.device_mesh for t in (x, *params)
+                if isinstance(t, DTensor))
+    x = as_dtensor(x, mesh)
+    rows = [p if isinstance(p, Shard) and p.dim in dims else Replicate()
+            for p in x.placements]
+    x = x.redistribute(mesh, rows)
+    grads = [Partial() if isinstance(p, Shard) else Replicate()
+             for p in rows]
+    whole = [w.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+                 grad_placements=grads) if isinstance(w, DTensor) else w
+             for w in params]
+    out = fn(x.to_local(), *whole).contiguous()
+    shape = list(out.shape)
+    for p in rows:
+        if isinstance(p, Shard):
+            shape[p.dim] = x.shape[p.dim]
+    return DTensor.from_local(out, mesh, rows, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=_contiguous(shape))
+
+
 def heads_like(x: DTensor, weight: DTensor, heads_dim: int = 2) -> DTensor:
     """``x [B, T, H, D]`` with its heads split over the mesh dims on which
     ``weight``'s output dim (0, the flax kernel's ``"heads"``) is split,
@@ -121,7 +151,7 @@ def _offset(x: DTensor, placements, dim: int) -> int:
         x.shape, x.device_mesh, placements)[1][dim]
 
 
-def _as_dtensor(x, mesh) -> DTensor:
+def as_dtensor(x, mesh) -> DTensor:
     if isinstance(x, DTensor):
         return x
     return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
@@ -170,7 +200,7 @@ def embedding(tokens, table: DTensor) -> DTensor:
     it holds (zeros for the others) and the result is a partial sum over
     the row split's mesh dims, split over the batch as ``tokens`` is."""
     mesh = table.device_mesh
-    tokens = _as_dtensor(tokens, mesh)
+    tokens = as_dtensor(tokens, mesh)
     vocab, tplace = _rows_split(table)
     local_tok, tok_place = _local_rows(tokens, vocab)
     local_table = _local_table(table, vocab, tplace, tok_place)
@@ -193,12 +223,12 @@ class LossParts:
 
     def __init__(self, hidden: DTensor, emb: DTensor, labels):
         mesh = self.mesh = emb.device_mesh
-        hidden = _as_dtensor(hidden, mesh)
+        hidden = as_dtensor(hidden, mesh)
         self.vocab, tplace = _rows_split(emb)
         self.lo = _offset(emb, tplace, 0)
         self.hidden, self.place = _local_rows(hidden, self.vocab)
         self.emb = _local_table(emb, self.vocab, tplace, self.place)
-        self.labels = _as_dtensor(labels, mesh).redistribute(
+        self.labels = as_dtensor(labels, mesh).redistribute(
             mesh, self.place).to_local()
         self.count = hidden.shape[0] * hidden.shape[1]
         groups = [mesh.get_group(i) for i in self.vocab]

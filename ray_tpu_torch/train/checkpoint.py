@@ -158,10 +158,15 @@ class Checkpoint:
 def _to_cpu(tree: Any) -> Any:
     """``tree`` with every tensor detached on the CPU, copied where it
     is a view of a larger storage (``torch.save`` writes whole
-    storages)."""
+    storages).  A DTensor is saved whole (``full_tensor``, a collective:
+    every rank saves), as orbax saves a sharded array's global value."""
     import torch
 
+    from ray_tpu_torch.ops._build import is_dtensor
+
     if isinstance(tree, torch.Tensor):
+        if is_dtensor(tree):
+            tree = tree.full_tensor()
         t = tree.detach().cpu()
         if t.untyped_storage().nbytes() != t.numel() * t.element_size():
             t = t.clone()
@@ -175,7 +180,9 @@ def _to_cpu(tree: Any) -> Any:
 
 def _restore_like(target: Any, saved: Any, path: str) -> Any:
     """``saved`` in ``target``'s structure, tensors on its devices and
-    dtypes."""
+    dtypes; a DTensor target's counterpart comes back a DTensor on its
+    mesh and placements, whatever the saved tensor's placement was, as
+    orbax's restore lands arrays with the target's shardings."""
     import torch
 
     where = path or "<root>"
@@ -185,6 +192,19 @@ def _restore_like(target: Any, saved: Any, path: str) -> Any:
                    else type(saved).__name__)
             raise ValueError(f"checkpoint at {where}: {got}, target "
                              f"{tuple(target.shape)}")
+        from ray_tpu_torch.ops._build import is_dtensor
+
+        if is_dtensor(saved):
+            saved = saved.full_tensor()
+        if is_dtensor(target):
+            from torch.distributed.tensor import distribute_tensor
+
+            mesh = target.device_mesh
+            # every rank holds the whole saved value: each keeps its own
+            # shard of it, no collective (src_data_rank=None)
+            return distribute_tensor(
+                saved.to(device=mesh.device_type, dtype=target.dtype),
+                mesh, target.placements, src_data_rank=None)
         return saved.to(device=target.device, dtype=target.dtype)
     if isinstance(target, dict):
         if not isinstance(saved, dict):

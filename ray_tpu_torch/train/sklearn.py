@@ -3,7 +3,7 @@
 Parity: reference ``python/ray/train/sklearn/sklearn_trainer.py`` — the
 fit runs remotely as one task (sklearn is single-node; parallelism
 within the estimator comes from joblib; the JAX package's joblib
-backend, ``util/joblib``, is ROADMAP.md queue 1 item 7), and the fitted
+backend, ``util/joblib``, is ROADMAP.md queue 1 item 7.7), and the fitted
 estimator lands in an AIR checkpoint consumable by
 ``SklearnPredictor``/``BatchPredictor``.  scikit-learn is a CPU library:
 the fit runs on the host in both packages.

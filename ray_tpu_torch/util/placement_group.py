@@ -20,6 +20,14 @@ from ray_tpu_torch.core import worker as worker_mod
 VALID_STRATEGIES = ("PACK", "SPREAD", "STRICT_PACK", "STRICT_SPREAD")
 
 
+def _client_or_none():
+    """ray:// client connection, when this process is a remote driver
+    (the PG verbs proxy through it like every other API verb)."""
+    import sys
+    mod = sys.modules.get("ray_tpu_torch.util.client")
+    return None if mod is None else mod._client
+
+
 class PlacementGroup:
     def __init__(self, pg_id: PlacementGroupID,
                  bundles: List[Dict[str, float]], strategy: str):
@@ -34,6 +42,9 @@ class PlacementGroup:
     def ready(self) -> ObjectRef:
         """An ObjectRef that resolves when the group is placed (parity:
         ``PlacementGroup.ready()``)."""
+        client = _client_or_none()
+        if client is not None:
+            return client.pg_ready(self.id)
         core = worker_mod.global_worker()
         ref = core.put("__pg_ready_pending__")
 
@@ -79,6 +90,9 @@ class PlacementGroup:
         return ref
 
     def wait(self, timeout_seconds: float = 30.0) -> bool:
+        client = _client_or_none()
+        if client is not None:
+            return client.pg_wait(self.id, timeout_seconds)
         core = worker_mod.global_worker()
         deadline = time.monotonic() + timeout_seconds
         while True:
@@ -107,6 +121,9 @@ class PlacementGroup:
 
     def bundle_nodes(self) -> Dict[int, str]:
         """bundle index -> node id hex (introspection)."""
+        client = _client_or_none()
+        if client is not None:
+            return client.pg_bundle_nodes(self.id)
         core = worker_mod.global_worker()
         reply = core._run(core.gcs_conn.call(
             "placement_group_ready", {"pg_id": self.id.binary()}))
@@ -124,6 +141,9 @@ def placement_group(bundles: List[Dict[str, float]],
         raise ValueError(f"strategy must be one of {VALID_STRATEGIES}")
     if not bundles or any(not b for b in bundles):
         raise ValueError("bundles must be non-empty resource dicts")
+    client = _client_or_none()
+    if client is not None:
+        return client.pg_create(bundles, strategy, name)
     core = worker_mod.global_worker()
     pg_id = PlacementGroupID.of(core.job_id)
     core._run(core.gcs_conn.call("create_placement_group", {
@@ -136,12 +156,19 @@ def placement_group(bundles: List[Dict[str, float]],
 
 
 def remove_placement_group(pg: PlacementGroup) -> None:
+    client = _client_or_none()
+    if client is not None:
+        client.pg_remove(pg.id)
+        return
     core = worker_mod.global_worker()
     core._run(core.gcs_conn.call("remove_placement_group",
                                  {"pg_id": pg.id.binary()}))
 
 
 def placement_group_table() -> Dict[str, Dict]:
+    client = _client_or_none()
+    if client is not None:
+        return client.pg_table()
     core = worker_mod.global_worker()
     out = {}
     reply = core._run(core.gcs_conn.call("list_placement_groups", {}))

@@ -36,6 +36,22 @@ _DTYPES = {"f32": (jnp.float32, torch.float32),
 # splits into one full chunk and one padded one.
 _BATCH, _SEQ, _CHUNK = 2, 40, 64
 _LR = 3e-4
+#: XLA's LLVM backend at -O0 for the JAX side: the programs are tiny,
+#: and compiling them is most of this module's time; the HLO, and so
+#: the arithmetic, is the same
+FAST_COMPILE = {"xla_backend_optimization_level": 0,
+                "xla_llvm_disable_expensive_passes": True}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch work: under the
+    suite's ``-n 6`` six pools of a thread per core on the same cores
+    spend the time waiting for each other on these tiny shapes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _unbox(tree):
@@ -47,24 +63,55 @@ def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
+class _JaxSide:
+    """The JAX model of one config, its flax init, the tokens, and its
+    forward and loss-and-gradients jitted (FAST_COMPILE), made once per
+    module: every test reads them, and JAX arrays are immutable."""
+
+    def __init__(self, dtype_name, shape):
+        jcfg = jgpt2.GPT2Config.tiny(dtype=_DTYPES[dtype_name][0],
+                                     **shape)
+        rng = np.random.default_rng(0)
+        self.tokens = rng.integers(0, jcfg.vocab_size, (_BATCH, _SEQ),
+                                   dtype=np.int32)
+        self.model = jmodel = jgpt2.GPT2(jcfg)
+        self.params = _unbox(jax.jit(
+            lambda key: jmodel.init_params(key, batch=1, seq=_SEQ),
+            compiler_options=FAST_COMPILE)(jax.random.PRNGKey(0)))
+        self.forward = jax.jit(
+            lambda p, t: jmodel.apply({"params": p}, t),
+            compiler_options=FAST_COMPILE)
+        self.loss_and_grads = jax.jit(
+            lambda p, t: jax.value_and_grad(lambda q: jgpt2.loss_fn(
+                jmodel, q, t, head_chunk=_CHUNK))(p),
+            compiler_options=FAST_COMPILE)
+
+
+#: each config's _JaxSide, and the same by its model's id
+_SIDES = {}
+_BY_MODEL = {}
+
+
+def _jax_side(dtype_name, shape):
+    key = (dtype_name, tuple(sorted(shape.items())))
+    if key not in _SIDES:
+        side = _SIDES[key] = _JaxSide(dtype_name, shape)
+        _BY_MODEL[id(side.model)] = side
+    return _SIDES[key]
+
+
 def _models(dtype_name, shape=_SHAPE, **torch_kw):
-    jdt, tdt = _DTYPES[dtype_name]
-    jcfg = jgpt2.GPT2Config.tiny(dtype=jdt, **shape)
+    tdt = _DTYPES[dtype_name][1]
+    side = _jax_side(dtype_name, shape)
+    jmodel, params, tokens = side.model, side.params, side.tokens
     tcfg = tgpt2.GPT2Config.tiny(dtype=tdt, **shape, **torch_kw)
-    rng = np.random.default_rng(0)
-    tokens = rng.integers(0, jcfg.vocab_size, (_BATCH, _SEQ),
-                          dtype=np.int32)
-    jmodel = jgpt2.GPT2(jcfg)
-    params = _unbox(jmodel.init_params(jax.random.PRNGKey(0), batch=1,
-                                       seq=_SEQ))
     tmodel = tgpt2.GPT2(tcfg, device="cpu")
     tmodel.load_state_dict(gpt2_state_dict_from_jax(_np_tree(params)))
     return jmodel, params, tmodel, tokens
 
 
 def _jax_loss_and_grads(jmodel, params, tokens):
-    return jax.value_and_grad(lambda p: jgpt2.loss_fn(
-        jmodel, p, jnp.asarray(tokens), head_chunk=_CHUNK))(params)
+    return _BY_MODEL[id(jmodel)].loss_and_grads(params, jnp.asarray(tokens))
 
 
 def _torch_grads(tmodel, tokens):
@@ -89,7 +136,7 @@ _LOGIT_TOL = {"f32": dict(atol=1e-4, rtol=1e-4),
 @pytest.mark.parametrize("dtype_name", ["f32", "bf16"])
 def test_logits_match_jax(dtype_name, shape):
     jmodel, params, tmodel, tokens = _models(dtype_name, _SHAPES[shape])
-    ref = jmodel.apply({"params": params}, jnp.asarray(tokens))
+    ref = _BY_MODEL[id(jmodel)].forward(params, jnp.asarray(tokens))
     out = tmodel(torch.from_numpy(tokens))
     assert out.dtype == torch.float32 and out.shape == ref.shape
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
@@ -237,8 +284,10 @@ def test_state_dict_does_not_depend_on_head_count():
     trees = []
     for heads in (3, 4):
         jcfg = jgpt2.GPT2Config.tiny(embed_dim=192, num_heads=heads)
-        params = _unbox(jgpt2.GPT2(jcfg).init_params(
-            jax.random.PRNGKey(0), batch=1, seq=8))
+        jmodel = jgpt2.GPT2(jcfg)
+        params = _unbox(jax.jit(
+            lambda key: jmodel.init_params(key, batch=1, seq=8),
+            compiler_options=FAST_COMPILE)(jax.random.PRNGKey(0)))
         state = gpt2_state_dict_from_jax(_np_tree(params))
         tmodel = tgpt2.GPT2(tgpt2.GPT2Config.tiny(embed_dim=192,
                                                   num_heads=heads),

@@ -91,7 +91,8 @@ def test_worker_main_import_leaves_torch_unloaded():
 
 def test_train_and_data_imports_leave_torch_unloaded():
     """Importing Train (its framework trainers too), Tune, the data plane,
-    AIR and the parallel vocabulary loads no torch (and no JAX): a CPU
+    AIR, the parallel vocabulary, the multi-node harness, the state API,
+    the ray:// client and the CLI loads no torch (and no JAX): a CPU
     worker that runs a data task, a trial or a train loop that never
     touches torch pays no torch import.  torch comes with a loop's own
     import or with ``to_torch``."""
@@ -99,7 +100,9 @@ def test_train_and_data_imports_leave_torch_unloaded():
             "ray_tpu_torch.air, ray_tpu_torch.parallel, "
             "ray_tpu_torch.train.pytree_io, ray_tpu_torch.util.actor_pool, "
             "ray_tpu_torch.tune, ray_tpu_torch.train.sklearn, "
-            "ray_tpu_torch.train.gbdt, ray_tpu_torch.train.huggingface; "
+            "ray_tpu_torch.train.gbdt, ray_tpu_torch.train.huggingface, "
+            "ray_tpu_torch.cluster_utils, ray_tpu_torch.experimental.state, "
+            "ray_tpu_torch.util.client, ray_tpu_torch.scripts.cli; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{('torch',) + FORBIDDEN!r}]; print(bad); "
             "import numpy as np; "
@@ -120,7 +123,9 @@ def test_import_leaves_jax_unloaded():
             "ray_tpu_torch.core.worker, ray_tpu_torch.train, "
             "ray_tpu_torch.data, ray_tpu_torch.parallel, ray_tpu_torch.tune, "
             "ray_tpu_torch.train.sklearn, ray_tpu_torch.train.gbdt, "
-            "ray_tpu_torch.train.huggingface; "
+            "ray_tpu_torch.train.huggingface, ray_tpu_torch.cluster_utils, "
+            "ray_tpu_torch.experimental.state, ray_tpu_torch.util.client, "
+            "ray_tpu_torch.scripts.cli; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -38,6 +38,17 @@ _BATCH, _SEQ = 2, 16
 _LR = 3e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch work: under the
+    suite's ``-n 6`` six pools of a thread per core on the same cores
+    spend the time waiting for each other on these tiny shapes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _unbox(tree):
     return jax.tree.map(lambda x: x.unbox() if hasattr(x, "unbox") else x,
                         tree, is_leaf=lambda x: hasattr(x, "unbox"))

@@ -34,6 +34,17 @@ jax_fa = importlib.import_module("ray_tpu.ops.flash_attention")
 torch_fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch work: under the
+    suite's ``-n 6`` six pools of a thread per core on the same cores
+    spend the time waiting for each other on these tiny shapes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _qkv(shape, seed, dtype=np.float32):
     rng = np.random.default_rng(seed)
     return [rng.standard_normal(shape).astype(dtype) for _ in range(3)]

@@ -44,6 +44,17 @@ STATS_RTOL = 1e-5
 OBS_DIM, ACTIONS, BATCH = 4, 3, 6
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch work: under the
+    suite's ``-n 6`` six pools of a thread per core on the same cores
+    spend the time waiting for each other on these tiny shapes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _rng(seed):
     return np.random.default_rng(seed)
 

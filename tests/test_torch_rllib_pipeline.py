@@ -39,6 +39,19 @@ def cluster():
     rt.shutdown()
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the driver's own learners (the local
+    worker's PPO updates): under the suite's ``-n 6`` six pools of a
+    thread per core on the same cores spend the time waiting for each
+    other on these small networks."""
+    import torch
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _config():
     return PPOConfig().resources(num_gpus_per_learner=0)
 

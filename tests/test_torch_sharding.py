@@ -14,7 +14,10 @@ virtual CPU devices: GPT-2 tiny at fsdp = 2 x tp = 2 (each preset, and
 SP_RULES with the ring at sp = 2 x tp = 2), the MoE at ep = 4,
 cross-replica BatchNorm at dp = 4, flash attention on head-split
 DTensors against the Pallas kernels in interpret mode (``native=`` for
-each family), and the kernel entry points refusing a DTensor.  The JAX
+each family), Llama's and ViT's forward on parameters placed under each
+of the five presets at fsdp = 2 x tp = 2 (RMSNorm's kernel and the patch
+convolution on each rank's rows), and the kernel entry points refusing a
+DTensor.  The JAX
 models' flash attention takes its jnp reference off the TPU, as in
 tests/test_torch_gpt2.py; the port's takes its plain version on the CPU.
 
@@ -59,8 +62,10 @@ from ray_tpu_torch.models import moe as tmoe
 from ray_tpu_torch.models import resnet as tresnet
 from ray_tpu_torch.models import vit as tvit
 from ray_tpu_torch.models.convert import (gpt2_state_dict_from_jax,
+                                          llama_state_dict_from_jax,
                                           moe_state_dict_from_jax,
-                                          resnet_state_dict_from_jax)
+                                          resnet_state_dict_from_jax,
+                                          vit_state_dict_from_jax)
 from ray_tpu_torch.parallel import sharding as tsharding
 
 jax_fa = importlib.import_module("ray_tpu.ops.flash_attention")
@@ -86,6 +91,16 @@ RESNET_PER_RANK, RESNET_SIZE = 2, 8
 FLASH_SHAPES = {"nl": ((2, 128, 4, 64), True), "hm": ((2, 128, 4, 32),
                                                       False)}
 TP_MESH = dict(fsdp=2, tp=2)
+PLACED_BATCH = 4  # Llama's tokens [4, 16], ViT's images [4, 32, 32, 3]
+#: XLA's LLVM backend at -O0 for the JAX references: the programs are
+#: tiny, and compiling them is most of their time; the HLO, and so the
+#: arithmetic, is the same
+FAST_COMPILE = {"xla_backend_optimization_level": 0,
+                "xla_llvm_disable_expensive_passes": True}
+
+
+def _fast(fn):
+    return jax.jit(fn, compiler_options=FAST_COMPILE)
 SP_MESH = dict(sp=2, tp=2)
 
 
@@ -261,7 +276,8 @@ def _gpt2_reference(cfg, tokens, rules=None, mesh_axes=None,
     devices (unplaced without rules)."""
     model = jgpt2.GPT2(cfg)
     # the same tree from the flash model: the ring's init needs a mesh
-    boxed = jgpt2.GPT2(dataclasses.replace(cfg, attn_impl="flash")).init(
+    flash = jgpt2.GPT2(dataclasses.replace(cfg, attn_impl="flash"))
+    boxed = _fast(flash.init)(
         jax.random.PRNGKey(0),
         jnp.zeros((1, tokens.shape[1]), jnp.int32))["params"]
     params = _perturb(_unbox(boxed), 4)
@@ -273,14 +289,14 @@ def _gpt2_reference(cfg, tokens, rules=None, mesh_axes=None,
             model, q, t, head_chunk=GPT2_CHUNK))(p)
 
     if rules is None:
-        loss, g = jax.jit(grads)(params, toks)
+        loss, g = _fast(grads)(params, toks)
     else:
         mesh = _jmesh(**mesh_axes)
         specs = jsharding.logical_to_mesh(rules, _logical(boxed))
         params = _place(params, specs, mesh)
         toks = jax.device_put(toks, NamedSharding(mesh, batch_spec))
         with juse_mesh(mesh):
-            loss, g = jax.jit(grads)(params, toks)
+            loss, g = _fast(grads)(params, toks)
     return state, float(loss), gpt2_state_dict_from_jax(_np_tree(g))
 
 
@@ -291,8 +307,9 @@ def _moe_reference():
                                       heads=None, kv=None, vocab=None)
     cfg = jmoe.MoEConfig.tiny(dtype=jnp.float32, num_experts=4)
     model = jmoe.MoETransformer(cfg)
-    boxed = model.init(jax.random.PRNGKey(1),
-                       jnp.zeros((1, MOE_TOKENS[1]), jnp.int32))["params"]
+    boxed = _fast(model.init)(
+        jax.random.PRNGKey(1),
+        jnp.zeros((1, MOE_TOKENS[1]), jnp.int32))["params"]
     params = _perturb(_unbox(boxed), 5)
     state = moe_state_dict_from_jax(_np_tree(params))
     mesh = _jmesh(ep=4)
@@ -303,7 +320,7 @@ def _moe_reference():
     tokens = _gpt2_tokens(MOE_TOKENS, cfg.vocab_size, seed=6)
     toks = jax.device_put(jnp.asarray(tokens),
                           NamedSharding(mesh, P(("dp",), None)))
-    loss, g = jax.jit(jax.value_and_grad(
+    loss, g = _fast(jax.value_and_grad(
         lambda p: jmoe.loss_fn(model, p, toks)))(placed)
     return state, tokens, float(loss), moe_state_dict_from_jax(_np_tree(g))
 
@@ -319,8 +336,9 @@ def _resnet_reference():
             np.float32)
     labels = rng.integers(0, cfg.num_classes,
                           RANKS * RESNET_PER_RANK).astype(np.int32)
-    variables = jresnet.ResNet(cfg).init(jax.random.PRNGKey(2),
-                                         images[:2], train=False)
+    variables = _fast(functools.partial(jresnet.ResNet(cfg).init,
+                                        train=False))(
+        jax.random.PRNGKey(2), images[:2])
     params = _perturb(variables["params"], 8)
     stats = jax.tree.map(lambda x: x + 0.1, variables["batch_stats"])
     model = jresnet.ResNet(cfg, axis_name="dp")
@@ -340,12 +358,12 @@ def _resnet_reference():
                        in_specs=(P(), P(), P("dp"), P("dp")),
                        out_specs=(P("dp"), P("dp"), P("dp")),
                        check_vma=False)
-    logits, grads, new = jax.jit(fn)(params, stats, jnp.asarray(images),
-                                     jnp.asarray(labels))
+    logits, grads, new = _fast(fn)(params, stats, jnp.asarray(images),
+                                   jnp.asarray(labels))
     per_rank = []
     for r in range(RANKS):
-        g = jax.tree.map(lambda t: np.asarray(t[r]), grads)
-        st = jax.tree.map(lambda t: np.asarray(t[r]), new)
+        g = jax.tree.map(lambda t: np.asarray(t)[r], grads)
+        st = jax.tree.map(lambda t: np.asarray(t)[r], new)
         per_rank.append({
             "logits": np.asarray(logits)[r * RESNET_PER_RANK:
                                          (r + 1) * RESNET_PER_RANK],
@@ -372,6 +390,37 @@ def _flash_reference(name):
     return (q, k, v, g), [np.asarray(x) for x in (out, *grads)]
 
 
+def _placed_reference(name):
+    """The converted perturbed weights, the inputs and, for each preset,
+    the JAX model's f32 logits with its parameters placed by the flax
+    partition names under that preset on fsdp = 2 x tp = 2 (the batch
+    split over dp and fsdp), for Llama or ViT."""
+    if name == "llama":
+        cfg = jllama.LlamaConfig.tiny(dtype=jnp.float32)
+        model, convert = jllama.Llama(cfg), llama_state_dict_from_jax
+        x = _gpt2_tokens((PLACED_BATCH, 16), cfg.vocab_size)
+    else:
+        cfg = jvit.ViTConfig.tiny(dtype=jnp.float32)
+        model, convert = jvit.ViT(cfg), vit_state_dict_from_jax
+        x = np.random.default_rng(6).standard_normal(
+            (PLACED_BATCH, cfg.image_size, cfg.image_size, 3)
+        ).astype(np.float32)
+    boxed = _fast(model.init)(jax.random.PRNGKey(2),
+                              jnp.asarray(x))["params"]
+    params = _perturb(_unbox(boxed), 7)
+    mesh = _jmesh(**TP_MESH)
+    batch = NamedSharding(mesh, P(("dp", "fsdp")))
+    forward = _fast(lambda p, x_: model.apply({"params": p}, x_))
+    logits = {}
+    for preset, rules in jsharding.PRESETS.items():
+        placed = _place(params, jsharding.logical_to_mesh(
+            rules, _logical(boxed)), mesh)
+        with juse_mesh(mesh):
+            logits[preset] = np.asarray(
+                forward(placed, jax.device_put(jnp.asarray(x), batch)))
+    return convert(_np_tree(params)), x, logits
+
+
 @pytest.fixture(scope="module")
 def jax_refs():
     refs = {}
@@ -395,6 +444,8 @@ def jax_refs():
     refs["resnet"] = _resnet_reference()
     for name in FLASH_SHAPES:
         refs[f"flash_{name}"] = _flash_reference(name)
+    for name in ("llama", "vit"):
+        refs[f"placed_{name}"] = _placed_reference(name)
     return refs
 
 
@@ -495,6 +546,34 @@ def _rank_flash(ref, name):
             "grads": [x.grad.full_tensor() for x in xs]}
 
 
+def _rank_placed(ref, name):
+    """Llama's or ViT's f32 logits (gathered) on parameters placed under
+    each preset, and whether each preset placed a parameter at all."""
+    state, x = ref[0], ref[1]
+    mesh = _mesh(**TP_MESH)
+    out = {}
+    for preset, rules in sorted(tsharding.PRESETS.items()):
+        if name == "llama":
+            model = tllama.Llama(tllama.LlamaConfig.tiny(
+                dtype=torch.float32), device="cpu")
+            inputs = torch.from_numpy(x).long()
+            axes = ("batch", None)
+        else:
+            model = tvit.ViT(tvit.ViTConfig.tiny(dtype=torch.float32),
+                             device="cpu")
+            inputs = torch.from_numpy(x)
+            axes = ("batch", None, None, None)
+        model.load_state_dict(state)
+        tsharding.place_module_params(model, rules, mesh)
+        with torch.no_grad():
+            logits = model(tsharding.shard_tensor(inputs, rules, mesh,
+                                                  *axes))
+        split = sorted(n for n, p in model.named_parameters()
+                       if p.to_local().shape != p.shape)
+        out[preset] = {"logits": logits.full_tensor(), "split": split}
+    return out
+
+
 def _rank_refusals():
     """What each kernel entry point says to a DTensor."""
     mesh = _mesh(**TP_MESH)
@@ -555,6 +634,9 @@ def _gloo_worker(rank, port, out_dir, refs):
         res["resnet"] = _rank_resnet(refs["resnet"], rank)
         for name in FLASH_SHAPES:
             res[f"flash_{name}"] = _rank_flash(refs[f"flash_{name}"], name)
+        for name in ("llama", "vit"):
+            res[f"placed_{name}"] = _rank_placed(refs[f"placed_{name}"],
+                                                 name)
         res["refusals"] = _rank_refusals()
         torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
         dist.destroy_process_group()
@@ -570,6 +652,8 @@ def gloo_ranks(jax_refs, tmp_path_factory):
     refs = {k: v for k, v in jax_refs.items()}
     # the ranks need the inputs and weights, not the JAX results
     refs["resnet"] = refs["resnet"][:3]
+    for name in ("llama", "vit"):
+        refs[f"placed_{name}"] = refs[f"placed_{name}"][:2]
     ctx = mp.get_context("spawn")
     port = _free_port()
     procs = [ctx.Process(target=_gloo_worker,
@@ -705,6 +789,25 @@ def test_flash_attention_on_head_split_dtensors(gloo_ranks, jax_refs,
                                    **OUT_TOL)
         for g, w in zip(got["grads"], want[1:]):
             torch.testing.assert_close(g, torch.from_numpy(w), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("model", ["llama", "vit"])
+def test_forward_on_placed_parameters_matches_jax(gloo_ranks, jax_refs,
+                                                  model):
+    """Llama and ViT on parameters placed under each of the five presets
+    at fsdp = 2 x tp = 2, the batch split over dp and fsdp: the logits
+    (gathered) against the JAX model's on parameters placed by the same
+    presets on 4 devices, within OUT_TOL (2e-5, the GPT-2 placed step's
+    tolerance).  The fsdp and tp presets split parameters here."""
+    want = jax_refs[f"placed_{model}"][2]
+    for res in gloo_ranks:
+        got = res[f"placed_{model}"]
+        assert sorted(got) == sorted(want)
+        for preset, logits in want.items():
+            torch.testing.assert_close(got[preset]["logits"],
+                                       torch.from_numpy(logits), **OUT_TOL,
+                                       msg=preset)
+        assert got["fsdp"]["split"] and got["tp"]["split"]
 
 
 def test_a_dtensor_at_a_kernel_entry_point_raises(gloo_ranks):

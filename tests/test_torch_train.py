@@ -32,6 +32,8 @@ from ray_tpu_torch.train import (
 )
 from ray_tpu_torch.train.worker_group import TrainWorker
 
+RESTORE_RANKS = 4
+
 
 @pytest.fixture(scope="module", autouse=True)
 def cluster():
@@ -294,6 +296,92 @@ def test_pytree_io_saves_and_restores_a_directory(tmp_path):
               "step": 0}
     got = from_air_checkpoint(to_air_checkpoint(path), target)
     assert got["model"]["w"].dtype == torch.float64 and got["step"] == 7
+
+
+def _restore_rank(rank, port, root, saved):
+    """One gloo rank of the placed restore: saves the plain tree and the
+    tree placed Shard(0) (each rank its own directory: the gathered
+    value is whole on every rank), restores the plain one onto a
+    Shard(0) target and the placed one onto a Replicate() target, and
+    writes what came back."""
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
+
+    from ray_tpu_torch.train.pytree_io import restore_pytree, save_pytree
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=RESTORE_RANKS, rank=rank)
+    mesh = init_device_mesh("cpu", (RESTORE_RANKS,))
+    plain = {k: torch.from_numpy(v) for k, v in saved.items()}
+    placed = {k: distribute_tensor(v, mesh, [Shard(0)])
+              for k, v in plain.items()}
+    p_plain = save_pytree(os.path.join(root, f"plain{rank}"), plain)
+    p_placed = save_pytree(os.path.join(root, f"placed{rank}"), placed)
+    out = {}
+    for name, path, placement in (("plain_to_shard", p_plain, Shard(0)),
+                                  ("shard_to_replicate", p_placed,
+                                   Replicate())):
+        target = {k: distribute_tensor(torch.zeros_like(v), mesh,
+                                       [placement])
+                  for k, v in plain.items()}
+        got = restore_pytree(path, target)
+        out[name] = {k: (isinstance(v, DTensor), str(tuple(v.placements)),
+                         v.device_mesh == mesh, v.full_tensor())
+                     for k, v in got.items()}
+    torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def test_restore_pytree_lands_on_the_targets_placement(tmp_path):
+    """A plain checkpoint restored onto a Shard(0) target and a Shard(0)
+    checkpoint onto a Replicate() target, on 4 gloo ranks: every tensor
+    comes back a DTensor on the target's mesh and placement, with the
+    saved values, which equal the JAX package's ``restore_pytree`` onto
+    targets placed P("x") on 4 of the virtual CPU devices."""
+    import socket
+
+    import torch.multiprocessing as mp
+    from jax.sharding import Mesh, NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    from ray_tpu.train import orbax as jorbax
+    rng = np.random.default_rng(11)
+    saved = {"w": rng.standard_normal((8, 6)).astype(np.float32),
+             "b": rng.standard_normal((12,)).astype(np.float32)}
+    jmesh = Mesh(np.array(jax.devices()[:RESTORE_RANKS]), ("x",))
+    jpath = jorbax.save_pytree(str(tmp_path / "jax"), {
+        k: jnp.asarray(v) for k, v in saved.items()})
+    jtarget = {k: jax.device_put(jnp.zeros_like(v),
+                                 NamedSharding(jmesh, P("x")))
+               for k, v in saved.items()}
+    jgot = jorbax.restore_pytree(jpath, jtarget)
+    for k in saved:
+        assert jgot[k].sharding == jtarget[k].sharding
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_restore_rank,
+                         args=(r, port, str(tmp_path), saved))
+             for r in range(RESTORE_RANKS)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+    assert [p.exitcode for p in procs] == [0] * RESTORE_RANKS
+    want = {"plain_to_shard": "(Shard(dim=0),)",
+            "shard_to_replicate": "(Replicate(),)"}
+    for r in range(RESTORE_RANKS):
+        out = torch.load(str(tmp_path / f"rank{r}.pt"))
+        for case, placements in want.items():
+            for k, v in saved.items():
+                is_dt, got_place, same_mesh, value = out[case][k]
+                assert is_dt and same_mesh and got_place == placements, \
+                    (r, case, k, got_place)
+                assert torch.equal(value, torch.from_numpy(
+                    np.array(jgot[k]))), (r, case, k)
 
 
 def test_tpus_per_worker_raises():
