@@ -141,8 +141,8 @@ no network.  Phases, one JSON line each:
     at a time: the direct run of each lr in this process first, then
     ASHA over four lrs (every loss against the direct run's, the later
     two stopped at rung 2, the best result's lr), then PBT over two
-    trials that check in together and checkpoint every step (model,
-    AdamW state, step and writer): an exploit restores the other
+    trials of 3 steps that check in together and checkpoint every step
+    (model, AdamW state, step and writer): an exploit restores the other
     trial's checkpoint, and the restored trial's first loss must equal
     the loss its writer reported at that step.  Each trial's start,
     the step alone and shared, the checkpoint's bytes and trip, the
@@ -160,6 +160,23 @@ no network.  Phases, one JSON line each:
     runs it once more; the CLI's ``status``, ``list tasks`` and
     ``stop``.  Each stage's seconds, the launches, each max |diff| and
     whether it is bitwise.
+27. ``ops``: the control plane on a cluster that starts without the
+    card (a head with no GPU): the dashboard (``Dashboard(port=0)``) and
+    an ``AutoscalerMonitor`` over a ``FakeMultiNodeProvider`` whose one
+    node type, ``gpu_worker``, is {CPU: 2, GPU: 1}, at most one.  A job
+    submitted over the dashboard's REST routes
+    (``JobSubmissionClient``) runs ``scripts/gpt2_job_torch.py``, whose
+    ``num_gpus=1`` task runs GPT-2 124M's bf16 forward at 8 x 1024
+    tokens (12 launches of #1): the autoscaler must launch exactly one
+    GPU node, the task must run there, and the logits' sha256 and last
+    rows in the job's log must equal the same forward in this process
+    bit for bit.  Then ``/api/nodes``, ``/api/node_stats`` (an agent row
+    for every live node), ``/api/jobs/`` and ``/metrics`` (parsed as
+    Prometheus text), the CLI's ``nodes`` (the monitor's last decision),
+    the idle node drained through the GCS and terminated, and the CLI's
+    ``up`` / ``down`` on a local-provider YAML (a CPU head and a CPU
+    worker that a driver reaches; no process left).  Each stage's
+    seconds; the phase holds itself under OPS_LIMIT_S.
 
 The ``kernels`` phase also holds the backward kernels (dK/dV and dQ) and
 both kernel families (native layout and head-major; head-major at every
@@ -184,8 +201,9 @@ at head_dim 256, 512 and 1024, and held at the new kernels' ragged ends.  Each m
 ``train_gang``, whose worker counts its own, ``serve_batching``,
 ``long_context``, each run of ``seq_parallel``, each placed run and
 the pipeline of ``sharded``, ``rl``'s shapes, ``rl_zoo``'s tuned
-examples, ``tune``, whose trials count their own, and ``cluster``, whose
-actor and GPU tasks count their own) is
+examples, ``tune``, whose trials count their own, ``cluster``, whose
+actor and GPU tasks count their own, and ``ops``, whose job's task
+counts its own) is
 driven with the kernels' launch counts set to 0 just before it and read
 just after; the native-layout paths launch no
 head-major kernel, GPT-2 XL no native-layout one, and ResNet, the
@@ -3439,7 +3457,8 @@ F32_ROWS = FLASH_FMA
 # workers, envs per worker or env actor, mode): CartPole capped at 200
 # steps, train_batch_size 4000, sgd_minibatch_size 512, num_sgd_iter 4,
 # seed 0, on init(num_cpus=16); one warm-up train(), then train() calls
-# until RL_WINDOW_S of wall time has passed (bench.py's windows), then one
+# until RL_WINDOW_S of wall time has passed (a third of bench.py's 15 s
+# windows, so that the whole script keeps inside its time limit), then one
 # whose learn_on_batch's first RL_TRACE_UPDATES updates are traced for
 # device activity.
 RL_PARITY = {"fc": {},
@@ -3452,7 +3471,7 @@ RL_STATS = ("policy_loss", "vf_loss", "entropy", "kl", "total_loss",
             "grad_gnorm", "kl_coeff", "mean_kl")
 RL_SHAPES = (("inline", 0, 8, "legacy"), ("fleet_legacy", 2, 16, "legacy"),
              ("fleet", 2, 256, "pipeline"))
-RL_WINDOW_S = {"inline": 15.0, "fleet_legacy": 10.0, "fleet": 15.0}
+RL_WINDOW_S = {"inline": 5.0, "fleet_legacy": 5.0, "fleet": 5.0}
 RL_TRACE_UPDATES = 64
 RL_STORE_MIB = 1024
 
@@ -4746,7 +4765,9 @@ TUNE_LRS = (1e-4, 3e-4, 1e-3, 3e-3)
 TUNE_STEPS = 8
 TUNE_BATCH = 8
 TUNE_PBT_LRS = (1e-4, 1e-3)
-TUNE_PBT_STEPS = 6
+# one exploit (at step 2): more steps add exploits, each a cold trial start
+# and 1.5 GB checkpoint trips, and the script has a time limit
+TUNE_PBT_STEPS = 3
 TUNE_RESOURCES = {"GPU": 0.5, "CPU": 1}
 # the driver holds each trial's newest checkpoint (1.5 GB) and the store
 # carries it from the trial's actor; PBT's donor crosses it once more
@@ -5680,6 +5701,364 @@ def phase_cluster(preset=CLUSTER_PRESET, device="cuda"):
     return launches
 
 
+# -------------------------------------------------------------------- ops --
+# The dashboard, a job and the autoscaler on a cluster without the card:
+# the job's GPU task waits until the monitor launches a GPU node, runs
+# GPT-2 124M's forward there and reports a digest of its logits through
+# the job's log; the idle node is then drained and terminated.  Then the
+# cluster launcher's up and down on a local-provider YAML.
+OPS_NODE_TYPE = {"CPU": 2, "GPU": 1}
+OPS_IDLE_TIMEOUT_S = 3.0  # the autoscaler's idle timeout
+OPS_QUIET_S = 3.0  # the policy's quiet edge before a scale-down
+OPS_LIMIT_S = 120.0
+OPS_JOB_SCRIPT = os.path.join("scripts", "gpt2_job_torch.py")
+OPS_UP_YAML = """\
+cluster_name: chip-smoke-ops
+provider: {type: local}
+min_workers: 1
+max_workers: 1
+head_node: {resources: {CPU: 2}}
+worker_nodes: {resources: {CPU: 2}}
+"""
+_PROM_LINE = re.compile(
+    r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{([a-zA-Z_][a-zA-Z0-9_]*="([^"\\]|'
+    r'\\.)*",?)*\})? ([+-]?[0-9.]+([eE][+-]?[0-9]+)?|[+-]?[Ii]nf|'
+    r'[Nn]a[Nn])$')
+
+
+def prometheus_samples(text):
+    """{metric name: samples} of Prometheus text exposition; raises on
+    a line that is neither a comment nor a sample."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        assert _PROM_LINE.match(line), f"not Prometheus text: {line!r}"
+        name = re.match(r"[a-zA-Z_:][a-zA-Z0-9_:]*", line).group(0)
+        out[name] = out.get(name, 0) + 1
+    return out
+
+
+def logits_digest(logits):
+    """What the job's task reports of its logits: the sha256 of the f32
+    bytes and each sequence's last-position row."""
+    import hashlib
+    logits = logits.float().cpu()
+    return (hashlib.sha256(memoryview(logits.numpy()).cast("B")).hexdigest(),
+            logits[:, -1, :].contiguous())
+
+
+def _get_json(url, timeout=30):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return json.loads(resp.read())
+
+
+def _poll(fn, timeout, what, period=0.25):
+    """fn()'s first truthy value within ``timeout`` seconds."""
+    deadline = time.monotonic() + timeout
+    while True:
+        got = fn()
+        if got:
+            return got
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{what} after {timeout:.0f} s")
+        time.sleep(period)
+
+
+def _session_processes(root):
+    """Live processes whose command line names a path under ``root``."""
+    import psutil
+    out = []
+    for proc in psutil.process_iter(["pid", "cmdline"]):
+        try:
+            if any(root in a for a in proc.info["cmdline"] or []):
+                out.append(proc.pid)
+        except (psutil.NoSuchProcess, psutil.AccessDenied):
+            continue
+    return out
+
+
+def ops_up_down(tmp, stages):
+    """The CLI's ``up`` on a local-provider YAML (a CPU head, one CPU
+    worker), a driver that reaches both nodes, then ``down``: no process
+    of the cluster's sessions may be left."""
+    root = os.path.join(tmp, "launcher")
+    os.makedirs(root)
+    config = os.path.join(tmp, "cluster.yaml")
+    with open(config, "w") as f:
+        f.write(OPS_UP_YAML)
+    env = {"RAY_TPU_TORCH_SESSION_ROOT": root}
+    t0 = time.perf_counter()
+    up = _cluster_cli("up", config, env=env)
+    stages["up_s"] = time.perf_counter() - t0
+    try:
+        with open(os.path.join(root, "cluster-chip-smoke-ops.json")) as f:
+            state = json.load(f)
+        t0 = time.perf_counter()
+        code = ("import json, time, ray_tpu_torch as rt\n"
+                f"rt.init(address={state['head']['gcs_address']!r})\n"
+                "deadline = time.time() + 60\n"
+                "while len(rt.nodes()) < 2 and time.time() < deadline:\n"
+                "    time.sleep(0.25)\n"
+                "@rt.remote(num_cpus=2)\n"
+                "def where():\n"
+                "    return rt.get_runtime_context().get_node_id()\n"
+                "nodes = sorted(set(rt.get([where.remote() for _ in "
+                "range(8)], timeout=120)))\n"
+                "print('UP ' + json.dumps({'nodes': len(rt.nodes()), "
+                "'ran_on': len(nodes), 'resources': "
+                "rt.cluster_resources()}), flush=True)\n"
+                "rt.shutdown()\n")
+        out = subprocess.run([sys.executable, "-c", code],
+                             capture_output=True, text=True, timeout=180,
+                             cwd=_repo_root(), env={**os.environ, **env})
+        assert out.returncode == 0, (out.stdout[-3000:], out.stderr[-3000:])
+        driver = json.loads([ln for ln in out.stdout.splitlines()
+                             if ln.startswith("UP ")][-1][3:])
+        stages["up_driver_s"] = time.perf_counter() - t0
+    finally:
+        t0 = time.perf_counter()
+        down = _cluster_cli("down", config, env=env)
+        stages["down_s"] = time.perf_counter() - t0
+    assert driver["nodes"] == 2, driver
+    # the YAML's resources exactly: the nodes leave the card alone
+    assert driver["resources"].get("CPU") == 4.0, driver
+    assert not driver["resources"].get("GPU"), driver
+    t0 = time.perf_counter()
+    left = []
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline:
+        left = _session_processes(root)
+        if not left:
+            break
+        time.sleep(0.25)
+    assert not left, f"processes left after down: {left}"
+    stages["down_clean_s"] = time.perf_counter() - t0
+    return {"up": up.strip().splitlines(), "down": down.strip().splitlines(),
+            "driver": driver, "head_pids": state["head"]["pids"],
+            "worker_pids": [w["pids"] for w in state["workers"]]}
+
+
+def phase_ops(preset=CLUSTER_PRESET, device="cuda"):
+    """The dashboard, job submission, the autoscaler and the cluster
+    launcher on the card (phase 27 above).  Returns the job task's
+    launches.  ``device="cpu"`` (and a smaller ``preset``) rehearses it
+    without a card: the node type's "GPU" is then a label."""
+    import base64
+    import shutil
+    import tempfile
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.autoscaler import (AutoscalerMonitor,
+                                          FakeMultiNodeProvider,
+                                          NodeTypeConfig, StandardAutoscaler)
+    from ray_tpu_torch.autoscaler.policy import PolicyConfig, ScalingPolicy
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.dashboard import Dashboard
+    from ray_tpu_torch.job import JobSubmissionClient
+
+    t_phase = time.perf_counter()
+    stages = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ops_")
+    cluster = dash = monitor = None
+    launched, terminated = [], []
+    try:
+        t0 = time.perf_counter()
+        cluster = Cluster(initialize_head=True,
+                          head_node_args={"num_cpus": 2, "num_gpus": 0})
+        cluster.connect()
+        cluster.wait_for_nodes()
+        assert not rt.cluster_resources().get("GPU"), rt.cluster_resources()
+        gcs = "{}:{}".format(*cluster.gcs_address)
+        stages["cluster_up_s"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        dash = Dashboard(port=0)
+        url = dash.start()
+        provider = FakeMultiNodeProvider(
+            cluster, {"gpu_worker": {"resources": dict(OPS_NODE_TYPE)}})
+        create, terminate = provider.create_node, provider.terminate_node
+
+        def counted_create(node_config, tags, count):
+            launched.append((tags.get("node-type"), count, time.time()))
+            create(node_config, tags, count)
+
+        def counted_terminate(node_id):
+            terminated.append((node_id, time.time()))
+            terminate(node_id)
+
+        provider.create_node = counted_create
+        provider.terminate_node = counted_terminate
+        autoscaler = StandardAutoscaler(
+            provider, {"gpu_worker": NodeTypeConfig(
+                resources=dict(OPS_NODE_TYPE), max_workers=1)},
+            idle_timeout_s=OPS_IDLE_TIMEOUT_S)
+        monitor = AutoscalerMonitor(
+            autoscaler, policy=ScalingPolicy(PolicyConfig(
+                down_for_s=OPS_QUIET_S)), update_interval_s=0.5)
+        monitor.start()
+        stages["control_plane_s"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        t_submit = time.time()
+        client = JobSubmissionClient(url)
+        script = os.path.join(_repo_root(), OPS_JOB_SCRIPT)
+        sid = client.submit_job(
+            entrypoint=f"{sys.executable} {script} --preset {preset} "
+            f"--seed {SEED} --batch {CLUSTER_SHAPE[0]} "
+            f"--seq {CLUSTER_SHAPE[1]} --device {device}",
+            metadata={"phase": "ops"})
+        stages["submit_s"] = time.perf_counter() - t0
+
+        # the in-process reference while the job waits for its node
+        t0 = time.perf_counter()
+        weights, tokens = cluster_weights(preset)
+        ref, _, _ = cluster_forward(weights, tokens, preset, device)
+        ref_sha, ref_last = logits_digest(ref)
+        ref_shape = list(ref.shape)
+        del ref, weights
+        stages["reference_s"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        status = _poll(lambda: (lambda s: s if s in ("SUCCEEDED", "FAILED",
+                                                     "STOPPED") else None)(
+            client.get_job_status(sid)), 300, f"job {sid} not finished")
+        t_done = time.time()
+        logs = client.get_job_logs(sid)
+        assert status == "SUCCEEDED", (status, logs[-4000:])
+        stages["job_wait_s"] = time.perf_counter() - t0
+        line = [ln for ln in logs.splitlines() if ln.startswith("GPT2_JOB ")]
+        assert line, logs[-4000:]
+        job = json.loads(line[-1].split(" ", 1)[1])
+        last = torch.frombuffer(bytearray(base64.b64decode(
+            job.pop("last_rows_f32_b64"))), dtype=torch.float32).reshape(
+                ref_last.shape)
+        assert job["shape"] == ref_shape and job["finite"], job
+        bitwise = job["sha256"] == ref_sha and torch.equal(last, ref_last)
+        assert bitwise, (job["sha256"], ref_sha, max_err(last, ref_last))
+
+        # exactly one GPU node launched, and the task ran on it
+        assert [(t, n) for t, n, _ in launched] == [("gpu_worker", 1)], \
+            launched
+        nodes = _get_json(url + "/api/nodes")
+        gpu_rows = [n for n in nodes if n["node_id"] == job["node"]]
+        assert gpu_rows and gpu_rows[0]["state"] == "ALIVE", nodes
+        assert gpu_rows[0]["resources_total"].get("GPU") == 1.0, gpu_rows
+        head_id = cluster.head.node_id_hex
+        assert job["node"] != head_id, (job["node"], head_id)
+        if device == "cuda":
+            assert job["gpu_ids"] and \
+                job["device"] == torch.cuda.get_device_name(0), job
+            assert job["launches"] == {
+                "flash_attention_fwd.launches":
+                    _gpt2_config(preset).num_layers}, job["launches"]
+        else:
+            assert job["launches"] == {}, job["launches"]
+
+        t0 = time.perf_counter()
+
+        def agent_rows():
+            rows = _get_json(url + "/api/node_stats")
+            live = [r for r in rows if r.get("state") == "ALIVE"]
+            return rows if live and len(live) == 2 and all(
+                r.get("source") == "agent" for r in live) else None
+
+        stats = _poll(agent_rows, 30, "no agent row for every live node")
+        jobs = _get_json(url + "/api/jobs/")
+        assert any(j["submission_id"] == sid and j["status"] == "SUCCEEDED"
+                   for j in jobs), jobs
+
+        def scrape():
+            import urllib.request
+            with urllib.request.urlopen(url + "/metrics", timeout=30) as r:
+                text = r.read().decode()
+            samples = prometheus_samples(text)
+            return samples if "ray_tpu_autoscaler_decisions_total" in \
+                samples else None
+
+        samples = _poll(scrape, 30, "no ray_tpu_autoscaler_decisions_total",
+                        period=1.0)
+        cli_env = {"RAY_TPU_TORCH_SESSION_ROOT": os.path.join(tmp, "cli")}
+        status_out = _cluster_cli("status", "--address", gcs, env=cli_env)
+        assert "GPU" in status_out, status_out
+        nodes_out = _cluster_cli("nodes", "--address", gcs, env=cli_env)
+        decision = [ln for ln in nodes_out.splitlines()
+                    if ln.startswith("autoscaler: ")]
+        assert decision and "no decision recorded" not in decision[0], \
+            nodes_out
+        stages["dashboard_checks_s"] = time.perf_counter() - t0
+
+        # the idle node drained through the GCS, then terminated
+        t0 = time.perf_counter()
+        _poll(lambda: not provider.non_terminated_nodes({}), 90,
+              "the idle GPU node was not terminated")
+        stages["scale_down_s"] = time.perf_counter() - t0
+        assert monitor.drains_completed == 1 and \
+            monitor.drains_aborted == 0, (monitor.drains_completed,
+                                          monitor.drains_aborted)
+        assert len(terminated) == 1, terminated
+        after = {n["node_id"]: n["state"]
+                 for n in _get_json(url + "/api/nodes")}
+        monitor.stop()
+        monitor_decision = monitor.last_decision.to_dict()
+        monitor = None
+
+        t0 = time.perf_counter()
+        dash.stop()
+        dash = None
+        rt.shutdown()
+        cluster.shutdown()
+        cluster = None
+        stages["cluster_down_s"] = time.perf_counter() - t0
+
+        up_down = ops_up_down(tmp, stages)
+    finally:
+        if monitor is not None:
+            monitor.stop()
+        if dash is not None:
+            dash.stop()
+        if cluster is not None:
+            rt.shutdown()
+            cluster.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    assert seconds < OPS_LIMIT_S, f"phase ops took {seconds:.1f} s"
+
+    per_forward = {**_flash_per(0), "rmsnorm": 0}
+    if device == "cuda":
+        per_forward = {**_flash_per(
+            _gpt2_config(preset).num_layers, bwd=0), "rmsnorm": 0}
+    emit({"phase": "ops", "ok": True,
+          "config": f"{preset} ({CLUSTER_SHAPE[0]} x {CLUSTER_SHAPE[1]} "
+          "tokens, bf16 compute, f32 masters, random from a seed) in a "
+          "job's num_gpus=1 task; Cluster head num_cpus=2 num_gpus=0; "
+          f"node type gpu_worker {OPS_NODE_TYPE} max_workers 1, idle "
+          f"timeout {OPS_IDLE_TIMEOUT_S} s, quiet edge {OPS_QUIET_S} s",
+          "stages_s": stages, "job": {
+              "submission_id": sid, "status": status, "bitwise": bitwise,
+              "sha256": job["sha256"], "node": job["node"],
+              "gpu_ids": job["gpu_ids"], "device": job["device"],
+              "task_times": job["times"], "driver_s": job["driver_s"],
+              "submit_to_done_s": t_done - t_submit,
+              "submit_to_launch_s": launched[0][2] - t_submit},
+          "launched": [(t, n) for t, n, _ in launched],
+          "terminated": len(terminated),
+          "drains_completed": 1, "node_states_after": after,
+          "node_stats_sources": sorted(
+              {r.get("source") or "" for r in stats}),
+          "metrics_samples": len(samples),
+          "decision": decision[0], "last_decision": monitor_decision,
+          "up_down": up_down, "launches": job["launches"],
+          "seconds": seconds,
+          "card": card_line() if device == "cuda" else "no card"})
+    return per_forward
+
+
+def _gpt2_config(preset):
+    from ray_tpu_torch.models.gpt2 import GPT2Config
+    return getattr(GPT2Config, preset)()
+
+
 def _case_is(c, name):
     """Whether case ``c`` ran kernel ``name`` (a forward's, or one part of
     a backward pair's; chunk-mode names too)."""
@@ -5896,62 +6275,78 @@ def main() -> int:
     emit({"phase": "start", "torch": torch.__version__,
           "cuda": torch.version.cuda, "ray_tpu_torch": __version__,
           "device": torch.cuda.get_device_name(0)})
-    usage = phase_build()
-    cases = phase_kernels()
-    phase_model_parity()
+    t_start = time.perf_counter()
+    seconds = {}
+
+    def timed(name, run, *args, **kwargs):
+        """Run one phase and keep its seconds for the timing line."""
+        t0 = time.perf_counter()
+        out = run(*args, **kwargs)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    usage = timed("build", phase_build)
+    cases = timed("kernels", phase_kernels)
+    timed("model_parity", phase_model_parity)
     _free()
-    serve = phase_serve()
+    serve = timed("serve", phase_serve)
     _free()
-    phase_train_parity()
-    train = phase_train()
+    timed("train_parity", phase_train_parity)
+    train = timed("train", phase_train)
     _free()
-    phase_train_parity("gpt2_xl", hm=True, phase="train_parity_xl")
+    timed("train_parity_xl", phase_train_parity, "gpt2_xl", hm=True,
+          phase="train_parity_xl")
     _free()
-    train_xl = phase_train("gpt2_xl", batch=8, steps=XL_STEPS, hm=True,
-                           loss_drop=XL_LOSS_DROP, phase="train_xl",
-                           with_head_cost=False)
+    train_xl = timed("train_xl", phase_train, "gpt2_xl", batch=8,
+                     steps=XL_STEPS, hm=True, loss_drop=XL_LOSS_DROP,
+                     phase="train_xl", with_head_cost=False)
     _free()
-    phase_vit_parity()
+    timed("vit_parity", phase_vit_parity)
     _free()
-    vit = phase_vit()
+    vit = timed("vit", phase_vit)
     _free()
-    phase_moe_parity()
+    timed("moe_parity", phase_moe_parity)
     _free()
-    moe = phase_moe()
+    moe = timed("moe", phase_moe)
     _free()
-    phase_resnet_parity()
+    timed("resnet_parity", phase_resnet_parity)
     _free()
-    resnet = phase_resnet()
+    resnet = timed("resnet", phase_resnet)
     _free()
-    phase_tiny_parity()
+    timed("tiny_parity", phase_tiny_parity)
     _free()
-    head_dims = phase_head_dim_parity()
+    head_dims = timed("head_dims", phase_head_dim_parity)
     _free()
-    runtime = phase_runtime()
+    runtime = timed("runtime", phase_runtime)
     _free()
-    train_gang = phase_train_gang()
+    train_gang = timed("train_gang", phase_train_gang)
     _free()
-    serve_batching = phase_serve_batching()
+    serve_batching = timed("serve_batching", phase_serve_batching)
     _free()
-    long_context = phase_long_context()
+    long_context = timed("long_context", phase_long_context)
     _free()
-    seq_parallel = phase_seq_parallel()
+    seq_parallel = timed("seq_parallel", phase_seq_parallel)
     _free()
-    sharded = phase_sharded()
+    sharded = timed("sharded", phase_sharded)
     _free()
-    rl = phase_rl()
+    rl = timed("rl", phase_rl)
     _free()
-    rl_zoo = phase_rl_zoo()
+    rl_zoo = timed("rl_zoo", phase_rl_zoo)
     _free()
-    tune = phase_tune()
+    tune = timed("tune", phase_tune)
     _free()
-    cluster = phase_cluster()
+    cluster = timed("cluster", phase_cluster)
+    _free()
+    ops = timed("ops", phase_ops)
     # the runtime, the toy decoder and RL's models launch no kernel of
     # the port
     assert not any(runtime.values()), runtime
     assert not any(serve_batching.values()), serve_batching
     assert not any(rl.values()), rl
     assert not any(rl_zoo.values()), rl_zoo
+    # each phase's seconds: the script must end inside its time limit
+    emit({"phase": "timing", "phases_s": seconds,
+          "total_s": time.perf_counter() - t_start})
     emit(kernel_summary(cases, {"serve": serve, "train": train,
                                 "train_xl": train_xl, "vit": vit,
                                 "moe": moe, "resnet": resnet,
@@ -5961,7 +6356,7 @@ def main() -> int:
                                 "seq_parallel": seq_parallel,
                                 "sharded": sharded, "rl": rl,
                                 "rl_zoo": rl_zoo, "tune": tune,
-                                "cluster": cluster}, usage))
+                                "cluster": cluster, "ops": ops}, usage))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

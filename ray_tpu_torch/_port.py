@@ -1,5 +1,6 @@
 """What the port says where it parts from the JAX package's runtime:
-options that name the TPU, and features of later slices."""
+options, resources and cloud providers that name the TPU, and features
+of later slices."""
 
 from __future__ import annotations
 
@@ -28,6 +29,21 @@ def reject_tpu_resources(where: str,
         raise TypeError(
             f"{where}: \"TPU\" is the JAX package's resource; "
             f"ray_tpu_torch schedules GPUs: ask for \"GPU\"")
+
+
+#: the JAX package's provider types of TPU VMs (its launcher's ``gcp``,
+#: its provider module's ``gcp_tpu``) and the port's GPU one
+_TPU_PROVIDERS = ("gcp", "gcp_tpu")
+
+
+def reject_tpu_provider(where: str, provider_type: str) -> None:
+    """Raise if a cluster config's provider creates TPU VMs: the port's
+    cloud provider creates GPU VMs (``type: gcp_gpu``)."""
+    if provider_type in _TPU_PROVIDERS:
+        raise TypeError(
+            f"{where}: provider type {provider_type!r} creates the JAX "
+            f"package's TPU VMs; ray_tpu_torch creates GPU VMs: use "
+            f"type: gcp_gpu")
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:

@@ -165,16 +165,28 @@ async def run_node(config: Config, gcs_address: Tuple[str, int],
     await raylet.stop()
 
 
-
-
 def _spawn_dashboard_agent(session_dir: str, node_id_hex: str,
                            gcs_address, config: Config,
                            host: str = "127.0.0.1"):
-    """The JAX package spawns a per-node dashboard agent here (reference
-    dashboard/agent.py); the dashboard is not ported yet (ROADMAP.md,
-    queue 1, item 7), so no agent runs and the node boots without one,
-    as the JAX package's does when the agent fails to start."""
-    return None
+    """Per-node dashboard agent (reference dashboard/agent.py): serves
+    node-local stats/logs over HTTP on the node's host address and
+    registers itself in the GCS KV.  Spawned through _spawn so it gets
+    the same PDEATHSIG/posix_spawn discipline as the other daemons (it
+    dies with this node process).  The agent imports no torch."""
+    if not getattr(config, "dashboard_agent", True):
+        return None
+    cmd = [sys.executable, "-m", "ray_tpu_torch.dashboard_agent",
+           "--session-dir", session_dir,
+           "--node-id", node_id_hex,
+           "--host", host,
+           "--gcs", f"{gcs_address[0]}:{gcs_address[1]}"]
+    try:
+        return _spawn(cmd, session_dir, f"dashboard-agent-{node_id_hex[:8]}",
+                      die_with_parent=safe_die_with_parent())
+    except Exception:  # noqa: BLE001 — observability must not block boot
+        logging.getLogger(__name__).exception(
+            "dashboard agent failed to start")
+        return None
 
 
 def safe_die_with_parent() -> bool:

@@ -10,9 +10,11 @@ dependency we don't take).
 ``<session_root>/latest_head.json`` so later CLI invocations (and
 ``init(address="auto")``) find it without arguments.
 
-The JAX package's ``dashboard`` and ``job`` (ROADMAP.md queue 1, item
-7.5), ``up`` / ``down`` (item 7.6), ``debug`` and ``metrics
-export-config`` (item 7.7) parse as there and raise ``not_ported``.
+``dashboard`` serves the JSON dashboard and its job routes, ``job``
+submits and follows jobs through them, and ``up`` / ``down`` launch and
+tear down a cluster from a YAML config.  The JAX package's ``debug`` and
+``metrics export-config`` (ROADMAP.md queue 1, item 7.7) parse as there
+and raise ``not_ported``.
 """
 
 from __future__ import annotations
@@ -679,11 +681,36 @@ def cmd_serve(args) -> None:
 
 
 def cmd_dashboard(args) -> None:
-    raise not_ported("the dashboard (dashboard.py)", "queue 1, item 7.5")
+    _connect(args)
+    from ray_tpu_torch.dashboard import Dashboard
+    dash = Dashboard(host=args.host, port=args.port)
+    url = dash.start()
+    print(f"dashboard at {url} (ctrl-c to exit)", flush=True)
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        dash.stop()
 
 
 def cmd_job(args) -> None:
-    raise not_ported("job submission (job/)", "queue 1, item 7.5")
+    from ray_tpu_torch.job import JobSubmissionClient
+    client = JobSubmissionClient(args.dashboard_address)
+    if args.job_cmd == "submit":
+        sid = client.submit_job(entrypoint=" ".join(args.entrypoint))
+        print(f"submitted: {sid}")
+        if args.wait:
+            status = client.wait_until_finished(sid)
+            print(f"{sid}: {status}")
+            print(client.get_job_logs(sid))
+    elif args.job_cmd == "status":
+        print(client.get_job_status(args.submission_id))
+    elif args.job_cmd == "logs":
+        print(client.get_job_logs(args.submission_id))
+    elif args.job_cmd == "stop":
+        print(client.stop_job(args.submission_id))
+    elif args.job_cmd == "list":
+        print(json.dumps(client.list_jobs(), indent=2))
 
 
 def cmd_microbenchmark(args) -> None:
@@ -949,13 +976,13 @@ def cmd_metrics_export_config(args) -> None:
 
 
 def cmd_up(args) -> None:
-    raise not_ported("cluster launching (autoscaler/launcher.py)",
-                     "queue 1, item 7.6")
+    from ray_tpu_torch.autoscaler import launcher
+    launcher.up(args.cluster_config)
 
 
 def cmd_down(args) -> None:
-    raise not_ported("cluster launching (autoscaler/launcher.py)",
-                     "queue 1, item 7.6")
+    from ray_tpu_torch.autoscaler import launcher
+    launcher.down(args.cluster_config)
 
 
 # ----------------------------------------------------------------------

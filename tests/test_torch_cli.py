@@ -2,17 +2,21 @@
 counterparts of tests/test_cli.py's four cases on one head started by the
 CLI for the module (with the ray:// client server ``start --head`` can
 spawn beside it), ``init(address="auto")`` finding the recorded head,
-and the subcommands of later ROADMAP items raising, naming them.  The
+``dashboard`` serving it, ``job submit/status/logs/list/stop`` through
+that dashboard, ``up`` / ``down`` of a local-provider cluster, and the
+subcommands of later ROADMAP items raising, naming them.  The
 client server's case runs first and the case that stops the head
 last."""
 
 import json
 import os
+import signal
 import socket
 import subprocess
 import sys
 import textwrap
 import time
+import urllib.request
 
 import pytest
 
@@ -127,6 +131,130 @@ def test_cli_serve_status(cli_cluster):
     assert "serve shut down" in out.stdout
 
 
+@pytest.fixture(scope="module")
+def cli_dashboard(cli_cluster):
+    """``dashboard`` run by the CLI against the module's head, until
+    the module ends (ctrl-c stops it)."""
+    addr, env, _ = cli_cluster
+    port = _free_port()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ray_tpu_torch.scripts.cli", "dashboard",
+         "--port", str(port), "--address", addr],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=REPO, env={**os.environ, **env, "PYTHONPATH": REPO + os.pathsep
+                       + os.environ.get("PYTHONPATH", "")})
+    line = proc.stdout.readline()
+    if "dashboard at" not in line:
+        proc.kill()
+        pytest.fail(line + proc.stderr.read()[-3000:])
+    yield line.split("dashboard at ", 1)[1].split()[0]
+    proc.send_signal(signal.SIGINT)
+    try:
+        proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=10)
+
+
+def _json_get(url):
+    with urllib.request.urlopen(url, timeout=30) as r:
+        return json.loads(r.read())
+
+
+def test_cli_dashboard_serves_the_head(cli_dashboard):
+    nodes = _json_get(cli_dashboard + "/api/nodes")
+    assert len(nodes) == 1 and nodes[0]["state"] == "ALIVE"
+    status = _json_get(cli_dashboard + "/api/cluster_status")
+    assert status["cluster_resources"]["CPU"] == 2.0
+    assert not status["cluster_resources"].get("GPU")
+
+
+def _job(url, *argv):
+    return _run("job", "--dashboard-address", url, *argv)
+
+
+def test_cli_job_submit_wait(cli_dashboard):
+    out = _job(cli_dashboard, "submit", "--wait", "echo", "from-the-job")
+    assert out.returncode == 0, out.stderr
+    sid = out.stdout.split("submitted: ", 1)[1].split()[0]
+    assert f"{sid}: SUCCEEDED" in out.stdout
+    assert "from-the-job" in out.stdout
+
+
+def test_cli_job_status_logs_list(cli_dashboard):
+    out = _job(cli_dashboard, "submit", "echo", "listed-job")
+    assert out.returncode == 0, out.stderr
+    sid = out.stdout.split("submitted: ", 1)[1].split()[0]
+    deadline = time.time() + 60
+    status = ""
+    while time.time() < deadline:
+        status = _job(cli_dashboard, "status", sid).stdout.strip()
+        if status in ("SUCCEEDED", "FAILED", "STOPPED"):
+            break
+        time.sleep(0.3)
+    assert status == "SUCCEEDED"
+    logs = _job(cli_dashboard, "logs", sid)
+    assert logs.returncode == 0 and "listed-job" in logs.stdout
+    # the dashboard's address also comes from RAY_TPU_TORCH_DASHBOARD
+    listed = _run("job", "list",
+                  env_extra={"RAY_TPU_TORCH_DASHBOARD": cli_dashboard})
+    assert listed.returncode == 0, listed.stderr
+    jobs = {j["submission_id"]: j for j in json.loads(listed.stdout)}
+    assert jobs[sid]["status"] == "SUCCEEDED"
+    assert jobs[sid]["entrypoint"] == "echo listed-job"
+
+
+def test_cli_job_stop_and_unknown_id(cli_dashboard):
+    out = _job(cli_dashboard, "submit", "--wait", "true")
+    sid = out.stdout.split("submitted: ", 1)[1].split()[0]
+    stopped = _job(cli_dashboard, "stop", sid)
+    assert stopped.returncode == 0 and stopped.stdout.strip() == "False"
+    missing = _job(cli_dashboard, "status", "no-such-job")
+    assert missing.returncode != 0 and "404" in missing.stderr
+
+
+def test_cli_up_and_down(tmp_path):
+    """``up`` brings a local-provider cluster up (a CPU head and a CPU
+    worker, exactly the YAML's resources) that a driver reaches;
+    ``down`` leaves none of its processes."""
+    config = tmp_path / "cluster.yaml"
+    config.write_text("cluster_name: cli-up\nprovider: {type: local}\n"
+                      "min_workers: 1\nhead_node: {resources: {CPU: 2}}\n"
+                      "worker_nodes: {resources: {CPU: 1}}\n")
+    env = {"RAY_TPU_TORCH_SESSION_ROOT": str(tmp_path / "sessions")}
+    up = _run("up", str(config), env_extra=env)
+    try:
+        assert up.returncode == 0, up.stderr
+        assert "cluster cli-up is up" in up.stdout
+        with open(tmp_path / "sessions" / "cluster-cli-up.json") as f:
+            state = json.load(f)
+        code = textwrap.dedent(f"""
+            import json, time, ray_tpu_torch as rt
+            rt.init(address={state["head"]["gcs_address"]!r})
+            deadline = time.time() + 60
+            while len(rt.nodes()) < 2 and time.time() < deadline:
+                time.sleep(0.25)
+            print("UP", json.dumps(rt.cluster_resources()))
+        """)
+        out = subprocess.run([sys.executable, "-c", code],
+                             capture_output=True, text=True, timeout=120,
+                             cwd=REPO, env={**os.environ, **env})
+        assert out.returncode == 0, out.stderr[-2000:]
+        resources = json.loads(out.stdout.split("UP ", 1)[1])
+        assert resources["CPU"] == 3.0 and not resources.get("GPU")
+    finally:
+        down = _run("down", str(config), env_extra=env)
+    assert down.returncode == 0 and "cluster cli-up is down" in down.stdout
+    pids = state["head"]["pids"] + state["workers"][0]["pids"]
+    deadline = time.time() + 30
+    while time.time() < deadline:
+        alive = [p for p in pids if os.path.exists(f"/proc/{p}")]
+        if not alive:
+            break
+        time.sleep(0.3)
+    assert not alive, f"{alive} outlived down"
+
+
 def test_init_auto_finds_the_recorded_head(cli_cluster, monkeypatch):
     """``init(address="auto")`` without RAY_TPU_TORCH_ADDRESS connects
     to the head that ``start --head`` recorded, and ``timeline()``
@@ -159,10 +287,6 @@ def test_init_auto_without_a_head_raises(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["dashboard"], "queue 1, item 7.5"),
-    (["job", "list"], "queue 1, item 7.5"),
-    (["up", "cluster.yaml"], "queue 1, item 7.6"),
-    (["down", "cluster.yaml"], "queue 1, item 7.6"),
     (["debug"], "queue 1, item 7.7"),
     (["metrics", "export-config"], "queue 1, item 7.7"),
 ])

@@ -89,6 +89,36 @@ def test_worker_main_import_leaves_torch_unloaded():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_dashboard_agent_import_leaves_torch_unloaded():
+    """Every node spawns a dashboard agent (``python -m
+    ray_tpu_torch.dashboard_agent``): a torch import there would add
+    seconds to each node's boot."""
+    code = ("import sys, ray_tpu_torch.dashboard_agent; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{('torch',) + FORBIDDEN!r}]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_control_plane_imports_leave_torch_unloaded():
+    """The dashboard, job submission, the autoscaler (monitor, policy,
+    providers) and the cluster launcher load no torch and no JAX: they
+    run in the head's driver or the CLI, beside no model."""
+    code = ("import sys, ray_tpu_torch.dashboard, ray_tpu_torch.job, "
+            "ray_tpu_torch.autoscaler.monitor, "
+            "ray_tpu_torch.autoscaler.launcher, ray_tpu_torch.autoscaler.gcp, "
+            "ray_tpu_torch.autoscaler.node_provider; "
+            "from ray_tpu_torch.autoscaler import AutoscalerMonitor; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{('torch',) + FORBIDDEN!r}]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_train_and_data_imports_leave_torch_unloaded():
     """Importing Train (its framework trainers too), Tune, the data plane,
     AIR, the parallel vocabulary, the multi-node harness, the state API,

@@ -225,9 +225,16 @@ def recorded():
     assert rt.get(join.remote(*[leaf.remote(i) for i in range(4)]),
                   timeout=60) == 6
     time.sleep(1.5)
-    job = tanalyze._latest_job(tanalyze._core().gcs_call(
-        "get_task_events", {"limit": 1000}))
-    events, spans, gang = tanalyze._fetch(job, 100_000)
+    # the workers flush their spans about once a second, later on a host
+    # that the rest of the suite loads
+    deadline = time.monotonic() + 30
+    while True:
+        job = tanalyze._latest_job(tanalyze._core().gcs_call(
+            "get_task_events", {"limit": 1000}))
+        events, spans, gang = tanalyze._fetch(job, 100_000)
+        if events and spans or time.monotonic() > deadline:
+            break
+        time.sleep(0.5)
     assert events and spans
     return job, events, spans, gang
 
