@@ -177,6 +177,22 @@ no network.  Phases, one JSON line each:
     ``up`` / ``down`` on a local-provider YAML (a CPU head and a CPU
     worker that a driver reaches; no process left).  Each stage's
     seconds; the phase holds itself under OPS_LIMIT_S.
+28. ``workflow``: a durable workflow (``ray_tpu_torch.workflow``) driven
+    by ``scripts/gpt2_workflow_torch.py``, each driver with a local
+    cluster of its own: a CPU step draws 8 x 1024 token ids, a
+    ``num_gpus=1`` step runs GPT-2 124M's bf16 forward (12 launches of
+    #1) and returns its logits' sha256 and last rows as a CUDA tensor,
+    then the workflow waits for an event.  The driver hard-exits
+    (``os._exit(9)``) there: none of its session's processes may be left
+    and the card's free memory must be back to what it was; the storage
+    reads RUNNING, and step 2's stored CUDA tensor reloads on this
+    process's card equal to the in-process forward's.  A fresh driver
+    sends the event and resumes: SUCCEEDED, steps 1 and 2 run once in
+    all, step 4 (``num_gpus=1``) and its continuation (``num_gpus=1``,
+    step 2's tensor its argument, on the card) once; the sha256, the last
+    rows' sha256 and f64 sum equal the in-process forward's bit for bit;
+    ``list_all()`` and the management actor read SUCCEEDED.  Each stage's
+    seconds; the phase holds itself under WORKFLOW_LIMIT_S.
 
 The ``kernels`` phase also holds the backward kernels (dK/dV and dQ) and
 both kernel families (native layout and head-major; head-major at every
@@ -196,14 +212,18 @@ the MoE) beside SDPA; and the chunk mode of ring attention
 (``_flash_chunk_fwd`` / ``_flash_chunk_bwd``: bf16 in, f32 out, the
 backward from a given LSE and delta) on every route, timed at a 4-way
 ring's chunk of 32768 tokens of GPT-2 124M and of XL's head count, and
-at head_dim 256, 512 and 1024, and held at the new kernels' ragged ends.  Each main path (``serve``, ``train``,
+at head_dim 256, 512 and 1024, and held at the new kernels' ragged ends;
+and ``flash_attention(native=False, bwd_impl="xla")`` at GPT-2 124M's
+attention (``bwd_impl_case``: one #5 launch and no #6/#7, the recomputed
+gradients against #6/#7 and the plain backward on the same delta and an
+f64 backward, both backwards' ms).  Each main path (``serve``, ``train``,
 ``train_xl``, ``vit``, ``moe``, ``resnet``, ``head_dims``, ``runtime``,
 ``train_gang``, whose worker counts its own, ``serve_batching``,
 ``long_context``, each run of ``seq_parallel``, each placed run and
 the pipeline of ``sharded``, ``rl``'s shapes, ``rl_zoo``'s tuned
 examples, ``tune``, whose trials count their own, ``cluster``, whose
-actor and GPU tasks count their own, and ``ops``, whose job's task
-counts its own) is
+actor and GPU tasks count their own, ``ops``, whose job's task
+counts its own, and ``workflow``, whose GPU step counts its own) is
 driven with the kernels' launch counts set to 0 just before it and read
 just after; the native-layout paths launch no
 head-major kernel, GPT-2 XL no native-layout one, and ResNet, the
@@ -332,6 +352,7 @@ RMSNORM_ROWS = (1, 4097)
 # that lose one tile of the last 64 positions read 2-5 and fail them
 # (scripts/check_flash_tolerance_torch.py).
 ROW_TOL = {torch.float32: 2e-5, torch.bfloat16: 8e-2}
+NEG_INF_F64 = -1e300
 # train_parity: card against CPU, both f32 with TF32 off, so summation
 # order only; gradients as max |diff| over their tensor's max |value|
 TRAIN_PARITY_CHUNK = 512  # 2 x 255 loss positions: one padded chunk
@@ -795,6 +816,97 @@ def bwd_case(timer, gen, shape, dtype, causal, timed, hm=False, tk=None):
     return res
 
 
+# flash_attention's bwd_impl switch at GPT-2 124M's attention, head-major:
+# "xla" keeps kernel #5's forward and recomputes the backward through the
+# plain attention under autograd; "pallas" runs kernels #6 and #7.  The two
+# differ in delta = rowsum(dO * O): the kernels' backward (as the JAX
+# package's) takes it from the bf16 O, the recompute from the exact one.
+# Where dS = P (dP - delta) cancels, at the first causal queries, that
+# rounding moves dQ by up to 0.42 of its row's RMS (this case on an H100
+# 80GB HBM3 at 700 W: the "xla" dQ within 0.014 of an f64 backward, the
+# "pallas" one 0.44 from it), so the "xla" gradients are held against the
+# kernels and the plain backward given the same, exact delta, and against
+# f64 on one batch.
+BWD_IMPL_SHAPE = (8, 1024, 12, 64)
+
+
+def _attention_grads_f64(q, k, v, do, scale):
+    """Causal attention's (dq, dk, dv) in f64 by autograd."""
+    q, k, v = (x.double().requires_grad_() for x in (q, k, v))
+    t = q.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    keep = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
+    out = torch.einsum("bhqk,bkhd->bqhd",
+                       s.masked_fill(~keep, NEG_INF_F64).softmax(-1), v)
+    return torch.autograd.grad(out, (q, k, v), do.double())
+
+
+def bwd_impl_case(timer, gen, shape=BWD_IMPL_SHAPE, dtype=torch.bfloat16):
+    """``flash_attention(native=False, bwd_impl="xla")`` against the
+    same call with ``"pallas"``, causal: the same forward (one #5 launch
+    each), no #6/#7 launch in the "xla" backward.  Its gradients within
+    ROW_TOL of kernels #6/#7 and of the plain backward on the exact delta
+    (the f32 O's) and of an f64 backward on the first batch row; their
+    distance from the "pallas" call's gradients (bf16 O's delta) is read,
+    not held.  Each backward's ms (readings: the switch is the caller's
+    A/B, not a claim)."""
+    from ray_tpu_torch.ops.flash_attention import (
+        _bwd_inputs, _kernel_dkdv, _kernel_dq, _recompute_backward,
+        attention_backward_reference, attention_delta, attention_reference,
+        flash_attention)
+    fwd, bwd = _family(True)
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                   for _ in range(4))
+    scale = shape[-1] ** -0.5
+
+    def call(impl):
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        counts = (fwd.launches, bwd.launches_dkdv, bwd.launches_dq)
+        out = flash_attention(*leaves, causal=True, native=False,
+                              bwd_impl=impl)
+        grads = torch.autograd.grad(out, leaves, do)
+        torch.cuda.synchronize()
+        moved = [n - c for n, c in zip(
+            (fwd.launches, bwd.launches_dkdv, bwd.launches_dq), counts)]
+        return out, grads, moved
+
+    out_x, grads_x, moved_x = call("xla")
+    out_p, grads_p, moved_p = call("pallas")
+    assert moved_x == [1, 0, 0], moved_x
+    assert moved_p == [1, 1, 1], moved_p
+    assert torch.equal(out_x, out_p)
+    out, lse = fwd(q, k, v, causal=True, scale=scale)
+    delta = attention_delta(
+        attention_reference(q, k, v, True, scale, torch.float32)[0], do)
+    plain = attention_backward_reference(q, k, v, out, lse, do, True,
+                                         scale, delta=delta)
+    dkdv_args, dq_args = _bwd_inputs(q, k, v, do, lse, delta, True, scale,
+                                     hm=True)
+    kernels = (_kernel_dq(*dq_args), *_kernel_dkdv(*dkdv_args))
+    exact = _attention_grads_f64(*(x[:1] for x in (q, k, v, do)), scale)
+    tol = ROW_TOL[dtype]
+    res = {"kernel": "bwd_impl_xla", "shape": list(shape),
+           "dtype": str(dtype).replace("torch.", ""), "causal": True,
+           "row_tol": tol, "launches_xla": moved_x,
+           "launches_pallas": moved_p}
+    for name, gx, gp, kern, r, e in zip(("dq", "dk", "dv"), grads_x,
+                                        grads_p, kernels, plain, exact):
+        assert gx.dtype == dtype and torch.isfinite(gx).all(), name
+        errs = {"kernels_exact_delta": row_scaled_err(gx, kern),
+                "plain_exact_delta": row_scaled_err(gx, r),
+                "f64_batch0": row_scaled_err(gx[:1], e)}
+        assert max(errs.values()) <= tol, (name, errs, tol)
+        errs["pallas_call"] = row_scaled_err(gx, gp)  # read, not held
+        errs["pallas_call_f64_batch0"] = row_scaled_err(gp[:1], e)
+        res[f"{name}_row_scaled_err"] = errs
+        res[f"{name}_max_abs_err_vs_pallas"] = max_err(gx, gp)
+    res["xla_bwd_ms"] = timer(
+        lambda: _recompute_backward(q, k, v, do, True, scale))
+    res["pallas_bwd_ms"] = timer(
+        lambda: bwd(q, k, v, out, lse, do, causal=True, scale=scale))
+    return res
+
+
 # The chunk mode (ring attention's _flash_chunk_fwd / _flash_chunk_bwd):
 # bf16 inputs, f32 outputs, the backward from a given LSE and delta.  Its
 # shapes: a 4-way ring over 32768 tokens of GPT-2 124M (12 heads of 64,
@@ -1026,6 +1138,7 @@ def phase_kernels():
     for shape in (GPT2_SHAPE, (4, 1024, 32, 128)):
         add(bwd_case(timer, gen, shape, torch.bfloat16, True,
                      timed=True))
+    add(bwd_impl_case(timer, gen))
     # ViT-B/16's training shape (not causal) and the MoE's (causal)
     for shape, causal in ((VIT_SHAPE, False), (MOE_SHAPE, True)):
         add(flash_case(timer, gen, shape, torch.bfloat16, causal,
@@ -5739,13 +5852,18 @@ def prometheus_samples(text):
     return out
 
 
+def tensor_sha256(t):
+    """The sha256 of ``t``'s bytes as f32 on the host."""
+    import hashlib
+    return hashlib.sha256(
+        memoryview(t.float().cpu().numpy()).cast("B")).hexdigest()
+
+
 def logits_digest(logits):
     """What the job's task reports of its logits: the sha256 of the f32
     bytes and each sequence's last-position row."""
-    import hashlib
     logits = logits.float().cpu()
-    return (hashlib.sha256(memoryview(logits.numpy()).cast("B")).hexdigest(),
-            logits[:, -1, :].contiguous())
+    return tensor_sha256(logits), logits[:, -1, :].contiguous()
 
 
 def _get_json(url, timeout=30):
@@ -6054,6 +6172,187 @@ def phase_ops(preset=CLUSTER_PRESET, device="cuda"):
     return per_forward
 
 
+WORKFLOW_SCRIPT = os.path.join("scripts", "gpt2_workflow_torch.py")
+WORKFLOW_ID = "chip-smoke-gpt2"
+WORKFLOW_LIMIT_S = 90.0
+WORKFLOW_DRIVER_TIMEOUT_S = 300
+WORKFLOW_CLEAN_S = 60.0  # the killed driver's cluster must be gone by then
+
+
+def _workflow_driver(mode, tmp, preset, device, *extra):
+    """One driver of scripts/gpt2_workflow_torch.py, in a session root of
+    its own (``tmp/sessions_<mode>``): its exit code, output and root."""
+    root = os.path.join(tmp, f"sessions_{mode}")
+    os.makedirs(root)
+    out = subprocess.run(
+        [sys.executable, os.path.join(_repo_root(), WORKFLOW_SCRIPT), mode,
+         "--storage", os.path.join(tmp, "store"), "--workflow-id",
+         WORKFLOW_ID, "--counts", os.path.join(tmp, "counts"),
+         "--preset", preset, "--seed", str(SEED),
+         "--batch", str(CLUSTER_SHAPE[0]), "--seq", str(CLUSTER_SHAPE[1]),
+         "--device", device, *extra],
+        capture_output=True, text=True, cwd=_repo_root(),
+        timeout=WORKFLOW_DRIVER_TIMEOUT_S,
+        env={**os.environ, "RAY_TPU_TORCH_SESSION_ROOT": root})
+    return out, root
+
+
+def _alive(tree):
+    """The pids of ``tree`` ([pid, start time] pairs) still running: a
+    zombie, which holds no memory, counts as gone."""
+    import psutil
+    out = []
+    for pid, created in tree:
+        try:
+            proc = psutil.Process(pid)
+            if proc.create_time() == created \
+                    and proc.status() != psutil.STATUS_ZOMBIE:
+                out.append(pid)
+        except psutil.NoSuchProcess:
+            continue
+    return out
+
+
+def _step_counts(tmp):
+    counts = os.path.join(tmp, "counts")
+    return {name: len(open(os.path.join(counts, name)).read())
+            for name in sorted(os.listdir(counts))}
+
+
+def phase_workflow(preset=CLUSTER_PRESET, device="cuda"):
+    """A durable workflow on the card that survives a killed driver
+    (phase 28 above).  Returns its GPU step's launches.  ``device="cpu"``
+    (and a smaller ``preset``) rehearses it without a card: "GPU" is then
+    a label, and the card's memory is not read."""
+    import shutil
+    import tempfile
+    from ray_tpu_torch import workflow
+
+    t_phase = time.perf_counter()
+    stages = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_workflow_")
+    try:
+        # the in-process reference first, so this process's memory on the
+        # card stays as it is while the drivers run
+        t0 = time.perf_counter()
+        weights, tokens = cluster_weights(preset)
+        ref, ref_launches, _ = cluster_forward(weights, tokens, preset,
+                                               device)
+        ref_sha, ref_last = logits_digest(ref)
+        ref_last = ref_last.to(device)
+        del ref, weights
+        _free()
+        stages["reference_s"] = time.perf_counter() - t0
+
+        def card_free():
+            return torch.cuda.mem_get_info()[0] if device == "cuda" else 0
+
+        free_before = card_free()
+        t0 = time.perf_counter()
+        first, root = _workflow_driver("run", tmp, preset, device,
+                                       "--exit-at-event")
+        waiting = [ln for ln in first.stdout.splitlines()
+                   if ln.startswith("WORKFLOW_WAITING ")]
+        assert first.returncode == 9 and waiting, \
+            (first.returncode, first.stdout[-3000:], first.stderr[-3000:])
+        tree = json.loads(waiting[-1].split(" ", 1)[1])["tree"]
+        assert tree, "the killed driver had no cluster of its own"
+        stages["first_driver_s"] = time.perf_counter() - t0
+
+        # the killed driver's head, raylet and workers went with it, and
+        # the card's memory is back to what it was
+        t0 = time.perf_counter()
+        _poll(lambda: not (_alive(tree) or _session_processes(root)),
+              WORKFLOW_CLEAN_S, "the killed driver's processes remain")
+        try:
+            _poll(lambda: card_free() == free_before, WORKFLOW_CLEAN_S,
+                  "card memory")
+        except TimeoutError:
+            raise AssertionError(
+                f"the card's free memory is not back after the kill: "
+                f"{free_before} bytes before, {card_free()} now") from None
+        free_after_kill = card_free()
+        stages["killed_cluster_gone_s"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        workflow.init(os.path.join(tmp, "store"))
+        status_killed = workflow.get_status(WORKFLOW_ID)
+        assert status_killed == workflow.RUNNING, status_killed
+        counts_killed = _step_counts(tmp)
+        assert counts_killed == {"draw_tokens": 1, "gpt2_forward": 1}, \
+            counts_killed
+        # step 2's stored output reloads here, on this process's card
+        stored = workflow.WorkflowStorage(WORKFLOW_ID).load_step(
+            "0001_gpt2_forward")
+        assert stored["last"].device.type == device, stored["last"].device
+        assert torch.equal(stored["last"], ref_last)
+        assert stored["sha256"] == ref_sha
+        del stored
+        stages["storage_checks_s"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        second, root2 = _workflow_driver("resume", tmp, preset, device)
+        assert second.returncode == 0, (second.stdout[-3000:],
+                                        second.stderr[-3000:])
+        line = [ln for ln in second.stdout.splitlines()
+                if ln.startswith("WORKFLOW ")]
+        assert line, second.stdout[-3000:]
+        report = json.loads(line[-1].split(" ", 1)[1])
+        stages["resume_driver_s"] = time.perf_counter() - t0
+        _poll(lambda: not _session_processes(root2), WORKFLOW_CLEAN_S,
+              "the resumed driver's processes remain")
+        counts = _step_counts(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    out = report["output"]
+    # steps 1 and 2 ran once in all; step 4 and its continuation once
+    assert counts == {"draw_tokens": 1, "gpt2_forward": 1, "finish": 1,
+                      "digest_on_card": 1}, counts
+    assert report["status"] == workflow.SUCCEEDED, report
+    listed = [r["status"] for r in report["listed"]]
+    assert listed == [workflow.SUCCEEDED], report["listed"]
+    assert report["actor_status"] == workflow.SUCCEEDED, report
+    assert out["shape"] == [*CLUSTER_SHAPE, ref_last.shape[-1]] \
+        and out["finite"], out
+    assert out["sha256"] == ref_sha, (out["sha256"], ref_sha)
+    assert out["last_sha256"] == tensor_sha256(ref_last), out["last_sha256"]
+    assert out["last_sum_f64"] == ref_last.double().sum().item(), out
+    assert out["last_device"].split(":")[0] == device, out
+    assert out["event"] is not None, out
+    layers = _gpt2_config(preset).num_layers
+    if device == "cuda":
+        assert out["gpu_ids"] and out["digest_gpu_ids"], out
+        assert out["launches"] == {
+            "flash_attention_fwd.launches": layers}, out["launches"]
+        assert ref_launches["flash_fwd"] == layers, ref_launches
+    else:
+        assert out["launches"] == {}, out["launches"]
+    seconds = time.perf_counter() - t_phase
+    assert seconds < WORKFLOW_LIMIT_S, \
+        f"phase workflow took {seconds:.1f} s"
+    emit({"phase": "workflow", "ok": True,
+          "config": f"{preset} ({CLUSTER_SHAPE[0]} x {CLUSTER_SHAPE[1]} "
+          "tokens, bf16 compute, f32 masters, random from a seed) in a "
+          "durable workflow's num_gpus=1 step; each driver "
+          "init(num_cpus=2, num_gpus=1); the first os._exit(9) at the "
+          "event, the second delivers it and resumes",
+          "stages_s": stages, "status_after_kill": status_killed,
+          "counts_after_kill": counts_killed, "counts": counts,
+          "card_free_bytes": {"before": free_before,
+                              "after_kill": free_after_kill},
+          "status": report["status"],
+          "actor_status": report["actor_status"],
+          "sha256": out["sha256"], "bitwise": True,
+          "forward_times": out["times"], "launches": out["launches"],
+          "killed_driver_processes": len(tree),
+          "resume_driver_s": report["driver_s"], "seconds": seconds,
+          "card": card_line() if device == "cuda" else "no card"})
+    if device == "cuda":
+        return {**_flash_per(layers, bwd=0), "rmsnorm": 0}
+    return {**_flash_per(0), "rmsnorm": 0}
+
+
 def _gpt2_config(preset):
     from ray_tpu_torch.models.gpt2 import GPT2Config
     return getattr(GPT2Config, preset)()
@@ -6338,6 +6637,8 @@ def main() -> int:
     cluster = timed("cluster", phase_cluster)
     _free()
     ops = timed("ops", phase_ops)
+    _free()
+    wf = timed("workflow", phase_workflow)
     # the runtime, the toy decoder and RL's models launch no kernel of
     # the port
     assert not any(runtime.values()), runtime
@@ -6356,7 +6657,8 @@ def main() -> int:
                                 "seq_parallel": seq_parallel,
                                 "sharded": sharded, "rl": rl,
                                 "rl_zoo": rl_zoo, "tune": tune,
-                                "cluster": cluster, "ops": ops}, usage))
+                                "cluster": cluster, "ops": ops,
+                                "workflow": wf}, usage))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

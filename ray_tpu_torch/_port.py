@@ -1,6 +1,5 @@
 """What the port says where it parts from the JAX package's runtime:
-options, resources and cloud providers that name the TPU, and features
-of later slices."""
+options, resources and cloud providers that name the TPU."""
 
 from __future__ import annotations
 
@@ -44,12 +43,3 @@ def reject_tpu_provider(where: str, provider_type: str) -> None:
             f"{where}: provider type {provider_type!r} creates the JAX "
             f"package's TPU VMs; ray_tpu_torch creates GPU VMs: use "
             f"type: gcp_gpu")
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error a call into a part of the JAX package that no slice of
-    the port has brought yet raises; ``item`` names the ROADMAP.md
-    queue item that brings it."""
-    return NotImplementedError(
-        f"{what} is not ported to ray_tpu_torch yet (ROADMAP.md, "
-        f"{item})")

@@ -246,6 +246,25 @@ def tensor_reduce(value) -> Any:
     return NotImplemented if wire is None else wire.__reduce__()
 
 
+class _TensorRulePickler(cloudpickle.CloudPickler):
+    """cloudpickle with the store's tensor rule (``tensor_reduce``)."""
+
+    def reducer_override(self, obj):
+        out = tensor_reduce(obj)
+        if out is NotImplemented:
+            return super().reducer_override(obj)
+        return out
+
+
+def dump_in_band(value: Any, file) -> None:
+    """Write ``value`` to the binary ``file`` as one cloudpickle stream
+    whose tensors follow the store's rule, their bytes in band: read
+    back with ``cloudpickle.load``, a CUDA tensor lands on the reader's
+    card (or raises where it has none).  For bytes that leave the store:
+    the ray:// wire, a workflow's stored steps."""
+    _TensorRulePickler(file, protocol=5).dump(value)
+
+
 class _BufferWire:
     """Pickles as ``rebuild(*args, <out-of-band buffer>)``: the payload
     rides as a raw out-of-band buffer next to a few-byte meta pickle,

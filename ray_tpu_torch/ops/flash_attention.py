@@ -556,38 +556,62 @@ flash_attention_hm_bwd.launches_fma_dq = 0
 class _FlashAttention(torch.autograd.Function):
     """The ``custom_vjp`` of ``_flash_nl`` or, with ``hm``, of ``_flash``:
     the forward kernel saves q, k, v, out and the LSE; the backward runs
-    the two backward kernels."""
+    the two backward kernels.  With a ``bwd_impl`` other than
+    ``"pallas"`` (head-major only, as ``_flash_fwd`` / ``_flash_bwd``)
+    the forward saves q, k and v alone, and the backward recomputes the
+    attention through :func:`attention_reference` under autograd."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, hm):
+    def forward(ctx, q, k, v, causal, scale, hm, bwd_impl="pallas"):
         fwd = flash_attention_hm_fwd if hm else flash_attention_fwd
         out, lse = fwd(q, k, v, causal=causal, scale=scale)
-        ctx.save_for_backward(q, k, v, out, lse)
+        if bwd_impl == "pallas":
+            ctx.save_for_backward(q, k, v, out, lse)
+        else:
+            ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.scale, ctx.hm = causal, scale, hm
+        ctx.bwd_impl = bwd_impl
         return out
 
     @staticmethod
     def backward(ctx, do):
+        if ctx.bwd_impl != "pallas":
+            dq, dk, dv = _recompute_backward(*ctx.saved_tensors, do,
+                                             ctx.causal, ctx.scale)
+            return dq, dk, dv, None, None, None, None
         bwd = flash_attention_hm_bwd if ctx.hm else flash_attention_bwd
         dq, dk, dv = bwd(*ctx.saved_tensors, do.contiguous(),
                          causal=ctx.causal, scale=ctx.scale)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
-def _resolve_native(q, k, v, native: Optional[bool]) -> bool:
+def _recompute_backward(q, k, v, do, causal, scale):
+    """``_flash_bwd``'s XLA branch: the vjp of the plain attention
+    (``_attention_reference``) at q, k and v, on any device."""
+    with torch.enable_grad():
+        q_, k_, v_ = (x.detach().requires_grad_() for x in (q, k, v))
+        out, _ = attention_reference(q_, k_, v_, causal, scale)
+        return torch.autograd.grad(out, (q_, k_, v_), do)
+
+
+def _resolve_native(q, k, v, native: Optional[bool],
+                    bwd_impl: str = "pallas") -> bool:
     """The JAX package's ``_resolve_native``: an explicit ``native`` wins;
     otherwise the native-layout family where ``_nl_eligible`` allows it,
     unless ``RAY_TPU_FLASH_NATIVE`` is ``0``, ``false`` or ``off``, which
-    forces the head-major family (its A/B switch).  The port has no XLA
-    backward, so ``bwd_impl`` does not enter."""
+    forces the head-major family (its A/B switch), or a ``bwd_impl``
+    other than ``"pallas"`` asks for the backward only the head-major
+    family has."""
     if native is not None:
         return native
     env = os.environ.get("RAY_TPU_FLASH_NATIVE", "").lower()
-    return env not in ("0", "false", "off") and _nl_eligible(q, k, v)
+    return (env not in ("0", "false", "off")
+            and bwd_impl == "pallas" and _nl_eligible(q, k, v))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: Optional[float] = None,
+                    bwd_impl: str = "pallas",
                     native: Optional[bool] = None) -> torch.Tensor:
     """Fused attention over ``[batch, seq, heads, head_dim]``; returns the
     output in the input dtype and carries gradients through the backward
@@ -600,6 +624,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``HM_MAX_HEAD_DIM``; :func:`_hm_route`); ``None`` the native-layout
     ones where eligible unless ``RAY_TPU_FLASH_NATIVE=0``.
 
+    ``bwd_impl`` is the JAX package's A/B switch for the backward, with
+    its values and rules: ``"pallas"`` (the default) runs the backward
+    kernels; any other value (``"xla"``) keeps the forward kernel but
+    saves only q, k and v and computes the gradients by recomputing the
+    plain attention under autograd.  Only the head-major family takes
+    it: ``native=True`` with another ``bwd_impl`` raises ``ValueError``,
+    and ``native=None`` then picks the head-major family.  It is the
+    caller's explicit choice, not a fallback, and not the port of a
+    kernel: every caller in the port keeps the default.
+
     DTensors (``parallel.sharding``'s placements: split over the batch
     and the heads, or replicated) run on each rank's local batch rows and
     heads, and the output comes back as a DTensor of the same placement;
@@ -609,16 +643,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         from ray_tpu_torch.parallel._dtensor import on_local_shards
         return on_local_shards(
             lambda q_, k_, v_: flash_attention(q_, k_, v_, causal=causal,
-                                               scale=scale, native=native),
+                                               scale=scale,
+                                               bwd_impl=bwd_impl,
+                                               native=native),
             q, k, v, dims=(0, 2))
     if native and not _nl_eligible(q, k, v):
         raise ValueError(
             f"native-layout flash attention needs head_dim in (64, 128) "
             f"and heads divisible by 128//head_dim; got {tuple(q.shape)}")
+    if native and bwd_impl != "pallas":
+        raise ValueError(
+            "the native-layout kernels have a pallas backward only; "
+            "bwd_impl=%r requires native=False" % (bwd_impl,))
     if scale is None:
         scale = q.shape[-1] ** -0.5
     return _FlashAttention.apply(q, k, v, causal, scale,
-                                 not _resolve_native(q, k, v, native))
+                                 not _resolve_native(q, k, v, native,
+                                                     bwd_impl), bwd_impl)
 
 
 # ---------------------------------------------------------------------------

@@ -11,10 +11,11 @@ dependency we don't take).
 ``init(address="auto")``) find it without arguments.
 
 ``dashboard`` serves the JSON dashboard and its job routes, ``job``
-submits and follows jobs through them, and ``up`` / ``down`` launch and
-tear down a cluster from a YAML config.  The JAX package's ``debug`` and
-``metrics export-config`` (ROADMAP.md queue 1, item 7.7) parse as there
-and raise ``not_ported``.
+submits and follows jobs through them, ``up`` / ``down`` launch and
+tear down a cluster from a YAML config, ``debug`` attaches to a task
+paused at ``ray_tpu_torch.util.rpdb.set_trace()``, and ``metrics
+export-config`` writes Prometheus and Grafana configs for the
+dashboard's ``/metrics``.
 """
 
 from __future__ import annotations
@@ -26,8 +27,6 @@ import signal
 import sys
 import time
 from typing import Any, Dict, Optional
-
-from ray_tpu_torch._port import not_ported
 
 LATEST = "latest_head.json"
 
@@ -719,8 +718,32 @@ def cmd_microbenchmark(args) -> None:
 
 
 def cmd_debug(args) -> None:
-    raise not_ported("the remote debugger (util/rpdb.py)",
-                     "queue 1, item 7.7")
+    """Attach to a task paused at ray_tpu_torch.util.rpdb.set_trace()
+    (parity: `ray debug` / reference util/rpdb.py)."""
+    _connect(args)
+    from ray_tpu_torch.util import rpdb
+
+    bps = rpdb.list_breakpoints()
+    if not bps:
+        print("no active breakpoints (tasks call "
+              "ray_tpu_torch.util.rpdb.set_trace() to create one)")
+        return
+    if getattr(args, "id", None):
+        pick = next((b for b in bps if b["id"] == args.id), None)
+        if pick is None:
+            sys.exit(f"breakpoint {args.id!r} not found")
+    elif len(bps) == 1 or not sys.stdin.isatty():
+        pick = bps[0]
+    else:
+        for i, b in enumerate(bps):
+            age = time.time() - b.get("timestamp", time.time())
+            print(f"  [{i}] {b['id']}  {b['task']}  pid {b['pid']}  "
+                  f"{b['host']}:{b['port']}  ({age:.0f}s old)")
+        idx = int(input("attach to which breakpoint? ") or "0")
+        pick = bps[idx]
+    print(f"attaching to {pick['task']} at {pick['host']}:{pick['port']} "
+          f"(continue with 'c', quit with 'q')")
+    rpdb.connect(pick["host"], pick["port"])
 
 
 def cmd_stack(args) -> None:
@@ -971,8 +994,11 @@ def cmd_logs(args) -> None:
 
 
 def cmd_metrics_export_config(args) -> None:
-    raise not_ported("metrics export-config (util/metrics_config.py)",
-                     "queue 1, item 7.7")
+    from ray_tpu_torch.util.metrics_config import write_configs
+    out = write_configs(args.output_dir,
+                        dashboard_address=args.dashboard_address)
+    for path in out:
+        print(path)
 
 
 def cmd_up(args) -> None:

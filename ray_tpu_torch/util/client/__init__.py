@@ -31,20 +31,10 @@ from ray_tpu_torch.core.exceptions import RayTpuError
 from ray_tpu_torch.core.ids import ActorID, ObjectID
 from ray_tpu_torch.core.object_ref import ObjectRef
 
-class _WirePickler(cloudpickle.CloudPickler):
-    """cloudpickle with the store's tensor rule (``tensor_reduce``)."""
-
-    def reducer_override(self, obj):
-        out = serialization.tensor_reduce(obj)
-        if out is NotImplemented:
-            return super().reducer_override(obj)
-        return out
-
-
 def dumps(value: Any) -> bytes:
     """``value`` as the bytes that cross the ray:// boundary."""
     sink = io.BytesIO()
-    _WirePickler(sink, protocol=5).dump(value)
+    serialization.dump_in_band(value, sink)
     return sink.getvalue()
 
 

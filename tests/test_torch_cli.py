@@ -3,8 +3,8 @@ counterparts of tests/test_cli.py's four cases on one head started by the
 CLI for the module (with the ray:// client server ``start --head`` can
 spawn beside it), ``init(address="auto")`` finding the recorded head,
 ``dashboard`` serving it, ``job submit/status/logs/list/stop`` through
-that dashboard, ``up`` / ``down`` of a local-provider cluster, and the
-subcommands of later ROADMAP items raising, naming them.  The
+that dashboard, ``up`` / ``down`` of a local-provider cluster,
+``metrics export-config`` and ``debug`` attached to a paused task.  The
 client server's case runs first and the case that stops the head
 last."""
 
@@ -15,13 +15,13 @@ import socket
 import subprocess
 import sys
 import textwrap
+import threading
 import time
 import urllib.request
 
 import pytest
 
 import ray_tpu_torch as rt
-from ray_tpu_torch.scripts import cli
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -286,13 +286,81 @@ def test_init_auto_without_a_head_raises(tmp_path, monkeypatch):
         rt.init(address="auto")
 
 
-@pytest.mark.parametrize("argv, item", [
-    (["debug"], "queue 1, item 7.7"),
-    (["metrics", "export-config"], "queue 1, item 7.7"),
-])
-def test_later_subcommands_raise_naming_their_item(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main(argv)
+def test_cli_metrics_export_config(tmp_path):
+    """``metrics export-config`` writes the Prometheus and Grafana
+    provisioning tree and prints each path it wrote."""
+    out = _run("metrics", "export-config", "--output-dir",
+               str(tmp_path / "m"), "--dashboard-address", "127.0.0.1:9999")
+    assert out.returncode == 0, out.stderr
+    paths = out.stdout.split()
+    assert {os.path.basename(p) for p in paths} == {
+        "prometheus.yml", "grafana.ini", "default.yml",
+        "ray_tpu_default.json"}
+    assert len(paths) == 5 and all(os.path.isfile(p) for p in paths)
+    assert all(p.startswith(str(tmp_path / "m")) for p in paths)
+    prom = (tmp_path / "m" / "prometheus.yml").read_text()
+    assert "127.0.0.1:9999" in prom and "/metrics" in prom
+    dash = json.loads((tmp_path / "m" / "grafana" / "dashboards" /
+                       "ray_tpu_default.json").read_text())
+    assert dash["panels"]
+
+
+def test_cli_debug_attaches_to_a_paused_task():
+    """``debug`` against a task paused at ``rpdb.set_trace()`` on a
+    cluster of this test's own: stdin is not a tty, so it attaches to
+    the only breakpoint; ``p secret`` prints the task's local and ``c``
+    lets the task return."""
+    from ray_tpu_torch.util import rpdb
+
+    rt.init(num_cpus=2)
+    try:
+        @rt.remote(num_cpus=0)
+        def paused():
+            secret = 4242  # noqa: F841 — read through the debugger
+            from ray_tpu_torch.util import rpdb
+            rpdb.set_trace()
+            return "done"
+
+        ref = paused.remote()
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and not rpdb.list_breakpoints():
+            time.sleep(0.2)
+        assert rpdb.list_breakpoints(), "breakpoint never registered"
+        addr = "{}:{}".format(*rt.connection_info()["gcs_address"])
+        env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu_torch.scripts.cli", "debug",
+             "--address", addr], stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env, cwd=REPO)
+        seen, got_local = [], threading.Event()
+
+        def read():  # the session's output, as the CLI relays it
+            for chunk in iter(lambda: proc.stdout.read(1), ""):
+                seen.append(chunk)
+                if "4242" in "".join(seen):
+                    got_local.set()
+
+        reader = threading.Thread(target=read, daemon=True)
+        reader.start()
+        try:
+            proc.stdin.write("p secret\n")
+            proc.stdin.flush()
+            assert got_local.wait(60), "".join(seen)
+            # stdin's end closes the session: send "c" and close it
+            proc.stdin.write("c\n")
+            proc.stdin.close()
+            assert proc.wait(timeout=60) == 0, proc.stderr.read()[-3000:]
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=10)
+        reader.join(timeout=10)
+        assert "attaching to task " in "".join(seen)
+        assert rt.get(ref, timeout=60) == "done"
+    finally:
+        rt.shutdown()
 
 
 def test_cli_start_status_list_stop(cli_cluster):

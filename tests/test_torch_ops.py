@@ -773,6 +773,83 @@ def test_native_true_on_an_ineligible_shape_raises(shape, monkeypatch):
     assert calls == []
 
 
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", _HM_SHAPES)
+def test_bwd_impl_xla_matches_pallas_f32(shape, causal):
+    """flash_attention(native=False, bwd_impl="xla") against the JAX
+    package's same call (its head-major Pallas forward in interpret mode,
+    then the vjp of ``_attention_reference``): out at 2e-5, gradients at
+    the file's backward tolerance, 2e-4."""
+    q, k, v, do = _qkv(shape, seed=shape[2] + 40) + _qkv(shape, seed=7)[:1]
+
+    def f(q_, k_, v_):
+        return jax_flash(q_, k_, v_, causal=causal, interpret=True,
+                         native=False, bwd_impl="xla", block_q=128,
+                         block_k=128)
+    out, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v)))
+    ref = [np.asarray(x) for x in (out, *vjp(jnp.asarray(do)))]
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    tout = flash_attention(tq, tk, tv, causal=causal, native=False,
+                           bwd_impl="xla")
+    tout.backward(torch.from_numpy(do))
+    got = [x.detach().numpy() for x in (tout, tq.grad, tk.grad, tv.grad)]
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, ref):
+        tol = 2e-5 if name == "out" else 2e-4
+        np.testing.assert_allclose(a, b, atol=tol, rtol=tol, err_msg=name)
+
+
+def test_bwd_impl_xla_saves_qkv_and_recomputes(monkeypatch):
+    """With bwd_impl="xla" the forward runs the head-major forward and
+    saves q, k and v alone; the backward recomputes the plain attention
+    and runs no backward wrapper.  The default keeps the kernels."""
+    calls = _spy_families(monkeypatch)
+    q = torch.randn((1, 16, 3, 64), requires_grad=True)
+    out = flash_attention(q, q, q, native=False, bwd_impl="xla")
+    assert len(out.grad_fn.saved_tensors) == 3
+    out.sum().backward()
+    assert calls == ["flash_attention_hm_fwd", "attention_reference",
+                     "attention_reference"]
+    calls.clear()
+    out = flash_attention(q, q, q, native=False)
+    assert len(out.grad_fn.saved_tensors) == 5
+    out.sum().backward()
+    assert calls == _family_calls("hm")
+
+
+@pytest.mark.parametrize("shape", [(1, 16, 4, 64), (1, 16, 2, 128),
+                                   (1, 16, 3, 64)])
+def test_bwd_impl_dispatch_matches_jax(shape, monkeypatch):
+    """bwd_impl's dispatch and errors are the JAX package's: with
+    native=None a bwd_impl other than "pallas" picks the head-major
+    family (under every RAY_TPU_FLASH_NATIVE setting); native=True with
+    it raises ValueError in both packages, before any kernel or plain
+    version runs."""
+    x = np.zeros(shape, np.float32)
+    t = torch.zeros(shape)
+    for env in (None, "0", "1"):
+        if env is None:
+            monkeypatch.delenv("RAY_TPU_FLASH_NATIVE", raising=False)
+        else:
+            monkeypatch.setenv("RAY_TPU_FLASH_NATIVE", env)
+        for impl in ("pallas", "xla"):
+            for native in (None, False, True):
+                assert torch_fa._resolve_native(t, t, t, native, impl) == \
+                    jax_fa._resolve_native(x, x, x, native, impl), \
+                    (env, impl, native)
+    monkeypatch.delenv("RAY_TPU_FLASH_NATIVE", raising=False)
+    calls = _spy_families(monkeypatch)
+    q = torch.randn(shape, requires_grad=True)
+    err = "native-layout" if shape[2] % (128 // shape[3]) else "bwd_impl"
+    with pytest.raises(ValueError, match=err):
+        jax_flash(x, x, x, native=True, bwd_impl="xla")
+    with pytest.raises(ValueError, match=err):
+        flash_attention(q, q, q, native=True, bwd_impl="xla")
+    assert calls == []
+    flash_attention(q, q, q, bwd_impl="xla").sum().backward()
+    assert calls[0] == "flash_attention_hm_fwd"
+    assert "flash_attention_hm_bwd" not in calls
+
+
 def test_rmsnorm_bf16_weight_matches_f32_weight():
     """A bf16 weight gives the output of the same values in f32 (the
     kernel reads it cast to f32, as the JAX kernel casts it), and its
